@@ -1,0 +1,12 @@
+"""Numerics: line search, BFGS update, and the hand-written CUDA kernels."""
+
+from .bfgs import bfgs_update, initial_inv_hessian
+from .linesearch import BackTracking, LineSearchResult, backtracking_linesearch
+
+__all__ = [
+    "bfgs_update",
+    "initial_inv_hessian",
+    "BackTracking",
+    "LineSearchResult",
+    "backtracking_linesearch",
+]

@@ -1,0 +1,66 @@
+"""Inverse-BFGS rank-2 update fused with the search direction — the PyTorch
+port of ``quasinewtonmethods_jl_tpu/ops/bfgs.py`` (reference:
+src/QuasiNewtonMethods.jl:34-69 `BFGS_update!`, :144-148 `initial_B⁻¹!`).
+
+The single-lane `bfgs_update` is the numerics oracle the fleet update
+(ops/kernels/bfgs_kernel.py) is tested against. Sign conventions
+(maximization): y = grad_old - grad_new, d = B⁻¹ grad_new,
+m = gradᵀ B⁻¹ grad (> 0 certifies ascent; m <= 0 triggers the identity
+reset in the driver).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+__all__ = ["initial_inv_hessian", "bfgs_update", "h0_gamma", "H0_GAMMA_CLIP"]
+
+
+def initial_inv_hessian(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """Identity inverse-Hessian reset (reference :144-148)."""
+    return torch.eye(n, dtype=dtype, device=device)
+
+
+H0_GAMMA_CLIP = (1e-3, 1e3)
+
+
+def h0_gamma(sty, yty, fresh, dtype):
+    """Barzilai–Borwein H0 scaling factor for a *fresh* (identity) B
+    (Nocedal & Wright eq. 6.20): sᵀy/yᵀy clipped to `H0_GAMMA_CLIP` where
+    the lane is fresh and the pair has positive curvature, else 1.
+    ``torch.clamp`` keeps a NaN ratio NaN, as ``jnp.clip`` does."""
+    gamma = torch.clamp(sty / yty, *H0_GAMMA_CLIP)
+    return torch.where(fresh & (sty > 0), gamma, torch.ones((), dtype=dtype, device=gamma.device))
+
+
+def bfgs_update(
+    B: torch.Tensor,  # (n, n) current inverse Hessian approximation
+    s: torch.Tensor,  # (n,) previous accepted step (alpha * direction)
+    grad_new: torch.Tensor,  # (n,) gradient at the new iterate
+    grad_old: torch.Tensor,  # (n,) gradient at the previous iterate
+    fresh=None,  # optional () bool tensor: B is a fresh identity -> H0-scale it
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One inverse-BFGS update; returns (B_new, direction, m), step for step
+    as src/QuasiNewtonMethods.jl:34-69 (see the JAX `bfgs_update`).
+
+    IEEE in-band failure propagation is intentional: sᵀy == 0 gives
+    inf/NaN, m becomes NaN, the driver's ``m <= 0`` reset test is false
+    for NaN, and the line search then fails — the reference's failure path.
+    """
+    dtype = B.dtype
+    y = grad_old - grad_new
+    sty = torch.dot(s, y)
+    if fresh is not None:
+        yty = torch.dot(y, y)
+        B = B * h0_gamma(sty, yty, fresh, dtype)
+    rho = 1.0 / sty
+    By = B @ y
+    ytBy = torch.dot(y, By)
+    Bys = By * rho
+    c1 = (1.0 + ytBy * rho) * rho
+    B_new = B + c1 * torch.outer(s, s) - torch.outer(Bys, s) - torch.outer(s, Bys)
+    d = B_new @ grad_new
+    m = torch.dot(d, grad_new)
+    return B_new, d, m

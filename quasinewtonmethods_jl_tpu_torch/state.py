@@ -1,0 +1,96 @@
+"""Solver state — the PyTorch port of ``quasinewtonmethods_jl_tpu/state.py``.
+
+`Status` keeps the JAX package's integers: they are a serialisation
+contract (saved states and results from either package read the same).
+`BFGSState` is a NamedTuple of tensors with the JAX field order, so a state
+converts leaf by leaf between the two packages through numpy
+(`bfgs_state_from_numpy` / `bfgs_state_to_numpy`).
+"""
+
+from __future__ import annotations
+
+import enum
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = [
+    "Status",
+    "BFGSState",
+    "init_bfgs_state",
+    "bfgs_state_from_numpy",
+    "bfgs_state_to_numpy",
+]
+
+
+class Status(enum.IntEnum):
+    """In-band solver status (replaces the reference's NaN / 0.0 sentinels,
+    src/QuasiNewtonMethods.jl:193, :291)."""
+
+    RUNNING = 0
+    CONVERGED = 1  # max|grad| < tol                      (:257-262)
+    MAX_ITERATIONS = 2  # outer-iteration cap hit         (:250, N=10_000)
+    LINESEARCH_FAILURE = 3  # line search returned alpha==0 (:284)
+    NONFINITE_VALUE = 4  # logdensity became non-finite    (:255)
+
+
+class BFGSState(NamedTuple):
+    """Full-matrix BFGS solver state; leaves gain a leading batch axis in
+    fleet results (``x`` is (batch, n), ``B`` is (batch, n, n))."""
+
+    x: torch.Tensor  # (n,) current iterate
+    grad: torch.Tensor  # (n,) last evaluated gradient
+    grad_old: torch.Tensor  # (n,)
+    step: torch.Tensor  # (n,) last accepted step (alpha * d)
+    B: torch.Tensor  # (n, n) inverse-Hessian approximation
+    fun: torch.Tensor  # () latest objective value (NaN until first eval)
+    k: torch.Tensor  # () int32 outer-iteration counter
+    status: torch.Tensor  # () int32 Status code
+    n_fev: torch.Tensor  # () int32 objective evaluations
+    n_gev: torch.Tensor  # () int32 gradient evaluations
+    n_resets: torch.Tensor  # () int32 steepest-ascent restarts
+    fresh: torch.Tensor  # () bool: B is an unscaled fresh identity
+    stall: torch.Tensor  # () int32 consecutive no-improvement iterations
+
+
+def init_bfgs_state(x0: torch.Tensor) -> BFGSState:
+    """Fresh solver state at the starting point, on ``x0``'s device."""
+    if x0.ndim != 1:
+        raise ValueError(f"x0 must be a rank-1 tensor, got shape {tuple(x0.shape)}")
+    n = x0.shape[0]
+    dtype, device = x0.dtype, x0.device
+
+    def zero_i32():
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    return BFGSState(
+        x=x0,
+        grad=torch.zeros(n, dtype=dtype, device=device),
+        grad_old=torch.zeros(n, dtype=dtype, device=device),
+        step=torch.zeros(n, dtype=dtype, device=device),
+        B=torch.eye(n, dtype=dtype, device=device),
+        fun=torch.full((), float("nan"), dtype=dtype, device=device),
+        k=zero_i32(),
+        status=torch.full((), int(Status.RUNNING), dtype=torch.int32, device=device),
+        n_fev=zero_i32(),
+        n_gev=zero_i32(),
+        n_resets=zero_i32(),
+        fresh=torch.ones((), dtype=torch.bool, device=device),
+        stall=zero_i32(),
+    )
+
+
+def bfgs_state_from_numpy(state, device) -> BFGSState:
+    """Port state from any state with the `BFGSState` fields whose leaves
+    are numpy arrays (e.g. a JAX ``BFGSState`` after ``np.asarray`` of each
+    leaf), scalar or batched. Dtypes are kept; leaves are copied."""
+    return BFGSState(
+        *(torch.tensor(np.asarray(leaf), device=device) for leaf in state)
+    )
+
+
+def bfgs_state_to_numpy(state: BFGSState) -> BFGSState:
+    """The inverse of `bfgs_state_from_numpy`: a `BFGSState` of numpy
+    arrays, field for field in the JAX package's order."""
+    return BFGSState(*(leaf.detach().cpu().numpy() for leaf in state))

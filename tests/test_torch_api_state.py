@@ -1,0 +1,178 @@
+"""The port's objective protocol and solver state (api.py, state.py) against
+the JAX package's, plus the port's import boundary and misuse errors.
+
+States cross between the packages as numpy arrays; a crossing must be
+lossless (exact values and dtypes), and a JAX fleet's state carried into
+the port must give the same next update (1e-10 in f64: summation order).
+"""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import quasinewtonmethods_jl_tpu as qj
+from quasinewtonmethods_jl_tpu.batched_solve import (
+    optimize_batched_fused as jax_optimize_batched_fused,
+)
+from quasinewtonmethods_jl_tpu.models import (
+    rosenbrock_logdensity as jax_rosenbrock,
+    rosenbrock_value_and_grad as jax_rosenbrock_vag,
+)
+from quasinewtonmethods_jl_tpu.ops.pallas.bfgs_kernel import (
+    fused_bfgs_update_reference as jax_fused_reference,
+)
+import quasinewtonmethods_jl_tpu_torch as qt
+from quasinewtonmethods_jl_tpu_torch.api import _pin_matmul_precision
+from quasinewtonmethods_jl_tpu_torch.models import (
+    Rosenbrock,
+    rosenbrock_logdensity,
+    rosenbrock_value_and_grad,
+)
+from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import (
+    fused_bfgs_update_reference,
+)
+from test_torch_bfgs_kernel import from_batch_minor, to_batch_minor
+
+torch.set_num_threads(1)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import sys, quasinewtonmethods_jl_tpu_torch, "
+        "quasinewtonmethods_jl_tpu_torch.models, "
+        "quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel; "
+        "assert 'jax' not in sys.modules, 'jax imported'"
+    )
+    root = Path(__file__).resolve().parents[1]
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+@pytest.mark.parametrize("n", [6, 7])
+def test_autodiff_gradient_matches_analytic_and_jax(rng, n):
+    x = rng.standard_normal(n)
+    vag = qt.as_value_and_grad(rosenbrock_logdensity)
+    value, grad = vag(torch.tensor(x))
+    a_value, a_grad = rosenbrock_value_and_grad(torch.tensor(x))
+    j_value, j_grad = jax_rosenbrock_vag(jnp.asarray(x))
+    np.testing.assert_allclose(grad.numpy(), a_grad.numpy(), rtol=1e-13, atol=1e-12)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(j_grad), rtol=1e-13, atol=1e-12)
+    np.testing.assert_allclose(float(value), float(a_value), rtol=1e-15)
+    np.testing.assert_allclose(float(value), float(j_value), rtol=1e-13)
+    np.testing.assert_allclose(
+        float(rosenbrock_logdensity(torch.tensor(x))), float(jax_rosenbrock(jnp.asarray(x))),
+        rtol=1e-13,
+    )
+
+
+def test_probability_model_surface():
+    model = qt.ProbabilityModel(4)
+    assert repr(model) == repr(qj.ProbabilityModel(4)) == "4-dimensional Probability Model"
+    assert len(model) == model.dimension == 4
+    with pytest.raises(NotImplementedError):
+        model.logdensity(torch.zeros(4))
+    assert repr(Rosenbrock(60)) == "60-dimensional Probability Model"
+
+
+def test_value_and_grad_resolution_order():
+    x = torch.tensor([0.3, -0.2, 0.5, 1.1])
+
+    def explicit(theta):
+        return torch.tensor(1.0), torch.full_like(theta, 2.0)
+
+    assert float(qt.as_value_and_grad(Rosenbrock(4), explicit)(x)[0]) == 1.0
+    model_vag = qt.as_value_and_grad(Rosenbrock(4, analytic_gradient=True))(x)
+    torch.testing.assert_close(model_vag[1], rosenbrock_value_and_grad(x)[1])
+    # a value_and_grad_fn alone still yields a value-only objective
+    assert float(qt.as_value_fn(None, explicit)(x)) == 1.0
+    assert float(qt.as_value_fn(Rosenbrock(4), explicit)(x)) == float(rosenbrock_logdensity(x))
+
+
+def test_objective_runs_with_tf32_off_and_flags_restored():
+    seen = []
+
+    def probe(theta):
+        seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+        return theta.sum()
+
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        qt.as_logdensity(probe)(torch.ones(3))
+        assert seen == [(False, False)]
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+        with pytest.raises(ZeroDivisionError):
+            _pin_matmul_precision(lambda: 1 / 0)()
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def test_misuse_probes():
+    with pytest.raises(ValueError, match="shape"):
+        qt.optimize_batched(rosenbrock_logdensity, torch.zeros(5))
+    with pytest.raises(TypeError):
+        qt.optimize_batched(42, torch.zeros((2, 5)))
+    with pytest.raises(ValueError, match="cuda"):
+        qt.optimize_batched(rosenbrock_logdensity, torch.zeros((2, 5)), kernel="cuda")
+    with pytest.raises(ValueError, match="order"):
+        qt.BackTracking(order=5)
+    with pytest.raises(ValueError, match="rank-1"):
+        qt.init_bfgs_state(torch.zeros((2, 3)))
+
+
+def test_status_codes_match_jax():
+    assert {s.name: int(s) for s in qt.Status} == {s.name: int(s) for s in qj.Status}
+    assert qt.BFGSState._fields == qj.BFGSState._fields
+    assert qt.OptimizeResult._fields == qj.OptimizeResult._fields
+    assert qt.MAX_ITERATIONS_DEFAULT == qj.solve.MAX_ITERATIONS_DEFAULT
+    assert qt.STALL_LIMIT_DEFAULT == qj.solve.STALL_LIMIT_DEFAULT
+
+
+def test_init_state_matches_jax(rng):
+    x0 = rng.standard_normal(5)
+    port = qt.bfgs_state_to_numpy(qt.init_bfgs_state(torch.tensor(x0)))
+    ref = qj.init_bfgs_state(jnp.asarray(x0))
+    for name, a, b in zip(ref._fields, port, ref):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+@pytest.fixture(scope="module")
+def jax_fleet_result():
+    X0 = np.random.default_rng(11).standard_normal((16, 8))
+    return jax_optimize_batched_fused(jax_rosenbrock, jnp.asarray(X0), max_iterations=4)
+
+
+def test_state_round_trip_is_lossless(jax_fleet_result):
+    for jax_state in (jax_fleet_result.state, qj.init_bfgs_state(jnp.ones(3))):
+        np_state = jax.tree_util.tree_map(np.asarray, jax_state)
+        port = qt.bfgs_state_from_numpy(np_state, torch.device("cpu"))
+        assert isinstance(port, qt.BFGSState)
+        back = qt.bfgs_state_to_numpy(port)
+        for name, a, b in zip(qt.BFGSState._fields, back, np_state):
+            assert a.dtype == b.dtype and a.shape == b.shape, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+
+
+def test_jax_fleet_state_gives_same_next_update(jax_fleet_result):
+    """A JAX fleet's state carried into the port: the next fused update
+    (gradient at the state's x, the state's step and previous gradient)
+    equals the JAX one."""
+    np_state = jax.tree_util.tree_map(np.asarray, jax_fleet_result.state)
+    port = qt.bfgs_state_from_numpy(np_state, torch.device("cpu"))
+    g = torch.func.vmap(rosenbrock_value_and_grad)(port.x)[1]
+    active = torch.ones(port.x.shape[0], dtype=torch.bool)
+    mine = fused_bfgs_update_reference(port.B.clone(), port.step, g, port.grad_old, active, port.fresh)
+    args = (np_state.B, np_state.step, g.numpy(), np_state.grad_old, active.numpy(), np_state.fresh)
+    theirs = from_batch_minor(*jax_fused_reference(*to_batch_minor(*args)))
+    for a, b, name in zip(mine[:3], theirs[:3], ["B", "d", "m"]):
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-10, rtol=0, err_msg=name)
+    np.testing.assert_array_equal(mine[3].numpy(), theirs[3])
