@@ -3,10 +3,13 @@
 
 BFGS maximization of log-densities, run as fleets of independent solves
 (the HMC chain-initialisation workload). Names and arguments follow the
-JAX package, which stays the reference the port is tested against. This
-slice holds the fleet BFGS engine (`optimize_batched`,
-`optimize_batched_fused`) with its hand-written CUDA update kernel
-(ops/kernels/bfgs_kernel.py); ROADMAP.md lists what is still to port.
+JAX package, which stays the reference the port is tested against. The
+port holds the fleet BFGS engine (`optimize_batched`,
+`optimize_batched_fused`) with its hand-written CUDA update kernels (B1,
+ops/kernels/bfgs_kernel.py; the two-pass B2 for large n,
+ops/kernels/bfgs_blocked.py) and the whole-solve resident engine
+(`optimize_batched_resident`, kernel B3); ROADMAP.md lists what is still
+to port.
 
 The package imports torch and numpy, never jax.
 """
@@ -16,6 +19,7 @@ from .batched_solve import optimize_batched_fused
 from .ops.bfgs import bfgs_update, initial_inv_hessian
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .parallel.batch import optimize_batched
+from .resident_solve import optimize_batched_resident, resident_feasible
 from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
 from .state import (
     BFGSState,
@@ -37,6 +41,8 @@ __all__ = [
     "initial_inv_hessian",
     "optimize_batched",
     "optimize_batched_fused",
+    "optimize_batched_resident",
+    "resident_feasible",
     "OptimizeResult",
     "MAX_ITERATIONS_DEFAULT",
     "STALL_LIMIT_DEFAULT",

@@ -27,6 +27,10 @@ the device only for control flow, and counts every such read in
 Nothing else leaves the device. ``optimize_batched_fused.loop_bodies``
 counts the post-peel bodies, each of which runs the fused update once.
 
+The update each body runs is chosen once per solve (`_auto_kernel`): the
+fused CUDA kernel B1, the two-pass CUDA kernels B2 for n whose B does not
+fit one block's shared memory, or the plain PyTorch version.
+
 Not ported yet (later slices): ``ls=Wolfe(...)``, ``fold_eval=True``,
 `optimize_batched_fused_from_state` and `optimize_batched_compacted`.
 The JAX engine's ``unroll``, lane padding and ``block_batch`` exist only for
@@ -41,9 +45,11 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .api import as_value_and_grad, as_value_fn
+from .ops.kernels.bfgs_blocked import fused_bfgs_update_blocked
 from .ops.kernels.bfgs_kernel import (
     fused_bfgs_update_batched,
     fused_bfgs_update_reference,
+    fused_update_fits,
 )
 from .ops.linesearch import BackTracking, _cubic_proposal, _quadratic_proposal
 from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
@@ -242,22 +248,29 @@ def _solve_loop_batched(vag_b, f_b, carry0: _Carry, ls: BackTracking, tol,
     )
 
 
-def _make_update_fn(kernel: str) -> Callable:
-    if kernel == "cuda":
-        return fused_bfgs_update_batched
-    if kernel == "torch":
-        return fused_bfgs_update_reference
-    raise ValueError(f"unknown kernel {kernel!r}; use 'auto', 'cuda' or 'torch'")
+# Keys are what `_auto_kernel` resolves to; "blocked" is its own choice for
+# 'cuda' where B1 does not fit, not a name a caller passes.
+_UPDATE_FNS = {
+    "cuda": fused_bfgs_update_batched,  # B1
+    "blocked": fused_bfgs_update_blocked,  # B2
+    "torch": fused_bfgs_update_reference,
+}
 
 
-def _auto_kernel(kernel: str, device: torch.device) -> str:
-    """Resolve ``kernel``: 'auto' is the CUDA kernel for CUDA tensors and
-    the plain PyTorch update for CPU tensors; 'cuda' needs CUDA tensors."""
+def _auto_kernel(kernel: str, device: torch.device, n: int, dtype: torch.dtype) -> str:
+    """Resolve ``kernel`` once per solve to a key of `_UPDATE_FNS`. 'auto'
+    is 'cuda' on CUDA tensors and the plain PyTorch update on CPU tensors.
+    'cuda' is the best CUDA kernel that fits, as the JAX engine's 'pallas'
+    is: the fused B1 where one lane's B fits a block's shared memory
+    (`fused_update_fits`), else the two-pass B2; it needs CUDA tensors."""
     if kernel == "auto":
-        return "cuda" if device.type == "cuda" else "torch"
+        kernel = "cuda" if device.type == "cuda" else "torch"
+    if kernel not in ("cuda", "torch"):
+        raise ValueError(f"unknown kernel {kernel!r}; use 'auto', 'cuda' or 'torch'")
     if kernel == "cuda" and device.type != "cuda":
         raise ValueError(f"kernel='cuda' needs CUDA tensors, got x0s on {device}")
-    _make_update_fn(kernel)  # validates the name
+    if kernel == "cuda" and not fused_update_fits(n, dtype.itemsize):
+        return "blocked"
     return kernel
 
 
@@ -342,9 +355,11 @@ def optimize_batched_fused(
         ``torch.func.vmap``.
       x0s: (batch, n) float32/float64 starting points; the solve runs on
         their device.
-      kernel: the fused update — 'cuda' (the hand-written kernel, CUDA
-        tensors only), 'torch' (the plain PyTorch version, any device) or
-        'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU tensors).
+      kernel: the fused update — 'cuda' (the best hand-written kernel that
+        fits: B1, or the two-pass B2 where one lane's B does not fit a
+        block's shared memory; CUDA tensors only), 'torch' (the plain
+        PyTorch version, any device) or 'auto' (= 'cuda' on CUDA tensors,
+        'torch' on CPU tensors).
       h0_scale: Barzilai–Borwein scaling of fresh identities (see h0_gamma).
       stall_limit: consecutive non-improving iterations before a lane exits
         with LINESEARCH_FAILURE; 0 disables the detector.
@@ -366,14 +381,14 @@ def optimize_batched_fused(
             "fold_eval=True is not ported yet (it comes with the value+gradient "
             "line search in a later slice)"
         )
-    kernel = _auto_kernel(kernel, x0s.device)
+    kernel = _auto_kernel(kernel, x0s.device, x0s.shape[1], x0s.dtype)
     vag_b = torch.func.vmap(as_value_and_grad(obj, value_and_grad_fn))
     f_b = torch.func.vmap(as_value_fn(obj, value_and_grad_fn))
     status0 = torch.full((x0s.shape[0],), _RUNNING, dtype=torch.int32, device=x0s.device)
     carry0 = _fresh_bfgs_carry(x0s, status0)
     with torch.no_grad():
         fc = _solve_loop_batched(
-            vag_b, f_b, carry0, ls, tol, max_iterations, _make_update_fn(kernel),
+            vag_b, f_b, carry0, ls, tol, max_iterations, _UPDATE_FNS[kernel],
             h0_scale, stall_limit,
         )
     return _result_from_batched_carry(fc)

@@ -5,17 +5,9 @@
 // :: fused_bfgs_update_batched (pl.pallas_call at :234, kernel body _kernel
 // :135-193). Semantics are those of its plain twin, here
 // quasinewtonmethods_jl_tpu_torch/ops/kernels/bfgs_kernel.py ::
-// fused_bfgs_update_reference, per lane b:
-//
-//   y = g_old - g;  sᵀy, yᵀy, sᵀg, gᵀg
-//   scale = clip(sᵀy/yᵀy, 1e-3, 1e3) on fresh lanes with sᵀy > 0, else 1
-//   By = scale·Bᵀy,  Bg = scale·Bᵀg  (B's columns, as the JAX einsum reads)
-//   u = By/sᵀy;  yᵀBy, uᵀg, gᵀBg;  c1 = (1 + yᵀBy/sᵀy)/sᵀy
-//   m_pre = gᵀBg + c1 (sᵀg)² - 2 (sᵀg)(uᵀg)          (= gᵀ B_new g)
-//   d     = Bg + c1 (sᵀg) s - (sᵀg) u - (uᵀg) s        (= B_new g)
-//   reset = m_pre <= 0 (false for NaN)
-//   B <- scale·B + c1 s sᵀ - u sᵀ - s uᵀ, or I on reset;  d = g, m = gᵀg on reset
-//   frozen lanes (active = 0): B untouched, d = 0, m = 1, reset = 0.
+// fused_bfgs_update_reference: each active lane runs the update algebra of
+// bfgs_common.cuh :: bfgs_update_lane (written out there); frozen lanes
+// (active = 0) leave B untouched and get d = 0, m = 1, reset = 0.
 //
 // The update is IN PLACE: B_out overwrites B, as the TPU kernel's donated
 // buffer (input_output_aliases={0: 0}) did.
@@ -26,60 +18,24 @@
 // 4096 x 60 x 60 float fleet). The design keeps it there: one thread block
 // per lane copies the lane's contiguous B into shared memory once (coalesced),
 // takes both matvecs and all seven dot products from that copy, and writes
-// the updated B from it. Frozen lanes return before touching B at all.
+// the updated B from it. Frozen lanes return before touching B at all. An n
+// whose B does not fit one block's shared memory takes the two-pass kernel
+// (bfgs_blocked.cu).
 //
 // NaN/inf are part of the contract: build without --use_fast_math or -ftz.
-// The clip is written with comparisons so that a NaN ratio stays NaN
-// (fminf/fmaxf would drop it), and 1/sᵀy is IEEE (inf for sᵀy = 0).
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "bfgs_common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 512;
-constexpr int kMaxWarps = kMaxThreads / 32;
-constexpr int kMaxSums = 4;  // quantities summed together by one block_sum
-
-// Threads per block: one per matvec output (By and Bg, 2n), at least two
-// warps, at most kMaxThreads (the loops below stride when 2n exceeds it).
-int threads_for(int n) {
-  int t = ((2 * n + 31) / 32) * 32;
-  if (t < 64) t = 64;
-  if (t > kMaxThreads) t = kMaxThreads;
-  return t;
-}
+using qnm::kMaxSums;
+using qnm::kMaxWarps;
 
 // Dynamic shared memory, in this order: B (n·n), s, g, y, By, Bg, u (n
 // each), the block reduction's per-warp partials (kMaxSums·kMaxWarps).
+// ops/kernels/bfgs_kernel.py :: fused_update_fits repeats this count.
 size_t smem_bytes(int n, size_t itemsize) {
   return (size_t(n) * n + 6 * size_t(n) + size_t(kMaxSums) * kMaxWarps) * itemsize;
-}
-
-// Sums each of v[0..K) over the block; every thread gets the totals. The
-// per-warp partials are added in warp order by every thread, so all threads
-// see bit-identical sums.
-template <typename T, int K>
-__device__ __forceinline__ void block_sum(T (&v)[K], T* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T x = v[k];
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x += __shfl_down_sync(0xffffffffu, x, off);
-    if (lane == 0) red[k * kMaxWarps + warp] = x;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    T acc = T(0);
-    for (int w = 0; w < nwarps; ++w) acc += red[k * kMaxWarps + w];
-    v[k] = acc;
-  }
-  __syncthreads();  // red is reused by the next call
 }
 
 template <typename T>
@@ -115,81 +71,17 @@ __global__ void bfgs_update_kernel(T* __restrict__ B, const T* __restrict__ step
   T* Bl = B + size_t(b) * n * n;
   const int nn = n * n;
   for (int i = tid; i < nn; i += nt) sB[i] = Bl[i];
-
-  T p1[4] = {T(0), T(0), T(0), T(0)};  // sᵀy, yᵀy, sᵀg, gᵀg
+  // The same index partition as bfgs_update_lane's first loop, which reads
+  // these entries in the same thread before any barrier.
   for (int i = tid; i < n; i += nt) {
-    const T si = step[vo + i];
-    const T gi = g[vo + i];
-    const T yi = g_old[vo + i] - gi;
-    ss[i] = si;
-    sg[i] = gi;
-    sy[i] = yi;
-    p1[0] += si * yi;
-    p1[1] += yi * yi;
-    p1[2] += si * gi;
-    p1[3] += gi * gi;
+    ss[i] = step[vo + i];
+    sg[i] = g[vo + i];
   }
-  block_sum(p1, red);  // its barriers also publish sB, ss, sg, sy
-  const T sty = p1[0];
-  const T yty = p1[1];
-  const T w = p1[2];
-  const T gg = p1[3];
-  const T rho = T(1) / sty;
-  T gamma = sty / yty;
-  gamma = gamma < T(1e-3) ? T(1e-3) : (gamma > T(1e3) ? T(1e3) : gamma);
-  const T scale = (fresh[b] && sty > T(0)) ? gamma : T(1);
-
-  // By[j] = Σ_r B[r, j] y[r] and Bg[j] = Σ_r B[r, j] g[r]: thread t < n owns
-  // column t of By, thread n + t column t of Bg; neighbouring threads read
-  // neighbouring shared addresses.
-  for (int t = tid; t < 2 * n; t += nt) {
-    const bool first = t < n;
-    const int j = first ? t : t - n;
-    const T* vec = first ? sy : sg;
-    T acc = T(0);
-    for (int r = 0; r < n; ++r) acc += sB[r * n + j] * vec[r];
-    acc *= scale;
-    if (first) {
-      sBy[j] = acc;
-    } else {
-      sBg[j] = acc;
-    }
-  }
-  __syncthreads();
-
-  T p2[3] = {T(0), T(0), T(0)};  // yᵀBy, uᵀg, gᵀBg
-  for (int i = tid; i < n; i += nt) {
-    const T ui = sBy[i] * rho;
-    su[i] = ui;
-    p2[0] += sBy[i] * sy[i];
-    p2[1] += ui * sg[i];
-    p2[2] += sBg[i] * sg[i];
-  }
-  block_sum(p2, red);  // its barriers also publish su
-  const T ytBy = p2[0];
-  const T v = p2[1];
-  const T gBg = p2[2];
-  const T c1 = (T(1) + ytBy * rho) * rho;
-  const T m_pre = gBg + c1 * w * w - T(2) * w * v;
-  const bool rst = m_pre <= T(0);
-
-  for (int i = tid; i < n; i += nt) {
-    d[vo + i] = rst ? sg[i] : sBg[i] + (c1 * w) * ss[i] - w * su[i] - v * ss[i];
-  }
+  const qnm::LaneUpdate<T> out = qnm::bfgs_update_lane<T>(
+      sB, Bl, ss, sg, g_old + vo, sy, sBy, sBg, su, red, n, fresh[b] != 0, d + vo);
   if (tid == 0) {
-    m[b] = rst ? gg : m_pre;
-    reset[b] = rst ? 1 : 0;
-  }
-  for (int idx = tid; idx < nn; idx += nt) {
-    const int i = idx / n;
-    const int j = idx - i * n;
-    T out;
-    if (rst) {
-      out = i == j ? T(1) : T(0);
-    } else {
-      out = scale * sB[idx] + c1 * (ss[i] * ss[j]) - su[i] * ss[j] - ss[i] * su[j];
-    }
-    Bl[idx] = out;
+    m[b] = out.m;
+    reset[b] = out.reset ? 1 : 0;
   }
 }
 
@@ -203,7 +95,7 @@ int launch(void* B, const void* step, const void* g, const void* g_old, const vo
         bfgs_update_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (err != cudaSuccess) return int(err);
   }
-  bfgs_update_kernel<T><<<batch, threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
+  bfgs_update_kernel<T><<<batch, qnm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(B), static_cast<const T*>(step), static_cast<const T*>(g),
       static_cast<const T*>(g_old), static_cast<const uint8_t*>(active),
       static_cast<const uint8_t*>(fresh), static_cast<T*>(d), static_cast<T*>(m),

@@ -3,9 +3,11 @@
 The sources in ``quasinewtonmethods_jl_tpu_torch/csrc`` compile into one
 shared library with a plain C interface, built for Hopper (``sm_90a``) at
 first use into ``quasinewtonmethods_jl_tpu_torch/_build/`` (git-ignored).
-The file name carries a hash of the sources and the flags, so an edited
-source builds anew and an unchanged one loads the earlier build. No PyTorch
-header is compiled, which keeps a build to seconds.
+Each source compiles to an object in its own nvcc process, all started
+together, and one more nvcc links them. The file name carries a hash of
+the sources, the shared headers and the flags, so an edited file builds
+anew and an unchanged tree loads the earlier build. No PyTorch header is
+compiled, which keeps a build to seconds.
 """
 
 from __future__ import annotations
@@ -16,23 +18,31 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["KernelLibrary", "load_library", "BUILD_DIR", "SOURCES"]
+__all__ = ["KernelLibrary", "load_library", "check_launch", "BUILD_DIR", "SOURCES", "HEADERS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("bfgs_update.cu",)
+SOURCES = ("bfgs_update.cu", "bfgs_blocked.cu", "resident_solve.cu")
+HEADERS = ("bfgs_common.cuh",)
 # No --use_fast_math / -ftz: the kernels' NaN and inf semantics are part of
 # their contract. -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+# -fmad=false: these kernels are held to plain versions made of separate
+# tensor ops, so each product and sum rounds on its own, as there.
+SOURCE_FLAGS = {
+    "bfgs_blocked.cu": ("-fmad=false",),
+    "resident_solve.cu": ("-fmad=false",),
+}
 
 
 class KernelLibrary(NamedTuple):
@@ -53,27 +63,65 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _digest() -> str:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(repr(sorted(SOURCE_FLAGS.items())).encode())
+    for name in (*SOURCES, *HEADERS):
+        digest.update(name.encode())
+        digest.update((CSRC_DIR / name).read_bytes())
+    return digest.hexdigest()[:16]
+
+
+def _compile(so: Path) -> str:
+    """Compile every source in parallel, link them into ``so``; returns
+    nvcc's output. Raises with nvcc's stderr when a step fails."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects, procs = [], []
+        for name in SOURCES:
+            obj = Path(tmp) / f"{name}.o"
+            cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+                   "-o", str(obj), str(CSRC_DIR / name)]
+            procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            objects.append(str(obj))
+        logs, failed = [], []
+        for name, proc in procs:  # wait for every compiler before raising
+            out, err = proc.communicate()
+            logs.append(f"== {name}\n{out}{err}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {name} with exit code {proc.returncode}:\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        part = Path(tmp) / so.name
+        link = subprocess.run([nvcc, "-shared", "-o", str(part), *objects],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code {link.returncode}:\n{link.stderr}")
+        os.replace(part, so)  # atomic: a concurrent build never sees half a file
+    return "".join(logs)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> KernelLibrary:
     """Build (if needed) and load the kernel library; raises with nvcc's
     stderr when the build fails."""
-    sources = [CSRC_DIR / name for name in SOURCES]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources:
-        digest.update(path.read_bytes())
-    so = BUILD_DIR / f"libqnm_kernels_{digest.hexdigest()[:16]}.so"
+    so = BUILD_DIR / f"libqnm_kernels_{_digest()}.so"
     seconds, log = 0.0, ""
     if not so.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _compile(so)
         seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-            )
-        os.replace(tmp, so)  # atomic: a concurrent build never sees half a file
-        log = proc.stdout + proc.stderr
-    return KernelLibrary(ctypes.CDLL(str(so)), so, seconds, log)
+    cdll = ctypes.CDLL(str(so))
+    cdll.qnm_cuda_error_string.argtypes = [ctypes.c_int]
+    cdll.qnm_cuda_error_string.restype = ctypes.c_char_p
+    return KernelLibrary(cdll, so, seconds, log)
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise RuntimeError when a launcher returned a CUDA error (its
+    ``cudaGetLastError()`` after the launch; 0 means launched)."""
+    if err != 0:
+        message = load_library().cdll.qnm_cuda_error_string(err).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {message}")

@@ -10,36 +10,127 @@ Layout is lane-major: B is (batch, n, n) contiguous, so one lane's B is one
 contiguous block; vectors are (batch, n); per-lane masks and scalars are
 (batch,). (The JAX package is batch-minor for the TPU's 128-wide lanes.)
 
-`fused_bfgs_update_batched` launches the hand-written CUDA kernel
+`fused_bfgs_update_batched` launches the hand-written CUDA kernel B1
 (``csrc/bfgs_update.cu``) on CUDA tensors and takes the plain PyTorch
 version `fused_bfgs_update_reference` on CPU tensors. Both update B in
-place.
+place. B1 holds one lane's B in one block's shared memory
+(`fused_update_fits`); larger n take the two-pass kernel B2
+(ops/kernels/bfgs_blocked.py). The plain version is B2's plain passes
+around `update_algebra`, the O(n·batch) algebra both call between the
+matvecs and the update of B.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ...api import _pin_matmul_precision
 from ..bfgs import h0_gamma
-from ._build import load_library
+from ._build import check_launch, load_library
 
 __all__ = [
     "fused_bfgs_update_batched",
     "fused_bfgs_update_reference",
+    "fused_update_fits",
+    "update_algebra",
+    "UpdateAlgebra",
+    "blocked_matvec_reference",
+    "blocked_update_reference",
     "SMEM_LIMIT_BYTES",
 ]
 
 # Shared memory one block may opt into on Hopper (sm_90: 227 KB); the kernel
 # library is built for sm_90a only.
 SMEM_LIMIT_BYTES = 232_448
+# The kernels' block-reduction scratch: kMaxSums x kMaxWarps values
+# (csrc/bfgs_common.cuh).
+SMEM_SCRATCH_VALUES = 4 * 16
+
+
+def fused_update_fits(n: int, itemsize: int) -> bool:
+    """Whether one lane of B1 fits one block's shared memory: B (n·n), six
+    vectors and the reduction scratch, the count of ``smem_bytes`` in
+    csrc/bfgs_update.cu (n <= 237 in float32, n <= 167 in float64)."""
+    return (n * n + 6 * n + SMEM_SCRATCH_VALUES) * itemsize <= SMEM_LIMIT_BYTES
 
 
 @_pin_matmul_precision
+def blocked_matvec_reference(
+    B: torch.Tensor, y: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Bᵀy, Bᵀg) per lane — the plain version of the matvec pass (B2a).
+    One batched product, (batch, 2, n) @ (batch, n, n) = [yᵀB; gᵀB], reads
+    B's columns as the JAX einsum ``rcb,rkb->kcb`` does."""
+    ByBg = torch.bmm(torch.stack([y, g], dim=1), B)
+    return ByBg[:, 0], ByBg[:, 1]
+
+
+class UpdateAlgebra(NamedTuple):
+    """What `update_algebra` hands the update of B and the caller."""
+
+    scale: torch.Tensor  # (batch,) H0 scale of B (1 unless fresh)
+    u: torch.Tensor  # (batch, n) scale·Bᵀy / sᵀy
+    c1: torch.Tensor  # (batch,) (1 + yᵀBy/sᵀy) / sᵀy
+    do_upd: torch.Tensor  # (batch,) bool: rank-2 update
+    reset: torch.Tensor  # (batch,) bool: identity reset
+    d: torch.Tensor  # (batch, n) next search direction
+    m: torch.Tensor  # (batch,) directional derivative gᵀd
+
+
+def update_algebra(By, Bg, s, y, g, active, fresh) -> UpdateAlgebra:
+    """The O(n·batch) algebra between B's matvecs and its update, with no B
+    traffic: sᵀy, ρ, the `h0_gamma` scale, yᵀBy, u, c₁, w = sᵀg, v = uᵀg,
+    gᵀBg, m_pre, d, gᵀg and the reset / frozen selects (the JAX blocked
+    wrapper's :265-285). ``By`` and ``Bg`` are the unscaled Bᵀy and Bᵀg;
+    ``fresh`` None means no H0 scaling."""
+    sty = (s * y).sum(-1)
+    rho = 1.0 / sty
+    if fresh is None:
+        scale = torch.ones_like(sty)
+    else:
+        yty = (y * y).sum(-1)
+        scale = h0_gamma(sty, yty, fresh, s.dtype)
+    By = scale[:, None] * By
+    Bg = scale[:, None] * Bg
+    ytBy = (By * y).sum(-1)
+    u = By * rho[:, None]
+    c1 = (1.0 + ytBy * rho) * rho
+
+    w = (s * g).sum(-1)  # sᵀg
+    v = (u * g).sum(-1)  # gᵀ(By/sᵀy)
+    gBg = (Bg * g).sum(-1)
+    m_pre = gBg + c1 * w * w - 2.0 * w * v  # gᵀB_new g
+    d_upd = Bg + (c1 * w)[:, None] * s - w[:, None] * u - v[:, None] * s  # B_new g
+
+    gg = (g * g).sum(-1)
+    reset = (m_pre <= 0.0) & active
+    do_upd = ~reset & active
+    d = torch.where(active[:, None], torch.where(reset[:, None], g, d_upd), torch.zeros_like(g))
+    m = torch.where(active, torch.where(reset, gg, m_pre), torch.ones_like(m_pre))
+    return UpdateAlgebra(scale, u, c1, do_upd, reset, d, m)
+
+
+def blocked_update_reference(B, s, u, c1, scale, do_upd, reset) -> torch.Tensor:
+    """The plain version of the update pass (B2b), IN PLACE: per lane
+    B = scale·B + c₁ s sᵀ - u sᵀ - s uᵀ where ``do_upd``, B = I where
+    ``reset``, B unchanged elsewhere (frozen). Returns B."""
+    B_upd = (
+        scale[:, None, None] * B
+        + c1[:, None, None] * (s[:, :, None] * s[:, None, :])
+        - u[:, :, None] * s[:, None, :]
+        - s[:, :, None] * u[:, None, :]
+    )
+    eye = torch.eye(B.shape[-1], dtype=B.dtype, device=B.device)
+    B.copy_(
+        torch.where(do_upd[:, None, None], B_upd, torch.where(reset[:, None, None], eye, B))
+    )
+    return B
+
+
 def fused_bfgs_update_reference(
     B: torch.Tensor,
     step: torch.Tensor,
@@ -62,48 +153,11 @@ def fused_bfgs_update_reference(
       * frozen lanes (active False): B unchanged, d = 0, m = 1.
     The matvecs read B's columns (Bᵀy, Bᵀg), as the JAX einsum does.
     """
-    dtype = B.dtype
-    n = B.shape[-1]
-    s = step
     y = g_old - g
-    sty = (s * y).sum(-1)
-    rho = 1.0 / sty
-    if fresh is None:
-        scale = torch.ones_like(sty)
-    else:
-        yty = (y * y).sum(-1)
-        scale = h0_gamma(sty, yty, fresh, dtype)
-    # Both matvecs from one batched product: (batch, 2, n) @ (batch, n, n)
-    # gives [yᵀB; gᵀB] = [Bᵀy; Bᵀg].
-    ByBg = scale[:, None, None] * torch.bmm(torch.stack([y, g], dim=1), B)
-    By, Bg = ByBg[:, 0], ByBg[:, 1]
-    ytBy = (By * y).sum(-1)
-    u = By * rho[:, None]
-    c1 = (1.0 + ytBy * rho) * rho
-
-    w = (s * g).sum(-1)  # sᵀg
-    v = (u * g).sum(-1)  # gᵀ(By/sᵀy)
-    gBg = (Bg * g).sum(-1)
-    m_pre = gBg + c1 * w * w - 2.0 * w * v  # gᵀB_new g
-    d_upd = Bg + (c1 * w)[:, None] * s - w[:, None] * u - v[:, None] * s  # B_new g
-
-    gg = (g * g).sum(-1)
-    reset = (m_pre <= 0.0) & active
-    do_upd = ~reset & active
-
-    B_upd = (
-        scale[:, None, None] * B
-        + c1[:, None, None] * (s[:, :, None] * s[:, None, :])
-        - u[:, :, None] * s[:, None, :]
-        - s[:, :, None] * u[:, None, :]
-    )
-    eye = torch.eye(n, dtype=dtype, device=B.device)
-    B.copy_(
-        torch.where(do_upd[:, None, None], B_upd, torch.where(reset[:, None, None], eye, B))
-    )
-    d = torch.where(active[:, None], torch.where(reset[:, None], g, d_upd), torch.zeros_like(g))
-    m = torch.where(active, torch.where(reset, gg, m_pre), torch.ones_like(m_pre))
-    return B, d, m, reset
+    By, Bg = blocked_matvec_reference(B, y, g)
+    alg = update_algebra(By, Bg, step, y, g, active, fresh)
+    blocked_update_reference(B, step, alg.u, alg.c1, alg.scale, alg.do_upd, alg.reset)
+    return B, alg.d, alg.m, alg.reset
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,8 +169,6 @@ def _library() -> ctypes.CDLL:
         fn.restype = i32
     lib.qnm_bfgs_update_smem_bytes.argtypes = [i32, i32]
     lib.qnm_bfgs_update_smem_bytes.restype = ctypes.c_size_t
-    lib.qnm_cuda_error_string.argtypes = [i32]
-    lib.qnm_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -158,9 +210,9 @@ def fused_bfgs_update_batched(
     without synchronising, and counts the launch in
     ``fused_bfgs_update_batched.launches``. It raises where the kernel
     cannot run — ValueError when one lane's B does not fit in shared memory
-    (the two-pass kernel for larger n, B2 in ROADMAP.md, is not ported
-    yet), RuntimeError on a failed build or launch. On CPU tensors it
-    computes the plain version.
+    (`fused_update_fits`; `fused_bfgs_update_blocked` serves such n),
+    RuntimeError on a failed build or launch. On CPU tensors it computes
+    the plain version.
     """
     _check_args(B, step, g, g_old, active, fresh)
     if B.device.type == "cpu":
@@ -172,15 +224,14 @@ def fused_bfgs_update_batched(
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
-    lib = _library()
     batch, n = step.shape
-    smem = lib.qnm_bfgs_update_smem_bytes(n, B.element_size())
-    if smem > SMEM_LIMIT_BYTES:
+    if not fused_update_fits(n, B.element_size()):
         raise ValueError(
-            f"n={n} {B.dtype}: one lane's B needs {smem} bytes of shared memory, "
-            f"more than the {SMEM_LIMIT_BYTES} a block may use; the two-pass "
-            "kernel for such n (B2, ops/pallas/bfgs_blocked.py) is not ported yet"
+            f"n={n} {B.dtype}: one lane's B does not fit the {SMEM_LIMIT_BYTES} bytes of "
+            "shared memory a block may use; use fused_bfgs_update_blocked "
+            "(ops/kernels/bfgs_blocked.py) for such n"
         )
+    lib = _library()
     d = torch.empty_like(g)
     m = torch.empty(batch, dtype=B.dtype, device=B.device)
     reset = torch.empty(batch, dtype=torch.bool, device=B.device)
@@ -192,10 +243,7 @@ def fused_bfgs_update_batched(
             active.data_ptr(), fresh.data_ptr(), d.data_ptr(), m.data_ptr(),
             reset.data_ptr(), batch, n, stream,
         )
-    if err != 0:
-        raise RuntimeError(
-            f"bfgs_update kernel launch failed: {lib.qnm_cuda_error_string(err).decode()}"
-        )
+    check_launch(err, "bfgs_update")
     fused_bfgs_update_batched.launches += 1
     return B, d, m, reset
 

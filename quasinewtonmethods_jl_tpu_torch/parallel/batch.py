@@ -44,8 +44,8 @@ def optimize_batched(
         per lane.
       backend: 'fused' (the lockstep fleet engine) or 'auto' (= 'fused').
         'vmap' is not ported yet.
-      kernel: the fused update — 'cuda', 'torch' or 'auto' (see
-        `optimize_batched_fused`).
+      kernel: the fused update — 'cuda' (B1, or B2 where B1 does not fit),
+        'torch' or 'auto' (see `optimize_batched_fused`).
 
     Returns:
       OptimizeResult with a leading batch axis on every leaf.

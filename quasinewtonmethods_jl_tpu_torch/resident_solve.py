@@ -1,0 +1,108 @@
+"""Whole-solve resident BFGS engine — one kernel launch per solve.
+
+PyTorch port of ``quasinewtonmethods_jl_tpu/resident_solve.py``. The fleet
+engine (batched_solve.py) pays Python dispatch and host reads every
+iteration; this engine runs the entire solve of every lane in one launch of
+the hand-written CUDA kernel B3 (``csrc/resident_solve.cu``, wrapper in
+ops/kernels/resident_kernel.py), with each lane's B resident in one block's
+shared memory from the first iteration to the last. The host makes one
+launch and reads nothing back.
+
+Semantics are lane for lane those of `optimize_batched_fused` with
+BackTracking (the same peel, masks, statuses and counters), and that engine
+with the plain update is B3's plain version
+(`optimize_batched_resident_reference`), which ``kernel="torch"`` and CPU
+tensors run. Floats differ from it only in the order of sums; on Rosenbrock
+such a difference grows along a trajectory, so over a whole solve a lane's
+counters may differ from the plain run's while the statuses and the
+optimum agree (PERF.md).
+
+Objective contract. The JAX kernel traces any jnp objective into its body;
+a hand-written kernel cannot trace a torch function, so B3 evaluates its
+objective on the card. This port has one such objective, the split
+Rosenbrock of models/rosenbrock.py, recognised by identity:
+`rosenbrock_logdensity` (with ``value_and_grad_fn`` None or
+`rosenbrock_value_and_grad`) or a `models.Rosenbrock` instance. Every other
+objective raises ValueError on every device, pointing to
+`optimize_batched_fused`, which takes any objective.
+
+The JAX engine's ``block_batch``, ``interpret``, ``rewrite_dots``,
+`_hoist_consts` and ``ops/dot_rewrite.py`` exist only for Mosaic and have
+no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from .models.rosenbrock import Rosenbrock, rosenbrock_logdensity, rosenbrock_value_and_grad
+from .ops.kernels.resident_kernel import (
+    optimize_batched_resident_reference,
+    resident_bfgs_solve,
+    resident_feasible,
+)
+from .ops.linesearch import BackTracking
+from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
+
+__all__ = [
+    "optimize_batched_resident",
+    "optimize_batched_resident_reference",
+    "resident_feasible",
+]
+
+
+def _is_rosenbrock(obj, value_and_grad_fn) -> bool:
+    if value_and_grad_fn not in (None, rosenbrock_value_and_grad):
+        return False
+    return obj is rosenbrock_logdensity or type(obj) is Rosenbrock
+
+
+def optimize_batched_resident(
+    obj,
+    x0s: torch.Tensor,
+    ls: BackTracking = BackTracking(),
+    tol: float = 1e-8,
+    max_iterations: int = MAX_ITERATIONS_DEFAULT,
+    value_and_grad_fn: Optional[Callable] = None,
+    h0_scale: bool = True,
+    stall_limit: int = STALL_LIMIT_DEFAULT,
+    kernel: str = "auto",
+) -> OptimizeResult:
+    """Fleet BFGS with the entire solve in one kernel launch (see the module
+    docstring); result-compatible with `optimize_batched_fused`.
+
+    Args:
+      obj: the split Rosenbrock (`rosenbrock_logdensity` or a
+        `models.Rosenbrock`); any other objective raises ValueError.
+      x0s: (batch, n) float32/float64 starting points; the solve runs on
+        their device.
+      kernel: 'cuda' (B3, CUDA tensors only; raises where one lane does not
+        fit, see `resident_feasible`), 'torch' (the plain version, any
+        device) or 'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU).
+
+    Returns:
+      OptimizeResult with a leading batch axis on every leaf.
+    """
+    x0s = torch.as_tensor(x0s)
+    if x0s.ndim != 2:
+        raise ValueError(f"x0s must be (batch, n), got shape {tuple(x0s.shape)}")
+    if not isinstance(ls, BackTracking):
+        raise ValueError("the resident engine supports BackTracking line search only")
+    if not _is_rosenbrock(obj, value_and_grad_fn):
+        raise ValueError(
+            "the resident kernel evaluates its objective on the card and knows only the "
+            "split Rosenbrock (rosenbrock_logdensity, with value_and_grad_fn None or "
+            "rosenbrock_value_and_grad, or a models.Rosenbrock instance); use "
+            "optimize_batched_fused for any other objective"
+        )
+    if kernel == "torch":
+        return optimize_batched_resident_reference(
+            x0s, ls, tol, max_iterations, h0_scale, stall_limit)
+    if kernel not in ("auto", "cuda"):
+        raise ValueError(f"unknown kernel {kernel!r}; use 'auto', 'cuda' or 'torch'")
+    if kernel == "cuda" and x0s.device.type != "cuda":
+        raise ValueError(f"kernel='cuda' needs CUDA tensors, got x0s on {x0s.device}")
+    # 'auto': the wrapper launches B3 on CUDA tensors, the plain version on CPU ones
+    return resident_bfgs_solve(x0s, ls, tol, max_iterations, h0_scale, stall_limit)

@@ -5,9 +5,9 @@ On the CPU the port's update is its plain PyTorch version; it is held
 against the JAX Pallas kernel in interpret mode, the JAX jnp twin, and the
 single-lane `bfgs_update`, in f64. Tolerances are absolute 1e-10 on values
 of order 1-10: the summation order differs between torch and XLA, nothing
-else does. With a card, the CUDA kernel is held against both on the same
-fixture here; tests/test_torch_kernels_cuda.py, which imports no jax,
-covers it at more sizes and in f32.
+else does. The CUDA kernel is held to the plain version on the card, on
+this fixture and at more sizes and in f32, by
+tests/test_torch_kernels_cuda.py, which imports no jax.
 """
 
 import jax.numpy as jnp
@@ -145,23 +145,6 @@ def test_wrapper_on_cpu_takes_plain_version_and_counts_nothing(rng):
     for a, b in zip(out, ref):
         np.testing.assert_array_equal(a, b)
     assert fused_bfgs_update_batched.launches == before
-
-
-@pytest.mark.cuda
-@pytest.mark.skipif(not torch.cuda.is_available(), reason="needs a CUDA card: the kernel runs only there")
-def test_cuda_kernel_matches_plain_version_and_jax(rng):
-    """The CUDA kernel on the same fixture, in f64, against the port's plain
-    version and the JAX twin (summation order only: atol 1e-10)."""
-    args = make_inputs(rng, 12, 32, kinds=True)
-    dev = torch.device("cuda", 0)
-    kern = fused_bfgs_update_batched(*(torch.tensor(a, device=dev) for a in args))
-    kern = [t.cpu().numpy() for t in kern]
-    plain = port_update(fused_bfgs_update_reference, *args)
-    twin = from_batch_minor(*jax_fused_reference(*to_batch_minor(*args)))
-    for other in (plain, twin):
-        for mine, theirs, name in zip(kern, other, ["B", "d", "m"]):
-            np.testing.assert_allclose(mine, theirs, atol=ATOL, rtol=0, err_msg=name)
-        np.testing.assert_array_equal(kern[3], other[3])
 
 
 @pytest.mark.parametrize(
