@@ -11,13 +11,16 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
   2. build: the kernel library from ``quasinewtonmethods_jl_tpu_torch/csrc``
      for sm_90a, one nvcc per source in parallel (nvcc's resource report
      goes to stderr);
-  3. B1 against its plain version: f32 and f64, n in {2, 7, 60, 61, 128},
-     every lane kind (active, frozen, fresh, forced reset, NaN);
+  3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
+     128} and the largest n that fits (237 f32, 167 f64), every lane kind
+     (active, frozen, fresh, forced reset, NaN);
   4. main path: 4096 split-Rosenbrock n=60 solves in f32 (seed 20260816,
      analytic gradient, tol 1e-3, at most 3000 iterations) on cuda:0; every
      lane must converge, and every loop body must have launched B1;
   5. exact parity of B1 and the plain update on an f64 quadratic fleet;
-  6. times: B1 and the plain version per call at 4096 x 60 f32, and
+  6. times: B1 and the plain version per call at 4096 x 60 f32 (B1 also
+     by its device time per launch, torch.profiler), B1's share of its
+     bound and its launch shape (registers, threads, blocks per SM), and
      solves/s of phase 4 through each;
   7. B2 (each pass and the whole two-pass update) against its plain
      version: f32 and f64, n in {2, 7, 60, 250, 512}, every lane kind;
@@ -26,7 +29,7 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      which must dispatch to B2 (both passes launched once per loop body, B1
      never); and an f64 64 x 200 fleet, B2 against the plain update;
   9. B3 against its plain version (the fleet engine with the plain update):
-     f64 Rosenbrock fleets, n in {2, 5, 6, 17, 24, 60}, and the phase-4
+     f64 Rosenbrock fleets, n in {2, 5, 6, 17, 24, 60, 65}, and the phase-4
      fleet in f32, both line-search orders, h0 scaling on and off, caps 0,
      1, 5 and 3000; a tol 1e-14 run and an f32 overflow start; the errors
      and, over whole solves, the lanes whose counters differ, each against
@@ -40,8 +43,15 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      of the large-n fleet through B2 and the plain update, and of the
      benchmark fleet through B3, B1 and the plain update, with peak device
      memory; the device's busy time in one solve of each fleet-engine path
-     (torch.profiler), and B3's time against fleet size (CUDA events).
-Then one JSON line of kernel records and, last, the JSON result line.
+     (torch.profiler), and B3's time against fleet size (CUDA events), its
+     share of its bound and its launch shape.
+Then one JSON line of kernel records and, last, the JSON result line. Each
+record's ``bound_ms`` is the least time the card could take for the
+kernel's work on this run's inputs: the larger of the bytes it must move
+(each input read once, each output written once) over 3.35 TB/s and the
+floating-point operations its inputs need over 67 TFLOP/s (H100 SXM, f32
+outside the tensor cores); ``library_ms`` is one PyTorch call that
+computes the same function (B2a: ``torch.bmm``), null where none does.
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -81,6 +91,13 @@ RESIDENT_REPLACES = "quasinewtonmethods_jl_tpu/resident_solve.py:465"
 LARGE_BATCH, LARGE_N = 1024, 512
 JAX_LARGE_MEDIAN_ITERS, JAX_LARGE_MAX_ITERS = 172, 246
 SPLIT_NS = (128, 192, 232)  # B1 fits up to n = 237 in f32
+B1_NS = (2, 7, 33, 60, 61, 65, 128)  # one warp per lane up to 64; ragged bulk copies at 7, 33, 61, 65
+B1_LARGEST_N = {torch.float32: 237, torch.float64: 167}
+RESIDENT_NS = (2, 5, 6, 17, 24, 60, 65)  # one warp per lane up to n = 64, two at 65
+# Published peaks of one H100 SXM: device memory and float32 outside the
+# tensor cores (the kernels' type on the main path).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def log(msg):
@@ -155,7 +172,7 @@ def kernel_phase(device):
     main_abs_err = None
     worst = {}
     for dtype in (torch.float32, torch.float64):
-        for n in (2, 7, 60, 61, 128):
+        for n in (*B1_NS, B1_LARGEST_N[dtype]):
             batch = BATCH if n == N else 512
             args, kind = kernel_inputs(BENCH_SEED + n, n, batch, dtype, device)
             kern = fused_bfgs_update_batched(*(a.clone() for a in args))
@@ -181,7 +198,8 @@ def kernel_phase(device):
             if n == N and dtype == torch.float32:
                 main_abs_err = abs_err
     summary = ", ".join(f"{d} {o} {r:.2e}" for (d, o), r in sorted(worst.items()))
-    log(f"[kernel] B1 vs plain, n in (2, 7, 60, 61, 128), f32+f64, all lane kinds: "
+    log(f"[kernel] B1 vs plain, n in {B1_NS} and the largest that fits ({B1_LARGEST_N[torch.float32]} "
+        f"f32, {B1_LARGEST_N[torch.float64]} f64), f32+f64, all lane kinds: "
         f"max normwise rel err {summary} (limits f32 {KERNEL_RTOL[torch.float32]}, "
         f"f64 {KERNEL_RTOL[torch.float64]}); max abs err at {BATCH}x{N} f32 {main_abs_err:.3e}")
     return main_abs_err
@@ -281,10 +299,73 @@ def time_calls(fn, args, calls=20):
     return start.elapsed_time(end) / calls
 
 
+def bound(nbytes, flops):
+    """(ms, "bytes" or "operations"): the least time the card could take to
+    move ``nbytes`` and do ``flops`` float32 operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def update_lane_flops(n):
+    """Floating-point operations of one active lane's fused update: the two
+    matvecs (4n²), the rank-2 update (8 per element of B) and the O(n)
+    algebra around them (about 25n)."""
+    return 12 * n * n + 25 * n
+
+
+def b1_bound(batch, n, itemsize, lanes_active):
+    """B1's bound: active lanes read and write B and read step, g, g_old;
+    every lane reads its two masks and writes d, m and reset."""
+    nbytes = (lanes_active * (2 * n * n + 3 * n) * itemsize
+              + batch * (2 + n * itemsize + itemsize + 1))
+    return bound(nbytes, lanes_active * update_lane_flops(n))
+
+
+def b3_bound(res, n, itemsize):
+    """B3's bound from the solve's own counters: it reads X0 and writes X,
+    G, G_old, STEP, B and the per-lane scalars once; per lane it does
+    (iterations - 1) updates (the first iteration is the peel), n_gev
+    value-and-gradient evaluations with the status test's and the update's
+    sums (about 16n), n_fev - n_gev line-search trials (about 6n) and a
+    step per iteration (2n)."""
+    batch = res.x.shape[0]
+    iters = res.iterations.to(torch.float64)
+    gev = res.n_gev.to(torch.float64)
+    trials = res.n_fev.to(torch.float64) - gev
+    flops = float(((iters - 1).clamp(min=0) * update_lane_flops(n) + gev * 16 * n
+                   + trials * 6 * n + iters * 2 * n).sum())
+    nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1)
+    return bound(nbytes, flops)
+
+
+def shape_line(occupancy):
+    return (f"{occupancy['registers']} registers x {occupancy['threads']} threads per block, "
+            f"{occupancy['blocks_per_sm']} blocks per SM")
+
+
+def device_ms_per_launch(fn, args, kernel_name, calls=20):
+    """Mean device time of one launch of the kernel named ``kernel_name``
+    over ``calls`` calls of ``fn``, from torch.profiler's device events: the
+    kernel's own time, whatever the pace at which the host enqueues it.
+    None where the profiler recorded no such kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel_name in e.name]
+    return sum(spans) / len(spans) / 1e3 if spans else None
+
+
 def timing_phase(qt, device, smi):
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import (
         fused_bfgs_update_batched,
         fused_bfgs_update_reference,
+        fused_update_occupancy,
     )
 
     # all lanes active and not fresh: the steady-state call of the main path
@@ -296,11 +377,22 @@ def timing_phase(qt, device, smi):
     for order in (("torch", "cuda"), ("cuda", "torch")) * 3:
         for k in order:
             ms[k].append(time_calls(fns[k], args))
-    kernel_ms, plain_ms = float(np.median(ms["cuda"])), float(np.median(ms["torch"]))
+    call_ms, plain_ms = float(np.median(ms["cuda"])), float(np.median(ms["torch"]))
+    # The wrapper's host time per call is about the kernel's, so back-to-back
+    # calls can be paced by the host: the kernel's own time comes from the
+    # profiler's device events (median of 3 x 20 launches).
+    device_ms = [device_ms_per_launch(fused_bfgs_update_batched, args, "bfgs_update_kernel")
+                 for _ in range(3)]
+    kernel_ms = call_ms if None in device_ms else float(np.median(device_ms))
+    source = "CUDA events per call" if None in device_ms else "device time per launch"
     bytes_moved = 2 * BATCH * N * N * 4
-    log(f"[time] B1 at {BATCH}x{N} f32: kernel {kernel_ms:.4f} ms/call "
-        f"({bytes_moved / kernel_ms / 1e6:.0f} GB/s of B traffic), plain {plain_ms:.4f} ms/call "
-        f"(median of 6 x 20 calls) on {smi}")
+    bound_ms, bound_by = b1_bound(BATCH, N, 4, BATCH)
+    log(f"[time] B1 at {BATCH}x{N} f32: kernel {kernel_ms:.4f} ms ({source}, torch.profiler; "
+        f"{bytes_moved / kernel_ms / 1e6:.0f} GB/s of B traffic), {call_ms:.4f} ms per call by "
+        f"CUDA events over back-to-back calls, plain {plain_ms:.4f} ms/call (median of 6 x 20 "
+        f"calls, in turns); bound {bound_ms:.4f} ms ({bound_by}), B1 at "
+        f"{100 * bound_ms / kernel_ms:.1f} % of it; launch {shape_line(fused_update_occupancy(N, 4))} "
+        f"on {smi}")
 
     X = bench_fleet(device)
     engine = qt.optimize_batched_fused
@@ -322,7 +414,7 @@ def timing_phase(qt, device, smi):
         f"({float(np.median(walls['cuda'])):.4f} s/solve, {syncs['cuda']} host syncs), "
         f"kernel='torch' {rate['torch']:.1f} ({float(np.median(walls['torch'])):.4f} s/solve, "
         f"{syncs['torch']} host syncs) on {smi}")
-    return kernel_ms, plain_ms
+    return kernel_ms, plain_ms, (bound_ms, bound_by)
 
 
 def counted_kernels():
@@ -588,7 +680,7 @@ def resident_parity_phase(qt, device):
             failures.append(label)
         return kern, plain
 
-    for n in (2, 5, 6, 17, 24, 60):  # 64 threads per block up to n = 32, 128 at n = 60
+    for n in RESIDENT_NS:
         X = torch.tensor(np.random.default_rng(BENCH_SEED + n).standard_normal((64, n)),
                          device=device)
         for order in (2, 3):
@@ -643,7 +735,7 @@ def resident_parity_phase(qt, device):
                             for k, v in diverged[group].items())
                 + f" (B3's share limit {ROUNDING_FACTOR} x the larger witness's)")
 
-    log(f"[resident] B3 vs plain, f64 Rosenbrock 64 lanes, n in (2, 5, 6, 17, 24, 60) x order "
+    log(f"[resident] B3 vs plain, f64 Rosenbrock 64 lanes, n in {RESIDENT_NS} x order "
         f"(2, 3) x h0 (on, off), tol 1e-8, plus tol 1e-14 and an f32 overflow start: "
         f"{summary('small', '1e-10 in f64, 1e-5 in f32')}; max|dx| at cap {MAX_ITERS} "
         f"{full_dx:.3e} (limit {CONVERGED_DX}); max|dx| after k iterations (n=6, h0 off) "
@@ -693,7 +785,7 @@ def resident_path_phase(qt, device):
     check(float(res.grad.abs().max()) < TOL, "gradient certificate not met")
     check(abs(med - JAX_MEDIAN_ITERS) <= 0.1 * JAX_MEDIAN_ITERS,
           f"median iterations {med} not within 10% of {JAX_MEDIAN_ITERS}")
-    return c
+    return c, b3_bound(res, N, 4)
 
 
 def alternate(fns, rounds):
@@ -764,7 +856,7 @@ def profile_line(label, wall, busy, events, ranked, bodies):
             f"bodies ({events / max(bodies, 1):.1f} per body); top: {kernels}")
 
 
-def blocked_and_resident_timing_phase(qt, device, smi):
+def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
     from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_blocked import (
         blocked_matvec,
@@ -778,6 +870,7 @@ def blocked_and_resident_timing_phase(qt, device, smi):
         fused_bfgs_update_reference,
         update_algebra,
     )
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
 
     # B2 per call at the large-n shape: all lanes active and not fresh
     args, _ = kernel_inputs(BENCH_SEED + 3, LARGE_N, LARGE_BATCH, torch.float32, device,
@@ -787,8 +880,18 @@ def blocked_and_resident_timing_phase(qt, device, smi):
     alg = update_algebra(*blocked_matvec_reference(B, y, g), s, y, g, active, fresh)
     upd_args = (B, s, alg.u, alg.c1, alg.scale, alg.do_upd, alg.reset)
     ms = per_call_ms({"cuda": fused_bfgs_update_blocked, "torch": fused_bfgs_update_reference}, args)
-    mv = per_call_ms({"cuda": blocked_matvec, "torch": blocked_matvec_reference}, (B, y, g))
+    yg = torch.stack([y, g], dim=1)  # the library call alone, without the stack
+    mv = per_call_ms({"cuda": blocked_matvec, "torch": blocked_matvec_reference,
+                      "library": lambda B, y, g: torch.bmm(yg, B)}, (B, y, g))
     up = per_call_ms({"cuda": blocked_update, "torch": blocked_update_reference}, upd_args)
+    n, nn = LARGE_N, LARGE_N * LARGE_N
+    # B2a reads B, y and g and writes By and Bg; B2b reads and writes B on
+    # updated lanes, writes it on reset lanes, and reads s, u and the scalars
+    upd_lanes, rst_lanes = int(alg.do_upd.sum()), int(alg.reset.sum())
+    mv_bound = bound(LARGE_BATCH * (nn + 4 * n) * 4, LARGE_BATCH * 4 * nn)
+    up_bound = bound((upd_lanes * 2 * nn + rst_lanes * nn) * 4
+                     + LARGE_BATCH * (2 * n * 4 + 2 * 4 + 2),
+                     upd_lanes * 8 * nn)
     peak = {}
     for k, fn in (("cuda", fused_bfgs_update_blocked), ("torch", fused_bfgs_update_reference)):
         torch.cuda.synchronize()
@@ -803,7 +906,10 @@ def blocked_and_resident_timing_phase(qt, device, smi):
         f"{3 * nbytes / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s), plain {ms['torch']:.4f} ms; B2a "
         f"{mv['cuda']:.4f} ms ({nbytes / mv['cuda'] / 1e6:.0f} GB/s) vs plain {mv['torch']:.4f} ms; "
         f"B2b {up['cuda']:.4f} ms ({2 * nbytes / up['cuda'] / 1e6:.0f} GB/s) vs plain "
-        f"{up['torch']:.4f} ms; memory a call allocates at its peak: kernels {peak['cuda']:.2f} "
+        f"{up['torch']:.4f} ms; bounds B2a {mv_bound[0]:.4f} ms ({mv_bound[1]}, "
+        f"{100 * mv_bound[0] / mv['cuda']:.1f} %), B2b {up_bound[0]:.4f} ms ({up_bound[1]}, "
+        f"{100 * up_bound[0] / up['cuda']:.1f} %); torch.bmm alone (B2a's function, stacked "
+        f"beforehand) {mv['library']:.4f} ms; memory a call allocates at its peak: kernels {peak['cuda']:.2f} "
         f"GiB, plain {peak['torch']:.2f} GiB (B itself {nbytes / 2**30:.2f} GiB) (median of 4 x "
         f"10 calls, in turns) on {smi}")
     del args, B, s, g, g_old, y, alg, upd_args
@@ -815,7 +921,8 @@ def blocked_and_resident_timing_phase(qt, device, smi):
         t = per_call_ms({"B1": fused_bfgs_update_batched, "B2": fused_bfgs_update_blocked,
                          "plain": fused_bfgs_update_reference}, args)
         split.append(f"n={n}: B1 {t['B1']:.4f}, B2 {t['B2']:.4f}, plain {t['plain']:.4f}")
-    log(f"[time] B1 and B2 near their split, batch {LARGE_BATCH} f32, ms per call: "
+    log(f"[time] B1 and B2 near their split, batch {LARGE_BATCH} f32, ms per call (CUDA events "
+        f"over back-to-back calls: the host may pace B1's): "
         f"{'; '.join(split)} (B1 fits up to n=237) on {smi}")
 
     X = large_fleet(device)
@@ -852,7 +959,7 @@ def blocked_and_resident_timing_phase(qt, device, smi):
     # the solve's first operation to its last, beside the host's wall
     series = []
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    for batch in (132, 264, 528, 1056, 2112, BATCH, 2 * BATCH):
+    for batch in (132, 264, 528, 1056, 1716, 2112, BATCH, 2 * BATCH):  # 1716 = 13 x 132
         Xb = torch.tensor(np.random.default_rng(BENCH_SEED).standard_normal((batch, N)),
                           dtype=torch.float32, device=device)
         times = []
@@ -869,11 +976,19 @@ def blocked_and_resident_timing_phase(qt, device, smi):
         dev, wall = (float(np.median(v)) for v in zip(*times[1:]))
         series.append(f"{batch} {dev:.3f} ms (wall {wall:.3f} ms, max iterations "
                       f"{int(res.iterations.max())})")
+        if batch == BATCH:
+            b3_ms = dev
     log(f"[profile] B3 against fleet size, n={N} f32 (median of 3 by CUDA events, device busy "
         f"from the solve's first op to its last): {'; '.join(series)} on {smi}")
+    b3_bound_ms, b3_bound_by = b3_bounds
+    log(f"[time] B3 at {BATCH}x{N} f32: {b3_ms:.4f} ms per solve (CUDA events), bound "
+        f"{b3_bound_ms:.4f} ms ({b3_bound_by}, from the main path's iterations and evaluations), "
+        f"B3 at {100 * b3_bound_ms / b3_ms:.1f} % of it; launch {shape_line(resident_occupancy(N, 4))} "
+        f"on {smi}")
     # the plain update's run is B3's plain version (optimize_batched_resident_reference)
-    return {"B2a": (mv["cuda"], mv["torch"]), "B2b": (up["cuda"], up["torch"]),
-            "B3": (1e3 * walls["B3"], 1e3 * walls["plain"])}
+    return {"B2a": (mv["cuda"], mv["torch"], *mv_bound, mv["library"]),
+            "B2b": (up["cuda"], up["torch"], *up_bound, None),
+            "B3": (b3_ms, 1e3 * walls["plain"], b3_bound_ms, b3_bound_by, None)}
 
 
 def main():
@@ -889,20 +1004,22 @@ def main():
     reset_counters(qt)
     launches, _ = main_path_phase(qt, device)
     parity_phase(qt, device)
-    kernel_ms, plain_ms = timing_phase(qt, device, smi)
+    kernel_ms, plain_ms, b1_bound_ms = timing_phase(qt, device, smi)
     blocked_err = blocked_kernel_phase(device)
     large = large_n_phase(qt, device)
     resident_err = resident_parity_phase(qt, device)
-    resident = resident_path_phase(qt, device)
-    times = blocked_and_resident_timing_phase(qt, device, smi)
+    resident, b3_bounds = resident_path_phase(qt, device)
+    times = blocked_and_resident_timing_phase(qt, device, smi, b3_bounds)
 
     def record(name, source, replaces, launches, err, ms):
+        kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1]}
+                "launches": launches, "max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
 
     print(json.dumps({"kernels": [
         record("fused_bfgs_update_batched", KERNEL_SOURCE, KERNEL_REPLACES, launches,
-               max_abs_err, (kernel_ms, plain_ms)),
+               max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

@@ -1,7 +1,7 @@
 // Whole-solve resident BFGS engine, for Hopper (sm_90a), in float and double:
-// one launch runs every lane's entire solve, one thread block per lane, with
-// the lane's B and vectors in shared memory from the first iteration to the
-// last.
+// one launch runs every lane's entire solve, one thread block (a lane group
+// of bfgs_common.cuh: one warp up to n = 64) per lane, with the lane's B and
+// vectors in shared memory from the first iteration to the last.
 //
 // Replaces the TPU kernel quasinewtonmethods_jl_tpu/resident_solve.py ::
 // _optimize_batched_resident_jit (pl.pallas_call at :465, kernel body from
@@ -24,22 +24,34 @@
 //     counters iterations, n_fev, n_gev, n_resets, fresh and stall as the
 //       fleet engine's _body
 //   a lane still RUNNING at the cap ends MAX_ITERATIONS.
-// Each block loops until its own lane finishes; the fleet engine's bodies
-// after a lane finished are masked no-ops, so the trajectory is the same.
+// Each block loops until its own lane finishes, and the SM's scheduler
+// gives a finished lane's slot to the next block at once; the fleet
+// engine's bodies after a lane finished are masked no-ops, so the
+// trajectory is the same.
 //
 // The objective is evaluated on the card: the split Rosenbrock of
-// models/rosenbrock.py with its odd-n tail term, block-cooperatively, its
-// value-and-gradient as rosenbrock_value_and_grad computes it and the line
-// search's trials as rosenbrock_logdensity does. Terms are summed with the
-// deterministic block reduction, so repeated runs give identical results.
+// models/rosenbrock.py with its odd-n tail term, its value-and-gradient as
+// rosenbrock_value_and_grad computes it and the line search's trials as
+// rosenbrock_logdensity does. Terms are summed by the lane group's
+// deterministic sums, so repeated runs give identical results.
 //
-// What bounds it: per iteration a lane does O(n²) flops on B in shared
-// memory and a few block reductions (each two barriers), so latency and
-// shared-memory bandwidth bound it, not device memory: B crosses device
-// memory once per solve, at the end. Every thread computes the per-lane
-// scalars (statuses, line-search proposals) identically from the block
-// reductions' totals, so control flow is uniform across the block and the
-// result does not depend on the block size.
+// What bounds it: per iteration a lane does ~12 n² flops on B in shared
+// memory (the matvecs and the update) and a few lane sums, so the issue
+// rate of its instructions and their latency bound it, not device memory:
+// B crosses device memory once per solve, at the end. The design cuts what
+// the lane waits on. At n <= 64 a lane is one warp, so its sums are five
+// shuffles each and it never waits at a __syncthreads; the top of an
+// iteration takes the objective, the status test's sums and the update's
+// first sums in one lane sum; B is read and written once per iteration: the
+// rank-2 change that iteration k - 1 decided is applied in the same pass
+// over B that takes iteration k's matvecs (each element rounds as before;
+// the last change is applied after the loop). The passes go in batches of
+// rows with every load issued before the batch's stores. Small blocks (32
+// threads, B and seven vectors in shared memory) let 13 lanes share an SM
+// at n = 60 in float, against 4 blocks of 128 threads before. Every thread
+// computes the per-lane scalars (statuses, line-search proposals)
+// identically from the sums' totals, so control flow is uniform across the
+// lane.
 //
 // This file is built with -fmad=false: each product and sum then rounds as
 // the plain twin's separate tensor ops do, and only the order of the sums
@@ -51,9 +63,8 @@
 
 namespace {
 
-using qnm::block_sum;
-using qnm::kMaxSums;
-using qnm::kMaxWarps;
+using qnm::kRedValues;
+using qnm::LaneGroup;
 
 // state.py :: Status
 constexpr int kRunning = 0;
@@ -69,12 +80,15 @@ struct Params {
   int max_iterations, stall_limit, order, h0_scale;
 };
 
-// Dynamic shared memory, in this order: B (n·n), X, G, G_old, STEP, d, and
-// the update's scratch y, By, Bg, u (n each), the block reduction's per-warp
-// partials (kMaxSums·kMaxWarps). ops/kernels/resident_kernel.py ::
-// resident_feasible repeats this count.
+// Dynamic shared memory a block asks for. The lane uses B (n·n), G, d, y,
+// STEP and u twice (n each), then the reduction scratch (kRedValues):
+// n² + 7n + kRedValues values. The count keeps the n² + 9n +
+// kRedValues of the earlier block-per-lane layout, so that
+// ops/kernels/resident_kernel.py :: resident_feasible, which repeats it,
+// admits exactly the n it did (n <= 236 in float, <= 165 in double); at
+// n = 60 in float the slack costs no block per SM (13 either way).
 size_t smem_bytes(int n, size_t itemsize) {
-  return (size_t(n) * n + 9 * size_t(n) + size_t(kMaxSums) * kMaxWarps) * itemsize;
+  return (size_t(n) * n + 9 * size_t(n) + size_t(kRedValues)) * itemsize;
 }
 
 template <typename T>
@@ -98,47 +112,6 @@ __device__ __forceinline__ T nanmax(T a, T b) {
   return a < b ? b : (isnan(a) ? b : a);
 }
 
-// rosenbrock_value_and_grad at x (shared): pairs (x[i], x[half + i]),
-//   -Σ 100 r² + (1 - a)², r = b - a², and -(1 - x[n-1])² for odd n;
-// writes grad (shared), published by block_sum's barriers.
-template <typename T>
-__device__ T rosenbrock_value_and_grad(const T* x, T* grad, int n, T* red) {
-  const int half = n >> 1;
-  T acc[1] = {T(0)};
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const T a = x[i];
-    const T r = x[half + i] - a * a;
-    const T oma = T(1) - a;
-    acc[0] += T(100) * r * r + oma * oma;
-    grad[i] = T(400) * r * a + T(2) * oma;
-    grad[half + i] = T(-200) * r;
-  }
-  const T delta = T(1) - x[n - 1];
-  if ((n & 1) && threadIdx.x == 0) grad[n - 1] = T(2) * delta;
-  block_sum(acc, red);
-  T s = -acc[0];
-  if (n & 1) s = s - delta * delta;
-  return s;
-}
-
-// rosenbrock_logdensity at x + alpha·d (the line search's trial point).
-template <typename T>
-__device__ T rosenbrock_value_along(const T* x, const T* d, T alpha, int n, T* red) {
-  const int half = n >> 1;
-  T acc[1] = {T(0)};
-  for (int i = threadIdx.x; i < half; i += blockDim.x) {
-    const T a = x[i] + alpha * d[i];
-    const T r = (x[half + i] + alpha * d[half + i]) - a * a;
-    const T oma = T(1) - a;
-    acc[0] += T(100) * (r * r) + oma * oma;
-  }
-  const T delta = T(1) - (x[n - 1] + alpha * d[n - 1]);
-  block_sum(acc, red);
-  T s = -acc[0];
-  if (n & 1) s = s - delta * delta;
-  return s;
-}
-
 // ops/linesearch.py :: _cubic_proposal
 template <typename T>
 __device__ T cubic_proposal(T m, T a1, T a2, T fx0, T fx1, T f0, T eps, T sqrttol) {
@@ -153,66 +126,139 @@ __device__ T cubic_proposal(T m, T a1, T a2, T fx0, T fx1, T f0, T eps, T sqrtto
   return degenerate ? m / (T(2) * b) : root;
 }
 
-template <typename T>
-__global__ void resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ X_out,
-                                      T* __restrict__ G_out, T* __restrict__ G_old_out,
-                                      T* __restrict__ step_out, T* __restrict__ B_out,
-                                      T* __restrict__ fun_out, int* __restrict__ status_out,
-                                      int* __restrict__ iterations_out,
-                                      int* __restrict__ n_fev_out, int* __restrict__ n_gev_out,
-                                      int* __restrict__ n_resets_out,
-                                      uint8_t* __restrict__ fresh_out,
-                                      int* __restrict__ stall_out, int n, Params<T> p) {
+// The vector entries a thread owns: the Rosenbrock pair (i, half + i) for
+// i = threadIdx.x < n/2, and thread 0 also the odd-n tail n - 1 (n/2 never
+// exceeds the lane's threads, so a thread owns at most one pair). X, G,
+// G_old, STEP and d of those entries live in the owner's registers; G,
+// STEP, y and d also go to shared memory where the matvecs and the update
+// read them.
+constexpr int kOwned = 3;
+
+struct Owned {
+  int idx[kOwned];
+  bool has[kOwned];
+  __device__ __forceinline__ explicit Owned(int n) {
+    const int half = n >> 1;
+    const int t = threadIdx.x;
+    has[0] = has[1] = t < half;
+    idx[0] = t;
+    idx[1] = half + t;
+    has[2] = (n & 1) && t == 0;
+    idx[2] = n - 1;
+  }
+};
+
+template <typename T, bool kOneWarp>
+__global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
+    resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ X_out,
+                          T* __restrict__ G_out, T* __restrict__ G_old_out,
+                          T* __restrict__ step_out, T* __restrict__ B_out,
+                          T* __restrict__ fun_out, int* __restrict__ status_out,
+                          int* __restrict__ iterations_out, int* __restrict__ n_fev_out,
+                          int* __restrict__ n_gev_out, int* __restrict__ n_resets_out,
+                          uint8_t* __restrict__ fresh_out, int* __restrict__ stall_out, int n,
+                          Params<T> p) {
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const size_t vo = size_t(b) * n;
-  const int nn = n * n;
+  const bool odd = n & 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sB = reinterpret_cast<T*>(smem_raw);
-  T* sX = sB + size_t(n) * n;
-  T* sG = sX + n;
-  T* sG_old = sG + n;
-  T* sS = sG_old + n;
-  T* sD = sS + n;
+  T* sG = sB + size_t(n) * n;
+  T* sD = sG + n;
   T* sY = sD + n;
-  T* sBy = sY + n;
-  T* sBg = sBy + n;
-  T* sU = sBg + n;
-  T* red = sU + n;
+  // STEP and u in two buffers each, by the parity of k: the change of B
+  // that iteration k decides uses the step of iteration k - 1 and its u,
+  // and stays pending until the pass over B of iteration k + 1.
+  // (Picked by a select, not from an array of pointers, so that the
+  // compiler still knows them for shared memory.)
+  T* const sS0 = sY + n;
+  T* const sS1 = sY + 2 * n;
+  T* const sU0 = sY + 3 * n;
+  T* const sU1 = sY + 4 * n;
+  LaneGroup<T, kOneWarp> grp{sY + 5 * n};
+  const qnm::Columns cols(n);
+  const Owned own(n);
 
-  // the fresh carry of batched_solve.py :: _fresh_bfgs_carry
-  for (int idx = tid; idx < nn; idx += nt) {
-    const int i = idx / n;
-    sB[idx] = i == idx - i * n ? T(1) : T(0);
+  // the fresh carry of batched_solve.py :: _fresh_bfgs_carry; B = I by columns
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (!cols.own[c]) continue;
+    for (int r = 0; r < n; ++r) sB[r * n + cols.j[c]] = r == cols.j[c] ? T(1) : T(0);
   }
-  for (int i = tid; i < n; i += nt) {
-    sX[i] = X0[vo + i];
-    sG[i] = T(0);
-    sG_old[i] = T(0);
-    sS[i] = T(0);
+  T x[kOwned], g[kOwned], g_old[kOwned], st[kOwned], d[kOwned];
+#pragma unroll
+  for (int e = 0; e < kOwned; ++e) {
+    x[e] = own.has[e] ? X0[vo + own.idx[e]] : T(0);
+    g[e] = g_old[e] = st[e] = d[e] = T(0);
   }
-  __syncthreads();
+  qnm::Change<T> pending;  // B's change not yet applied
+  pending.s = pending.u = sB;
   T fun = quiet_nan<T>();
   T fprev = quiet_nan<T>();
   int k = 0, status = kRunning, iterations = 0, n_fev = 0, n_gev = 0, n_resets = 0, stall = 0;
   bool fresh = true;
 
-  while (status == kRunning && k < p.max_iterations) {
-    const T f0 = rosenbrock_value_and_grad(sX, sG, n, red);
-    T q[2] = {T(0), T(0)};  // entries with !(|g_i| < tol) (NaN counts), gᵀg
-    for (int i = tid; i < n; i += nt) {
-      const T gi = sG[i];
-      q[0] += fabs(gi) < p.tol ? T(0) : T(1);
-      q[1] += gi * gi;
+  // rosenbrock_logdensity at x + alpha·d (the line search's trial point)
+  auto value_along = [&](T alpha) {
+    T v[2] = {T(0), T(0)};  // the pairs' terms, the tail's
+    if (own.has[0]) {
+      const T a = x[0] + alpha * d[0];
+      const T r = (x[1] + alpha * d[1]) - a * a;
+      const T oma = T(1) - a;
+      v[0] = T(100) * (r * r) + oma * oma;
     }
-    block_sum(q, red);
+    if (own.has[2]) {
+      const T delta = T(1) - (x[2] + alpha * d[2]);
+      v[1] = delta * delta;
+    }
+    grp.sum(v);
+    T f = -v[0];
+    if (odd) f = f - v[1];
+    return f;
+  };
+
+  while (status == kRunning && k < p.max_iterations) {
+    // rosenbrock_value_and_grad at X: -Σ 100 r² + (1 - a)², r = b - a², and
+    // -(1 - x[n-1])² for odd n; fused with the status test's sums and the
+    // update's first ones into one lane sum. Only thread 0 adds the tail's
+    // square, so its sum is exact.
+    T q[7] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
+    // Σ terms, #entries with !(|g_i| < tol) (NaN counts), gᵀg, sᵀy, yᵀy, sᵀg, tail²
+    if (own.has[0]) {
+      const T a = x[0];
+      const T r = x[1] - a * a;
+      const T oma = T(1) - a;
+      q[0] = T(100) * r * r + oma * oma;
+      g[0] = T(400) * r * a + T(2) * oma;
+      g[1] = T(-200) * r;
+    }
+    if (own.has[2]) {
+      const T delta = T(1) - x[2];
+      q[6] = delta * delta;
+      g[2] = T(2) * delta;
+    }
+#pragma unroll
+    for (int e = 0; e < kOwned; ++e) {
+      if (!own.has[e]) continue;
+      const T gi = g[e];
+      const T yi = g_old[e] - gi;
+      sG[own.idx[e]] = gi;
+      sY[own.idx[e]] = yi;
+      q[1] += fabs(gi) < p.tol ? T(0) : T(1);
+      q[2] += gi * gi;
+      q[3] += st[e] * yi;
+      q[4] += yi * yi;
+      q[5] += st[e] * gi;
+    }
+    grp.sum(q);  // also publishes G and y
+    T f0 = -q[0];
+    if (odd) f0 = f0 - q[6];
     const bool improved = isnan(fprev) || f0 > fprev;
     const int stall_n = improved ? 0 : stall + 1;
     int status_pre = kRunning;  // highest priority last
     if (p.stall_limit && stall_n >= p.stall_limit) status_pre = kLinesearchFailure;
-    if (q[0] == T(0)) status_pre = kConverged;
+    if (q[1] == T(0)) status_pre = kConverged;
     if (!isfinite(f0)) status_pre = kNonfiniteValue;
     const bool active = status_pre == kRunning;
 
@@ -222,19 +268,27 @@ __global__ void resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ 
     int ls_rounds = 0;
     if (active) {
       if (k == 0) {  // the peel: steepest ascent
-        for (int i = tid; i < n; i += nt) sD[i] = sG[i];
-        m = q[1];
+#pragma unroll
+        for (int e = 0; e < kOwned; ++e) d[e] = g[e];
+        m = q[2];
         reset = true;
       } else {
-        const qnm::LaneUpdate<T> upd = qnm::bfgs_update_lane<T>(
-            sB, sB, sS, sG, sG_old, sY, sBy, sBg, sU, red, n, p.h0_scale && fresh, sD);
+        // one pass over B: the pending change, then Bᵀy and Bᵀg
+        T By[2], Bg[2];
+        qnm::column_pass<T, true>(sB, n, cols, pending, sY, sG, By, Bg);
+        const qnm::LaneUpdate<T> upd = qnm::update_algebra(
+            grp, cols, By, Bg, (k & 1) ? sS0 : sS1, sG, sY, (k & 1) ? sU1 : sU0, q[3], q[4],
+            q[5], q[2], p.h0_scale && fresh, sD);
         m = upd.m;
         reset = upd.reset;
+        pending = upd.b;
+        grp.sync();  // publishes d
+#pragma unroll
+        for (int e = 0; e < kOwned; ++e) d[e] = own.has[e] ? sD[own.idx[e]] : T(0);
       }
-      __syncthreads();  // publishes d and B; the update's reads of STEP are done
 
       // batched_solve.py :: _batched_linesearch for one lane
-      T fx1 = rosenbrock_value_along(sX, sD, T(1), n, red);
+      T fx1 = value_along(T(1));
       const bool doomed = !(isfinite(m) && isfinite(f0));
       T a1 = T(1), a2 = T(1), fx0 = f0;
       while (!doomed && !(fx1 >= f0 + a2 * p.c1 * m) && ls_rounds < p.budget) {
@@ -247,21 +301,26 @@ __global__ void resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ 
         a1 = a2;
         a2 = nanmax(at, a2 * p.rho_lo);
         fx0 = fx1;
-        fx1 = rosenbrock_value_along(sX, sD, a2, n, red);
+        fx1 = value_along(a2);
       }
       if (fx1 >= f0 + a2 * p.c1 * m) alpha = a2;
     }
     const bool failed = active && alpha == T(0);
     const bool take = active && !failed;
-    for (int i = tid; i < n; i += nt) {
-      const T step = take ? alpha * sD[i] : T(0);
-      sX[i] = sX[i] + step;
+    // The next iteration's first lane sum publishes STEP before the update
+    // reads it; STEP's buffer of this parity was last read by the pass over
+    // B at the top of this iteration.
+#pragma unroll
+    for (int e = 0; e < kOwned; ++e) {
+      if (!own.has[e]) continue;
+      const T step = take ? alpha * d[e] : T(0);
+      x[e] = x[e] + step;
       if (active) {
-        sS[i] = step;
-        sG_old[i] = sG[i];
+        st[e] = step;
+        ((k & 1) ? sS1 : sS0)[own.idx[e]] = step;
+        g_old[e] = g[e];
       }
     }
-    __syncthreads();
 
     fun = f0;
     fprev = f0;
@@ -275,15 +334,26 @@ __global__ void resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ 
     ++k;
   }
 
-  for (int i = tid; i < n; i += nt) {
-    X_out[vo + i] = sX[i];
-    G_out[vo + i] = sG[i];
-    G_old_out[vo + i] = sG_old[i];
-    step_out[vo + i] = sS[i];
+#pragma unroll
+  for (int e = 0; e < kOwned; ++e) {
+    if (!own.has[e]) continue;
+    const size_t i = vo + own.idx[e];
+    X_out[i] = x[e];
+    G_out[i] = g[e];
+    G_old_out[i] = g_old[e];
+    step_out[i] = st[e];
   }
-  T* Bl = B_out + size_t(b) * nn;
-  for (int idx = tid; idx < nn; idx += nt) Bl[idx] = sB[idx];
-  if (tid == 0) {
+  {  // the last change of B
+    T By[2], Bg[2];
+    qnm::column_pass<T, false>(sB, n, cols, pending, sY, sG, By, Bg);
+  }
+  T* Bl = B_out + size_t(b) * n * n;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (!cols.own[c]) continue;
+    for (int r = 0; r < n; ++r) Bl[r * n + cols.j[c]] = sB[r * n + cols.j[c]];
+  }
+  if (threadIdx.x == 0) {
     fun_out[b] = fun;
     status_out[b] = status == kRunning ? kMaxIterations : status;
     iterations_out[b] = iterations;
@@ -295,25 +365,50 @@ __global__ void resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ 
   }
 }
 
+// The launch shape of n: the kernel variant (one warp or several), its
+// threads and its dynamic shared memory, prepared for launch.
+template <typename T>
+struct Shape {
+  void (*kernel)(const T*, T*, T*, T*, T*, T*, T*, int*, int*, int*, int*, int*, uint8_t*, int*,
+                 int, Params<T>);
+  int threads;
+  size_t smem;
+};
+
+template <typename T>
+cudaError_t shape_for(int n, Shape<T>* out) {
+  const int warps = qnm::lane_warps(n);
+  if (warps > qnm::kMaxLaneWarps) return cudaErrorInvalidValue;
+  out->kernel = warps == 1 ? resident_solve_kernel<T, true> : resident_solve_kernel<T, false>;
+  out->threads = 32 * warps;
+  out->smem = smem_bytes(n, sizeof(T));
+  return qnm::prepare_launch(out->kernel, out->smem);
+}
+
 template <typename T>
 int launch(const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun,
            void* status, void* iterations, void* n_fev, void* n_gev, void* n_resets,
            void* fresh, void* stall, int batch, int n, const Params<T>& p, void* stream) {
   if (batch == 0 || n == 0) return 0;
-  const size_t smem = smem_bytes(n, sizeof(T));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        resident_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (err != cudaSuccess) return int(err);
-  }
-  resident_solve_kernel<T>
-      <<<batch, qnm::threads_for(n), smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const T*>(X0), static_cast<T*>(X), static_cast<T*>(G),
-          static_cast<T*>(G_old), static_cast<T*>(step), static_cast<T*>(B),
-          static_cast<T*>(fun), static_cast<int*>(status), static_cast<int*>(iterations),
-          static_cast<int*>(n_fev), static_cast<int*>(n_gev), static_cast<int*>(n_resets),
-          static_cast<uint8_t*>(fresh), static_cast<int*>(stall), n, p);
+  Shape<T> shape;
+  const cudaError_t err = shape_for<T>(n, &shape);
+  if (err != cudaSuccess) return int(err);
+  shape.kernel<<<batch, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(X0), static_cast<T*>(X), static_cast<T*>(G),
+      static_cast<T*>(G_old), static_cast<T*>(step), static_cast<T*>(B), static_cast<T*>(fun),
+      static_cast<int*>(status), static_cast<int*>(iterations), static_cast<int*>(n_fev),
+      static_cast<int*>(n_gev), static_cast<int*>(n_resets), static_cast<uint8_t*>(fresh),
+      static_cast<int*>(stall), n, p);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int occupancy(int n, int* regs, int* threads, int* blocks_per_sm) {
+  Shape<T> shape;
+  const cudaError_t err = shape_for<T>(n, &shape);
+  if (err != cudaSuccess) return int(err);
+  *threads = shape.threads;
+  return qnm::launch_occupancy(shape.kernel, shape.threads, shape.smem, regs, blocks_per_sm);
 }
 
 }  // namespace
@@ -322,6 +417,14 @@ extern "C" {
 
 // Shared memory one block of the solve asks for, in bytes.
 size_t qnm_resident_smem_bytes(int n, int itemsize) { return smem_bytes(n, size_t(itemsize)); }
+
+// The solve's launch at n: registers per thread, threads per block and
+// blocks per SM (the occupancy calculator's, with the attributes a launch
+// sets). Returns a CUDA error code (0 = success).
+int qnm_resident_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
+  return itemsize == 4 ? occupancy<float>(n, regs, threads, blocks_per_sm)
+                       : occupancy<double>(n, regs, threads, blocks_per_sm);
+}
 
 // Both return cudaGetLastError() after the launch (0 = launched).
 int qnm_resident_solve_f32(const void* X0, void* X, void* G, void* G_old, void* step, void* B,

@@ -13,8 +13,10 @@ contiguous block; vectors are (batch, n); per-lane masks and scalars are
 `fused_bfgs_update_batched` launches the hand-written CUDA kernel B1
 (``csrc/bfgs_update.cu``) on CUDA tensors and takes the plain PyTorch
 version `fused_bfgs_update_reference` on CPU tensors. Both update B in
-place. B1 holds one lane's B in one block's shared memory
-(`fused_update_fits`); larger n take the two-pass kernel B2
+place. B1 runs each lane in a block of its own (one warp up to n = 64),
+which holds the lane's B in shared memory (`fused_update_fits`), brought in
+by a bulk copy and written back with 16-byte stores; larger n take the
+two-pass kernel B2
 (ops/kernels/bfgs_blocked.py). The plain version is B2's plain passes
 around `update_algebra`, the O(n·batch) algebra both call between the
 matvecs and the update of B.
@@ -41,20 +43,21 @@ __all__ = [
     "blocked_matvec_reference",
     "blocked_update_reference",
     "SMEM_LIMIT_BYTES",
+    "fused_update_occupancy",
 ]
 
 # Shared memory one block may opt into on Hopper (sm_90: 227 KB); the kernel
 # library is built for sm_90a only.
 SMEM_LIMIT_BYTES = 232_448
-# The kernels' block-reduction scratch: kMaxSums x kMaxWarps values
-# (csrc/bfgs_common.cuh).
-SMEM_SCRATCH_VALUES = 4 * 16
+# The kernels' reduction scratch: kRedValues = 2 x kMaxSums x kMaxLaneWarps
+# values (csrc/bfgs_common.cuh).
+SMEM_SCRATCH_VALUES = 2 * 8 * 4
 
 
 def fused_update_fits(n: int, itemsize: int) -> bool:
-    """Whether one lane of B1 fits one block's shared memory: B (n·n), six
-    vectors and the reduction scratch, the count of ``smem_bytes`` in
-    csrc/bfgs_update.cu (n <= 237 in float32, n <= 167 in float64)."""
+    """Whether one lane of B1 fits one block's shared memory: the count of
+    ``smem_bytes`` in csrc/bfgs_update.cu, (n² + 6n + the reduction
+    scratch)·itemsize (n <= 237 in float32, n <= 167 in float64)."""
     return (n * n + 6 * n + SMEM_SCRATCH_VALUES) * itemsize <= SMEM_LIMIT_BYTES
 
 
@@ -169,7 +172,23 @@ def _library() -> ctypes.CDLL:
         fn.restype = i32
     lib.qnm_bfgs_update_smem_bytes.argtypes = [i32, i32]
     lib.qnm_bfgs_update_smem_bytes.restype = ctypes.c_size_t
+    lib.qnm_bfgs_update_occupancy.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.qnm_bfgs_update_occupancy.restype = i32
     return lib
+
+
+def launch_occupancy(query, n: int, itemsize: int) -> dict:
+    """What a launcher's occupancy query (``qnm_*_occupancy``) reports for
+    n: registers per thread, threads per block, blocks per SM."""
+    regs, threads, blocks = (ctypes.c_int() for _ in range(3))
+    check_launch(query(n, itemsize, ctypes.byref(regs), ctypes.byref(threads),
+                       ctypes.byref(blocks)), "occupancy query")
+    return {"registers": regs.value, "threads": threads.value, "blocks_per_sm": blocks.value}
+
+
+def fused_update_occupancy(n: int, itemsize: int) -> dict:
+    """B1's launch at n on the current card (see `launch_occupancy`)."""
+    return launch_occupancy(_library().qnm_bfgs_update_occupancy, n, itemsize)
 
 
 def _check_args(B, step, g, g_old, active, fresh):
@@ -205,9 +224,9 @@ def fused_bfgs_update_batched(
     (B, d, m, reset) with the semantics of `fused_bfgs_update_reference`,
     B updated IN PLACE.
 
-    On CUDA tensors this launches the CUDA kernel (one thread block per
-    lane, the lane's B staged once in shared memory) on the current stream,
-    without synchronising, and counts the launch in
+    On CUDA tensors this launches the CUDA kernel (one block per lane, one
+    warp up to n = 64, the lane's B staged once in shared memory) on the
+    current stream, without synchronising, and counts the launch in
     ``fused_bfgs_update_batched.launches``. It raises where the kernel
     cannot run — ValueError when one lane's B does not fit in shared memory
     (`fused_update_fits`; `fused_bfgs_update_blocked` serves such n),

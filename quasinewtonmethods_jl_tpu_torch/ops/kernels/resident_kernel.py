@@ -2,11 +2,11 @@
 
 `resident_bfgs_solve` runs a Rosenbrock fleet's entire BFGS solve in one
 launch of the hand-written CUDA kernel ``csrc/resident_solve.cu`` (one
-thread block per lane, the lane's B and vectors in shared memory throughout,
-the objective evaluated on the card) and returns the result in the fleet
-engine's layout. On CPU tensors it takes the plain version,
-`optimize_batched_resident_reference`: the fleet engine with the plain
-update, which the kernel is held to.
+block per lane, one warp up to n = 64, the lane's B and vectors in shared
+memory throughout, the objective evaluated on the card) and returns the
+result in the fleet engine's layout. On CPU tensors it takes the plain
+version, `optimize_batched_resident_reference`: the fleet engine with the
+plain update, which the kernel is held to.
 """
 
 from __future__ import annotations
@@ -28,16 +28,21 @@ from ...solve import OptimizeResult
 from ...utils.scalars import finite_halving_limit, sqrt_tolerance
 from ..linesearch import BackTracking
 from ._build import check_launch, load_library
-from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES
+from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES, launch_occupancy
 
-__all__ = ["resident_bfgs_solve", "optimize_batched_resident_reference", "resident_feasible"]
+__all__ = [
+    "resident_bfgs_solve",
+    "optimize_batched_resident_reference",
+    "resident_feasible",
+    "resident_occupancy",
+]
 
 
 def resident_feasible(n: int, itemsize: int) -> bool:
-    """Whether one lane of B3 fits one block's shared memory: B (n·n), nine
-    vectors and the reduction scratch, the count of ``smem_bytes`` in
-    csrc/resident_solve.cu (n <= 236 in float32, n <= 165 in float64).
-    Larger n belong to `optimize_batched_fused`."""
+    """Whether one lane of B3 fits one block's shared memory: the count of
+    ``smem_bytes`` in csrc/resident_solve.cu, (n² + 9n + the reduction
+    scratch)·itemsize (n <= 236 in float32, n <= 165 in float64). Larger n
+    belong to `optimize_batched_fused`."""
     return (n * n + 9 * n + SMEM_SCRATCH_VALUES) * itemsize <= SMEM_LIMIT_BYTES
 
 
@@ -71,7 +76,15 @@ def _library() -> ctypes.CDLL:
         fn.restype = i32
     lib.qnm_resident_smem_bytes.argtypes = [i32, i32]
     lib.qnm_resident_smem_bytes.restype = ctypes.c_size_t
+    lib.qnm_resident_occupancy.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
+    lib.qnm_resident_occupancy.restype = i32
     return lib
+
+
+def resident_occupancy(n: int, itemsize: int) -> dict:
+    """B3's launch at n on the current card: registers per thread, threads
+    per block, blocks per SM."""
+    return launch_occupancy(_library().qnm_resident_occupancy, n, itemsize)
 
 
 def resident_bfgs_solve(

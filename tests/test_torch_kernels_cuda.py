@@ -82,12 +82,21 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# B1 at the edges of its layout: one warp per lane up to n = 64, a thread's
+# second column from n = 33, two warps from 65, the largest n that fits
+# shared memory (237 f32, 167 f64); n·n·itemsize or the lane offset off 16
+# bytes (7, 31, 33, 61, 63, 65, 237) takes the bulk copies' ragged ends.
+B1_EDGES = (2, 7, 31, 32, 33, 60, 61, 63, 64, 65, 128)
+B1_CASES = ([(n, np.float32, 1e-5) for n in (*B1_EDGES, 237)]
+            + [(n, np.float64, 1e-12) for n in (*B1_EDGES, 167)])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype, rtol", [(np.float32, 1e-5), (np.float64, 1e-12)])
-@pytest.mark.parametrize("n", [2, 7, 60, 61, 128])
+@pytest.mark.parametrize("n, dtype, rtol", B1_CASES)
 def test_kernel_matches_plain_version(cuda_device, n, dtype, rtol):
     """Tolerance is normwise (max |kernel - plain| / max |plain| per output):
-    the kernel sums in another order than cuBLAS and torch's reductions."""
+    the kernel sums in another order than cuBLAS and torch's reductions.
+    Every lane kind: frozen, fresh, forced reset, NaN, active."""
     rng = np.random.default_rng(20260816 + n)
     args = [a.astype(dtype) if a.dtype != bool else a for a in make_inputs(rng, n, 64, kinds=True)]
     tensors = [torch.tensor(a, device=cuda_device) for a in args]
@@ -273,7 +282,7 @@ def test_engine_solves_large_n_through_the_blocked_kernels(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 5, 6, 17])
+@pytest.mark.parametrize("n", [2, 5, 6, 17, 65, 100])
 @pytest.mark.parametrize("order, h0_scale", [(2, True), (3, False)])
 def test_resident_kernel_matches_plain_version_exactly(cuda_device, n, order, h0_scale):
     """B3 against the fleet engine with the plain update, f64, 5 iterations:
@@ -304,7 +313,7 @@ def test_resident_kernel_matches_plain_version_exactly(cuda_device, n, order, h0
 @pytest.mark.parametrize("order, h0_scale", [(2, True), (3, False)])
 def test_resident_kernel_matches_plain_version_on_the_bench_fleet(cuda_device, order, h0_scale):
     """B3 in float32 at the main path's shape (4096 x 60, seed 20260816,
-    tol 1e-3; 128 threads per block): over caps 0, 1 and 5 statuses and
+    tol 1e-3; one warp per lane): over caps 0, 1 and 5 statuses and
     every counter equal on every lane; x, grad and B normwise within 1e-5
     (the float32 limit of the kernel checks) or, where more, twice what the
     plain version moves when run on the CPU, which sums in another order
@@ -333,6 +342,51 @@ def test_resident_kernel_matches_plain_version_on_the_bench_fleet(cuda_device, o
     plain = optimize_batched_resident_reference(X, ls, 1e-3, 3000, h0_scale, 50)
     assert torch.equal(full.status, plain.status)
     assert (full.status == Status.CONVERGED).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 5, 17, 60, 64, 65, 128, 236])
+def test_resident_kernel_matches_plain_version_at_the_lane_group_edges(cuda_device, n):
+    """B3 in float32 where its layout changes: one warp per lane up to
+    n = 64 (a second column per thread from n = 33), two warps from 65, four
+    at the largest n that fits (236). Over caps 0, 1 and 5 statuses and
+    every per-lane counter equal; x, grad and B normwise within 1e-5 or,
+    where more, twice what the plain version moves when run on the CPU."""
+    X = torch.tensor(np.random.default_rng(20260816 + n).standard_normal((64, n)),
+                     dtype=torch.float32, device=cuda_device)
+    ls = BackTracking()
+    leaves = ("x", "grad", "B")
+    for cap in (0, 1, 5):
+        before = resident_bfgs_solve.launches
+        kern = optimize_batched_resident(rosenbrock_logdensity, X, ls=ls, tol=1e-3,
+                                         max_iterations=cap, kernel="cuda")
+        assert resident_bfgs_solve.launches == before + (cap > 0)
+        plain = optimize_batched_resident_reference(X, ls, 1e-3, cap, True, 50)
+        cpu = optimize_batched_resident_reference(X.cpu(), ls, 1e-3, cap, True, 50)
+        for name in COUNTERS:
+            assert torch.equal(getattr(kern, name), getattr(plain, name)), (cap, name)
+        for name in ("fresh", "stall"):
+            assert torch.equal(getattr(kern.state, name), getattr(plain.state, name)), (cap, name)
+        witness = max(normwise_diff(getattr(cpu.state, f).to(cuda_device), getattr(plain.state, f))
+                      for f in leaves)
+        for name in leaves:
+            assert_normwise_close(getattr(kern.state, name), getattr(plain.state, name),
+                                  max(1e-5, 2 * witness))
+
+
+@pytest.mark.cuda
+def test_lane_groups_launch_as_designed(cuda_device):
+    """One warp per lane up to n = 64, then a warp per 64 columns; at the
+    bench fleet's n = 60 in float32 shared memory admits 13 lanes per SM."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import fused_update_occupancy
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
+
+    for query in (fused_update_occupancy, resident_occupancy):
+        for n, threads in ((2, 32), (60, 32), (64, 32), (65, 64), (128, 64), (129, 96), (236, 128)):
+            got = query(n, 4)
+            assert got["threads"] == threads, (query.__name__, n, got)
+            assert got["registers"] > 0 and got["blocks_per_sm"] > 0, (query.__name__, n, got)
+        assert query(60, 4)["blocks_per_sm"] >= 13, query.__name__
 
 
 @pytest.mark.cuda
