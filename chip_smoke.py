@@ -19,9 +19,10 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      lane must converge, and every loop body must have launched B1;
   5. exact parity of B1 and the plain update on an f64 quadratic fleet;
   6. times: B1 and the plain version per call at 4096 x 60 f32 (B1 also
-     by its device time per launch, torch.profiler), B1's share of its
-     bound and its launch shape (registers, threads, blocks per SM), and
-     solves/s of phase 4 through each;
+     by its device time per launch, torch.profiler; the run fails if the
+     profiler records no launch), B1's share of its bound by each time and
+     its launch shape (registers, threads, blocks per SM), and solves/s of
+     phase 4 through each;
   7. B2 (each pass and the whole two-pass update) against its plain
      version: f32 and f64, n in {2, 7, 60, 250, 512}, every lane kind;
   8. large-n path: 1024 split-Rosenbrock n=512 solves in f32 (seed
@@ -49,9 +50,12 @@ Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and the
-floating-point operations its inputs need over 67 TFLOP/s (H100 SXM, f32
-outside the tensor cores); ``library_ms`` is one PyTorch call that
-computes the same function (B2a: ``torch.bmm``), null where none does.
+floating-point operations its inputs need, however a kernel rounds (see
+``update_ops``), over 67 TFLOP/s (H100 SXM, f32 outside the tensor
+cores); ``ms`` is B1's device time per launch, B2's per call by CUDA
+events, B3's per solve by CUDA events; ``library_ms`` is one PyTorch call
+that computes the same function (B2a: ``torch.bmm``), null where none
+does.
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -306,36 +310,52 @@ def bound(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def update_lane_flops(n):
-    """Floating-point operations of one active lane's fused update: the two
-    matvecs (4n²), the rank-2 update (8 per element of B) and the O(n)
-    algebra around them (about 25n)."""
-    return 12 * n * n + 25 * n
+def update_ops(n, updates, rank2, scaled):
+    """Floating-point operations that ``updates`` active lanes' fused
+    updates need, however a kernel rounds, where ``rank2`` of them change B
+    by the rank-2 formula (the others reset it to I, which needs none) and
+    ``scaled`` of those have a scale other than 1 (the update after a
+    reset). Per update: the two matvecs (4n²) and the O(n) algebra around
+    them (y and the four sums that need no B 9n, u n, the three sums after
+    the matvecs 6n, d 6n, a = c1·s - u 2n: 24n). Per rank-2 change, written
+    B[r, c] = scale·B[r, c] + s[r]·a[c] - u[r]·s[c]: 4 per element of B, 5
+    where scaled (and the matvecs' scaling, 2n)."""
+    return (updates * (4 * n * n + 24 * n) + rank2 * (4 * n * n)
+            + scaled * (n * n + 2 * n))
 
 
-def b1_bound(batch, n, itemsize, lanes_active):
-    """B1's bound: active lanes read and write B and read step, g, g_old;
-    every lane reads its two masks and writes d, m and reset."""
+def b1_bound(batch, n, itemsize, lanes_active, lanes_reset):
+    """B1's bound on inputs with no fresh lane: active lanes read and write
+    B and read step, g, g_old; every lane reads its two masks and writes d,
+    m and reset."""
     nbytes = (lanes_active * (2 * n * n + 3 * n) * itemsize
               + batch * (2 + n * itemsize + itemsize + 1))
-    return bound(nbytes, lanes_active * update_lane_flops(n))
+    return bound(nbytes, update_ops(n, lanes_active, lanes_active - lanes_reset, 0))
 
 
-def b3_bound(res, n, itemsize):
+def b3_bound(res, n, itemsize, h0_scale):
     """B3's bound from the solve's own counters: it reads X0 and writes X,
-    G, G_old, STEP, B and the per-lane scalars once; per lane it does
-    (iterations - 1) updates (the first iteration is the peel), n_gev
-    value-and-gradient evaluations with the status test's and the update's
-    sums (about 16n), n_fev - n_gev line-search trials (about 6n) and a
-    step per iteration (2n)."""
+    G, G_old, STEP, B and the per-lane scalars once. Per lane: n_gev
+    value-and-gradient evaluations with the tolerance test (7n);
+    iterations - 1 updates (the first iteration is the peel, which counts
+    one reset), n_resets - 1 of which reset B; an update right after a
+    reset is scaled (with h0_scale): there are n_resets of those less one
+    where the last iteration reset (the fresh flag it ends with), and at
+    least that less the resets are rank-2 changes; n_fev - n_gev
+    line-search trials (6n); and a step per iteration (2n)."""
     batch = res.x.shape[0]
     iters = res.iterations.to(torch.float64)
     gev = res.n_gev.to(torch.float64)
     trials = res.n_fev.to(torch.float64) - gev
-    flops = float(((iters - 1).clamp(min=0) * update_lane_flops(n) + gev * 16 * n
-                   + trials * 6 * n + iters * 2 * n).sum())
+    n_resets = res.n_resets.to(torch.float64)
+    updates = (iters - 1).clamp(min=0)
+    resets = (n_resets - (iters > 0).to(torch.float64)).clamp(min=0)
+    after_reset = n_resets - res.state.fresh.to(torch.float64)
+    scaled = (after_reset - resets).clamp(min=0) * float(h0_scale)
+    ops = (update_ops(n, updates, updates - resets, scaled)
+           + gev * 7 * n + trials * 6 * n + iters * 2 * n)
     nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1)
-    return bound(nbytes, flops)
+    return bound(nbytes, float(ops.sum()))
 
 
 def shape_line(occupancy):
@@ -370,6 +390,7 @@ def timing_phase(qt, device, smi):
 
     # all lanes active and not fresh: the steady-state call of the main path
     args, _ = kernel_inputs(BENCH_SEED + 2, N, BATCH, torch.float32, device, kinds=False)
+    lanes_reset = int(fused_bfgs_update_reference(*(a.clone() for a in args))[3].sum())
     fns = {"cuda": fused_bfgs_update_batched, "torch": fused_bfgs_update_reference}
     for fn in fns.values():
         time_calls(fn, args, calls=3)  # warm-up
@@ -379,20 +400,23 @@ def timing_phase(qt, device, smi):
             ms[k].append(time_calls(fns[k], args))
     call_ms, plain_ms = float(np.median(ms["cuda"])), float(np.median(ms["torch"]))
     # The wrapper's host time per call is about the kernel's, so back-to-back
-    # calls can be paced by the host: the kernel's own time comes from the
-    # profiler's device events (median of 3 x 20 launches).
+    # calls can be paced by the host: the kernel's own time (the `ms` of its
+    # record) comes from the profiler's device events (median of 3 x 20
+    # launches). A run whose profiler misses the kernel fails rather than
+    # report a time by the other method under the same name.
     device_ms = [device_ms_per_launch(fused_bfgs_update_batched, args, "bfgs_update_kernel")
                  for _ in range(3)]
-    kernel_ms = call_ms if None in device_ms else float(np.median(device_ms))
-    source = "CUDA events per call" if None in device_ms else "device time per launch"
+    check(None not in device_ms, "torch.profiler recorded no launch of bfgs_update_kernel")
+    kernel_ms = float(np.median(device_ms))
     bytes_moved = 2 * BATCH * N * N * 4
-    bound_ms, bound_by = b1_bound(BATCH, N, 4, BATCH)
-    log(f"[time] B1 at {BATCH}x{N} f32: kernel {kernel_ms:.4f} ms ({source}, torch.profiler; "
-        f"{bytes_moved / kernel_ms / 1e6:.0f} GB/s of B traffic), {call_ms:.4f} ms per call by "
-        f"CUDA events over back-to-back calls, plain {plain_ms:.4f} ms/call (median of 6 x 20 "
-        f"calls, in turns); bound {bound_ms:.4f} ms ({bound_by}), B1 at "
-        f"{100 * bound_ms / kernel_ms:.1f} % of it; launch {shape_line(fused_update_occupancy(N, 4))} "
-        f"on {smi}")
+    bound_ms, bound_by = b1_bound(BATCH, N, 4, BATCH, lanes_reset)
+    log(f"[time] B1 at {BATCH}x{N} f32: kernel {kernel_ms:.4f} ms (device time per launch, "
+        f"torch.profiler; {bytes_moved / kernel_ms / 1e6:.0f} GB/s of B traffic), {call_ms:.4f} "
+        f"ms per call by CUDA events over back-to-back calls, plain {plain_ms:.4f} ms/call (median "
+        f"of 6 x 20 calls, in turns); bound {bound_ms:.4f} ms ({bound_by}; {lanes_reset} of "
+        f"{BATCH} lanes reset), B1 at {100 * bound_ms / kernel_ms:.1f} % of it by device time, "
+        f"{100 * bound_ms / call_ms:.1f} % by CUDA events per call; launch "
+        f"{shape_line(fused_update_occupancy(N, 4))} on {smi}")
 
     X = bench_fleet(device)
     engine = qt.optimize_batched_fused
@@ -785,7 +809,7 @@ def resident_path_phase(qt, device):
     check(float(res.grad.abs().max()) < TOL, "gradient certificate not met")
     check(abs(med - JAX_MEDIAN_ITERS) <= 0.1 * JAX_MEDIAN_ITERS,
           f"median iterations {med} not within 10% of {JAX_MEDIAN_ITERS}")
-    return c, b3_bound(res, N, 4)
+    return c, b3_bound(res, N, 4, h0_scale=True)  # the entry point's default
 
 
 def alternate(fns, rounds):
@@ -888,10 +912,13 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
     # B2a reads B, y and g and writes By and Bg; B2b reads and writes B on
     # updated lanes, writes it on reset lanes, and reads s, u and the scalars
     upd_lanes, rst_lanes = int(alg.do_upd.sum()), int(alg.reset.sum())
+    # (operations: B2a's two matvecs 4n² per lane; B2b's rank-2 change as in
+    # update_ops, 4 per element of B plus a = c1·s - u, 5 where scaled)
+    scaled_lanes = int((alg.do_upd & (alg.scale != 1)).sum())
     mv_bound = bound(LARGE_BATCH * (nn + 4 * n) * 4, LARGE_BATCH * 4 * nn)
     up_bound = bound((upd_lanes * 2 * nn + rst_lanes * nn) * 4
                      + LARGE_BATCH * (2 * n * 4 + 2 * 4 + 2),
-                     upd_lanes * 8 * nn)
+                     upd_lanes * (4 * nn + 2 * n) + scaled_lanes * nn)
     peak = {}
     for k, fn in (("cuda", fused_bfgs_update_blocked), ("torch", fused_bfgs_update_reference)):
         torch.cuda.synchronize()
@@ -982,7 +1009,8 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
         f"from the solve's first op to its last): {'; '.join(series)} on {smi}")
     b3_bound_ms, b3_bound_by = b3_bounds
     log(f"[time] B3 at {BATCH}x{N} f32: {b3_ms:.4f} ms per solve (CUDA events), bound "
-        f"{b3_bound_ms:.4f} ms ({b3_bound_by}, from the main path's iterations and evaluations), "
+        f"{b3_bound_ms:.4f} ms ({b3_bound_by} the solve needs, from the main path's iterations, "
+        f"evaluations and resets), "
         f"B3 at {100 * b3_bound_ms / b3_ms:.1f} % of it; launch {shape_line(resident_occupancy(N, 4))} "
         f"on {smi}")
     # the plain update's run is B3's plain version (optimize_batched_resident_reference)

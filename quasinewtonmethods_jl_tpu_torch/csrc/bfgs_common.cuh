@@ -316,27 +316,52 @@ __device__ __forceinline__ LaneUpdate<T> bfgs_update_lane(LaneGroup<T, kOneWarp>
   return upd;
 }
 
-// Host side. Sets what a lane-group kernel needs before a launch: dynamic
-// shared memory above 48 KB, and the SM's carveout to shared memory's
-// maximum, since shared memory, not registers, bounds its blocks per SM.
+// Host side. The launch of a lane-group kernel at n: its variant (one warp
+// or several), threads per block and dynamic shared memory, and the error
+// of choosing and preparing it.
 template <typename Kernel>
-cudaError_t prepare_launch(Kernel kernel, size_t smem) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                              int(cudaSharedmemCarveoutMaxShared));
+struct LaneLaunch {
+  Kernel kernel = nullptr;
+  int threads = 0;
+  size_t smem = 0;
+  cudaError_t err = cudaSuccess;
+};
+
+// Picks the variant for n and prepares it: dynamic shared memory above
+// 48 KB, and the SM's carveout to shared memory's maximum, since shared
+// memory, not registers, bounds its blocks per SM.
+template <typename Kernel>
+LaneLaunch<Kernel> lane_launch(int n, Kernel one_warp, Kernel several_warps, size_t smem) {
+  LaneLaunch<Kernel> l;
+  const int warps = lane_warps(n);
+  if (warps > kMaxLaneWarps) {
+    l.err = cudaErrorInvalidValue;
+    return l;
+  }
+  l.kernel = warps == 1 ? one_warp : several_warps;
+  l.threads = 32 * warps;
+  l.smem = smem;
+  l.err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (l.err == cudaSuccess) {
+    l.err = cudaFuncSetAttribute(l.kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 int(cudaSharedmemCarveoutMaxShared));
+  }
+  return l;
 }
 
-// A prepared kernel's registers per thread and blocks per SM at a launch
-// of ``threads`` threads and ``smem`` bytes (the occupancy calculator's).
+// A launch's registers per thread, threads per block and blocks per SM
+// (the occupancy calculator's, with the attributes lane_launch set).
+// Returns a CUDA error code (0 = success).
 template <typename Kernel>
-int launch_occupancy(Kernel kernel, int threads, size_t smem, int* regs, int* blocks_per_sm) {
+int lane_occupancy(const LaneLaunch<Kernel>& l, int* regs, int* threads, int* blocks_per_sm) {
+  if (l.err != cudaSuccess) return int(l.err);
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, l.kernel);
   if (err != cudaSuccess) return int(err);
   *regs = attr.numRegs;
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, threads, smem));
+  *threads = l.threads;
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, l.kernel, l.threads,
+                                                           l.smem));
 }
 
 }  // namespace qnm

@@ -161,48 +161,24 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   }
 }
 
-// The launch shape of n: the kernel variant (one warp or several), its
-// threads and its dynamic shared memory, prepared for launch.
 template <typename T>
-struct Shape {
-  void (*kernel)(T*, const T*, const T*, const T*, const uint8_t*, const uint8_t*, T*, T*,
-                 uint8_t*, int);
-  int threads;
-  size_t smem;
-};
-
-template <typename T>
-cudaError_t shape_for(int n, Shape<T>* out) {
-  const int warps = qnm::lane_warps(n);
-  if (warps > qnm::kMaxLaneWarps) return cudaErrorInvalidValue;
-  out->kernel = warps == 1 ? bfgs_update_kernel<T, true> : bfgs_update_kernel<T, false>;
-  out->threads = 32 * warps;
-  out->smem = smem_bytes(n, sizeof(T));
-  return qnm::prepare_launch(out->kernel, out->smem);
+auto launch_for(int n) {
+  return qnm::lane_launch(n, &bfgs_update_kernel<T, true>, &bfgs_update_kernel<T, false>,
+                          smem_bytes(n, sizeof(T)));
 }
 
 template <typename T>
 int launch(void* B, const void* step, const void* g, const void* g_old, const void* active,
            const void* fresh, void* d, void* m, void* reset, int batch, int n, void* stream) {
   if (batch == 0 || n == 0) return 0;
-  Shape<T> shape;
-  const cudaError_t err = shape_for<T>(n, &shape);
-  if (err != cudaSuccess) return int(err);
-  shape.kernel<<<batch, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto l = launch_for<T>(n);
+  if (l.err != cudaSuccess) return int(l.err);
+  l.kernel<<<batch, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<T*>(B), static_cast<const T*>(step), static_cast<const T*>(g),
       static_cast<const T*>(g_old), static_cast<const uint8_t*>(active),
       static_cast<const uint8_t*>(fresh), static_cast<T*>(d), static_cast<T*>(m),
       static_cast<uint8_t*>(reset), n);
   return int(cudaGetLastError());
-}
-
-template <typename T>
-int occupancy(int n, int* regs, int* threads, int* blocks_per_sm) {
-  Shape<T> shape;
-  const cudaError_t err = shape_for<T>(n, &shape);
-  if (err != cudaSuccess) return int(err);
-  *threads = shape.threads;
-  return qnm::launch_occupancy(shape.kernel, shape.threads, shape.smem, regs, blocks_per_sm);
 }
 
 }  // namespace
@@ -218,8 +194,8 @@ size_t qnm_bfgs_update_smem_bytes(int n, int itemsize) {
 // blocks per SM (the occupancy calculator's, with the attributes a launch
 // sets). Returns a CUDA error code (0 = success).
 int qnm_bfgs_update_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
-  return itemsize == 4 ? occupancy<float>(n, regs, threads, blocks_per_sm)
-                       : occupancy<double>(n, regs, threads, blocks_per_sm);
+  return itemsize == 4 ? qnm::lane_occupancy(launch_for<float>(n), regs, threads, blocks_per_sm)
+                       : qnm::lane_occupancy(launch_for<double>(n), regs, threads, blocks_per_sm);
 }
 
 // Both return cudaGetLastError() after the launch (0 = launched).

@@ -365,24 +365,10 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   }
 }
 
-// The launch shape of n: the kernel variant (one warp or several), its
-// threads and its dynamic shared memory, prepared for launch.
 template <typename T>
-struct Shape {
-  void (*kernel)(const T*, T*, T*, T*, T*, T*, T*, int*, int*, int*, int*, int*, uint8_t*, int*,
-                 int, Params<T>);
-  int threads;
-  size_t smem;
-};
-
-template <typename T>
-cudaError_t shape_for(int n, Shape<T>* out) {
-  const int warps = qnm::lane_warps(n);
-  if (warps > qnm::kMaxLaneWarps) return cudaErrorInvalidValue;
-  out->kernel = warps == 1 ? resident_solve_kernel<T, true> : resident_solve_kernel<T, false>;
-  out->threads = 32 * warps;
-  out->smem = smem_bytes(n, sizeof(T));
-  return qnm::prepare_launch(out->kernel, out->smem);
+auto launch_for(int n) {
+  return qnm::lane_launch(n, &resident_solve_kernel<T, true>, &resident_solve_kernel<T, false>,
+                          smem_bytes(n, sizeof(T)));
 }
 
 template <typename T>
@@ -390,25 +376,15 @@ int launch(const void* X0, void* X, void* G, void* G_old, void* step, void* B, v
            void* status, void* iterations, void* n_fev, void* n_gev, void* n_resets,
            void* fresh, void* stall, int batch, int n, const Params<T>& p, void* stream) {
   if (batch == 0 || n == 0) return 0;
-  Shape<T> shape;
-  const cudaError_t err = shape_for<T>(n, &shape);
-  if (err != cudaSuccess) return int(err);
-  shape.kernel<<<batch, shape.threads, shape.smem, static_cast<cudaStream_t>(stream)>>>(
+  const auto l = launch_for<T>(n);
+  if (l.err != cudaSuccess) return int(l.err);
+  l.kernel<<<batch, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X0), static_cast<T*>(X), static_cast<T*>(G),
       static_cast<T*>(G_old), static_cast<T*>(step), static_cast<T*>(B), static_cast<T*>(fun),
       static_cast<int*>(status), static_cast<int*>(iterations), static_cast<int*>(n_fev),
       static_cast<int*>(n_gev), static_cast<int*>(n_resets), static_cast<uint8_t*>(fresh),
       static_cast<int*>(stall), n, p);
   return int(cudaGetLastError());
-}
-
-template <typename T>
-int occupancy(int n, int* regs, int* threads, int* blocks_per_sm) {
-  Shape<T> shape;
-  const cudaError_t err = shape_for<T>(n, &shape);
-  if (err != cudaSuccess) return int(err);
-  *threads = shape.threads;
-  return qnm::launch_occupancy(shape.kernel, shape.threads, shape.smem, regs, blocks_per_sm);
 }
 
 }  // namespace
@@ -422,8 +398,8 @@ size_t qnm_resident_smem_bytes(int n, int itemsize) { return smem_bytes(n, size_
 // blocks per SM (the occupancy calculator's, with the attributes a launch
 // sets). Returns a CUDA error code (0 = success).
 int qnm_resident_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
-  return itemsize == 4 ? occupancy<float>(n, regs, threads, blocks_per_sm)
-                       : occupancy<double>(n, regs, threads, blocks_per_sm);
+  return itemsize == 4 ? qnm::lane_occupancy(launch_for<float>(n), regs, threads, blocks_per_sm)
+                       : qnm::lane_occupancy(launch_for<double>(n), regs, threads, blocks_per_sm);
 }
 
 // Both return cudaGetLastError() after the launch (0 = launched).
