@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (quasinewtonmethods_jl_tpu_torch) on one
 NVIDIA GPU: builds the hand-written CUDA kernels, checks each against its
-plain PyTorch version, and drives the port's three paths once at full
-width: the BFGS fleet engine through `optimize_batched` on the benchmark
-fleet (kernel B1), the same engine on a large-n fleet (the two-pass kernels
-B2a and B2b), and the resident engine `optimize_batched_resident` (B3).
+plain PyTorch version, and drives the port's paths once at full width: the
+BFGS fleet engine through `optimize_batched` on the benchmark fleet (kernel
+B1), the same engine on a large-n fleet (the two-pass kernels B2a and B2b),
+the resident engine `optimize_batched_resident` (B3), the nonlinear-CG fleet
+`optimize_cg` (the benchmark's headline engine; torch ops, no hand-written
+kernel), the BFGS fleet with the Wolfe search (B1), with ``fold_eval``, and
+with straggler compaction (`optimize_batched_compacted`, B1).
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -45,7 +48,28 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      benchmark fleet through B3, B1 and the plain update, with peak device
      memory; the device's busy time in one solve of each fleet-engine path
      (torch.profiler), and B3's time against fleet size (CUDA events), its
-     share of its bound and its launch shape.
+     share of its bound and its launch shape;
+ 12. CG headline: the phase-4 fleet through `optimize_cg` with its defaults
+     (Hager–Zhang, approximate Wolfe); every lane must converge with the
+     median iteration count within 10 % of the JAX package's, no kernel
+     launched, and every host synchronisation a counted one (sync debug
+     mode); solves/s with and without ``fold_eval`` (5 turns each, with each
+     turn's difference), host syncs and loop bodies per solve, peak device memory, the device's busy share
+     of one solve (torch.profiler);
+ 13. BFGS with the Wolfe search: the phase-4 fleet through
+     `optimize_batched(ls=Wolfe())`, every lane converged, median within 10 %
+     of the JAX package's, B1 launched once per loop body; then
+     ``fold_eval=True`` for the BFGS and CG engines, which must converge
+     every lane with fewer evaluations; solves/s (5 turns each, with each
+     turn's difference);
+ 14. compaction: the phase-4 fleet through `optimize_batched_compacted`
+     with kernel='cuda': the statuses of `optimize_batched_fused`, every
+     lane certified, B1 launched; the lanes whose counters differ from the
+     fused run's (rounding, not asserted); solves/s of both (5 turns each,
+     with each turn's difference);
+ 15. entry points given numpy: `optimize_batched` and `optimize_cg` given a
+     float64 numpy fleet return float32 results on the card (JAX's x64-off
+     dtype), and a CG state saved as numpy resumes there.
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
@@ -75,6 +99,8 @@ import torch
 BENCH_SEED = 20260816
 BATCH, N = 4096, 60
 TOL, MAX_ITERS = 1e-3, 3000
+# Timed turns of each engine in phases 12-14, whose solves take 0.5-6 s.
+TURNS = 5
 # The JAX package on this protocol (same seed and sizes, kernel="xla" on the
 # CPU): 4096/4096 converged, median 139 and max 225 iterations.
 JAX_MEDIAN_ITERS, JAX_MAX_ITERS = 139, 225
@@ -90,6 +116,12 @@ MATVEC_REPLACES = "quasinewtonmethods_jl_tpu/ops/pallas/bfgs_blocked.py:236"
 UPDATE_REPLACES = "quasinewtonmethods_jl_tpu/ops/pallas/bfgs_blocked.py:288"
 RESIDENT_SOURCE = "quasinewtonmethods_jl_tpu_torch/csrc/resident_solve.cu"
 RESIDENT_REPLACES = "quasinewtonmethods_jl_tpu/resident_solve.py:465"
+# The JAX package on the phase-4 fleet (kernel="xla" on the CPU):
+# `optimize_cg` with its defaults 4096/4096 converged, median 218 and max 457
+# iterations (fold_eval: median 218, max 587); `optimize_batched_fused` with
+# ls=Wolfe() median 137, max 245 (fold_eval: 137 / 235).
+JAX_CG_MEDIAN_ITERS, JAX_CG_MAX_ITERS = 218, 457
+JAX_WOLFE_MEDIAN_ITERS, JAX_WOLFE_MAX_ITERS = 137, 245
 # The large-n fleet. The JAX package on it (same seed and sizes,
 # kernel="xla" on the CPU): 1024/1024 converged, median 172 and max 246.
 LARGE_BATCH, LARGE_N = 1024, 512
@@ -214,7 +246,7 @@ def bench_fleet(device):
     return torch.tensor(X, device=device)
 
 
-def solve_bench(qt, X, kernel):
+def solve_bench(qt, X, kernel, **kw):
     from quasinewtonmethods_jl_tpu_torch.models import (
         rosenbrock_logdensity,
         rosenbrock_value_and_grad,
@@ -222,8 +254,20 @@ def solve_bench(qt, X, kernel):
 
     return qt.optimize_batched(
         rosenbrock_logdensity, X, tol=TOL, max_iterations=MAX_ITERS,
-        value_and_grad_fn=rosenbrock_value_and_grad, kernel=kernel,
+        value_and_grad_fn=rosenbrock_value_and_grad, kernel=kernel, **kw,
     )
+
+
+def solve_cg(qt, X, **kw):
+    """The benchmark's headline call (bench.py:75-83): `optimize_cg` with
+    its defaults on the phase-4 protocol."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    return qt.optimize_cg(rosenbrock_logdensity, X, tol=TOL, max_iterations=MAX_ITERS,
+                          value_and_grad_fn=rosenbrock_value_and_grad, **kw)
 
 
 def main_path_phase(qt, device):
@@ -455,16 +499,18 @@ def counted_kernels():
 
 
 def reset_counters(qt):
-    """Every kernel's launch count and the fleet engine's loop counts to 0."""
+    """Every kernel's launch count and the fleet engines' loop counts to 0."""
     for fn in counted_kernels().values():
         fn.launches = 0
-    qt.optimize_batched_fused.host_syncs = qt.optimize_batched_fused.loop_bodies = 0
+    for engine in (qt.optimize_batched_fused, qt.optimize_cg):
+        engine.host_syncs = engine.loop_bodies = 0
 
 
 def read_counters(qt):
     counts = {name: fn.launches for name, fn in counted_kernels().items()}
     counts.update(bodies=qt.optimize_batched_fused.loop_bodies,
-                  syncs=qt.optimize_batched_fused.host_syncs)
+                  syncs=qt.optimize_batched_fused.host_syncs,
+                  cg_bodies=qt.optimize_cg.loop_bodies, cg_syncs=qt.optimize_cg.host_syncs)
     return counts
 
 
@@ -816,6 +862,20 @@ def alternate(fns, rounds):
     """Median seconds of each of ``fns`` (name -> no-argument callable that
     ends with the device idle), run in turns, forward then backward, after
     one warm-up call each; also each one's peak device memory."""
+    secs, peak = alternate_samples(fns, rounds)
+    return {k: float(np.median(v)) for k, v in secs.items()}, peak
+
+
+def turn_gains(secs, base, other):
+    """``other``'s solves/s against ``base``'s, per turn, in %: (median,
+    min, max) of base_s / other_s - 1 over the turns, as a string."""
+    gains = [100 * (b / o - 1) for b, o in zip(secs[base], secs[other])]
+    return (f"{other} against {base} per turn {float(np.median(gains)):+.1f} % (range "
+            f"{min(gains):+.1f} to {max(gains):+.1f} % over {len(gains)} turns)")
+
+
+def alternate_samples(fns, rounds):
+    """`alternate`, but each one's seconds of every turn."""
     for fn in fns.values():
         fn()
     secs = {k: [] for k in fns}
@@ -829,7 +889,7 @@ def alternate(fns, rounds):
             torch.cuda.synchronize()
             secs[k].append(time.perf_counter() - t0)
             peak[k] = torch.cuda.max_memory_allocated()
-    return {k: float(np.median(v)) for k, v in secs.items()}, peak
+    return secs, peak
 
 
 def per_call_ms(fns, args, rounds=4, calls=10):
@@ -1019,6 +1079,188 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
             "B3": (b3_ms, 1e3 * walls["plain"], b3_bound_ms, b3_bound_by, None)}
 
 
+def fleet_line(qt, res):
+    """Converged lanes, the iteration median and max, max|grad|, as numbers."""
+    iters = res.iterations.cpu().numpy()
+    converged = int((res.status == qt.Status.CONVERGED).sum())
+    return converged, float(np.median(iters)), int(iters.max()), float(res.grad.abs().max())
+
+
+def check_fleet(qt, res, label, jax_median):
+    converged, med, itmax, gmax = fleet_line(qt, res)
+    check(res.x.shape == (BATCH, N) and res.x.dtype == torch.float32
+          and res.x.device.type == "cuda", f"{label}: result shape, dtype or device")
+    check(bool(torch.isfinite(res.x).all()), f"{label}: non-finite iterates")
+    check(converged == BATCH, f"{label}: only {converged}/{BATCH} lanes converged")
+    check(gmax < TOL, f"{label}: gradient certificate not met")
+    if jax_median is not None:
+        check(abs(med - jax_median) <= 0.1 * jax_median,
+              f"{label}: median iterations {med} not within 10% of {jax_median}")
+    return converged, med, itmax, gmax
+
+
+def cg_phase(qt, device, smi):
+    """The CG headline on the bench fleet (see phase 12 above)."""
+    X = bench_fleet(device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counters(qt)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = solve_cg(qt, X)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    c = read_counters(qt)
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    converged, med, itmax, gmax = fleet_line(qt, res)
+    log(f"[cg] optimize_cg {BATCH}x{N} f32 on {device} (hz, approximate Wolfe): converged "
+        f"{converged}/{BATCH}, iterations median {med:g} max {itmax} (JAX package on the same "
+        f"inputs: median {JAX_CG_MEDIAN_ITERS} max {JAX_CG_MAX_ITERS}), max|grad| {gmax:.3e}, "
+        f"max|x-1| {float((res.x - 1).abs().max()):.3e}, n_fev median "
+        f"{float(res.n_fev.float().median()):g}, loop bodies {c['cg_bodies']}, host syncs "
+        f"{c['cg_syncs']} (all the solve's synchronisations: {flagged} flagged), kernel launches "
+        f"B1 {c['B1']} B2a {c['B2a']} B2b {c['B2b']} B3 {c['B3']}, peak memory "
+        f"{peak / 2**20:.1f} MiB, wall {wall:.3f}s (first call, sync debug mode on)")
+    check_fleet(qt, res, "CG", JAX_CG_MEDIAN_ITERS)
+    check(flagged == c["cg_syncs"], f"{flagged} synchronisations flagged, {c['cg_syncs']} counted")
+    check(c["B1"] == c["B2a"] == c["B2b"] == c["B3"] == 0 and c["bodies"] == 0,
+          f"the CG path launched a BFGS kernel: {c}")
+
+    fns = {"cg": lambda: solve_cg(qt, X), "cg fold_eval": lambda: solve_cg(qt, X, fold_eval=True)}
+    secs, peaks = alternate_samples(fns, TURNS)  # a CG solve is host-bound and takes seconds
+    walls = {k: float(np.median(v)) for k, v in secs.items()}
+    qt.optimize_cg.loop_bodies = qt.optimize_cg.host_syncs = 0
+    prof = device_profile(fns["cg"])
+    bodies, syncs = qt.optimize_cg.loop_bodies, qt.optimize_cg.host_syncs
+    wall_p, busy = prof[0], prof[1]
+    log(f"[time] CG solves/s at {BATCH}x{N} f32 (median of {TURNS} solves, in turns, after a "
+        f"warm-up): "
+        f"optimize_cg {BATCH / walls['cg']:.1f} ({walls['cg']:.4f} s/solve, peak "
+        f"{peaks['cg'] / 2**20:.1f} MiB), with fold_eval {BATCH / walls['cg fold_eval']:.1f} "
+        f"({walls['cg fold_eval']:.4f} s/solve, peak {peaks['cg fold_eval'] / 2**20:.1f} MiB), "
+        f"{turn_gains(secs, 'cg', 'cg fold_eval')}; "
+        f"{bodies} loop bodies and {syncs} host syncs per solve, "
+        f"{1e3 * walls['cg'] / max(bodies, 1):.3f} ms of wall per body; device busy share of one "
+        + ("solve not measured (no device events)" if busy is None else
+           f"solve {100 * busy / wall_p:.1f} %") + f" on {smi}")
+    log(profile_line(f"CG fleet {BATCH}x{N} f32", *prof, bodies))
+    return {"solves_per_s": BATCH / walls["cg"], "busy_share": None if busy is None else busy / wall_p,
+            "n_fev": res.n_fev}
+
+
+def wolfe_phase(qt, device, smi, cg_n_fev):
+    """BFGS with the Wolfe search through B1, and fold_eval for both
+    engines (see phase 13 above)."""
+    X = bench_fleet(device)
+    runs = {}
+    for label, kw in (("wolfe", dict(ls=qt.Wolfe())), ("wolfe fold", dict(ls=qt.Wolfe(), fold_eval=True)),
+                      ("backtracking fold", dict(fold_eval=True))):
+        reset_counters(qt)
+        res = solve_bench(qt, X, "auto", **kw)
+        torch.cuda.synchronize()
+        c = read_counters(qt)
+        runs[label] = res
+        converged, med, itmax, gmax = fleet_line(qt, res)
+        log(f"[wolfe] optimize_batched {BATCH}x{N} f32, {label}: converged {converged}/{BATCH}, "
+            f"iterations median {med:g} max {itmax} (JAX package, Wolfe: median "
+            f"{JAX_WOLFE_MEDIAN_ITERS} max {JAX_WOLFE_MAX_ITERS}), n_fev median "
+            f"{float(res.n_fev.float().median()):g}, max|grad| {gmax:.3e}, B1 launches {c['B1']} "
+            f"= loop bodies {c['bodies']}, host syncs {c['syncs']}")
+        check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+              f"{label}: launches {c}")
+        check_fleet(qt, res, f"BFGS {label}", JAX_WOLFE_MEDIAN_ITERS if label == "wolfe" else None)
+    cg_fold = solve_cg(qt, X, fold_eval=True)
+    check_fleet(qt, cg_fold, "CG fold_eval", None)
+    fev = {"BFGS Wolfe": (runs["wolfe"].n_fev, runs["wolfe fold"].n_fev),
+           "CG": (cg_n_fev, cg_fold.n_fev)}
+    for label, (off, on) in fev.items():
+        check(int(on.sum()) < int(off.sum()), f"{label}: fold_eval did not reduce n_fev")
+    log(f"[wolfe] fold_eval: mean n_fev per lane BFGS Wolfe "
+        f"{float(fev['BFGS Wolfe'][0].float().mean()):.2f} -> {float(fev['BFGS Wolfe'][1].float().mean()):.2f}, "
+        f"CG {float(fev['CG'][0].float().mean()):.2f} -> {float(fev['CG'][1].float().mean()):.2f}; "
+        f"CG fold_eval iterations median {fleet_line(qt, cg_fold)[1]:g} max {fleet_line(qt, cg_fold)[2]} "
+        f"(JAX: 218 / 587)")
+    fns = {"backtracking": lambda: solve_bench(qt, X, "cuda"),
+           "wolfe": lambda: solve_bench(qt, X, "cuda", ls=qt.Wolfe()),
+           "wolfe fold": lambda: solve_bench(qt, X, "cuda", ls=qt.Wolfe(), fold_eval=True)}
+    secs, _ = alternate_samples(fns, TURNS)
+    walls = {k: float(np.median(v)) for k, v in secs.items()}
+    log(f"[time] BFGS fleet solves/s at {BATCH}x{N} f32 through B1 (median of {TURNS} solves, in "
+        f"turns): " + ", ".join(f"{k} {BATCH / v:.1f} ({v:.4f} s/solve)" for k, v in walls.items())
+        + f"; {turn_gains(secs, 'wolfe', 'wolfe fold')} on {smi}")
+
+
+def compacted_phase(qt, device, smi):
+    """Straggler compaction through B1 against the fused engine (see phase
+    14 above)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    X = bench_fleet(device)
+
+    def compacted():
+        return qt.optimize_batched_compacted(
+            rosenbrock_logdensity, X, tol=TOL, max_iterations=MAX_ITERS,
+            value_and_grad_fn=rosenbrock_value_and_grad, kernel="cuda")
+
+    fused = solve_bench(qt, X, "cuda")
+    reset_counters(qt)
+    comp = compacted()
+    torch.cuda.synchronize()
+    c = read_counters(qt)
+    differ = int((~counters_equal(comp, fused)).sum())
+    converged, med, itmax, gmax = fleet_line(qt, comp)
+    log(f"[compacted] optimize_batched_compacted {BATCH}x{N} f32, chunk 64, kernel='cuda': "
+        f"converged {converged}/{BATCH}, statuses equal to optimize_batched_fused's "
+        f"{bool(torch.equal(comp.status, fused.status))}, iterations median {med:g} max {itmax}, "
+        f"max|grad| {gmax:.3e}; B1 launches {c['B1']} (loop bodies {c['bodies']} plus the "
+        f"resumed legs' peels), host syncs {c['syncs']}; lanes whose counters differ from the "
+        f"fused run's {differ}/{BATCH} (rounding: B1 sums alike at every width, the objective's "
+        f"vmapped ops need not)")
+    check(c["B1"] >= c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0, f"launches {c}")
+    check(torch.equal(comp.status, fused.status), "compacted statuses differ from fused")
+    check_fleet(qt, comp, "compacted", None)
+    secs, _ = alternate_samples({"fused": lambda: solve_bench(qt, X, "cuda"),
+                                 "compacted": compacted}, TURNS)
+    walls = {k: float(np.median(v)) for k, v in secs.items()}
+    log(f"[time] solves/s at {BATCH}x{N} f32 through B1 (median of {TURNS} solves, in turns): fused "
+        f"{BATCH / walls['fused']:.1f} ({walls['fused']:.4f} s/solve), compacted "
+        f"{BATCH / walls['compacted']:.1f} ({walls['compacted']:.4f} s/solve), "
+        f"{turn_gains(secs, 'fused', 'compacted')} on {smi}")
+
+
+def repair_phase(qt):
+    """Entry points given numpy run on the card (see phase 15 above)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    Xn = np.random.default_rng(BENCH_SEED).standard_normal((64, N))  # float64
+    kw = dict(tol=TOL, max_iterations=MAX_ITERS, value_and_grad_fn=rosenbrock_value_and_grad)
+    results = {"optimize_batched": qt.optimize_batched(rosenbrock_logdensity, Xn, **kw),
+               "optimize_cg": qt.optimize_cg(rosenbrock_logdensity, Xn, **kw)}
+    saved = qt.cg_state_to_numpy(results["optimize_cg"].state)
+    results["optimize_cg_from_state"] = qt.optimize_cg_from_state(rosenbrock_logdensity, saved,
+                                                                  **kw)
+    for name, res in results.items():
+        check(res.x.device.type == "cuda" and res.status.device.type == "cuda",
+              f"{name} on numpy input ran on {res.x.device}")
+        check(res.x.dtype == torch.float32, f"{name} on float64 numpy input ran in {res.x.dtype}")
+        check(bool(res.converged.all()), f"{name} on numpy input did not converge")
+    log(f"[repair] numpy (64, {N}) float64 input, and the CG result's state saved as numpy: "
+        + ", ".join(f"{k} -> {v.x.device}, {v.x.dtype}, converged {int(v.converged.sum())}/64"
+                    for k, v in results.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -1038,6 +1280,10 @@ def main():
     resident_err = resident_parity_phase(qt, device)
     resident, b3_bounds = resident_path_phase(qt, device)
     times = blocked_and_resident_timing_phase(qt, device, smi, b3_bounds)
+    cg = cg_phase(qt, device, smi)
+    wolfe_phase(qt, device, smi, cg["n_fev"])
+    compacted_phase(qt, device, smi)
+    repair_phase(qt)
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms

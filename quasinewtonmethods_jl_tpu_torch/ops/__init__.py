@@ -2,6 +2,7 @@
 
 from .bfgs import bfgs_update, initial_inv_hessian
 from .linesearch import BackTracking, LineSearchResult, backtracking_linesearch
+from .wolfe import Wolfe, WolfeResult, wolfe_linesearch
 
 __all__ = [
     "bfgs_update",
@@ -9,4 +10,7 @@ __all__ = [
     "BackTracking",
     "LineSearchResult",
     "backtracking_linesearch",
+    "Wolfe",
+    "WolfeResult",
+    "wolfe_linesearch",
 ]

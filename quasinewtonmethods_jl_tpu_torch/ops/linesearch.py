@@ -160,16 +160,23 @@ def backtracking_linesearch(
 def run_linesearch(ls, f, vag, x, d, f0, m):
     """Run the configured line search from ``x`` along ``d``.
 
-    Returns ``(alpha, failed, extra_fev, extra_gev)``; BackTracking trials
-    are value-only, so ``extra_gev`` is 0. ``vag`` is the hook for the
-    Wolfe search (value+gradient trials), which comes with
-    ``ops/wolfe.py`` in a later slice of the port.
+    Returns ``(alpha, failed, extra_fev, extra_gev)``. BackTracking trials
+    are value-only (``f``), so ``extra_gev`` is 0; Wolfe trials evaluate
+    value and gradient (``vag``: the curvature test needs the slope gradᵀd)
+    and count toward both counters. Any other ``ls`` raises TypeError.
     """
+    from .wolfe import Wolfe, wolfe_linesearch
+
+    if isinstance(ls, Wolfe):
+
+        def phi_vag(alpha):
+            fv, gv = vag(x + alpha * d)
+            return fv, torch.dot(gv, d)
+
+        wr = wolfe_linesearch(phi_vag, f0, m, ls)
+        return wr.alpha, wr.failed, wr.n_fev, wr.n_fev
     if not isinstance(ls, BackTracking):
-        raise NotImplementedError(
-            f"line search {type(ls).__name__} is not ported yet: the port has "
-            "BackTracking; Wolfe comes with ops/wolfe.py in a later slice"
-        )
+        raise TypeError(f"ls must be a BackTracking or a Wolfe, got {type(ls).__name__}")
 
     def phi(alpha):
         return f(x + alpha * d)

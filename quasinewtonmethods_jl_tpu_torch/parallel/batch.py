@@ -11,12 +11,13 @@ comes once the scalar `optimize` is ported.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Union
 
 import torch
 
 from ..batched_solve import optimize_batched_fused
 from ..ops.linesearch import BackTracking
+from ..ops.wolfe import Wolfe
 from ..solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
 
 __all__ = ["optimize_batched"]
@@ -25,7 +26,7 @@ __all__ = ["optimize_batched"]
 def optimize_batched(
     obj,
     x0s: torch.Tensor,
-    ls: BackTracking = BackTracking(),
+    ls: Union[BackTracking, Wolfe] = BackTracking(),
     tol: float = 1e-8,
     max_iterations: int = MAX_ITERATIONS_DEFAULT,
     value_and_grad_fn: Optional[Callable] = None,
@@ -39,9 +40,11 @@ def optimize_batched(
     Args:
       obj: logdensity callable or ProbabilityModel (shared across the batch —
         the HMC-chain-init pattern: one model, many starting points).
-      x0s: (batch, n) starting points; the solve runs on their device. Every
-        result field gains the leading batch axis; check ``result.status``
-        per lane.
+      x0s: (batch, n) starting points. A tensor's device is where the solve
+        runs; anything else (numpy, lists) goes to the CUDA card
+        (`as_device_tensor`). Every result field gains the leading batch
+        axis; check ``result.status`` per lane.
+      ls: `BackTracking` or `Wolfe`.
       backend: 'fused' (the lockstep fleet engine) or 'auto' (= 'fused').
         'vmap' is not ported yet.
       kernel: the fused update — 'cuda' (B1, or B2 where B1 does not fit),

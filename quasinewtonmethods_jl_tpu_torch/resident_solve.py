@@ -45,6 +45,7 @@ from .ops.kernels.resident_kernel import (
 )
 from .ops.linesearch import BackTracking
 from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
+from .utils.device import as_device_tensor
 
 __all__ = [
     "optimize_batched_resident",
@@ -76,8 +77,9 @@ def optimize_batched_resident(
     Args:
       obj: the split Rosenbrock (`rosenbrock_logdensity` or a
         `models.Rosenbrock`); any other objective raises ValueError.
-      x0s: (batch, n) float32/float64 starting points; the solve runs on
-        their device.
+      x0s: (batch, n) float32/float64 starting points. A tensor's device is
+        where the solve runs; anything else goes to the CUDA card
+        (`as_device_tensor`).
       kernel: 'cuda' (B3, CUDA tensors only; raises where one lane does not
         fit, see `resident_feasible`), 'torch' (the plain version, any
         device) or 'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU).
@@ -85,7 +87,7 @@ def optimize_batched_resident(
     Returns:
       OptimizeResult with a leading batch axis on every leaf.
     """
-    x0s = torch.as_tensor(x0s)
+    x0s = as_device_tensor(x0s)
     if x0s.ndim != 2:
         raise ValueError(f"x0s must be (batch, n), got shape {tuple(x0s.shape)}")
     if not isinstance(ls, BackTracking):

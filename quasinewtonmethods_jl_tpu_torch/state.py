@@ -2,9 +2,11 @@
 
 `Status` keeps the JAX package's integers: they are a serialisation
 contract (saved states and results from either package read the same).
-`BFGSState` is a NamedTuple of tensors with the JAX field order, so a state
-converts leaf by leaf between the two packages through numpy
-(`bfgs_state_from_numpy` / `bfgs_state_to_numpy`).
+`BFGSState` and `CGState` are NamedTuples of tensors with the JAX field
+order (the JAX package keeps `CGState` in cg_solve.py; the port keeps its
+states here), so a state converts leaf by leaf between the two packages
+through numpy (`bfgs_state_from_numpy` / `bfgs_state_to_numpy`,
+`cg_state_from_numpy` / `cg_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ __all__ = [
     "init_bfgs_state",
     "bfgs_state_from_numpy",
     "bfgs_state_to_numpy",
+    "CGState",
+    "cg_state_from_numpy",
+    "cg_state_to_numpy",
 ]
 
 
@@ -81,16 +86,57 @@ def init_bfgs_state(x0: torch.Tensor) -> BFGSState:
     )
 
 
+class CGState(NamedTuple):
+    """Nonlinear-CG solver state (resumable, checkpointable). Every leaf has
+    a leading (batch,) axis (a rank-1 solve's result squeezes it). (fun,
+    grad) are the evaluation at ``x``; ``d`` is the last search direction
+    used; (m_prev, t_prev) are the directional derivative and effective
+    step of the last accepted step, the warm-start pair, with m_prev == 0
+    marking a lane that never stepped."""
+
+    x: torch.Tensor  # (B, n) iterate
+    grad: torch.Tensor  # (B, n) gradient at x
+    grad_old: torch.Tensor  # (B, n) gradient at the previous iterate
+    d: torch.Tensor  # (B, n) previous search direction
+    m_prev: torch.Tensor  # (B,) previous d·g (0 = never stepped)
+    t_prev: torch.Tensor  # (B,) previous accepted effective step alpha·t
+    fun: torch.Tensor  # (B,) objective at x
+    k: torch.Tensor  # (B,) int32 lifetime iterations
+    status: torch.Tensor  # (B,) int32 Status
+    n_fev: torch.Tensor  # (B,) int32
+    n_gev: torch.Tensor  # (B,) int32
+    n_resets: torch.Tensor  # (B,) int32 steepest restarts (incl. Powell)
+    stall: torch.Tensor  # (B,) int32 consecutive non-improving iterations
+
+
+def _from_numpy(cls, state, device):
+    return cls(*(torch.tensor(np.asarray(leaf), device=device) for leaf in state))
+
+
+def _to_numpy(state):
+    return type(state)(*(leaf.detach().cpu().numpy() for leaf in state))
+
+
 def bfgs_state_from_numpy(state, device) -> BFGSState:
     """Port state from any state with the `BFGSState` fields whose leaves
     are numpy arrays (e.g. a JAX ``BFGSState`` after ``np.asarray`` of each
     leaf), scalar or batched. Dtypes are kept; leaves are copied."""
-    return BFGSState(
-        *(torch.tensor(np.asarray(leaf), device=device) for leaf in state)
-    )
+    return _from_numpy(BFGSState, state, device)
 
 
 def bfgs_state_to_numpy(state: BFGSState) -> BFGSState:
     """The inverse of `bfgs_state_from_numpy`: a `BFGSState` of numpy
     arrays, field for field in the JAX package's order."""
-    return BFGSState(*(leaf.detach().cpu().numpy() for leaf in state))
+    return _to_numpy(state)
+
+
+def cg_state_from_numpy(state, device) -> CGState:
+    """`CGState` from any state with its fields whose leaves are numpy
+    arrays (e.g. a JAX ``CGState`` after ``np.asarray`` of each leaf).
+    Dtypes are kept; leaves are copied."""
+    return _from_numpy(CGState, state, device)
+
+
+def cg_state_to_numpy(state: CGState) -> CGState:
+    """The inverse of `cg_state_from_numpy`: a `CGState` of numpy arrays."""
+    return _to_numpy(state)

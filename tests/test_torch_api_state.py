@@ -46,7 +46,12 @@ def test_port_imports_no_jax():
     code = (
         "import sys, quasinewtonmethods_jl_tpu_torch, "
         "quasinewtonmethods_jl_tpu_torch.models, "
-        "quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel; "
+        "quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel, "
+        "quasinewtonmethods_jl_tpu_torch.cg_solve, "
+        "quasinewtonmethods_jl_tpu_torch.ops.wolfe, "
+        "quasinewtonmethods_jl_tpu_torch.ops.hutchinson, "
+        "quasinewtonmethods_jl_tpu_torch.trust_region, "
+        "quasinewtonmethods_jl_tpu_torch.utils.device; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]

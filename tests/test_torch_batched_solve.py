@@ -23,6 +23,7 @@ from quasinewtonmethods_jl_tpu.ops.linesearch import BackTracking as JaxBackTrac
 from quasinewtonmethods_jl_tpu_torch import (
     BackTracking,
     Status,
+    Wolfe,
     optimize_batched,
     optimize_batched_fused,
 )
@@ -196,9 +197,11 @@ def test_unported_options_raise():
         optimize_batched(quad_logdensity, X0, backend="vmap")
     with pytest.raises(ValueError, match="backend"):
         optimize_batched(quad_logdensity, X0, backend="sharded")
-    with pytest.raises(NotImplementedError, match="fold_eval"):
-        optimize_batched_fused(quad_logdensity, X0, fold_eval=True)
-    with pytest.raises(NotImplementedError, match="Wolfe"):
+    # fold_eval and the Wolfe search are ported: both run
+    for kw in (dict(fold_eval=True), dict(ls=Wolfe()), dict(ls=Wolfe(), fold_eval=True)):
+        res = optimize_batched_fused(quad_logdensity, X0, **kw)
+        assert (res.status == Status.CONVERGED).all(), kw
+    with pytest.raises(TypeError, match="BackTracking or a Wolfe"):
         optimize_batched_fused(quad_logdensity, X0, ls=object())
     with pytest.raises(ValueError, match="kernel"):
         optimize_batched_fused(quad_logdensity, X0, kernel="pallas")

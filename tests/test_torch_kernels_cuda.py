@@ -403,3 +403,78 @@ def test_resident_kernel_converges_with_one_launch(cuda_device):
     assert (none.status == Status.MAX_ITERATIONS).all()
     with pytest.raises(ValueError, match="infeasible"):
         optimize_batched_resident(rosenbrock_logdensity, torch.zeros((2, 240), device=cuda_device))
+
+
+def _quadratic_fleet(device, batch=64, n=6, seed=5):
+    def quad_logdensity(x):
+        diag = torch.arange(1.0, x.shape[0] + 1.0, dtype=x.dtype, device=x.device)
+        return -0.5 * torch.sum(diag * x * x)
+
+    X = torch.tensor(np.random.default_rng(seed).standard_normal((batch, n)), device=device)
+    return quad_logdensity, X
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fold_eval", [False, True])
+@pytest.mark.parametrize("approx", [False, True])
+def test_wolfe_fleet_launches_b1_once_per_body(cuda_device, fold_eval, approx):
+    """The fleet Wolfe search (and its fold) through B1: one launch per
+    loop body (the peel of a fresh fleet runs no update), and on the f64
+    quadratic fleet the same statuses and counters as the plain update."""
+    from quasinewtonmethods_jl_tpu_torch import Wolfe
+
+    quad, X = _quadratic_fleet(cuda_device)
+    ls = Wolfe(approx=approx)
+    before = fused_bfgs_update_batched.launches
+    optimize_batched_fused.loop_bodies = 0
+    a = optimize_batched_fused(quad, X, ls=ls, fold_eval=fold_eval, kernel="cuda")
+    assert fused_bfgs_update_batched.launches - before == optimize_batched_fused.loop_bodies > 0
+    b = optimize_batched_fused(quad, X, ls=ls, fold_eval=fold_eval, kernel="torch")
+    for name in COUNTERS:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert (a.status == Status.CONVERGED).all()
+    torch.testing.assert_close(a.x, b.x, atol=1e-10, rtol=0)
+
+
+@pytest.mark.cuda
+def test_wolfe_bench_shape_fleet_converges_through_b1(cuda_device):
+    """Rosenbrock n = 60 in float32 with the Wolfe search through B1."""
+    from quasinewtonmethods_jl_tpu_torch import Wolfe
+
+    X = torch.tensor(np.random.default_rng(9).standard_normal((256, 60)), dtype=torch.float32,
+                     device=cuda_device)
+    before = fused_bfgs_update_batched.launches
+    optimize_batched_fused.loop_bodies = 0
+    res = optimize_batched_fused(rosenbrock_logdensity, X, ls=Wolfe(), tol=1e-3,
+                                 max_iterations=3000, value_and_grad_fn=rosenbrock_value_and_grad)
+    assert fused_bfgs_update_batched.launches - before == optimize_batched_fused.loop_bodies > 0
+    assert (res.status == Status.CONVERGED).all()
+    assert float(res.grad.abs().max()) < 1e-3
+
+
+@pytest.mark.cuda
+def test_compacted_fleet_runs_b1_at_every_width(cuda_device, monkeypatch):
+    """Compaction resumes ever narrower fleets; B1 runs at each width (one
+    launch per update, the resumed legs' peels included), and the result
+    equals one long solve's on the f64 quadratic fleet lane for lane."""
+    from quasinewtonmethods_jl_tpu_torch import batched_solve, optimize_batched_compacted
+
+    widths = []
+    real = batched_solve._UPDATE_FNS["cuda"]
+
+    def spy(B, *args):
+        widths.append(B.shape[0])
+        return real(B, *args)
+
+    monkeypatch.setitem(batched_solve._UPDATE_FNS, "cuda", spy)
+    quad, X = _quadratic_fleet(cuda_device, batch=256, n=12, seed=10)
+    X = X * torch.logspace(-3, 1, 256, dtype=X.dtype, device=cuda_device)[:, None]
+    before = fused_bfgs_update_batched.launches
+    comp = optimize_batched_compacted(quad, X, kernel="cuda", chunk=3, tol=1e-10)
+    assert fused_bfgs_update_batched.launches - before == len(widths)
+    assert len(set(widths)) >= 3 and min(widths) < 256
+    long = optimize_batched_fused(quad, X, kernel="torch", tol=1e-10)
+    for name in COUNTERS:
+        assert torch.equal(getattr(comp, name), getattr(long, name)), name
+    assert (comp.status == Status.CONVERGED).all()
+    torch.testing.assert_close(comp.x, long.x, atol=1e-12, rtol=0)

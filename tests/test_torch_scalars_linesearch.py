@@ -166,5 +166,7 @@ def test_run_linesearch_backtracking_and_wolfe_refusal():
     )
     np.testing.assert_allclose(float(alpha), float(ref[0]), rtol=1e-6)
     assert (bool(failed), int(fev), int(gev)) == (bool(ref[1]), int(ref[2]), int(ref[3]))
-    with pytest.raises(NotImplementedError, match="Wolfe"):
+    # the Wolfe search is ported (tests/test_torch_wolfe.py); any other
+    # line search is refused
+    with pytest.raises(TypeError, match="Wolfe"):
         port_ls.run_linesearch(object(), rosenbrock_logdensity, None, xt, dt, f0, m)
