@@ -7,7 +7,10 @@ B1), the same engine on a large-n fleet (the two-pass kernels B2a and B2b),
 the resident engine `optimize_batched_resident` (B3), the nonlinear-CG fleet
 `optimize_cg` (the benchmark's headline engine; torch ops, no hand-written
 kernel), the BFGS fleet with the Wolfe search (B1), with ``fold_eval``, and
-with straggler compaction (`optimize_batched_compacted`, B1).
+with straggler compaction (`optimize_batched_compacted`, B1), the scalar
+BFGS and L-BFGS drivers (`optimize`, `optimize_lbfgs`), the L-BFGS fleets
+(`optimize_lbfgs_batched`) and ``backend="vmap"``, none of which runs a
+hand-written kernel.
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -53,23 +56,50 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      (Hager–Zhang, approximate Wolfe); every lane must converge with the
      median iteration count within 10 % of the JAX package's, no kernel
      launched, and every host synchronisation a counted one (sync debug
-     mode); solves/s with and without ``fold_eval`` (5 turns each, with each
+     mode); solves/s with and without ``fold_eval`` (3 turns each, with each
      turn's difference), host syncs and loop bodies per solve, peak device memory, the device's busy share
      of one solve (torch.profiler);
  13. BFGS with the Wolfe search: the phase-4 fleet through
      `optimize_batched(ls=Wolfe())`, every lane converged, median within 10 %
      of the JAX package's, B1 launched once per loop body; then
      ``fold_eval=True`` for the BFGS and CG engines, which must converge
-     every lane with fewer evaluations; solves/s (5 turns each, with each
+     every lane with fewer evaluations; solves/s (3 turns each, with each
      turn's difference);
  14. compaction: the phase-4 fleet through `optimize_batched_compacted`
      with kernel='cuda': the statuses of `optimize_batched_fused`, every
      lane certified, B1 launched; the lanes whose counters differ from the
-     fused run's (rounding, not asserted); solves/s of both (5 turns each,
+     fused run's (rounding, not asserted); solves/s of both (3 turns each,
      with each turn's difference);
  15. entry points given numpy: `optimize_batched` and `optimize_cg` given a
      float64 numpy fleet return float32 results on the card (JAX's x64-off
-     dtype), and a CG state saved as numpy resumes there.
+     dtype), and a CG state saved as numpy resumes there;
+ 16. scalar BFGS: `optimize` on bench_full.py's n=60 Rosenbrock start
+     (seed 20260816, tol 1e-3, analytic gradient) with BFGS in f32, and
+     DFP without the H0 scaling (with it DFP stalls, in JAX too) and SR1 in
+     f64, each of which must converge; DFP (H0 scaling off) and SR1 in f32
+     from the start and 15 starts near it (in f32 rounding decides whether
+     a start converges), whose count of converged starts must not fall
+     below the JAX package's on the same starts by more than chance (a
+     one-sided Fisher exact test at 1 %); the n=256 condition-1e4
+     quadratic; `optimize_from_state` resuming a 40-iteration solve saved
+     as numpy; iterations beside the JAX package's, every host
+     synchronisation a counted one (sync debug mode), no kernel launched;
+ 17. scalar L-BFGS: `optimize_lbfgs(history=10)` on the n=4096 diagonal
+     quadratic of bench_full.py:106-119, both direction methods;
+     iterations (JAX: 22) and host syncs per iteration;
+ 18. L-BFGS fleets: 1024 x 512 and 256 x 4096 Rosenbrock through
+     `optimize_lbfgs_batched` (seed 20260816, tol 1e-3, at most 3000
+     iterations, analytic gradient): every lane converged, the median
+     iteration count within 10 % of the JAX package's, every sync counted,
+     no kernel launched; solves/s (3 turns), host syncs and loop bodies per
+     solve, device events per body and busy share (torch.profiler), peak
+     memory; each fleet resumed from a state saved as numpy; TF32 off; then
+     the shift ring against the circular ring, whole solves in turns at
+     4096 x 60, 1024 x 512, 256 x 4096 and 64 x 16384 (wall per loop
+     body), beside the dispatch constant `_RING_CIRCULAR_MIN_N`;
+ 19. ``backend="vmap"``: the bench fleet's first 16 lanes through
+     `optimize_batched(backend="vmap")` (the scalar driver lane by lane):
+     statuses equal to the fused engine's, median within 10 % of its.
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
@@ -86,6 +116,7 @@ exits non-zero without a card, and without the package beside it.
 """
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -99,8 +130,9 @@ import torch
 BENCH_SEED = 20260816
 BATCH, N = 4096, 60
 TOL, MAX_ITERS = 1e-3, 3000
-# Timed turns of each engine in phases 12-14, whose solves take 0.5-6 s.
-TURNS = 5
+# Timed turns of each engine in phases 12-14, whose solves take 0.5-10 s
+# (3, which leaves room for phases 16-19 in the time limit).
+TURNS = 3
 # The JAX package on this protocol (same seed and sizes, kernel="xla" on the
 # CPU): 4096/4096 converged, median 139 and max 225 iterations.
 JAX_MEDIAN_ITERS, JAX_MAX_ITERS = 139, 225
@@ -126,6 +158,30 @@ JAX_WOLFE_MEDIAN_ITERS, JAX_WOLFE_MAX_ITERS = 137, 245
 # kernel="xla" on the CPU): 1024/1024 converged, median 172 and max 246.
 LARGE_BATCH, LARGE_N = 1024, 512
 JAX_LARGE_MEDIAN_ITERS, JAX_LARGE_MAX_ITERS = 172, 246
+# The scalar and L-BFGS phases (16-19). The JAX package's counts on the same
+# inputs come from `python scripts/jax_lbfgs_reference.py` (JAX on the CPU,
+# float32, seed 20260816, tol 1e-3, analytic value-and-grad):
+# `optimize` on standard_normal(60): BFGS 132 iterations, 271 evaluations.
+JAX_BFGS_ITERS = 132
+# f32 DFP (h0_scale=False) and SR1 from `scalar_starts(SCALAR_F32_STARTS)`:
+# the JAX package's count of starts converged within 3000 iterations, from
+# `python scripts/scalar_f32_rounding.py` ("perturbed" rows, JAX on the CPU):
+# DFP 14 (of the other two, one converges after 5055 iterations, one fails
+# its line search after 9620), SR1 15 (one line-search failure).
+SCALAR_F32_STARTS = 16
+JAX_F32_CONVERGED = {"dfp": 14, "sr1": 15}
+# `optimize_lbfgs(history=10)` on the n = 4096 diagonal quadratic of
+# bench_full.py:106-119 (x* from a fresh generator, x0 = 0, at most 500
+# iterations): 22 iterations and 47 evaluations with either direction.
+LBFGS_N, JAX_LBFGS_ITERS = 4096, 22
+# `optimize_lbfgs_batched` (history 10, at most 3000 iterations) on
+# standard_normal((batch, n)): 1024 x 512 converged 1024/1024, median 156,
+# max 259, median n_fev 328; 256 x 4096 converged 256/256, median 200, max
+# 334, median n_fev 417.
+LBFGS_FLEETS = {(1024, 512): (156, 259), (256, 4096): (200, 334)}
+LBFGS_HISTORY = 10
+RING_SHAPES = ((BATCH, N), (1024, 512), (256, 4096), (64, 16384))
+VMAP_LANES = 16
 SPLIT_NS = (128, 192, 232)  # B1 fits up to n = 237 in f32
 B1_NS = (2, 7, 33, 60, 61, 65, 128)  # one warp per lane up to 64; ragged bulk copies at 7, 33, 61, 65
 B1_LARGEST_N = {torch.float32: 237, torch.float64: 167}
@@ -485,6 +541,15 @@ def timing_phase(qt, device, smi):
     return kernel_ms, plain_ms, (bound_ms, bound_by)
 
 
+def engines(qt):
+    """The port's loop drivers, each counting its host reads (and the fleet
+    engines their loop bodies)."""
+    from quasinewtonmethods_jl_tpu_torch.lbfgs_batched_solve import optimize_lbfgs_batched_fused
+
+    return {"bfgs": qt.optimize_batched_fused, "cg": qt.optimize_cg, "scalar": qt.optimize,
+            "lbfgs": qt.optimize_lbfgs, "lbfgs fleet": optimize_lbfgs_batched_fused}
+
+
 def counted_kernels():
     """The port's kernel wrappers, each counting its launches."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_blocked import (
@@ -502,16 +567,50 @@ def reset_counters(qt):
     """Every kernel's launch count and the fleet engines' loop counts to 0."""
     for fn in counted_kernels().values():
         fn.launches = 0
-    for engine in (qt.optimize_batched_fused, qt.optimize_cg):
-        engine.host_syncs = engine.loop_bodies = 0
+    for engine in engines(qt).values():
+        engine.host_syncs = 0
+        if hasattr(engine, "loop_bodies"):
+            engine.loop_bodies = 0
 
 
 def read_counters(qt):
     counts = {name: fn.launches for name, fn in counted_kernels().items()}
-    counts.update(bodies=qt.optimize_batched_fused.loop_bodies,
-                  syncs=qt.optimize_batched_fused.host_syncs,
-                  cg_bodies=qt.optimize_cg.loop_bodies, cg_syncs=qt.optimize_cg.host_syncs)
+    e = engines(qt)
+    counts.update(bodies=e["bfgs"].loop_bodies, syncs=e["bfgs"].host_syncs,
+                  cg_bodies=e["cg"].loop_bodies, cg_syncs=e["cg"].host_syncs,
+                  scalar_syncs=e["scalar"].host_syncs, lbfgs_syncs=e["lbfgs"].host_syncs,
+                  lbfgs_fleet_bodies=e["lbfgs fleet"].loop_bodies,
+                  lbfgs_fleet_syncs=e["lbfgs fleet"].host_syncs)
     return counts
+
+
+def no_kernel_launched(counts):
+    return counts["B1"] == counts["B2a"] == counts["B2b"] == counts["B3"] == 0
+
+
+def counted_run(qt, fn, syncs_key):
+    """``fn()`` with every counter and the peak memory at 0 and torch's sync
+    debug mode on: (result, counters, synchronisations flagged, wall s).
+    Each flagged synchronisation must be one of the engine's counted reads,
+    and no BFGS kernel may launch (the paths that use this run none)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(qt)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counters(qt)
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    check(flagged == c[syncs_key], f"{flagged} synchronisations flagged, {c[syncs_key]} counted")
+    check(no_kernel_launched(c), f"a BFGS kernel launched on a path that has none: {c}")
+    return res, c, flagged, wall
 
 
 def normwise_err(a, b):
@@ -1102,22 +1201,8 @@ def check_fleet(qt, res, label, jax_median):
 def cg_phase(qt, device, smi):
     """The CG headline on the bench fleet (see phase 12 above)."""
     X = bench_fleet(device)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(device)
-    reset_counters(qt)
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            res = solve_cg(qt, X)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    res, c, flagged, wall = counted_run(qt, lambda: solve_cg(qt, X), "cg_syncs")
     peak = torch.cuda.max_memory_allocated(device)
-    c = read_counters(qt)
-    flagged = sum("synchroniz" in str(w.message) for w in caught)
     converged, med, itmax, gmax = fleet_line(qt, res)
     log(f"[cg] optimize_cg {BATCH}x{N} f32 on {device} (hz, approximate Wolfe): converged "
         f"{converged}/{BATCH}, iterations median {med:g} max {itmax} (JAX package on the same "
@@ -1128,9 +1213,7 @@ def cg_phase(qt, device, smi):
         f"B1 {c['B1']} B2a {c['B2a']} B2b {c['B2b']} B3 {c['B3']}, peak memory "
         f"{peak / 2**20:.1f} MiB, wall {wall:.3f}s (first call, sync debug mode on)")
     check_fleet(qt, res, "CG", JAX_CG_MEDIAN_ITERS)
-    check(flagged == c["cg_syncs"], f"{flagged} synchronisations flagged, {c['cg_syncs']} counted")
-    check(c["B1"] == c["B2a"] == c["B2b"] == c["B3"] == 0 and c["bodies"] == 0,
-          f"the CG path launched a BFGS kernel: {c}")
+    check(c["bodies"] == 0, f"the CG path ran the BFGS fleet's loop: {c}")
 
     fns = {"cg": lambda: solve_cg(qt, X), "cg fold_eval": lambda: solve_cg(qt, X, fold_eval=True)}
     secs, peaks = alternate_samples(fns, TURNS)  # a CG solve is host-bound and takes seconds
@@ -1261,6 +1344,285 @@ def repair_phase(qt):
                     for k, v in results.items()))
 
 
+def scalar_start(device, n=N, dtype=torch.float32):
+    """bench_full.py's single-solve start: standard_normal(n), seed 20260816."""
+    x = np.random.default_rng(BENCH_SEED).standard_normal(n)
+    return torch.tensor(x, dtype=dtype, device=device)
+
+
+def scalar_starts(count, device):
+    """f32 starts near the scalar start: start 0 is it, start k > 0 adds
+    1e-6 * standard_normal(N) from seed BENCH_SEED + k
+    (scripts/scalar_f32_rounding.py::perturbed_starts makes the same)."""
+    x = np.random.default_rng(BENCH_SEED).standard_normal(N)
+    return [torch.tensor((x if k == 0 else x + 1e-6 * np.random.default_rng(BENCH_SEED + k)
+                          .standard_normal(N)).astype(np.float32), device=device)
+            for k in range(count)]
+
+
+def fewer_converged_p(port, ref, n):
+    """One-sided Fisher exact test: were both packages' chances to converge
+    equal, the probability that the port converges at most ``port`` of its
+    ``n`` starts, given ``port + ref`` of the ``2n`` converged."""
+    total = port + ref
+    return sum(math.comb(n, k) * math.comb(n, total - k)
+               for k in range(max(0, total - n), port + 1)) / math.comb(2 * n, total)
+
+
+def scalar_f32_starts(qt, device, kw):
+    """f32 DFP (H0 scaling off) and SR1 over `scalar_starts`, each held to
+    the JAX package's count of converged starts (see phase 16 above)."""
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    in_band = {int(qt.Status.CONVERGED), int(qt.Status.LINESEARCH_FAILURE),
+               int(qt.Status.MAX_ITERATIONS)}
+    lines = []
+    for method, h0_scale in (("dfp", False), ("sr1", True)):
+        t0 = time.perf_counter()
+        runs = [qt.optimize(rosenbrock_logdensity, x0, update_method=method, h0_scale=h0_scale,
+                            max_iterations=MAX_ITERS, **kw)
+                for x0 in scalar_starts(SCALAR_F32_STARTS, device)]
+        wall = time.perf_counter() - t0
+        outcomes = [(qt.Status(int(r.status)).name, int(r.iterations)) for r in runs]
+        for r, (status, _) in zip(runs, outcomes):
+            check(int(r.status) in in_band and r.x.dtype == torch.float32
+                  and bool(torch.isfinite(r.x).all()), f"f32 {method}: {status}, or non-finite x")
+            check(status != "CONVERGED" or float(r.grad.abs().max()) < TOL,
+                  f"f32 {method}: converged without the certificate")
+        port = sum(status == "CONVERGED" for status, _ in outcomes)
+        ref = JAX_F32_CONVERGED[method]
+        p = fewer_converged_p(port, ref, SCALAR_F32_STARTS)
+        lines.append(f"{method}{'' if h0_scale else ' (h0_scale=False)'}: converged "
+                     f"{port}/{SCALAR_F32_STARTS} (JAX f32 on the CPU: {ref}/{SCALAR_F32_STARTS}; "
+                     f"one-sided Fisher p = {p:.3f}), {wall:.3f} s; {outcomes}")
+        check(p >= 0.01, f"f32 {method} converged {port}/{SCALAR_F32_STARTS} starts against "
+              f"JAX's {ref}: fewer than chance allows (p = {p:.4f})")
+    log(f"[scalar] optimize f32 on {device}, Rosenbrock n={N} from {SCALAR_F32_STARTS} starts near "
+        f"bench_full.py's (at most {MAX_ITERS} iterations): " + "; ".join(lines))
+
+
+def scalar_phase(qt, device):
+    """The scalar BFGS driver on the card (see phase 16 above)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        IllConditionedQuadratic,
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    kw = dict(tol=TOL, value_and_grad_fn=rosenbrock_value_and_grad)
+    x0 = scalar_start(device)
+    # BFGS in f32, bench_full.py's configuration; DFP and SR1 in f64 here,
+    # and in f32 over several starts below (on one f32 start rounding
+    # decides whether they converge: PERF.md, section 6); DFP without the H0
+    # scaling, with which it stalls, in JAX too
+    for method, h0_scale, dtype in (("bfgs", True, torch.float32), ("dfp", False, torch.float64),
+                                    ("sr1", True, torch.float64)):
+        res, c, flagged, wall = counted_run(
+            qt, lambda: qt.optimize(rosenbrock_logdensity, x0.to(dtype), update_method=method,
+                                    h0_scale=h0_scale, **kw), "scalar_syncs")
+        iters = int(res.iterations)
+        status = qt.Status(int(res.status)).name
+        beside = f" (JAX f32: {JAX_BFGS_ITERS})" if method == "bfgs" else ""
+        log(f"[scalar] optimize {method}{'' if h0_scale else ' (h0_scale=False)'} "
+            f"{str(dtype).replace('torch.', '')}, Rosenbrock n={N} from bench_full.py's start on "
+            f"{res.x.device}: {status}, {iters} iterations{beside}, n_fev {int(res.n_fev)}, "
+            f"max|grad| {float(res.grad.abs().max()):.3e}, {c['scalar_syncs']} host syncs "
+            f"({c['scalar_syncs'] / max(iters, 1):.2f} per iteration, all {flagged} flagged "
+            f"counted), {wall:.3f} s")
+        check(res.x.device == device and res.x.dtype == dtype, f"{method}: result device or dtype")
+        check(status == "CONVERGED" and float(res.grad.abs().max()) < TOL,
+              f"optimize {method} {dtype} did not converge: {status}")
+    scalar_f32_starts(qt, device, kw)
+
+    model = IllConditionedQuadratic(256, condition=1e4, dtype=torch.float32, device=device)
+    xq = scalar_start(device, 256)
+    res, c, _, wall = counted_run(qt, lambda: qt.optimize(model, xq, tol=TOL, max_iterations=5000),
+                                  "scalar_syncs")
+    check(int(res.status) == qt.Status.CONVERGED, "ill-conditioned quadratic did not converge")
+    quad = (f"quadratic n=256 condition 1e4 f32: CONVERGED in {int(res.iterations)} iterations, "
+            f"max|grad| {float(res.grad.abs().max()):.3e}, max|x-x*| "
+            f"{float((res.x - model.x_star).abs().max()):.3e}, {c['scalar_syncs']} host syncs, "
+            f"{wall:.3f} s")
+
+    long = qt.optimize(rosenbrock_logdensity, x0, **kw)
+    part = qt.optimize(rosenbrock_logdensity, x0, max_iterations=40, **kw)
+    saved = qt.bfgs_state_to_numpy(part.state)
+    resumed = qt.optimize_from_state(rosenbrock_logdensity, saved, **kw)
+    check(int(part.status) == qt.Status.MAX_ITERATIONS, "the capped solve did not hit its cap")
+    check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32,
+          "the numpy state did not resume on the card in f32")
+    check(int(resumed.status) == qt.Status.CONVERGED, "optimize_from_state did not converge")
+    log(f"[scalar] {quad}; optimize_from_state of a 40-iteration solve saved as numpy: "
+        f"CONVERGED on {resumed.x.device} at iteration {int(resumed.iterations)} (one long solve: "
+        f"{int(long.iterations)}), n_fev {int(resumed.n_fev)} (long {int(long.n_fev)}: the resume "
+        f"evaluates once more at its start)")
+
+
+def lbfgs_scalar_phase(qt, device):
+    """The scalar L-BFGS driver on the card (see phase 17 above)."""
+    diag = torch.linspace(0.2, 5.0, LBFGS_N, dtype=torch.float32, device=device)
+    x_star = scalar_start(device, LBFGS_N)
+
+    def quad(x):
+        return -0.5 * torch.sum(diag * (x - x_star) ** 2)
+
+    lines = []
+    for method in ("compact", "two_loop"):
+        x0 = torch.zeros(LBFGS_N, dtype=torch.float32, device=device)
+        res, c, flagged, wall = counted_run(
+            qt, lambda: qt.optimize_lbfgs(quad, x0, history=LBFGS_HISTORY, tol=TOL,
+                                          max_iterations=500, direction_method=method),
+            "lbfgs_syncs")
+        iters = int(res.iterations)
+        check(int(res.status) == qt.Status.CONVERGED, f"optimize_lbfgs {method} did not converge")
+        lines.append(f"{method}: CONVERGED in {iters} iterations (JAX f32: {JAX_LBFGS_ITERS}), "
+                     f"n_fev {int(res.n_fev)}, max|x-x*| {float((res.x - x_star).abs().max()):.3e}, "
+                     f"{c['lbfgs_syncs']} host syncs ({c['lbfgs_syncs'] / max(iters, 1):.2f} per "
+                     f"iteration, all {flagged} flagged counted), {wall:.3f} s")
+    log(f"[lbfgs] optimize_lbfgs(history={LBFGS_HISTORY}), n={LBFGS_N} diagonal quadratic f32 on "
+        f"{device}: " + "; ".join(lines))
+
+
+def solve_lbfgs_fleet(qt, X, max_iterations=MAX_ITERS):
+    """bench_full.py:121-136's call: history 10, tol 1e-3, analytic
+    value-and-grad, the fused engine."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    return qt.optimize_lbfgs_batched(rosenbrock_logdensity, X, history=LBFGS_HISTORY, tol=TOL,
+                                     max_iterations=max_iterations,
+                                     value_and_grad_fn=rosenbrock_value_and_grad)
+
+
+def lbfgs_fleet_phase(qt, device, smi):
+    """The L-BFGS fleets on the card (see phase 18 above). Returns, per
+    fleet, its solves/s, busy share and peak memory."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    out = {}
+    for (batch, n), (jax_med, jax_max) in LBFGS_FLEETS.items():
+        X = large_fleet(device, batch=batch, n=n)
+        label = f"{batch}x{n}"
+        res, c, flagged, wall = counted_run(qt, lambda: solve_lbfgs_fleet(qt, X),
+                                            "lbfgs_fleet_syncs")
+        bodies, syncs = c["lbfgs_fleet_bodies"], c["lbfgs_fleet_syncs"]
+        converged, med, itmax, gmax = fleet_line(qt, res)
+        log(f"[lbfgs-fleet] optimize_lbfgs_batched {label} f32 on {device}: converged "
+            f"{converged}/{batch}, iterations median {med:g} max {itmax} (JAX package on the same "
+            f"inputs: median {jax_med} max {jax_max}), n_fev median "
+            f"{float(res.n_fev.float().median()):g}, max|grad| {gmax:.3e}, max|x-1| "
+            f"{float((res.x - 1).abs().max()):.3e}; {bodies} loop bodies, {syncs} host syncs "
+            f"({syncs / max(bodies, 1):.2f} per body; all {flagged} flagged counted), no kernel "
+            f"launched; wall {wall:.3f}s (first call, sync debug mode on)")
+        check(res.x.shape == (batch, n) and res.x.dtype == torch.float32
+              and bool(torch.isfinite(res.x).all()), f"{label}: result shape, dtype or values")
+        check(converged == batch, f"{label}: only {converged}/{batch} lanes converged")
+        check(gmax < TOL, f"{label}: gradient certificate not met")
+        check(abs(med - jax_med) <= 0.1 * jax_med,
+              f"{label}: median iterations {med} not within 10% of {jax_med}")
+
+        secs, peaks = alternate_samples({"fleet": lambda: solve_lbfgs_fleet(qt, X)}, 3)
+        wall_s = float(np.median(secs["fleet"]))
+        reset_counters(qt)
+        prof = device_profile(lambda: solve_lbfgs_fleet(qt, X))
+        prof_bodies = engines(qt)["lbfgs fleet"].loop_bodies
+        busy = None if prof[1] is None else prof[1] / prof[0]
+        log(f"[time] L-BFGS fleet {label} f32: {batch / wall_s:.1f} solves/s ({wall_s:.4f} s/solve, "
+            f"median of 3 after a warm-up; turns {', '.join(f'{s:.4f}' for s in secs['fleet'])} s), "
+            f"{bodies} loop bodies and {syncs} host syncs per solve, {1e3 * wall_s / bodies:.3f} ms "
+            f"of wall per body, peak memory {peaks['fleet'] / 2**20:.1f} MiB; device busy share "
+            + ("not measured (no device events)" if busy is None else f"{100 * busy:.1f} %")
+            + f" on {smi}")
+        log(profile_line(f"L-BFGS fleet {label} f32", *prof, prof_bodies))
+        out[label] = {"solves_per_s": batch / wall_s, "busy_share": busy,
+                      "peak_mib": peaks["fleet"] / 2**20, "bodies": bodies, "syncs": syncs}
+
+        # resume from a state saved as numpy: it lands on the card in f32
+        part = solve_lbfgs_fleet(qt, X, max_iterations=50)
+        saved = qt.lbfgs_state_to_numpy(part.state)
+        resumed = qt.optimize_lbfgs_batched_fused_from_state(
+            rosenbrock_logdensity, saved, tol=TOL, max_iterations=MAX_ITERS,
+            value_and_grad_fn=rosenbrock_value_and_grad)
+        converged_r, med_r, itmax_r, gmax_r = fleet_line(qt, resumed)
+        check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32,
+              f"{label}: the numpy state did not resume on the card in f32")
+        check(converged_r == batch and gmax_r < TOL, f"{label}: the resumed fleet did not converge")
+        log(f"[lbfgs-fleet] {label} resumed from a 50-iteration state saved as numpy: on "
+            f"{resumed.x.device} f32, converged {converged_r}/{batch}, iterations median "
+            f"{med_r:g} max {itmax_r} (the one-leg run: {med:g} / {itmax})")
+        del X, res, part, saved, resumed
+    return out
+
+
+def ring_phase(qt, device, smi):
+    """The shift ring against the circular ring (see phase 18 above): whole
+    fleet solves through each, in turns, at three shapes. Returns the ms
+    per body of each ring at each shape."""
+    import quasinewtonmethods_jl_tpu_torch.lbfgs_batched_solve as lbs
+
+    fleet = engines(qt)["lbfgs fleet"]
+    limit = lbs._RING_CIRCULAR_MIN_N
+    rows, times = [], {}
+    try:
+        for batch, n in RING_SHAPES:
+            X = large_fleet(device, batch=batch, n=n)
+            bodies = {}
+
+            def run(ring, X=X, bodies=bodies):
+                lbs._RING_CIRCULAR_MIN_N = 1 if ring == "circular" else 10**9
+                fleet.loop_bodies = 0
+                res = solve_lbfgs_fleet(qt, X)
+                torch.cuda.synchronize()
+                bodies[ring] = fleet.loop_bodies
+                check(bool(res.converged.all()), f"{ring} ring {batch}x{n}: not every lane converged")
+                return res
+
+            secs, _ = alternate_samples({r: (lambda r=r: run(r)) for r in ("shift", "circular")}, 3)
+            ms = {r: 1e3 * float(np.median(v)) / bodies[r] for r, v in secs.items()}
+            ratios = [(s_ / bodies["shift"]) / (c_ / bodies["circular"])
+                      for s_, c_ in zip(secs["shift"], secs["circular"])]
+            times[batch, n] = ms
+            rows.append(f"{batch}x{n}: shift {ms['shift']:.3f}, circular {ms['circular']:.3f} ms per "
+                        f"body ({bodies['shift']} / {bodies['circular']} bodies; the circular ring "
+                        f"{ms['shift'] / ms['circular']:.2f}x, per turn "
+                        f"{', '.join(f'{r:.2f}' for r in ratios)})")
+            del X
+    finally:
+        lbs._RING_CIRCULAR_MIN_N = limit
+    log(f"[ring] L-BFGS fleet f32, history {LBFGS_HISTORY}, whole solves per ring in turns (median "
+        f"of 3 after a warm-up, wall per loop body): {'; '.join(rows)}; dispatch: circular for "
+        f"n >= {limit} on {smi}")
+    return times
+
+
+def vmap_phase(qt, device):
+    """``optimize_batched(backend="vmap")`` against the fused engine (see
+    phase 19 above)."""
+    X = bench_fleet(device)[:VMAP_LANES]
+    t0 = time.perf_counter()
+    vm = solve_bench(qt, X, "auto", backend="vmap")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fused = solve_bench(qt, X, "auto")
+    _, med_v, max_v, gmax_v = fleet_line(qt, vm)
+    _, med_f, max_f, _ = fleet_line(qt, fused)
+    check(vm.x.shape == (VMAP_LANES, N) and vm.x.device.type == "cuda", "vmap result shape or device")
+    check(torch.equal(vm.status, fused.status), "vmap statuses differ from the fused engine's")
+    check(bool(vm.converged.all()) and gmax_v < TOL, "vmap lanes did not all converge")
+    check(abs(med_v - med_f) <= 0.1 * med_f,
+          f"vmap median iterations {med_v} not within 10% of the fused engine's {med_f}")
+    log(f"[vmap] optimize_batched(backend='vmap') on the bench fleet's first {VMAP_LANES} lanes: "
+        f"statuses equal to the fused engine's, converged {int(vm.converged.sum())}/{VMAP_LANES}, "
+        f"iterations median {med_v:g} max {max_v} (fused: {med_f:g} / {max_f}), max|grad| "
+        f"{gmax_v:.3e}, {wall:.3f} s for the {VMAP_LANES} scalar solves")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -1284,6 +1646,11 @@ def main():
     wolfe_phase(qt, device, smi, cg["n_fev"])
     compacted_phase(qt, device, smi)
     repair_phase(qt)
+    scalar_phase(qt, device)
+    lbfgs_scalar_phase(qt, device)
+    lbfgs_fleet_phase(qt, device, smi)
+    ring_phase(qt, device, smi)
+    vmap_phase(qt, device)
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms

@@ -4,14 +4,17 @@
 Quasi-Newton maximization of log-densities, run as fleets of independent
 solves (the HMC chain-initialisation workload). Names and arguments follow
 the JAX package, which stays the reference the port is tested against. The
-port holds the fleet BFGS engine (`optimize_batched`,
+port holds the scalar BFGS driver (`optimize`, `optimize_from_state`; BFGS,
+DFP or SR1 updates), the fleet BFGS engine (`optimize_batched`,
 `optimize_batched_fused`, `optimize_batched_fused_from_state`,
 `optimize_batched_compacted`; BackTracking or `Wolfe` line search) with its
 hand-written CUDA update kernels (B1, ops/kernels/bfgs_kernel.py; the
 two-pass B2 for large n, ops/kernels/bfgs_blocked.py), the whole-solve
-resident engine (`optimize_batched_resident`, kernel B3) and the nonlinear
-CG fleet (`optimize_cg`, `optimize_cg_from_state`); ROADMAP.md lists what
-is still to port. Entry points run on the CUDA card unless given a CPU
+resident engine (`optimize_batched_resident`, kernel B3), the nonlinear CG
+fleet (`optimize_cg`, `optimize_cg_from_state`) and L-BFGS, scalar
+(`optimize_lbfgs`, `optimize_lbfgs_from_state`) and as a fleet
+(`optimize_lbfgs_batched`, `optimize_lbfgs_batched_fused_from_state`);
+ROADMAP.md lists what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
@@ -24,21 +27,33 @@ from .batched_solve import (
     optimize_batched_fused_from_state,
 )
 from .cg_solve import CGResult, optimize_cg, optimize_cg_from_state
-from .ops.bfgs import bfgs_update, initial_inv_hessian
+from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
+from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
+from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .ops.wolfe import Wolfe, WolfeResult, wolfe_linesearch
-from .parallel.batch import optimize_batched
+from .parallel.batch import optimize_batched, optimize_lbfgs_batched
 from .resident_solve import optimize_batched_resident, resident_feasible
-from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
+from .solve import (
+    MAX_ITERATIONS_DEFAULT,
+    STALL_LIMIT_DEFAULT,
+    OptimizeResult,
+    optimize,
+    optimize_from_state,
+)
 from .state import (
     BFGSState,
     CGState,
+    LBFGSState,
     Status,
     bfgs_state_from_numpy,
     bfgs_state_to_numpy,
     cg_state_from_numpy,
     cg_state_to_numpy,
     init_bfgs_state,
+    init_lbfgs_state,
+    lbfgs_state_from_numpy,
+    lbfgs_state_to_numpy,
 )
 
 __all__ = [
@@ -53,7 +68,16 @@ __all__ = [
     "WolfeResult",
     "wolfe_linesearch",
     "bfgs_update",
+    "dfp_update",
+    "sr1_update",
     "initial_inv_hessian",
+    "optimize",
+    "optimize_from_state",
+    "optimize_lbfgs",
+    "optimize_lbfgs_from_state",
+    "optimize_lbfgs_batched",
+    "optimize_lbfgs_batched_fused_from_state",
+    "LBFGSResult",
     "optimize_batched",
     "optimize_batched_fused",
     "optimize_batched_fused_from_state",
@@ -70,6 +94,10 @@ __all__ = [
     "BFGSState",
     "Status",
     "init_bfgs_state",
+    "LBFGSState",
+    "init_lbfgs_state",
+    "lbfgs_state_from_numpy",
+    "lbfgs_state_to_numpy",
     "bfgs_state_from_numpy",
     "bfgs_state_to_numpy",
     "cg_state_from_numpy",

@@ -3,7 +3,9 @@ port of ``quasinewtonmethods_jl_tpu/ops/bfgs.py`` (reference:
 src/QuasiNewtonMethods.jl:34-69 `BFGS_update!`, :144-148 `initial_B⁻¹!`).
 
 The single-lane `bfgs_update` is the numerics oracle the fleet update
-(ops/kernels/bfgs_kernel.py) is tested against. Sign conventions
+(ops/kernels/bfgs_kernel.py) is tested against; `dfp_update` and
+`sr1_update` (Broyden-family breadth beyond the reference) are the scalar
+driver's other ``update_method``s. Sign conventions
 (maximization): y = grad_old - grad_new, d = B⁻¹ grad_new,
 m = gradᵀ B⁻¹ grad (> 0 certifies ascent; m <= 0 triggers the identity
 reset in the driver).
@@ -15,7 +17,15 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["initial_inv_hessian", "bfgs_update", "h0_gamma", "H0_GAMMA_CLIP"]
+__all__ = [
+    "initial_inv_hessian",
+    "bfgs_update",
+    "dfp_update",
+    "sr1_update",
+    "SR1_SKIP_TOL",
+    "h0_gamma",
+    "H0_GAMMA_CLIP",
+]
 
 
 def initial_inv_hessian(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -61,6 +71,50 @@ def bfgs_update(
     Bys = By * rho
     c1 = (1.0 + ytBy * rho) * rho
     B_new = B + c1 * torch.outer(s, s) - torch.outer(Bys, s) - torch.outer(s, Bys)
+    d = B_new @ grad_new
+    m = torch.dot(d, grad_new)
+    return B_new, d, m
+
+
+def dfp_update(B, s, grad_new, grad_old, fresh=None):
+    """One inverse-DFP update, B ← B − (By)(By)ᵀ/yᵀBy + ssᵀ/sᵀy; returns
+    (B_new, direction, m) with `bfgs_update`'s conventions, optional H0
+    scaling and in-band failure (sᵀy == 0 gives a NaN m)."""
+    dtype = B.dtype
+    y = grad_old - grad_new
+    sty = torch.dot(s, y)
+    if fresh is not None:
+        yty = torch.dot(y, y)
+        B = B * h0_gamma(sty, yty, fresh, dtype)
+    By = B @ y
+    ytBy = torch.dot(y, By)
+    B_new = B - torch.outer(By, By) / ytBy + torch.outer(s, s) / sty
+    d = B_new @ grad_new
+    m = torch.dot(d, grad_new)
+    return B_new, d, m
+
+
+# SR1 safeguard (Nocedal & Wright 6.26): skip the update when |uᵀy| is tiny
+# relative to ||u||·||y||.
+SR1_SKIP_TOL = 1e-8
+
+
+def sr1_update(B, s, grad_new, grad_old, fresh=None):
+    """One inverse-SR1 update, B ← B + uuᵀ/uᵀy with u = s − By, skipped
+    (B unchanged) where |uᵀy| < `SR1_SKIP_TOL`·||u||·||y||; the skip guards
+    its own division, so a skipped update stays finite. SR1 does not keep B
+    definite: the driver's m <= 0 reset is the safety net."""
+    dtype = B.dtype
+    y = grad_old - grad_new
+    sty = torch.dot(s, y)
+    if fresh is not None:
+        yty = torch.dot(y, y)
+        B = B * h0_gamma(sty, yty, fresh, dtype)
+    u = s - B @ y
+    uty = torch.dot(u, y)
+    skip = torch.abs(uty) < SR1_SKIP_TOL * (torch.linalg.vector_norm(u) * torch.linalg.vector_norm(y))
+    denom = torch.where(skip, torch.ones((), dtype=dtype, device=B.device), uty)
+    B_new = torch.where(skip, B, B + torch.outer(u, u) / denom)
     d = B_new @ grad_new
     m = torch.dot(d, grad_new)
     return B_new, d, m

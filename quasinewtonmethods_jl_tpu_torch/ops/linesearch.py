@@ -80,8 +80,10 @@ def _cubic_proposal(m, a1, a2, fx0, fx1, f0, eps, sqrttol):
     return torch.where(degenerate, m / (2.0 * b), root)
 
 
-def _scalar(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.full((), value, dtype=like.dtype, device=like.device)
+def _scalar(value, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    # torch.full fills on the device; torch.tensor(value, device=cuda) would
+    # copy from the host and synchronise the stream
+    return torch.full((), value, dtype=dtype or like.dtype, device=like.device)
 
 
 def backtracking_linesearch(
@@ -99,6 +101,12 @@ def backtracking_linesearch(
       m: 0-d directional derivative ``gradᵀ d`` at alpha = 0.
       ls: hyperparameters.
     """
+    return _backtracking(phi, f0, m, ls)[0]
+
+
+def _backtracking(phi, f0, m, ls: BackTracking):
+    """`backtracking_linesearch` and the number of host reads it made: one
+    per round plus the one that ends the search."""
     c1 = _scalar(ls.c1, f0)
     rho_hi = _scalar(ls.rho_hi, f0)
     rho_lo = _scalar(ls.rho_lo, f0)
@@ -109,52 +117,55 @@ def backtracking_linesearch(
     # Initial trial at alpha = 1 (reference :169-174).
     a1, a2 = one, one
     fx1 = phi(one)
+    fx0 = f0
     n_fev = 1
-
     # A search with non-finite m (or f0) can never satisfy Armijo: fail
     # fast, outcome-identical to burning the budget.
-    doomed = not bool(torch.isfinite(m) & torch.isfinite(f0))
+    live = torch.isfinite(m) & torch.isfinite(f0)
 
-    # Phase A — halve alpha until the objective is finite (reference
-    # :176-184); on each halving a1 takes the previous a2.
-    it = 0
-    while not doomed and not bool(torch.isfinite(fx1)) and it < finite_halving_limit(f0.dtype):
-        a1, a2 = a2, 0.5 * a2
-        fx1 = phi(a2)
-        it += 1
-        n_fev += 1
-
-    # Phase B — Armijo sufficient-increase loop (reference :186-230). A NaN
-    # fx1 keeps the loop running, exactly like the reference.
     def sufficient():
-        return bool(fx1 >= f0 + a2 * c1 * m)
+        return fx1 >= f0 + a2 * c1 * m
 
-    fx0 = f0
-    iteration = 0
-    while not doomed and not sufficient() and iteration < ls.iterations:
-        iteration += 1
-        quad = _quadratic_proposal(m, a2, fx1, f0)
-        if ls.order == 2 or iteration == 1:
-            at = quad
+    # Phase A halves alpha until the objective is finite (reference
+    # :176-184; a1 takes the previous a2); phase B is the Armijo
+    # sufficient-increase loop (:186-230), where a NaN fx1 keeps the loop
+    # running, exactly like the reference. One read per round says whether
+    # each phase's condition holds.
+    halvings = iteration = reads = 0
+    in_a = True
+    while True:
+        reads += 1
+        go_a, go_b = torch.stack([live & ~torch.isfinite(fx1), live & ~sufficient()]).tolist()
+        in_a = in_a and go_a and halvings < finite_halving_limit(f0.dtype)
+        if in_a:
+            a1, a2 = a2, 0.5 * a2
+            halvings += 1
+        elif go_b and iteration < ls.iterations:
+            iteration += 1
+            quad = _quadratic_proposal(m, a2, fx1, f0)
+            if ls.order == 2 or iteration == 1:
+                at = quad
+            else:
+                at = _cubic_proposal(m, a1, a2, fx0, fx1, f0, eps, sqrttol)
+            a1 = a2
+            at = nanmin(at, a2 * rho_hi)  # avoid too-small reductions
+            a2 = nanmax(at, a2 * rho_lo)  # avoid too-big reductions
+            fx0 = fx1
         else:
-            at = _cubic_proposal(m, a1, a2, fx0, fx1, f0, eps, sqrttol)
-        a1 = a2
-        at = nanmin(at, a2 * rho_hi)  # avoid too-small reductions
-        a2 = nanmax(at, a2 * rho_lo)  # avoid too-big reductions
-        fx0 = fx1
+            break
         fx1 = phi(a2)
         n_fev += 1
 
-    alpha = a2 if sufficient() else torch.zeros_like(a2)
+    alpha = torch.where(sufficient(), a2, torch.zeros_like(a2))
     # alpha == 0 covers budget exhaustion and the underflow path where alpha
     # shrinks to exactly 0 (reference :284).
     return LineSearchResult(
         alpha=alpha,
         f_final=fx1,
-        n_fev=torch.tensor(n_fev, dtype=torch.int32, device=f0.device),
-        iterations=torch.tensor(iteration, dtype=torch.int32, device=f0.device),
+        n_fev=_scalar(n_fev, f0, torch.int32),
+        iterations=_scalar(iteration, f0, torch.int32),
         failed=alpha == 0.0,
-    )
+    ), reads
 
 
 def run_linesearch(ls, f, vag, x, d, f0, m):
@@ -165,7 +176,12 @@ def run_linesearch(ls, f, vag, x, d, f0, m):
     value and gradient (``vag``: the curvature test needs the slope gradᵀd)
     and count toward both counters. Any other ``ls`` raises TypeError.
     """
-    from .wolfe import Wolfe, wolfe_linesearch
+    return _run_linesearch(ls, f, vag, x, d, f0, m)[:4]
+
+
+def _run_linesearch(ls, f, vag, x, d, f0, m):
+    """`run_linesearch` and, last, the number of host reads it made."""
+    from .wolfe import Wolfe, _wolfe
 
     if isinstance(ls, Wolfe):
 
@@ -173,13 +189,13 @@ def run_linesearch(ls, f, vag, x, d, f0, m):
             fv, gv = vag(x + alpha * d)
             return fv, torch.dot(gv, d)
 
-        wr = wolfe_linesearch(phi_vag, f0, m, ls)
-        return wr.alpha, wr.failed, wr.n_fev, wr.n_fev
+        wr, reads = _wolfe(phi_vag, f0, m, ls)
+        return wr.alpha, wr.failed, wr.n_fev, wr.n_fev, reads
     if not isinstance(ls, BackTracking):
         raise TypeError(f"ls must be a BackTracking or a Wolfe, got {type(ls).__name__}")
 
     def phi(alpha):
         return f(x + alpha * d)
 
-    lsr = backtracking_linesearch(phi, f0, m, ls)
-    return lsr.alpha, lsr.failed, lsr.n_fev, torch.zeros_like(lsr.n_fev)
+    lsr, reads = _backtracking(phi, f0, m, ls)
+    return lsr.alpha, lsr.failed, lsr.n_fev, torch.zeros_like(lsr.n_fev), reads

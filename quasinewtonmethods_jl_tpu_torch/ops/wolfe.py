@@ -28,6 +28,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .linesearch import _scalar
+
 __all__ = ["Wolfe", "WolfeResult", "wolfe_propose", "wolfe_linesearch"]
 
 
@@ -86,10 +88,7 @@ def wolfe_propose(lo, flo, slo, hi, fhi, shi, interp: str):
 
 
 def _wolfe_consts(ls: Wolfe, like: torch.Tensor):
-    def const(value):
-        return torch.full((), value, dtype=like.dtype, device=like.device)
-
-    return const(ls.c1), const(ls.c2)
+    return _scalar(ls.c1, like), _scalar(ls.c2, like)
 
 
 def _accepts(ls: Wolfe, c1, c2, f0, m, a, fa, sa):
@@ -127,6 +126,12 @@ def wolfe_linesearch(
       m: 0-d directional derivative at 0 (> 0 for an ascent direction).
       ls: hyperparameters.
     """
+    return _wolfe(phi_vag, f0, m, ls)[0]
+
+
+def _wolfe(phi_vag, f0, m, ls: Wolfe):
+    """`wolfe_linesearch` and the number of host reads it made: one per
+    round, plus the one that ends the search where the budget did not."""
     c1, c2 = _wolfe_consts(ls, f0)
     one = torch.ones((), dtype=f0.dtype, device=f0.device)
     lo, flo, slo = torch.zeros_like(one), f0, m
@@ -134,12 +139,15 @@ def wolfe_linesearch(
     fhi = shi = torch.full_like(one, float("nan"))
     a = one
     fa, sa = phi_vag(one)
-    it = 0
+    it = reads = 0
     # acceptance is tested before each round, so the accepting trial is
     # never followed by a wasted evaluation; a NaN m or f0 can never
     # accept, so such a search fails at once (the in-band alpha = 0)
-    doomed = not bool(torch.isfinite(m) & torch.isfinite(f0))
-    while not doomed and not bool(_accepts(ls, c1, c2, f0, m, a, fa, sa)) and it < ls.iterations:
+    live = torch.isfinite(m) & torch.isfinite(f0)
+    while it < ls.iterations:
+        reads += 1
+        if not bool(live & ~_accepts(ls, c1, c2, f0, m, a, fa, sa)):
+            break
         shrink = _shrinks(ls, c1, f0, m, a, fa, sa)
         hi = torch.where(shrink, a, hi)
         fhi = torch.where(shrink, fa, fhi)
@@ -159,7 +167,7 @@ def wolfe_linesearch(
         alpha=alpha,
         f_final=fa,
         slope_final=sa,
-        n_fev=torch.tensor(it + 1, dtype=torch.int32, device=f0.device),
-        iterations=torch.tensor(it, dtype=torch.int32, device=f0.device),
+        n_fev=_scalar(it + 1, f0, torch.int32),
+        iterations=_scalar(it, f0, torch.int32),
         failed=alpha == 0.0,  # the same in-band sentinel as backtracking
-    )
+    ), reads

@@ -2,11 +2,12 @@
 
 `Status` keeps the JAX package's integers: they are a serialisation
 contract (saved states and results from either package read the same).
-`BFGSState` and `CGState` are NamedTuples of tensors with the JAX field
-order (the JAX package keeps `CGState` in cg_solve.py; the port keeps its
-states here), so a state converts leaf by leaf between the two packages
-through numpy (`bfgs_state_from_numpy` / `bfgs_state_to_numpy`,
-`cg_state_from_numpy` / `cg_state_to_numpy`).
+`BFGSState`, `LBFGSState` and `CGState` are NamedTuples of tensors with the
+JAX field order (the JAX package keeps `CGState` in cg_solve.py; the port
+keeps its states here), so a state converts leaf by leaf between the two
+packages through numpy (`bfgs_state_from_numpy` / `bfgs_state_to_numpy`,
+`lbfgs_state_from_numpy` / `lbfgs_state_to_numpy`, `cg_state_from_numpy` /
+`cg_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -23,6 +24,10 @@ __all__ = [
     "init_bfgs_state",
     "bfgs_state_from_numpy",
     "bfgs_state_to_numpy",
+    "LBFGSState",
+    "init_lbfgs_state",
+    "lbfgs_state_from_numpy",
+    "lbfgs_state_to_numpy",
     "CGState",
     "cg_state_from_numpy",
     "cg_state_to_numpy",
@@ -86,6 +91,63 @@ def init_bfgs_state(x0: torch.Tensor) -> BFGSState:
     )
 
 
+class LBFGSState(NamedTuple):
+    """Limited-memory BFGS state: (m, n) history rings instead of an (n, n)
+    B. Slots 0..hist-1 hold the pairs oldest to newest (the canonical time
+    order every engine exports); fleet results add a leading batch axis
+    (``S`` is (batch, m, n))."""
+
+    x: torch.Tensor  # (n,)
+    grad: torch.Tensor  # (n,)
+    grad_old: torch.Tensor  # (n,)
+    step: torch.Tensor  # (n,) last accepted step
+    S: torch.Tensor  # (m, n) step history ring
+    Y: torch.Tensor  # (m, n) gradient-difference history ring
+    rho: torch.Tensor  # (m,) 1 / sᵀy per ring slot
+    hist: torch.Tensor  # () int32 number of valid history pairs (<= m)
+    gamma: torch.Tensor  # () H0 scaling sᵀy / yᵀy
+    fun: torch.Tensor
+    k: torch.Tensor
+    status: torch.Tensor
+    n_fev: torch.Tensor
+    n_gev: torch.Tensor
+    n_resets: torch.Tensor
+    stall: torch.Tensor  # () int32 consecutive no-improvement iterations
+
+
+def init_lbfgs_state(x0: torch.Tensor, history: int = 10) -> LBFGSState:
+    """Fresh L-BFGS state with an m-slot history ring, on ``x0``'s device."""
+    if x0.ndim != 1:
+        raise ValueError(f"x0 must be a rank-1 tensor, got shape {tuple(x0.shape)}")
+    n = x0.shape[0]
+    dtype, device = x0.dtype, x0.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    def zero_i32():
+        return torch.zeros((), dtype=torch.int32, device=device)
+
+    return LBFGSState(
+        x=x0,
+        grad=zeros(n),
+        grad_old=zeros(n),
+        step=zeros(n),
+        S=zeros(history, n),
+        Y=zeros(history, n),
+        rho=zeros(history),
+        hist=zero_i32(),
+        gamma=torch.ones((), dtype=dtype, device=device),
+        fun=torch.full((), float("nan"), dtype=dtype, device=device),
+        k=zero_i32(),
+        status=torch.full((), int(Status.RUNNING), dtype=torch.int32, device=device),
+        n_fev=zero_i32(),
+        n_gev=zero_i32(),
+        n_resets=zero_i32(),
+        stall=zero_i32(),
+    )
+
+
 class CGState(NamedTuple):
     """Nonlinear-CG solver state (resumable, checkpointable). Every leaf has
     a leading (batch,) axis (a rank-1 solve's result squeezes it). (fun,
@@ -126,6 +188,19 @@ def bfgs_state_from_numpy(state, device) -> BFGSState:
 
 def bfgs_state_to_numpy(state: BFGSState) -> BFGSState:
     """The inverse of `bfgs_state_from_numpy`: a `BFGSState` of numpy
+    arrays, field for field in the JAX package's order."""
+    return _to_numpy(state)
+
+
+def lbfgs_state_from_numpy(state, device) -> LBFGSState:
+    """`LBFGSState` from any state with its fields whose leaves are numpy
+    arrays (e.g. a JAX ``LBFGSState`` after ``np.asarray`` of each leaf),
+    scalar or batched. Dtypes are kept; leaves are copied."""
+    return _from_numpy(LBFGSState, state, device)
+
+
+def lbfgs_state_to_numpy(state: LBFGSState) -> LBFGSState:
+    """The inverse of `lbfgs_state_from_numpy`: an `LBFGSState` of numpy
     arrays, field for field in the JAX package's order."""
     return _to_numpy(state)
 

@@ -193,8 +193,12 @@ def test_loop_counts_syncs_and_no_op_tail(rng):
 
 def test_unported_options_raise():
     X0 = torch.zeros((2, 3))
-    with pytest.raises(NotImplementedError, match="vmap"):
-        optimize_batched(quad_logdensity, X0, backend="vmap")
+    # backend="vmap" is ported (the scalar driver lane by lane); fold_eval
+    # stays a fused-engine option there, as in JAX
+    res = optimize_batched(quad_logdensity, X0, backend="vmap")
+    assert (res.status == Status.CONVERGED).all() and res.x.shape == (2, 3)
+    with pytest.raises(ValueError, match="fused-engine"):
+        optimize_batched(quad_logdensity, X0, backend="vmap", fold_eval=True)
     with pytest.raises(ValueError, match="backend"):
         optimize_batched(quad_logdensity, X0, backend="sharded")
     # fold_eval and the Wolfe search are ported: both run
