@@ -99,7 +99,22 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      body), beside the dispatch constant `_RING_CIRCULAR_MIN_N`;
  19. ``backend="vmap"``: the bench fleet's first 16 lanes through
      `optimize_batched(backend="vmap")` (the scalar driver lane by lane):
-     statuses equal to the fused engine's, median within 10 % of its.
+     statuses equal to the fused engine's, median within 10 % of its;
+ 20. B3 on the data-bearing objectives (csrc/resident_objectives.cuh): the
+     ill-conditioned quadratic (n in {7, 60, 100, 236} f32, {7, 60, 100,
+     165} f64) and the logistic-regression MAP (n = 100, 500 observations)
+     against the plain version on the same model, caps 0, 1, 5 (every
+     counter equal) and whole solves (statuses equal), also at the two
+     fleets below; then the slice at full width: BASELINE config 3's
+     posterior (500 observations, prior scale 10, data drawn with numpy from
+     seed 20260816) from 4096 N(0, 1) starts in f32, tol 3e-3, through
+     `optimize_batched_resident` (one launch, no host synchronisation) and
+     through `optimize_batched` (B1), each with every lane converged and the
+     median within 10 % of the JAX package's; a 1024 x 236 f32 quadratic
+     fleet (condition 1e4) through `optimize_batched_resident` (one launch);
+     ms per solve of B3, the fleet engine and the plain version in turns,
+     B3's share of its bound and launch shape, peak memory; and the scalar
+     `optimize` on config 3 from zeros(100) against the JAX package's count.
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
@@ -110,6 +125,10 @@ cores); ``ms`` is B1's device time per launch, B2's per call by CUDA
 events, B3's per solve by CUDA events; ``library_ms`` is one PyTorch call
 that computes the same function (B2a: ``torch.bmm``), null where none
 does.
+
+B3's records, one per instantiation the run launches
+(``resident_bfgs_solve[quadratic]`` and ``[logistic]`` beside the
+Rosenbrock's), count the launches of phase 20's full-width runs.
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -186,6 +205,25 @@ SPLIT_NS = (128, 192, 232)  # B1 fits up to n = 237 in f32
 B1_NS = (2, 7, 33, 60, 61, 65, 128)  # one warp per lane up to 64; ragged bulk copies at 7, 33, 61, 65
 B1_LARGEST_N = {torch.float32: 237, torch.float64: 167}
 RESIDENT_NS = (2, 5, 6, 17, 24, 60, 65)  # one warp per lane up to n = 64, two at 65
+# Phase 20: B3 on the data-bearing objectives. BASELINE config 3's
+# posterior: n = 100 weights, 500 observations, prior scale 10
+# (bench_full.py:87-96). Its float32 tolerance is bench_full.py's 3e-3:
+# with |f| ~ 233 the line search cannot certify increases below
+# eps(f32)·|f| ~ 3e-5, so tighter gradient tolerances stall in-band at
+# this scale.
+LOGISTIC_N, LOGISTIC_OBS, LOGISTIC_PRIOR, LOGISTIC_TOL = 100, 500, 10.0, 3e-3
+# The JAX package on the same data (`python scripts/jax_logistic_reference.py`,
+# JAX on the CPU, float32, tol 3e-3): `optimize_batched_fused` from the
+# 4096 starts converged 4096/4096, median 11 and max 13 iterations;
+# `optimize` from zeros(100) converged in 11 iterations.
+JAX_LOGISTIC_MEDIAN, JAX_LOGISTIC_MAX, JAX_LOGISTIC_SCALAR_ITERS = 11, 13, 11
+# The quadratic's parity widths: where the lane group's layout changes, and
+# the largest n one lane of B3 holds (236 f32, 165 f64). Its full-width
+# fleet takes config 2's spectrum (condition 1e4) at the largest n B3 holds
+# in f32 (config 2's n = 256 does not fit a block's shared memory).
+OBJECTIVE_NS = {torch.float32: (7, 60, 100, 236), torch.float64: (7, 60, 100, 165)}
+QUAD_BATCH, QUAD_N, QUAD_CONDITION = 1024, 236, 1e4
+OBJECTIVE_LANES = 64  # lanes of the parity fleets
 # Published peaks of one H100 SXM: device memory and float32 outside the
 # tensor cores (the kernels' type on the main path).
 PEAK_BYTES_PER_S = 3.35e12
@@ -433,16 +471,41 @@ def b1_bound(batch, n, itemsize, lanes_active, lanes_reset):
     return bound(nbytes, update_ops(n, lanes_active, lanes_active - lanes_reset, 0))
 
 
-def b3_bound(res, n, itemsize, h0_scale):
-    """B3's bound from the solve's own counters: it reads X0 and writes X,
-    G, G_old, STEP, B and the per-lane scalars once. Per lane: n_gev
-    value-and-gradient evaluations with the tolerance test (7n);
-    iterations - 1 updates (the first iteration is the peel, which counts
-    one reset), n_resets - 1 of which reset B; an update right after a
-    reset is scaled (with h0_scale): there are n_resets of those less one
-    where the last iteration reset (the fresh flag it ends with), and at
-    least that less the resets are rank-2 changes; n_fev - n_gev
-    line-search trials (6n); and a step per iteration (2n)."""
+def objective_ops(n, itemsize, objective=None):
+    """(operations of one value-and-gradient with the tolerance test, of
+    one line-search trial, bytes of the objective's data) that B3's
+    objective needs; exp, log1p and a division count as one operation
+    each. Rosenbrock (None): 6 per entry and the tolerance test's 1; a
+    trial 6 per entry. Quadratic: r = x - x*, diag·r, ·r, its sum, the
+    gradient -diag·r and the tolerance test, 6 per entry; a trial 6 (x +
+    αd 2, r, diag·r, ·r, the sum); data diag and x*. Logistic over m
+    observations: the logits 2mn and Xᵀr 2mn, per observation the term y
+    log σ(z) + (1 - y) log σ(-z) 12 (|z|, exp, log1p, two minimums, two
+    subtractions, 1 - y, two products, their sum, the accumulation) and
+    the residual y - σ(z) 4 (exp, 1 + e, the division, the subtraction),
+    per entry 5 (w², its sum, w / σ², the subtraction, the tolerance
+    test); a trial the logits, 12 per observation and 4 per entry (x + αd
+    2, w² and its sum); data X and y."""
+    if objective is None:
+        return 7 * n, 6 * n, 0
+    if not hasattr(objective, "X"):
+        return 6 * n, 6 * n, 2 * n * itemsize
+    m = objective.X.shape[0]
+    return (4 * m * n + 16 * m + 5 * n, 2 * m * n + 12 * m + 4 * n,
+            (m * n + m) * itemsize)
+
+
+def b3_bound(res, n, itemsize, h0_scale, objective=None):
+    """B3's bound from the solve's own counters: it reads X0 (and the
+    objective's data) and writes X, G, G_old, STEP, B and the per-lane
+    scalars once. Per lane: n_gev value-and-gradient evaluations with the
+    tolerance test (`objective_ops`); iterations - 1 updates (the first
+    iteration is the peel, which counts one reset), n_resets - 1 of which
+    reset B; an update right after a reset is scaled (with h0_scale): there
+    are n_resets of those less one where the last iteration reset (the
+    fresh flag it ends with), and at least that less the resets are rank-2
+    changes; n_fev - n_gev line-search trials (`objective_ops`); and a step
+    per iteration (2n)."""
     batch = res.x.shape[0]
     iters = res.iterations.to(torch.float64)
     gev = res.n_gev.to(torch.float64)
@@ -452,9 +515,10 @@ def b3_bound(res, n, itemsize, h0_scale):
     resets = (n_resets - (iters > 0).to(torch.float64)).clamp(min=0)
     after_reset = n_resets - res.state.fresh.to(torch.float64)
     scaled = (after_reset - resets).clamp(min=0) * float(h0_scale)
+    vag_ops, trial_ops, data_bytes = objective_ops(n, itemsize, objective)
     ops = (update_ops(n, updates, updates - resets, scaled)
-           + gev * 7 * n + trials * 6 * n + iters * 2 * n)
-    nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1)
+           + gev * vag_ops + trials * trial_ops + iters * 2 * n)
+    nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1) + data_bytes
     return bound(nbytes, float(ops.sum()))
 
 
@@ -567,6 +631,8 @@ def reset_counters(qt):
     """Every kernel's launch count and the fleet engines' loop counts to 0."""
     for fn in counted_kernels().values():
         fn.launches = 0
+    counted_kernels()["B3"].objective_launches.update(
+        dict.fromkeys(counted_kernels()["B3"].objective_launches, 0))
     for engine in engines(qt).values():
         engine.host_syncs = 0
         if hasattr(engine, "loop_bodies"):
@@ -918,6 +984,22 @@ def resident_parity_phase(qt, device):
     return exact["main"][0]
 
 
+def resident_run(qt, model, X, tol):
+    """One `optimize_batched_resident` solve under torch's sync debug mode:
+    (result, synchronisations flagged, wall s)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = qt.optimize_batched_resident(model, X, tol=tol, max_iterations=MAX_ITERS)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return res, sum("synchroniz" in str(w.message) for w in caught), time.perf_counter() - t0
+
+
 def resident_path_phase(qt, device):
     from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
 
@@ -925,19 +1007,8 @@ def resident_path_phase(qt, device):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     reset_counters(qt)
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            res = qt.optimize_batched_resident(rosenbrock_logdensity, X, tol=TOL,
-                                               max_iterations=MAX_ITERS)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    res, flagged, wall = resident_run(qt, rosenbrock_logdensity, X, TOL)
     c = read_counters(qt)
-    flagged = sum("synchroniz" in str(w.message) for w in caught)
     check(c["B3"] == 1 and c["B1"] == c["B2a"] == c["B2b"] == 0, f"launches {c}")
     check(flagged == 0, f"{flagged} host synchronisations inside the resident solve")
     status = res.status.cpu().numpy()
@@ -1623,6 +1694,213 @@ def vmap_phase(qt, device):
         f"{gmax_v:.3e}, {wall:.3f} s for the {VMAP_LANES} scalar solves")
 
 
+def logistic_data(rng):
+    """BASELINE config 3's data and the fleet's starts, float64 numpy, drawn
+    in the order scripts/jax_logistic_reference.py draws them: X =
+    N(0, 1) / sqrt(n), w_true, y = 1[u < σ(X w_true)], the starts N(0, 1)."""
+    X = rng.standard_normal((LOGISTIC_OBS, LOGISTIC_N)) / np.sqrt(LOGISTIC_N)
+    w_true = rng.standard_normal(LOGISTIC_N)
+    y = (rng.random(LOGISTIC_OBS) < 1.0 / (1.0 + np.exp(-(X @ w_true)))).astype(np.float64)
+    starts = rng.standard_normal((BATCH, LOGISTIC_N))
+    return X, y, starts
+
+
+def objective_fleet(kind, n, dtype, device, batch=OBJECTIVE_LANES):
+    """A model of ``kind`` on the card in ``dtype`` and a fleet of N(0, 1)
+    starts, from seed BENCH_SEED + n: the quadratic (condition 1e4, x*
+    drawn) or a logistic posterior of LOGISTIC_OBS observations (drawn by
+    the model's recipe with numpy)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        IllConditionedQuadratic,
+        LogisticRegressionMAP,
+    )
+
+    rng = np.random.default_rng(BENCH_SEED + n)
+    if kind == "quadratic":
+        model = IllConditionedQuadratic(n, condition=QUAD_CONDITION, x_star=rng.standard_normal(n),
+                                        dtype=dtype, device=device)
+    else:
+        X = rng.standard_normal((LOGISTIC_OBS, n)) / np.sqrt(n)
+        logits = X @ rng.standard_normal(n)
+        y = (rng.random(LOGISTIC_OBS) < 1.0 / (1.0 + np.exp(-logits))).astype(np.float64)
+        model = LogisticRegressionMAP(n, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=X, y=y,
+                                      dtype=dtype, device=device)
+    return model, torch.tensor(rng.standard_normal((batch, n)), dtype=dtype, device=device)
+
+
+def objective_parity(qt, model, X, tol, label):
+    """B3's instantiation for ``model`` against its plain version on the
+    fleet ``X``: over caps 0, 1 and 5 every counter equal on every lane and
+    x, grad and B normwise within KERNEL_RTOL (in f32 within it or, where
+    more, within ROUNDING_FACTOR times what the plain version itself moves
+    when run on the CPU, which sums in another order); to convergence equal
+    statuses on every lane, all converged, the certificate met. Returns
+    (summary, max abs error at the caps, failures)."""
+    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
+
+    ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
+    worst_abs = worst_rel = 0.0
+    failures, same_runs = [], 0
+    for cap in SHORT_CAPS:
+        kern = qt.optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=cap,
+                                            kernel="cuda")
+        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, stall, model)
+        err_abs, err_rel = state_err(kern, plain)
+        limit = KERNEL_RTOL[X.dtype]
+        if X.dtype == torch.float32 and cap > 0:
+            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, stall, model)
+            limit = max(limit, ROUNDING_FACTOR * state_err(cpu, plain)[1])
+        same = bool(counters_equal(kern, plain).all())
+        same_runs += same
+        worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
+        if not (same and err_rel <= limit):
+            failures.append(f"{label} cap={cap}: counters equal {same}, normwise {err_rel:.3e} "
+                            f"(limit {limit:.3e})")
+    kern = qt.optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=MAX_ITERS,
+                                        kernel="cuda")
+    plain = optimize_batched_resident_reference(X, ls, tol, MAX_ITERS, True, stall, model)
+    statuses = bool(torch.equal(kern.status, plain.status))
+    converged = bool(kern.converged.all()) and bool(plain.converged.all())
+    gmax = max(float(kern.grad.abs().max()), float(plain.grad.abs().max()))
+    if not (statuses and converged and gmax < tol):
+        failures.append(f"{label} cap={MAX_ITERS}: statuses equal {statuses}, all converged "
+                        f"{converged}, max|grad| {gmax:.3e} (tol {tol})")
+    lanes = int((~counters_equal(kern, plain)).sum())
+    summary = (f"{label}: caps {SHORT_CAPS} {same_runs}/{len(SHORT_CAPS)} runs with every counter "
+               f"equal, max normwise {worst_rel:.3e}, max abs {worst_abs:.3e}; cap {MAX_ITERS} "
+               f"statuses equal {statuses}, all converged {converged}, {lanes}/{X.shape[0]} lanes "
+               f"with other counters")
+    return summary, worst_abs, failures
+
+
+def objective_phase(qt, device, smi):
+    """B3 on the data-bearing objectives (see phase 20 above). Returns each
+    new instantiation's (launches, max abs error, (ms, plain ms, bound ms,
+    bound kind, library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
+
+    t_phase = time.perf_counter()
+    failures = []
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        tol = {"quadratic": TOL if dtype == torch.float32 else 1e-6,
+               "logistic": LOGISTIC_TOL if dtype == torch.float32 else 1e-6}
+        for kind, ns in (("quadratic", OBJECTIVE_NS[dtype]), ("logistic", (LOGISTIC_N,))):
+            for n in ns:
+                model, X = objective_fleet(kind, n, dtype, device)
+                summary, _, bad = objective_parity(
+                    qt, model, X, tol[kind], f"{kind} {OBJECTIVE_LANES}x{n} {name} tol {tol[kind]}")
+                print(f"  B3 vs plain {summary}", file=sys.stderr)
+                failures += bad
+
+    # the full-width fleets, in float32
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    logistic = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                     y=yd, dtype=torch.float32, device=device)
+    starts = torch.tensor(starts, dtype=torch.float32, device=device)
+    quad, Xq = objective_fleet("quadratic", QUAD_N, torch.float32, device, batch=QUAD_BATCH)
+    main_summary, main_err = {}, {}
+    for kind, model, X, tol in (("logistic", logistic, starts, LOGISTIC_TOL),
+                                ("quadratic", quad, Xq, TOL)):
+        main_summary[kind], main_err[kind], bad = objective_parity(
+            qt, model, X, tol, f"{kind} {X.shape[0]}x{X.shape[1]} f32 tol {tol}")
+        failures += bad
+    log(f"[objectives] B3 vs plain (the fleet engine with the plain update on the same model): "
+        f"quadratic n in {OBJECTIVE_NS[torch.float32]} f32 / {OBJECTIVE_NS[torch.float64]} f64 and "
+        f"logistic n={LOGISTIC_N} ({LOGISTIC_OBS} observations) f32/f64, {OBJECTIVE_LANES} lanes "
+        f"each (rows on stderr); at full width: {main_summary['logistic']}; "
+        f"{main_summary['quadratic']}")
+    check(not failures, f"B3 and its plain version differ on the objectives: {failures}")
+
+    # the slice's main path: both instantiations at full width, counted
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    reset_counters(qt)
+    res, flagged, wall = resident_run(qt, logistic, starts, LOGISTIC_TOL)
+    peak = torch.cuda.max_memory_allocated(device) - base  # what the solve adds at its peak
+    res_q, flagged_q, wall_q = resident_run(qt, quad, Xq, TOL)
+    c = read_counters(qt)
+    launches = dict(counted_kernels()["B3"].objective_launches)
+    check(launches == {"rosenbrock": 0, "quadratic": 1, "logistic": 1} and c["B3"] == 2
+          and c["B1"] == c["B2a"] == c["B2b"] == 0, f"launches {launches}, {c}")
+    check(flagged == flagged_q == 0, f"{flagged} + {flagged_q} host synchronisations inside the "
+          "resident solves")
+    converged, med, itmax, gmax = fleet_line(qt, res)
+    check(converged == BATCH and gmax < LOGISTIC_TOL,
+          f"logistic through B3: {converged}/{BATCH} converged, max|grad| {gmax}")
+    check(abs(med - JAX_LOGISTIC_MEDIAN) <= 0.1 * JAX_LOGISTIC_MEDIAN,
+          f"logistic through B3: median {med} not within 10% of {JAX_LOGISTIC_MEDIAN}")
+    conv_q, med_q, max_q, gmax_q = fleet_line(qt, res_q)
+    check(conv_q == QUAD_BATCH and gmax_q < TOL,
+          f"quadratic through B3: {conv_q}/{QUAD_BATCH} converged, max|grad| {gmax_q}")
+    fleet = qt.optimize_batched(logistic, starts, tol=LOGISTIC_TOL, max_iterations=MAX_ITERS)
+    conv_f, med_f, max_f, gmax_f = fleet_line(qt, fleet)
+    check(conv_f == BATCH and gmax_f < LOGISTIC_TOL,
+          f"logistic through the fleet engine: {conv_f}/{BATCH} converged, max|grad| {gmax_f}")
+    check(abs(med_f - JAX_LOGISTIC_MEDIAN) <= 0.1 * JAX_LOGISTIC_MEDIAN,
+          f"logistic through the fleet engine: median {med_f} not within 10% of "
+          f"{JAX_LOGISTIC_MEDIAN}")
+    log(f"[objectives] logistic MAP (BASELINE config 3: n={LOGISTIC_N}, {LOGISTIC_OBS} "
+        f"observations, prior scale {LOGISTIC_PRIOR}) {BATCH} starts f32 tol {LOGISTIC_TOL} on "
+        f"{device}: optimize_batched_resident launches B3[logistic] {launches['logistic']} (B1/B2 "
+        f"0), host synchronisations {flagged}, converged {converged}/{BATCH}, iterations median "
+        f"{med:g} max {itmax}, max|grad| {gmax:.3e}, wall {wall:.3f}s (first call), memory the "
+        f"solve adds at its peak {peak / 2**20:.1f} MiB (B {BATCH * LOGISTIC_N ** 2 * 4 / 2**20:.1f} "
+        f"MiB); "
+        f"optimize_batched (B1) converged {conv_f}/{BATCH}, median {med_f:g} max {max_f}; JAX "
+        f"package: median {JAX_LOGISTIC_MEDIAN} max {JAX_LOGISTIC_MAX}. Quadratic "
+        f"{QUAD_BATCH}x{QUAD_N} f32 condition {QUAD_CONDITION:g} tol {TOL}: B3[quadratic] "
+        f"{launches['quadratic']} launch, {flagged_q} host synchronisations, converged "
+        f"{conv_q}/{QUAD_BATCH}, iterations median {med_q:g} max {max_q}, wall {wall_q:.3f}s")
+
+    ms = per_call_ms({
+        "B3": lambda: qt.optimize_batched_resident(logistic, starts, tol=LOGISTIC_TOL,
+                                                   max_iterations=MAX_ITERS),
+        "B1": lambda: qt.optimize_batched(logistic, starts, tol=LOGISTIC_TOL,
+                                          max_iterations=MAX_ITERS, kernel="cuda"),
+        "plain": lambda: qt.optimize_batched(logistic, starts, tol=LOGISTIC_TOL,
+                                             max_iterations=MAX_ITERS, kernel="torch"),
+    }, (), rounds=3, calls=1)
+    ms_q = per_call_ms({
+        "B3": lambda: qt.optimize_batched_resident(quad, Xq, tol=TOL, max_iterations=MAX_ITERS),
+        "plain": lambda: qt.optimize_batched(quad, Xq, tol=TOL, max_iterations=MAX_ITERS,
+                                             kernel="torch"),
+    }, (), rounds=2, calls=1)
+    bound_l = b3_bound(res, LOGISTIC_N, 4, True, logistic)
+    bound_q = b3_bound(res_q, QUAD_N, 4, True, quad)
+    log(f"[time] logistic {BATCH}x{LOGISTIC_N} f32 per solve (CUDA events, median of 3 in "
+        f"turns): B3 {ms['B3']:.4f} ms ({1e3 * BATCH / ms['B3']:.1f} solves/s), fleet engine "
+        f"with B1 {ms['B1']:.4f} ms ({1e3 * BATCH / ms['B1']:.1f} solves/s), with the plain update "
+        f"{ms['plain']:.4f} ms; B3's bound {bound_l[0]:.4f} ms ({bound_l[1]} the solve needs), B3 "
+        f"at {100 * bound_l[0] / ms['B3']:.1f} % of it; launch "
+        f"{shape_line(resident_occupancy(LOGISTIC_N, 4, logistic))}. Quadratic "
+        f"{QUAD_BATCH}x{QUAD_N} f32 (median of 2): B3 {ms_q['B3']:.4f} ms, plain "
+        f"{ms_q['plain']:.4f} ms; bound {bound_q[0]:.4f} ms ({bound_q[1]}), B3 at "
+        f"{100 * bound_q[0] / ms_q['B3']:.1f} %; launch "
+        f"{shape_line(resident_occupancy(QUAD_N, 4, quad))} on {smi}")
+
+    x0 = torch.zeros(LOGISTIC_N, dtype=torch.float32, device=device)
+    scalar, c, syncs, wall_s = counted_run(
+        qt, lambda: qt.optimize(logistic, x0, tol=LOGISTIC_TOL), "scalar_syncs")
+    iters = int(scalar.iterations)
+    check(int(scalar.status) == qt.Status.CONVERGED and float(scalar.grad.abs().max()) < LOGISTIC_TOL,
+          f"scalar optimize on the logistic: {qt.Status(int(scalar.status)).name}")
+    check(abs(iters - JAX_LOGISTIC_SCALAR_ITERS) <= 0.1 * JAX_LOGISTIC_SCALAR_ITERS,
+          f"scalar optimize on the logistic: {iters} iterations, JAX {JAX_LOGISTIC_SCALAR_ITERS}")
+    log(f"[objectives] optimize on the logistic (config 3) from zeros({LOGISTIC_N}) f32 tol "
+        f"{LOGISTIC_TOL} on {scalar.x.device}: CONVERGED in {iters} iterations (JAX package: "
+        f"{JAX_LOGISTIC_SCALAR_ITERS}), n_fev {int(scalar.n_fev)}, {syncs} host syncs, all "
+        f"counted, {wall_s:.3f} s per solve; phase 20 took {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "quadratic": (launches["quadratic"], main_err["quadratic"],
+                      (ms_q["B3"], ms_q["plain"], *bound_q, None)),
+        "logistic": (launches["logistic"], main_err["logistic"],
+                     (ms["B3"], ms["plain"], *bound_l, None)),
+    }
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -1651,6 +1929,7 @@ def main():
     lbfgs_fleet_phase(qt, device, smi)
     ring_phase(qt, device, smi)
     vmap_phase(qt, device)
+    objectives = objective_phase(qt, device, smi)
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
@@ -1667,6 +1946,10 @@ def main():
                blocked_err["B2b"], times["B2b"]),
         record("resident_bfgs_solve", RESIDENT_SOURCE, RESIDENT_REPLACES, resident["B3"],
                resident_err, times["B3"]),
+    ] + [
+        record(f"resident_bfgs_solve[{kind}]", RESIDENT_SOURCE, RESIDENT_REPLACES, launches, err,
+               ms)
+        for kind, (launches, err, ms) in objectives.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

@@ -29,6 +29,7 @@ from .batched_solve import (
 from .cg_solve import CGResult, optimize_cg, optimize_cg_from_state
 from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
 from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
+from .models import LogisticRegressionMAP
 from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .ops.wolfe import Wolfe, WolfeResult, wolfe_linesearch
@@ -58,6 +59,7 @@ from .state import (
 
 __all__ = [
     "ProbabilityModel",
+    "LogisticRegressionMAP",
     "as_logdensity",
     "as_value_and_grad",
     "as_value_fn",

@@ -29,17 +29,21 @@
 // engine's bodies after a lane finished are masked no-ops, so the
 // trajectory is the same.
 //
-// The objective is evaluated on the card: the split Rosenbrock of
-// models/rosenbrock.py with its odd-n tail term, its value-and-gradient as
-// rosenbrock_value_and_grad computes it and the line search's trials as
-// rosenbrock_logdensity does. Terms are summed by the lane group's
-// deterministic sums, so repeated runs give identical results.
+// The objective is evaluated on the card, a template argument of the
+// kernel (resident_objectives.cuh), one instantiation and one entry point
+// each: the split Rosenbrock of models/rosenbrock.py (no data), the
+// ill-conditioned quadratic of models/quadratic.py (diag and x* in device
+// memory) and the logistic-regression MAP of models/logistic.py (X, y in
+// device memory, shared by every lane through L2). Terms are summed by the
+// lane group's deterministic sums, so repeated runs give identical results.
 //
 // What bounds it: per iteration a lane does ~12 n² flops on B in shared
 // memory (the matvecs and the update) and a few lane sums, so the issue
 // rate of its instructions and their latency bound it, not device memory:
-// B crosses device memory once per solve, at the end. The design cuts what
-// the lane waits on. At n <= 64 a lane is one warp, so its sums are five
+// B crosses device memory once per solve, at the end. A data-bearing
+// objective adds its own evaluations (the logistic's ~4·n_obs·n operations
+// per value-and-gradient and ~2·n_obs·n per trial, its X read through
+// L2). The design cuts what the lane waits on. At n <= 64 a lane is one warp, so its sums are five
 // shuffles each and it never waits at a __syncthreads; the top of an
 // iteration takes the objective, the status test's sums and the update's
 // first sums in one lane sum; B is read and written once per iteration: the
@@ -59,7 +63,7 @@
 // no -ftz; nanmin/nanmax below are written as comparisons with the
 // reference's semantics (prefer the non-NaN argument).
 
-#include "bfgs_common.cuh"
+#include "resident_objectives.cuh"
 
 namespace {
 
@@ -81,14 +85,16 @@ struct Params {
 };
 
 // Dynamic shared memory a block asks for. The lane uses B (n·n), G, d, y,
-// STEP and u twice (n each), then the reduction scratch (kRedValues):
-// n² + 7n + kRedValues values. The count keeps the n² + 9n +
+// STEP and u twice (n each), then the reduction scratch (kRedValues), then
+// the objective's own (`extra` values, from offset n² + 7n + kRedValues):
+// n² + 7n + kRedValues + extra values. The count keeps the n² + 9n +
 // kRedValues of the earlier block-per-lane layout, so that
 // ops/kernels/resident_kernel.py :: resident_feasible, which repeats it,
-// admits exactly the n it did (n <= 236 in float, <= 165 in double); at
-// n = 60 in float the slack costs no block per SM (13 either way).
-size_t smem_bytes(int n, size_t itemsize) {
-  return (size_t(n) * n + 9 * size_t(n) + size_t(kRedValues)) * itemsize;
+// admits exactly the n it did for objectives without scratch (n <= 236 in
+// float, <= 165 in double); at n = 60 in float the slack costs no block
+// per SM (13 either way).
+size_t smem_bytes(int n, size_t itemsize, size_t extra = 0) {
+  return (size_t(n) * n + 9 * size_t(n) + size_t(kRedValues) + extra) * itemsize;
 }
 
 template <typename T>
@@ -126,29 +132,7 @@ __device__ T cubic_proposal(T m, T a1, T a2, T fx0, T fx1, T f0, T eps, T sqrtto
   return degenerate ? m / (T(2) * b) : root;
 }
 
-// The vector entries a thread owns: the Rosenbrock pair (i, half + i) for
-// i = threadIdx.x < n/2, and thread 0 also the odd-n tail n - 1 (n/2 never
-// exceeds the lane's threads, so a thread owns at most one pair). X, G,
-// G_old, STEP and d of those entries live in the owner's registers; G,
-// STEP, y and d also go to shared memory where the matvecs and the update
-// read them.
-constexpr int kOwned = 3;
-
-struct Owned {
-  int idx[kOwned];
-  bool has[kOwned];
-  __device__ __forceinline__ explicit Owned(int n) {
-    const int half = n >> 1;
-    const int t = threadIdx.x;
-    has[0] = has[1] = t < half;
-    idx[0] = t;
-    idx[1] = half + t;
-    has[2] = (n & 1) && t == 0;
-    idx[2] = n - 1;
-  }
-};
-
-template <typename T, bool kOneWarp>
+template <typename T, bool kOneWarp, typename Objective>
 __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
     resident_solve_kernel(const T* __restrict__ X0, T* __restrict__ X_out,
                           T* __restrict__ G_out, T* __restrict__ G_old_out,
@@ -157,10 +141,10 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
                           int* __restrict__ iterations_out, int* __restrict__ n_fev_out,
                           int* __restrict__ n_gev_out, int* __restrict__ n_resets_out,
                           uint8_t* __restrict__ fresh_out, int* __restrict__ stall_out, int n,
-                          Params<T> p) {
+                          Params<T> p, Objective obj) {
+  constexpr int kOwned = Objective::kOwned;
   const int b = blockIdx.x;
   const size_t vo = size_t(b) * n;
-  const bool odd = n & 1;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sB = reinterpret_cast<T*>(smem_raw);
@@ -177,8 +161,9 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   T* const sU0 = sY + 3 * n;
   T* const sU1 = sY + 4 * n;
   LaneGroup<T, kOneWarp> grp{sY + 5 * n};
+  T* const sObj = sY + 5 * n + kRedValues;  // the objective's scratch
   const qnm::Columns cols(n);
-  const Owned own(n);
+  const qnm::Owned<kOwned> own = obj.owned(n);
 
   // the fresh carry of batched_solve.py :: _fresh_bfgs_carry; B = I by columns
 #pragma unroll
@@ -199,45 +184,12 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   int k = 0, status = kRunning, iterations = 0, n_fev = 0, n_gev = 0, n_resets = 0, stall = 0;
   bool fresh = true;
 
-  // rosenbrock_logdensity at x + alpha·d (the line search's trial point)
-  auto value_along = [&](T alpha) {
-    T v[2] = {T(0), T(0)};  // the pairs' terms, the tail's
-    if (own.has[0]) {
-      const T a = x[0] + alpha * d[0];
-      const T r = (x[1] + alpha * d[1]) - a * a;
-      const T oma = T(1) - a;
-      v[0] = T(100) * (r * r) + oma * oma;
-    }
-    if (own.has[2]) {
-      const T delta = T(1) - (x[2] + alpha * d[2]);
-      v[1] = delta * delta;
-    }
-    grp.sum(v);
-    T f = -v[0];
-    if (odd) f = f - v[1];
-    return f;
-  };
-
   while (status == kRunning && k < p.max_iterations) {
-    // rosenbrock_value_and_grad at X: -Σ 100 r² + (1 - a)², r = b - a², and
-    // -(1 - x[n-1])² for odd n; fused with the status test's sums and the
-    // update's first ones into one lane sum. Only thread 0 adds the tail's
-    // square, so its sum is exact.
+    // the objective's value and gradient at X, fused with the status
+    // test's sums and the update's first ones into one lane sum
     T q[7] = {T(0), T(0), T(0), T(0), T(0), T(0), T(0)};
-    // Σ terms, #entries with !(|g_i| < tol) (NaN counts), gᵀg, sᵀy, yᵀy, sᵀg, tail²
-    if (own.has[0]) {
-      const T a = x[0];
-      const T r = x[1] - a * a;
-      const T oma = T(1) - a;
-      q[0] = T(100) * r * r + oma * oma;
-      g[0] = T(400) * r * a + T(2) * oma;
-      g[1] = T(-200) * r;
-    }
-    if (own.has[2]) {
-      const T delta = T(1) - x[2];
-      q[6] = delta * delta;
-      g[2] = T(2) * delta;
-    }
+    // Σ terms, #entries with !(|g_i| < tol) (NaN counts), gᵀg, sᵀy, yᵀy, sᵀg, Σ extra
+    obj.value_and_grad(grp, own, n, sObj, x, g, q[0], q[6]);
 #pragma unroll
     for (int e = 0; e < kOwned; ++e) {
       if (!own.has[e]) continue;
@@ -252,8 +204,7 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
       q[5] += st[e] * gi;
     }
     grp.sum(q);  // also publishes G and y
-    T f0 = -q[0];
-    if (odd) f0 = f0 - q[6];
+    const T f0 = obj.value(q[0], q[6], n);
     const bool improved = isnan(fprev) || f0 > fprev;
     const int stall_n = improved ? 0 : stall + 1;
     int status_pre = kRunning;  // highest priority last
@@ -288,6 +239,9 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
       }
 
       // batched_solve.py :: _batched_linesearch for one lane
+      const auto value_along = [&](T alpha) {
+        return obj.value_along(grp, own, n, sObj, x, d, alpha);
+      };
       T fx1 = value_along(T(1));
       const bool doomed = !(isfinite(m) && isfinite(f0));
       T a1 = T(1), a2 = T(1), fx0 = f0;
@@ -365,44 +319,92 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   }
 }
 
-template <typename T>
+template <typename T, typename Objective>
 auto launch_for(int n) {
-  return qnm::lane_launch(n, &resident_solve_kernel<T, true>, &resident_solve_kernel<T, false>,
-                          smem_bytes(n, sizeof(T)));
+  return qnm::lane_launch(n, &resident_solve_kernel<T, true, Objective>,
+                          &resident_solve_kernel<T, false, Objective>,
+                          smem_bytes(n, sizeof(T), Objective::extra_values(n)));
 }
 
-template <typename T>
+template <typename T, typename Objective>
 int launch(const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun,
            void* status, void* iterations, void* n_fev, void* n_gev, void* n_resets,
-           void* fresh, void* stall, int batch, int n, const Params<T>& p, void* stream) {
+           void* fresh, void* stall, int batch, int n, const Params<T>& p,
+           const Objective& obj, void* stream) {
   if (batch == 0 || n == 0) return 0;
-  const auto l = launch_for<T>(n);
+  const auto l = launch_for<T, Objective>(n);
   if (l.err != cudaSuccess) return int(l.err);
   l.kernel<<<batch, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X0), static_cast<T*>(X), static_cast<T*>(G),
       static_cast<T*>(G_old), static_cast<T*>(step), static_cast<T*>(B), static_cast<T*>(fun),
       static_cast<int*>(status), static_cast<int*>(iterations), static_cast<int*>(n_fev),
       static_cast<int*>(n_gev), static_cast<int*>(n_resets), static_cast<uint8_t*>(fresh),
-      static_cast<int*>(stall), n, p);
+      static_cast<int*>(stall), n, p, obj);
   return int(cudaGetLastError());
+}
+
+// The objectives by the numbers the entry points below take.
+enum ObjectiveId { kRosenbrock = 0, kQuadratic = 1, kLogistic = 2 };
+
+template <typename T>
+size_t smem_bytes_of(int objective, int n) {
+  switch (objective) {
+    case kQuadratic:
+      return smem_bytes(n, sizeof(T), qnm::QuadraticObjective<T>::extra_values(n));
+    case kLogistic:
+      return smem_bytes(n, sizeof(T), qnm::LogisticObjective<T>::extra_values(n));
+    default:
+      return smem_bytes(n, sizeof(T), qnm::RosenbrockObjective<T>::extra_values(n));
+  }
+}
+
+template <typename T>
+int occupancy_of(int objective, int n, int* regs, int* threads, int* blocks_per_sm) {
+  switch (objective) {
+    case kQuadratic:
+      return qnm::lane_occupancy(launch_for<T, qnm::QuadraticObjective<T>>(n), regs, threads,
+                                 blocks_per_sm);
+    case kLogistic:
+      return qnm::lane_occupancy(launch_for<T, qnm::LogisticObjective<T>>(n), regs, threads,
+                                 blocks_per_sm);
+    default:
+      return qnm::lane_occupancy(launch_for<T, qnm::RosenbrockObjective<T>>(n), regs, threads,
+                                 blocks_per_sm);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block of the solve asks for, in bytes.
+// Shared memory one block of the solve asks for, in bytes: for the
+// Rosenbrock (and the quadratic, which needs no scratch), and for each
+// objective by its number (ObjectiveId).
 size_t qnm_resident_smem_bytes(int n, int itemsize) { return smem_bytes(n, size_t(itemsize)); }
+
+size_t qnm_resident_objective_smem_bytes(int objective, int n, int itemsize) {
+  return itemsize == 4 ? smem_bytes_of<float>(objective, n) : smem_bytes_of<double>(objective, n);
+}
 
 // The solve's launch at n: registers per thread, threads per block and
 // blocks per SM (the occupancy calculator's, with the attributes a launch
-// sets). Returns a CUDA error code (0 = success).
-int qnm_resident_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
-  return itemsize == 4 ? qnm::lane_occupancy(launch_for<float>(n), regs, threads, blocks_per_sm)
-                       : qnm::lane_occupancy(launch_for<double>(n), regs, threads, blocks_per_sm);
+// sets), for the Rosenbrock and for each objective by its number. Returns
+// a CUDA error code (0 = success).
+int qnm_resident_objective_occupancy(int objective, int n, int itemsize, int* regs,
+                                     int* threads, int* blocks_per_sm) {
+  return itemsize == 4 ? occupancy_of<float>(objective, n, regs, threads, blocks_per_sm)
+                       : occupancy_of<double>(objective, n, regs, threads, blocks_per_sm);
 }
 
-// Both return cudaGetLastError() after the launch (0 = launched).
+int qnm_resident_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
+  return qnm_resident_objective_occupancy(kRosenbrock, n, itemsize, regs, threads,
+                                          blocks_per_sm);
+}
+
+// Every solve entry returns cudaGetLastError() after the launch (0 =
+// launched). The Rosenbrock's take no data; the quadratic's diag and x*
+// (n each), the logistic's X (n_obs, n) row-major, y (n_obs) and
+// prior_scale².
 int qnm_resident_solve_f32(const void* X0, void* X, void* G, void* G_old, void* step, void* B,
                            void* fun, void* status, void* iterations, void* n_fev,
                            void* n_gev, void* n_resets, void* fresh, void* stall, int batch,
@@ -412,7 +414,8 @@ int qnm_resident_solve_f32(const void* X0, void* X, void* G, void* G_old, void* 
   const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
                         budget, max_iterations, stall_limit, order, h0_scale};
   return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                       n_resets, fresh, stall, batch, n, p, stream);
+                       n_resets, fresh, stall, batch, n, p, qnm::RosenbrockObjective<float>{},
+                       stream);
 }
 
 int qnm_resident_solve_f64(const void* X0, void* X, void* G, void* G_old, void* step, void* B,
@@ -424,7 +427,64 @@ int qnm_resident_solve_f64(const void* X0, void* X, void* G, void* G_old, void* 
   const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
                          budget, max_iterations, stall_limit, order, h0_scale};
   return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                        n_resets, fresh, stall, batch, n, p, stream);
+                        n_resets, fresh, stall, batch, n, p, qnm::RosenbrockObjective<double>{},
+                        stream);
+}
+
+int qnm_resident_solve_quadratic_f32(
+    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
+    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
+    int batch, int n, float tol, float c1, float rho_hi, float rho_lo, float eps, float sqrttol,
+    int budget, int max_iterations, int stall_limit, int order, int h0_scale, const void* diag,
+    const void* x_star, void* stream) {
+  const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
+                        budget, max_iterations, stall_limit, order, h0_scale};
+  const qnm::QuadraticObjective<float> obj{static_cast<const float*>(diag),
+                                           static_cast<const float*>(x_star)};
+  return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
+                       n_resets, fresh, stall, batch, n, p, obj, stream);
+}
+
+int qnm_resident_solve_quadratic_f64(
+    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
+    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
+    int batch, int n, double tol, double c1, double rho_hi, double rho_lo, double eps,
+    double sqrttol, int budget, int max_iterations, int stall_limit, int order, int h0_scale,
+    const void* diag, const void* x_star, void* stream) {
+  const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
+                         budget, max_iterations, stall_limit, order, h0_scale};
+  const qnm::QuadraticObjective<double> obj{static_cast<const double*>(diag),
+                                            static_cast<const double*>(x_star)};
+  return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
+                        n_resets, fresh, stall, batch, n, p, obj, stream);
+}
+
+int qnm_resident_solve_logistic_f32(
+    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
+    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
+    int batch, int n, float tol, float c1, float rho_hi, float rho_lo, float eps, float sqrttol,
+    int budget, int max_iterations, int stall_limit, int order, int h0_scale, const void* data_X,
+    const void* data_y, int n_obs, float prior_sq, void* stream) {
+  const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
+                        budget, max_iterations, stall_limit, order, h0_scale};
+  const qnm::LogisticObjective<float> obj{static_cast<const float*>(data_X),
+                                          static_cast<const float*>(data_y), n_obs, prior_sq};
+  return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
+                       n_resets, fresh, stall, batch, n, p, obj, stream);
+}
+
+int qnm_resident_solve_logistic_f64(
+    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
+    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
+    int batch, int n, double tol, double c1, double rho_hi, double rho_lo, double eps,
+    double sqrttol, int budget, int max_iterations, int stall_limit, int order, int h0_scale,
+    const void* data_X, const void* data_y, int n_obs, double prior_sq, void* stream) {
+  const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
+                         budget, max_iterations, stall_limit, order, h0_scale};
+  const qnm::LogisticObjective<double> obj{static_cast<const double*>(data_X),
+                                           static_cast<const double*>(data_y), n_obs, prior_sq};
+  return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
+                        n_resets, fresh, stall, batch, n, p, obj, stream);
 }
 
 }  // extern "C"

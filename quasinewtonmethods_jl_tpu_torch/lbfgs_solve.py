@@ -11,10 +11,11 @@ takes steepest ascent; H0 is γ = sᵀy/yᵀy.
 
 Each iteration evaluates at the top and classifies; JAX's
 ``lax.cond(finish, advance)`` is a Python ``if`` on the status just read.
-That read also carries the previous iteration's status (a failed line
-search), so the host reads the device once per iteration plus once per
-line-search round, and a resume once more for its lifetime ``k``; every
-read is counted in ``optimize_lbfgs.host_syncs``. The JAX ``dot=`` /
+A failed line search ends the loop before the next evaluation, as JAX's
+loop condition does; the search's own last read says so. The host reads
+the device once per iteration plus once per line-search round, and a
+resume once more for its lifetime ``k``; every read is counted in
+``optimize_lbfgs.host_syncs``. The JAX ``dot=`` /
 ``max_abs=`` hooks serve the sharded path (parallel/mesh.py), not ported
 yet, and are left out.
 """
@@ -72,10 +73,12 @@ def _direction_fn(direction_method: str):
     return _DIRECTIONS[direction_method]
 
 
-def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn) -> LBFGSState:
+def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn):
     """Push the pair of the previous accepted step (a never-stepped state's
     zero step has sᵀy = 0 and is skipped), take the direction, reset on
-    non-ascent, search and step (JAX `advance`, :124-170)."""
+    non-ascent, search and step (JAX `advance`, :124-170). Returns the new
+    state and whether the search failed (a Python bool, from its last
+    read)."""
     S, Y, rho, hist, gamma = lbfgs_push(s.S, s.Y, s.rho, s.hist, s.gamma, s.step, s.grad_old - g)
     d, m = direction_fn(S, Y, rho, hist, gamma, g)
     # indefinite direction: clear the history and restart from steepest
@@ -85,7 +88,7 @@ def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn) -> LBFGSStat
     m = torch.where(reset, torch.dot(g, g), m)
     hist = torch.where(reset, torch.zeros_like(hist), hist)
     gamma = torch.where(reset, torch.ones_like(gamma), gamma)
-    alpha, ls_failed, ls_fev, ls_gev, reads = _run_linesearch(ls, f, vag, s.x, d, f0, m)
+    alpha, ls_failed, ls_fev, ls_gev, reads, failed = _run_linesearch(ls, f, vag, s.x, d, f0, m)
     optimize_lbfgs.host_syncs += reads
     # explicit mask: 0 * a NaN direction would destroy x
     step = torch.where(ls_failed, torch.zeros_like(d), alpha * d)
@@ -106,7 +109,7 @@ def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn) -> LBFGSStat
         n_gev=s.n_gev + 1 + ls_gev,
         n_resets=s.n_resets + reset.to(torch.int32),
         stall=stall,
-    )
+    ), failed
 
 
 def _lbfgs_loop(vag, f, state: LBFGSState, ls, tol, max_iterations: int,
@@ -121,17 +124,15 @@ def _lbfgs_loop(vag, f, state: LBFGSState, ls, tol, max_iterations: int,
     while k < max_iterations:
         f0, g = vag(s.x)
         status_pre, stall = _classify_scalar(f0, g, s.fun, s.stall, tol, stall_limit)
-        # one read: the last step's status (a failed search ends the loop
-        # before this evaluation, which is then dropped) and this one's
-        status, pre = _host_read(optimize_lbfgs, s.status, status_pre)
-        if status != _RUNNING:
-            break
+        (pre,) = _host_read(optimize_lbfgs, status_pre)
         if pre != _RUNNING:  # finish: record the evaluation that ended it
             s = s._replace(grad=g, fun=f0, status=status_pre, n_fev=s.n_fev + 1,
                            n_gev=s.n_gev + 1, stall=stall)
             break
-        s = _advance(s, f0, g, stall, vag, f, ls, direction_fn)
+        s, failed = _advance(s, f0, g, stall, vag, f, ls, direction_fn)
         k += 1
+        if failed:  # LINESEARCH_FAILURE: JAX's loop condition stops here
+            break
     return s._replace(status=_cap_status(s.status))
 
 

@@ -105,8 +105,9 @@ def backtracking_linesearch(
 
 
 def _backtracking(phi, f0, m, ls: BackTracking):
-    """`backtracking_linesearch` and the number of host reads it made: one
-    per round plus the one that ends the search."""
+    """`backtracking_linesearch`, the number of host reads it made (one per
+    round plus the one that ends the search) and whether it failed, as the
+    last read found it (a Python bool)."""
     c1 = _scalar(ls.c1, f0)
     rho_hi = _scalar(ls.rho_hi, f0)
     rho_lo = _scalar(ls.rho_lo, f0)
@@ -135,7 +136,9 @@ def _backtracking(phi, f0, m, ls: BackTracking):
     in_a = True
     while True:
         reads += 1
-        go_a, go_b = torch.stack([live & ~torch.isfinite(fx1), live & ~sufficient()]).tolist()
+        # with the outcome were the search to stop here: alpha == 0
+        go_a, go_b, failed = torch.stack([live & ~torch.isfinite(fx1), live & ~sufficient(),
+                                          ~sufficient() | (a2 == 0.0)]).tolist()
         in_a = in_a and go_a and halvings < finite_halving_limit(f0.dtype)
         if in_a:
             a1, a2 = a2, 0.5 * a2
@@ -165,7 +168,7 @@ def _backtracking(phi, f0, m, ls: BackTracking):
         n_fev=_scalar(n_fev, f0, torch.int32),
         iterations=_scalar(iteration, f0, torch.int32),
         failed=alpha == 0.0,
-    ), reads
+    ), reads, failed
 
 
 def run_linesearch(ls, f, vag, x, d, f0, m):
@@ -180,7 +183,8 @@ def run_linesearch(ls, f, vag, x, d, f0, m):
 
 
 def _run_linesearch(ls, f, vag, x, d, f0, m):
-    """`run_linesearch` and, last, the number of host reads it made."""
+    """`run_linesearch` and, last, the number of host reads it made and
+    whether the search failed, as a Python bool from its last read."""
     from .wolfe import Wolfe, _wolfe
 
     if isinstance(ls, Wolfe):
@@ -189,13 +193,13 @@ def _run_linesearch(ls, f, vag, x, d, f0, m):
             fv, gv = vag(x + alpha * d)
             return fv, torch.dot(gv, d)
 
-        wr, reads = _wolfe(phi_vag, f0, m, ls)
-        return wr.alpha, wr.failed, wr.n_fev, wr.n_fev, reads
+        wr, reads, failed = _wolfe(phi_vag, f0, m, ls)
+        return wr.alpha, wr.failed, wr.n_fev, wr.n_fev, reads, failed
     if not isinstance(ls, BackTracking):
         raise TypeError(f"ls must be a BackTracking or a Wolfe, got {type(ls).__name__}")
 
     def phi(alpha):
         return f(x + alpha * d)
 
-    lsr, reads = _backtracking(phi, f0, m, ls)
-    return lsr.alpha, lsr.failed, lsr.n_fev, torch.zeros_like(lsr.n_fev), reads
+    lsr, reads, failed = _backtracking(phi, f0, m, ls)
+    return lsr.alpha, lsr.failed, lsr.n_fev, torch.zeros_like(lsr.n_fev), reads, failed

@@ -130,8 +130,9 @@ def wolfe_linesearch(
 
 
 def _wolfe(phi_vag, f0, m, ls: Wolfe):
-    """`wolfe_linesearch` and the number of host reads it made: one per
-    round, plus the one that ends the search where the budget did not."""
+    """`wolfe_linesearch`, the number of host reads it made (one per round
+    plus the one that ends the search) and whether it failed, as the last
+    read found it (a Python bool)."""
     c1, c2 = _wolfe_consts(ls, f0)
     one = torch.ones((), dtype=f0.dtype, device=f0.device)
     lo, flo, slo = torch.zeros_like(one), f0, m
@@ -144,9 +145,12 @@ def _wolfe(phi_vag, f0, m, ls: Wolfe):
     # never followed by a wasted evaluation; a NaN m or f0 can never
     # accept, so such a search fails at once (the in-band alpha = 0)
     live = torch.isfinite(m) & torch.isfinite(f0)
-    while it < ls.iterations:
+    while True:
         reads += 1
-        if not bool(live & ~_accepts(ls, c1, c2, f0, m, a, fa, sa)):
+        ok = _accepts(ls, c1, c2, f0, m, a, fa, sa)
+        # with the outcome were the search to stop here: alpha == 0
+        go, failed = torch.stack([live & ~ok, ~ok | (a == 0.0)]).tolist()
+        if not go or it >= ls.iterations:
             break
         shrink = _shrinks(ls, c1, f0, m, a, fa, sa)
         hi = torch.where(shrink, a, hi)
@@ -161,7 +165,6 @@ def _wolfe(phi_vag, f0, m, ls: Wolfe):
         fa, sa = phi_vag(a)
         it += 1
 
-    ok = _accepts(ls, c1, c2, f0, m, a, fa, sa)
     alpha = torch.where(ok, a, torch.zeros_like(a))
     return WolfeResult(
         alpha=alpha,
@@ -170,4 +173,4 @@ def _wolfe(phi_vag, f0, m, ls: Wolfe):
         n_fev=_scalar(it + 1, f0, torch.int32),
         iterations=_scalar(it, f0, torch.int32),
         failed=alpha == 0.0,  # the same in-band sentinel as backtracking
-    ), reads
+    ), reads, failed

@@ -25,9 +25,12 @@ import torch
 from ..batched_solve import optimize_batched_fused
 from ..lbfgs_batched_solve import optimize_lbfgs_batched_fused
 from ..lbfgs_solve import LBFGSResult, optimize_lbfgs
+from ..lbfgs_solve import _result_from_state as _lbfgs_result
 from ..ops.linesearch import BackTracking
 from ..ops.wolfe import Wolfe
 from ..solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult, optimize
+from ..solve import _result_from_state as _bfgs_result
+from ..state import init_bfgs_state, init_lbfgs_state
 from ..utils.device import as_device_tensor
 
 __all__ = ["optimize_batched", "optimize_lbfgs_batched"]
@@ -40,14 +43,26 @@ def _fleet(x0s) -> torch.Tensor:
     return x0s
 
 
-def _lane_by_lane(solve, x0s, result_cls):
+def _stack(results, empty):
+    """``results`` (NamedTuples whose last field is a state NamedTuple)
+    stacked leaf by leaf along a new leading axis; with no results, every
+    leaf of ``empty()`` (a fresh lane's result) with a leading axis of 0."""
+    if not results:
+        fresh = empty()
+        return type(fresh)(*(leaf.new_empty((0, *leaf.shape)) for leaf in fresh[:-1]),
+                           type(fresh.state)(*(leaf.new_empty((0, *leaf.shape))
+                                               for leaf in fresh.state)))
+    state_cls = type(results[0].state)
+    state = state_cls(*(torch.stack(leaves) for leaves in zip(*(r.state for r in results))))
+    return type(results[0])(*(torch.stack(leaves) for leaves in zip(*(r[:-1] for r in results))),
+                            state=state)
+
+
+def _lane_by_lane(solve, x0s, fresh_result):
     """``solve`` on each lane of ``x0s``, every leaf stacked along a new
-    leading batch axis (the state's too)."""
-    lanes = [solve(x0) for x0 in x0s]
-    state_cls = type(lanes[0].state)
-    state = state_cls(*(torch.stack(leaves) for leaves in zip(*(r.state for r in lanes))))
-    return result_cls(*(torch.stack(leaves) for leaves in zip(*(r[:-1] for r in lanes))),
-                      state=state)
+    leading batch axis (the state's too). A fleet of no lanes gives empty
+    leaves shaped like ``fresh_result(x0)``'s, as JAX's vmap does."""
+    return _stack([solve(x0) for x0 in x0s], lambda: fresh_result(x0s.new_zeros(x0s.shape[1])))
 
 
 def optimize_batched(
@@ -97,7 +112,7 @@ def optimize_batched(
     return _lane_by_lane(
         lambda x0: optimize(obj, x0, ls, tol, max_iterations, value_and_grad_fn,
                             stall_limit=stall_limit),
-        x0s, OptimizeResult)
+        x0s, lambda x0: _bfgs_result(init_bfgs_state(x0)))
 
 
 def optimize_lbfgs_batched(
@@ -129,4 +144,4 @@ def optimize_lbfgs_batched(
     return _lane_by_lane(
         lambda x0: optimize_lbfgs(obj, x0, history, ls, tol, max_iterations, value_and_grad_fn,
                                   direction_method, stall_limit),
-        x0s, LBFGSResult)
+        x0s, lambda x0: _lbfgs_result(init_lbfgs_state(x0, history)))

@@ -17,14 +17,23 @@ such a difference grows along a trajectory, so over a whole solve a lane's
 counters may differ from the plain run's while the statuses and the
 optimum agree (PERF.md).
 
-Objective contract. The JAX kernel traces any jnp objective into its body;
-a hand-written kernel cannot trace a torch function, so B3 evaluates its
-objective on the card. This port has one such objective, the split
-Rosenbrock of models/rosenbrock.py, recognised by identity:
-`rosenbrock_logdensity` (with ``value_and_grad_fn`` None or
-`rosenbrock_value_and_grad`) or a `models.Rosenbrock` instance. Every other
-objective raises ValueError on every device, pointing to
-`optimize_batched_fused`, which takes any objective.
+Objective contract. The JAX kernel traces any jnp objective into its body,
+its closed-over data hoisted into kernel inputs; a hand-written kernel
+cannot trace a torch function, so B3 evaluates its objective on the card,
+one instantiation per objective (csrc/resident_objectives.cuh). The port
+has three, recognised by identity or by exact type:
+  * the split Rosenbrock of models/rosenbrock.py: `rosenbrock_logdensity`
+    (with ``value_and_grad_fn`` None or `rosenbrock_value_and_grad`) or a
+    `models.Rosenbrock` instance;
+  * a `models.IllConditionedQuadratic` instance (its ``diag`` and
+    ``x_star``), with ``value_and_grad_fn`` None;
+  * a `models.LogisticRegressionMAP` instance (its ``X``, ``y`` and
+    ``prior_scale``), with ``value_and_grad_fn`` None.
+A model's data go to ``x0s``'s device and dtype once per solve, for the
+kernel and the plain version alike. Every other objective (a subclass of
+those models too, which may evaluate something else) raises ValueError on
+every device, pointing to `optimize_batched_fused`, which takes any
+objective; nothing falls back to the plain version unasked.
 
 The JAX engine's ``block_batch``, ``interpret``, ``rewrite_dots``,
 `_hoist_consts` and ``ops/dot_rewrite.py`` exist only for Mosaic and have
@@ -39,6 +48,8 @@ import torch
 
 from .models.rosenbrock import Rosenbrock, rosenbrock_logdensity, rosenbrock_value_and_grad
 from .ops.kernels.resident_kernel import (
+    KERNEL_MODELS,
+    objective_on,
     optimize_batched_resident_reference,
     resident_bfgs_solve,
     resident_feasible,
@@ -60,6 +71,23 @@ def _is_rosenbrock(obj, value_and_grad_fn) -> bool:
     return obj is rosenbrock_logdensity or type(obj) is Rosenbrock
 
 
+def _kernel_objective(obj, value_and_grad_fn, x0s: torch.Tensor):
+    """The objective B3 evaluates: None for the split Rosenbrock, or a
+    shallow copy of a data-bearing model with its data on ``x0s``'s device
+    and dtype. Raises ValueError for any other objective."""
+    if _is_rosenbrock(obj, value_and_grad_fn):
+        return None
+    if value_and_grad_fn is None and type(obj) in KERNEL_MODELS:
+        return objective_on(obj, x0s)
+    raise ValueError(
+        "the resident kernel evaluates its objective on the card and knows only the split "
+        "Rosenbrock (rosenbrock_logdensity, with value_and_grad_fn None or "
+        "rosenbrock_value_and_grad, or a models.Rosenbrock instance), a "
+        "models.IllConditionedQuadratic and a models.LogisticRegressionMAP instance (with "
+        "value_and_grad_fn None); use optimize_batched_fused for any other objective"
+    )
+
+
 def optimize_batched_resident(
     obj,
     x0s: torch.Tensor,
@@ -76,7 +104,9 @@ def optimize_batched_resident(
 
     Args:
       obj: the split Rosenbrock (`rosenbrock_logdensity` or a
-        `models.Rosenbrock`); any other objective raises ValueError.
+        `models.Rosenbrock`), a `models.IllConditionedQuadratic` or a
+        `models.LogisticRegressionMAP`; any other objective raises
+        ValueError.
       x0s: (batch, n) float32/float64 starting points. A tensor's device is
         where the solve runs; anything else goes to the CUDA card
         (`as_device_tensor`).
@@ -92,19 +122,13 @@ def optimize_batched_resident(
         raise ValueError(f"x0s must be (batch, n), got shape {tuple(x0s.shape)}")
     if not isinstance(ls, BackTracking):
         raise ValueError("the resident engine supports BackTracking line search only")
-    if not _is_rosenbrock(obj, value_and_grad_fn):
-        raise ValueError(
-            "the resident kernel evaluates its objective on the card and knows only the "
-            "split Rosenbrock (rosenbrock_logdensity, with value_and_grad_fn None or "
-            "rosenbrock_value_and_grad, or a models.Rosenbrock instance); use "
-            "optimize_batched_fused for any other objective"
-        )
-    if kernel == "torch":
-        return optimize_batched_resident_reference(
-            x0s, ls, tol, max_iterations, h0_scale, stall_limit)
-    if kernel not in ("auto", "cuda"):
+    if kernel not in ("auto", "cuda", "torch"):
         raise ValueError(f"unknown kernel {kernel!r}; use 'auto', 'cuda' or 'torch'")
     if kernel == "cuda" and x0s.device.type != "cuda":
         raise ValueError(f"kernel='cuda' needs CUDA tensors, got x0s on {x0s.device}")
+    objective = _kernel_objective(obj, value_and_grad_fn, x0s)
+    if kernel == "torch":
+        return optimize_batched_resident_reference(
+            x0s, ls, tol, max_iterations, h0_scale, stall_limit, objective)
     # 'auto': the wrapper launches B3 on CUDA tensors, the plain version on CPU ones
-    return resident_bfgs_solve(x0s, ls, tol, max_iterations, h0_scale, stall_limit)
+    return resident_bfgs_solve(x0s, ls, tol, max_iterations, h0_scale, stall_limit, objective)

@@ -129,7 +129,7 @@ def _advance(s: BFGSState, first: bool, vag, f, ls, tol, eye, update_fn, h0_scal
     B2 = torch.where(reset, eye, B1)
     d = torch.where(reset, g, d)
     m = torch.where(reset, torch.dot(g, g), m)
-    alpha, ls_failed, ls_fev, ls_gev, reads = _run_linesearch(ls, f, vag, s.x, d, f0, m)
+    alpha, ls_failed, ls_fev, ls_gev, reads, _ = _run_linesearch(ls, f, vag, s.x, d, f0, m)
     optimize.host_syncs += reads
     # on failure x stays at the last good iterate; alpha is 0 then, but
     # 0 * d is NaN for a NaN direction, so the mask is explicit

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .utils.device import as_device_tensor
+
 __all__ = [
     "Status",
     "BFGSState",
@@ -64,8 +66,11 @@ class BFGSState(NamedTuple):
     stall: torch.Tensor  # () int32 consecutive no-improvement iterations
 
 
-def init_bfgs_state(x0: torch.Tensor) -> BFGSState:
-    """Fresh solver state at the starting point, on ``x0``'s device."""
+def init_bfgs_state(x0) -> BFGSState:
+    """Fresh solver state at the starting point, on ``x0``'s device (an
+    array that is not a tensor goes where an entry point puts it,
+    `as_device_tensor`)."""
+    x0 = as_device_tensor(x0, "x0")
     if x0.ndim != 1:
         raise ValueError(f"x0 must be a rank-1 tensor, got shape {tuple(x0.shape)}")
     n = x0.shape[0]
@@ -115,8 +120,11 @@ class LBFGSState(NamedTuple):
     stall: torch.Tensor  # () int32 consecutive no-improvement iterations
 
 
-def init_lbfgs_state(x0: torch.Tensor, history: int = 10) -> LBFGSState:
-    """Fresh L-BFGS state with an m-slot history ring, on ``x0``'s device."""
+def init_lbfgs_state(x0, history: int = 10) -> LBFGSState:
+    """Fresh L-BFGS state with an m-slot history ring, on ``x0``'s device
+    (an array that is not a tensor goes where an entry point puts it,
+    `as_device_tensor`)."""
+    x0 = as_device_tensor(x0, "x0")
     if x0.ndim != 1:
         raise ValueError(f"x0 must be a rank-1 tensor, got shape {tuple(x0.shape)}")
     n = x0.shape[0]

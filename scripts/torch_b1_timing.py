@@ -6,7 +6,12 @@ phase 6), by both of chip_smoke.py's methods:
 
   - ms per call by CUDA events over 20 back-to-back calls (median of 6);
   - device time per launch from torch.profiler's device events (median of
-    3 x 20 launches); a run fails if the profiler records no launch.
+    3 x 20 launches); a run fails if the profiler records no launch;
+
+and the resident solve B3 on the bench fleet itself (4096 split-Rosenbrock
+n = 60 solves, f32, tol 1e-3, through `optimize_batched_resident`, one
+launch each): ms per solve by CUDA events over 5 back-to-back solves
+(median of 6).
 
 Each checkout named on the command line is timed in a process of its own,
 in the order given, so that two versions can be compared on one card in
@@ -59,10 +64,23 @@ def time_one(root):
     device_ms = [cs.device_ms_per_launch(fn, args, "bfgs_update_kernel") for _ in range(3)]
     cs.check(None not in device_ms, "torch.profiler recorded no launch of bfgs_update_kernel")
     bound_ms, bound_by = cs.b1_bound(cs.BATCH, cs.N, 4, cs.BATCH, lanes_reset)
+
+    from quasinewtonmethods_jl_tpu_torch import optimize_batched_resident
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    X = cs.bench_fleet(device)
+
+    def b3():
+        return optimize_batched_resident(rosenbrock_logdensity, X, tol=cs.TOL,
+                                         max_iterations=cs.MAX_ITERS)
+
+    cs.time_calls(b3, (), calls=2)  # warm-up
+    b3_runs = [cs.time_calls(b3, (), calls=5) for _ in range(6)]
     return {"root": root, "package": os.path.dirname(bfgs_kernel.__file__),
             "events_ms": float(np.median(events)), "events_runs": events,
             "device_ms": float(np.median(device_ms)), "device_runs": device_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "b3_ms": float(np.median(b3_runs)), "b3_runs": b3_runs}
 
 
 def main(roots):
@@ -78,7 +96,7 @@ def main(roots):
             sys.exit(f"torch_b1_timing: the run of {root} failed (exit {out.returncode})")
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
-    summary = {}
+    summary, b3 = {}, {}
     for root in dict.fromkeys(roots):
         mine = [r for r in runs if r["root"] == root]
         ev = sorted(r["events_ms"] for r in mine)
@@ -88,7 +106,8 @@ def main(roots):
                          "share_by_events": [bound_ms / t for t in ev],
                          "share_by_device": [bound_ms / t for t in dv],
                          "bound_ms": bound_ms, "bound_by": mine[0]["bound_by"]}
-    print(json.dumps({"card": smi.splitlines()[0], "b1": summary}), flush=True)
+        b3[root] = {"ms_per_solve": sorted(r["b3_ms"] for r in mine)}
+    print(json.dumps({"card": smi.splitlines()[0], "b1": summary, "b3": b3}), flush=True)
 
 
 if __name__ == "__main__":

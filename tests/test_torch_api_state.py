@@ -150,6 +150,22 @@ def test_init_state_matches_jax(rng):
         np.testing.assert_array_equal(a, b, err_msg=name)
 
 
+@pytest.mark.parametrize("init", [qt.init_bfgs_state, qt.init_lbfgs_state])
+def test_init_states_place_arrays_as_the_entry_points_do(monkeypatch, init):
+    """A numpy x0 goes where an entry point puts it (the card; without one,
+    the entry points' error); a CPU tensor keeps its device and dtype."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor") as from_init:
+        init(np.ones(3))
+    with pytest.raises(RuntimeError) as from_entry:
+        qt.optimize(rosenbrock_logdensity, np.ones(3))
+    assert str(from_init.value) == str(from_entry.value)
+    for dtype in (torch.float32, torch.float64):
+        state = init(torch.ones(3, dtype=dtype))
+        assert all(leaf.device.type == "cpu" for leaf in state)
+        assert state.x.dtype == state.grad.dtype == state.fun.dtype == dtype
+
+
 @pytest.fixture(scope="module")
 def jax_fleet_result():
     X0 = np.random.default_rng(11).standard_normal((16, 8))

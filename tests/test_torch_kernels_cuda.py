@@ -23,6 +23,8 @@ from quasinewtonmethods_jl_tpu_torch import (
     optimize_batched_resident,
 )
 from quasinewtonmethods_jl_tpu_torch.models import (
+    IllConditionedQuadratic,
+    LogisticRegressionMAP,
     rosenbrock_logdensity,
     rosenbrock_value_and_grad,
 )
@@ -44,6 +46,7 @@ from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import (
     optimize_batched_resident_reference,
     resident_bfgs_solve,
     resident_feasible,
+    resident_occupancy,
 )
 
 COUNTERS = ("status", "iterations", "n_fev", "n_gev", "n_resets")
@@ -224,6 +227,11 @@ def test_shared_memory_counts_match_the_kernels(cuda_device):
                 lib.qnm_bfgs_update_smem_bytes(n, itemsize) <= SMEM_LIMIT_BYTES)
             assert resident_feasible(n, itemsize) == (
                 rlib.qnm_resident_smem_bytes(n, itemsize) <= SMEM_LIMIT_BYTES)
+            for objective, number in ((None, 0), (IllConditionedQuadratic(3), 1),
+                                      (LogisticRegressionMAP(3, 5), 2)):
+                assert resident_feasible(n, itemsize, objective) == (
+                    rlib.qnm_resident_objective_smem_bytes(number, n, itemsize)
+                    <= SMEM_LIMIT_BYTES)
 
 
 @pytest.mark.cuda
@@ -379,7 +387,6 @@ def test_lane_groups_launch_as_designed(cuda_device):
     """One warp per lane up to n = 64, then a warp per 64 columns; at the
     bench fleet's n = 60 in float32 shared memory admits 13 lanes per SM."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import fused_update_occupancy
-    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
 
     for query in (fused_update_occupancy, resident_occupancy):
         for n, threads in ((2, 32), (60, 32), (64, 32), (65, 64), (128, 64), (129, 96), (236, 128)):
@@ -478,3 +485,103 @@ def test_compacted_fleet_runs_b1_at_every_width(cuda_device, monkeypatch):
         assert torch.equal(getattr(comp, name), getattr(long, name)), name
     assert (comp.status == Status.CONVERGED).all()
     torch.testing.assert_close(comp.x, long.x, atol=1e-12, rtol=0)
+
+
+def _objective_fleet(kind, n, dtype, device, batch=64, seed=20260816):
+    """A model of ``kind`` with its data on the card in ``dtype`` and a
+    fleet of N(0, 1) starts: the quadratic with condition 1e3 and x* drawn
+    from the seed, or the logistic posterior of 500 observations drawn by
+    the model's recipe with numpy."""
+    rng = np.random.default_rng(seed + n)
+    if kind == "quadratic":
+        model = IllConditionedQuadratic(n, condition=1e3, x_star=rng.standard_normal(n),
+                                        dtype=dtype, device=device)
+    else:
+        X = rng.standard_normal((500, n)) / np.sqrt(n)
+        y = (rng.random(500) < 1.0 / (1.0 + np.exp(-(X @ rng.standard_normal(n))))).astype(float)
+        model = LogisticRegressionMAP(n, 500, X=X, y=y, dtype=dtype, device=device)
+    X0 = torch.tensor(rng.standard_normal((batch, n)), dtype=dtype, device=device)
+    return model, X0
+
+
+# (objective, n, dtype, tol): the quadratic where the lane group's layout
+# changes and at the largest n that fits; the logistic at BASELINE config
+# 3's n = 100 (two warps) and at one warp. In float32 the logistic takes
+# bench_full.py's tolerance 3e-3 (the line search cannot certify increases
+# below eps·|f| there); float64 runs at 1e-6.
+OBJECTIVE_CASES = (
+    [("quadratic", n, torch.float32, 1e-3) for n in (7, 60, 100, 236)]
+    + [("quadratic", n, torch.float64, 1e-6) for n in (7, 60, 100, 165)]
+    + [("logistic", n, torch.float32, 3e-3) for n in (20, 100)]
+    + [("logistic", n, torch.float64, 1e-6) for n in (20, 100)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", OBJECTIVE_CASES)
+def test_resident_kernel_matches_plain_version_on_data_bearing_objectives(cuda_device, kind, n,
+                                                                          dtype, tol):
+    """B3's quadratic and logistic instantiations against the fleet engine
+    with the plain update on the same model: over caps 0, 1 and 5 statuses
+    and every counter equal on every lane; x, grad and B normwise within
+    1e-10 in float64, and in float32 within 1e-5 or, where more, twice what
+    the plain version moves when run on the CPU (another summation order);
+    to convergence equal statuses. One launch of the objective's own
+    instantiation per solve."""
+    model, X = _objective_fleet(kind, n, dtype, cuda_device)
+    ls = BackTracking()
+    leaves = ("x", "grad", "B")
+    for cap in (0, 1, 5):
+        before = dict(resident_bfgs_solve.objective_launches)
+        kern = optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=cap,
+                                         kernel="cuda")
+        after = resident_bfgs_solve.objective_launches
+        assert after[kind] == before[kind] + (cap > 0)
+        assert sum(after.values()) == sum(before.values()) + (cap > 0)
+        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, 50, model)
+        for name in COUNTERS:
+            assert torch.equal(getattr(kern, name), getattr(plain, name)), (cap, name)
+        for name in ("fresh", "stall"):
+            assert torch.equal(getattr(kern.state, name), getattr(plain.state, name)), (cap, name)
+        limit = 1e-10
+        if dtype == torch.float32:
+            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, 50, model)
+            limit = max(1e-5, 2 * max(
+                normwise_diff(getattr(cpu.state, f).to(cuda_device), getattr(plain.state, f))
+                for f in leaves))
+        for name in leaves:
+            assert_normwise_close(getattr(kern.state, name), getattr(plain.state, name), limit)
+    full = optimize_batched_resident(model, X, ls=ls, tol=tol)
+    plain = optimize_batched_resident_reference(X, ls, tol, 10_000, True, 50, model)
+    assert torch.equal(full.status, plain.status)
+    assert (full.status == Status.CONVERGED).all()
+    assert float(full.grad.abs().max()) < tol
+
+
+@pytest.mark.cuda
+def test_logistic_fleet_launches_once_without_a_host_sync(cuda_device):
+    """The logistic posterior of BASELINE config 3 (n = 100, 500
+    observations) in float32 from a model built on the card: one launch,
+    no synchronisation flagged by torch's sync debug mode, every lane
+    converged at tol 3e-3; a model built on the CPU in float64 serves the
+    same solve (its data go to the card in float32 once)."""
+    model, X = _objective_fleet("logistic", 100, torch.float32, cuda_device, batch=512)
+    before = resident_bfgs_solve.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = optimize_batched_resident(model, X, tol=3e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    assert resident_bfgs_solve.launches == before + 1
+    assert (res.status == Status.CONVERGED).all()
+    on_cpu = LogisticRegressionMAP(100, 500, X=model.X.double().cpu(), y=model.y.double().cpu())
+    again = optimize_batched_resident(on_cpu, X, tol=3e-3)
+    for name in COUNTERS:
+        assert torch.equal(getattr(res, name), getattr(again, name)), name
+    assert torch.equal(res.x, again.x)
+    occupancy = resident_occupancy(100, 4, model)
+    assert occupancy["threads"] == 64 and occupancy["blocks_per_sm"] > 0

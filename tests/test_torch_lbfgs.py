@@ -303,9 +303,50 @@ def test_failure_paths_match_jax():
                                   np.zeros(3))
 
 
+def test_a_failed_line_search_ends_the_loop_before_another_evaluation():
+    """A search that cannot increase the objective (the gradient's sign is
+    flipped, so the direction descends; three Armijo rounds) ends the solve
+    LINESEARCH_FAILURE. JAX's loop condition stops there: the port calls
+    the objective exactly as often (counted in JAX at run time by a debug
+    callback), with the same counters."""
+    diag = np.arange(1.0, 5.0)
+    x0 = np.ones(4)
+    calls = {"port": [0, 0], "jax": [0, 0]}  # [value calls, value-and-gradient calls]
+    d_t, d_j = torch.tensor(diag), jnp.asarray(diag)
+
+    def port_f(x):
+        calls["port"][0] += 1
+        return -0.5 * torch.sum(d_t * x * x)
+
+    def port_vag(x):
+        calls["port"][1] += 1
+        return -0.5 * torch.sum(d_t * x * x), d_t * x
+
+    def count(i):
+        calls["jax"][i] += 1
+
+    def jax_f(x):
+        jax.debug.callback(lambda: count(0))
+        return -0.5 * jnp.sum(d_j * x * x)
+
+    def jax_vag(x):
+        jax.debug.callback(lambda: count(1))
+        return -0.5 * jnp.sum(d_j * x * x), d_j * x
+
+    port = qt.optimize_lbfgs(port_f, torch.tensor(x0), ls=qt.BackTracking(iterations=3),
+                             value_and_grad_fn=port_vag)
+    ref = qj.optimize_lbfgs(jax_f, jnp.asarray(x0), ls=qj.BackTracking(iterations=3),
+                            value_and_grad_fn=jax_vag)
+    jax.effects_barrier()
+    assert int(port.status) == qt.Status.LINESEARCH_FAILURE
+    assert counters(port) == counters(ref)
+    assert calls["port"] == calls["jax"] == [4, 1]
+    np.testing.assert_array_equal(port.x.numpy(), x0)
+
+
 def test_host_syncs_and_validation(rng):
-    """One read per iteration (the last step's status with this one's) and
-    the line search's; a resume reads k once more."""
+    """One read per iteration (this evaluation's status) and the line
+    search's; a resume reads k once more."""
     diag = torch.arange(1.0, 7.0, dtype=torch.float64)
 
     def quad(x):

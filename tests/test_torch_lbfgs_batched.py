@@ -305,6 +305,21 @@ def test_vmap_backend_matches_jax_vmap(rng):
         ENGINE(rosenbrock_logdensity, torch.tensor(X0), incremental_gram=True)
 
 
+@pytest.mark.parametrize("entry", ["optimize_batched", "optimize_lbfgs_batched"])
+def test_vmap_backend_on_an_empty_fleet_matches_jax(entry):
+    """A 0 x 4 fleet gives empty results with JAX's leaf shapes and dtypes."""
+    X0 = np.zeros((0, 4))
+    port = getattr(qt, entry)(rosenbrock_logdensity, torch.tensor(X0), backend="vmap")
+    ref = getattr(qj, entry)(jax_rosenbrock, jnp.asarray(X0), backend="vmap")
+    leaves = [(name, getattr(port, name), getattr(ref, name)) for name in port._fields[:-1]]
+    leaves += [(f"state.{name}", getattr(port.state, name), getattr(ref.state, name))
+               for name in port.state._fields]
+    assert port.state._fields == ref.state._fields
+    for name, mine, theirs in leaves:
+        theirs = np.asarray(theirs)
+        assert mine.numpy().shape == theirs.shape and mine.numpy().dtype == theirs.dtype, name
+
+
 def test_host_syncs_and_loop_bodies(rng):
     """A termination read every TERMINATION_CHECK_INTERVAL bodies and the
     line search's reads (one per round plus the last), counted; the bodies
