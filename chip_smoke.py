@@ -4,7 +4,8 @@ NVIDIA GPU: builds the hand-written CUDA kernels, checks each against its
 plain PyTorch version, and drives the port's paths once at full width: the
 BFGS fleet engine through `optimize_batched` on the benchmark fleet (kernel
 B1), the same engine on a large-n fleet (the two-pass kernels B2a and B2b),
-the resident engine `optimize_batched_resident` (B3), the nonlinear-CG fleet
+the resident engine `optimize_batched_resident` (B3, on the bench fleet and
+on every model it has an instantiation for), the nonlinear-CG fleet
 `optimize_cg` (the benchmark's headline engine; torch ops, no hand-written
 kernel), the BFGS fleet with the Wolfe search (B1), with ``fold_eval``, and
 with straggler compaction (`optimize_batched_compacted`, B1), the scalar
@@ -114,21 +115,49 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      fleet (condition 1e4) through `optimize_batched_resident` (one launch);
      ms per solve of B3, the fleet engine and the plain version in turns,
      B3's share of its bound and launch shape, peak memory; and the scalar
-     `optimize` on config 3 from zeros(100) against the JAX package's count.
+     `optimize` on config 3 from zeros(100) against the JAX package's count;
+ 21. B3 on the fixture families (csrc/resident_objectives.cuh): Neal's
+     funnel (n in {4, 10, 70} f64), the Gaussian mixture of 8 components
+     (n in {60, 7, 100}), the Poisson GLM (n in {50, 7, 100}; both in f32
+     and f64) and the AR(1) state-space MAP (n in {8, 5, 70} f64) against
+     the plain version on the same model over 64 lanes: caps 0, 1, 5
+     (every counter equal; floats within 1e-5 / 1e-10 or twice what the
+     plain version moves when run on the CPU) and, at the first two n,
+     whole solves, where the lanes whose status differs from the plain
+     run's may be at most twice as many as a change of rounding alone
+     gives the plain version (phase 9's witnesses: started 1 ulp up or
+     down, run on the CPU); then the slice at
+     full width: five fleets of 4096 starts with data and starts drawn by
+     numpy from seed 20260816 (funnel n = 4 f64 tol 1e-6, mixture n = 60
+     f32 tol 1e-3, Poisson n = 50 with 400 observations f32 tol 1e-2 and
+     f64 tol 1e-6, AR(1) n = 8 with 32 steps f64 tol 1e-6), each against
+     the plain version as above and then through
+     `optimize_batched_resident` (one launch, no
+     host synchronisation) and `optimize_batched` (B1, one launch per loop
+     body): every lane converged where the JAX package converges every
+     lane (mixture, Poisson), else the converged count not below the JAX
+     package's by more than chance (a one-sided Fisher exact test at 1 %),
+     and the median within 10 % of the JAX package's
+     (scripts/jax_fixture_reference.py); ms per solve of B3, the fleet
+     engine and the plain version in turns, B3's share of its bound and
+     launch shape, and every B3 instantiation's registers per thread.
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and the
 floating-point operations its inputs need, however a kernel rounds (see
 ``update_ops``), over 67 TFLOP/s (H100 SXM, f32 outside the tensor
-cores); ``ms`` is B1's device time per launch, B2's per call by CUDA
+cores; 34 TFLOP/s for the float64 fleets); ``ms`` is B1's device time per
+launch, B2's per call by CUDA
 events, B3's per solve by CUDA events; ``library_ms`` is one PyTorch call
 that computes the same function (B2a: ``torch.bmm``), null where none
 does.
 
 B3's records, one per instantiation the run launches
-(``resident_bfgs_solve[quadratic]`` and ``[logistic]`` beside the
-Rosenbrock's), count the launches of phase 20's full-width runs.
+(``resident_bfgs_solve[quadratic]``, ``[logistic]``, ``[funnel]``,
+``[mixture]``, ``[poisson]`` and ``[ar1]`` beside the Rosenbrock's), count
+the launches of phases 20's and 21's full-width runs; the Poisson record's
+times are its float32 fleet's (its float64 fleet's are on the log line).
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -224,10 +253,52 @@ JAX_LOGISTIC_MEDIAN, JAX_LOGISTIC_MAX, JAX_LOGISTIC_SCALAR_ITERS = 11, 13, 11
 OBJECTIVE_NS = {torch.float32: (7, 60, 100, 236), torch.float64: (7, 60, 100, 165)}
 QUAD_BATCH, QUAD_N, QUAD_CONDITION = 1024, 236, 1e4
 OBJECTIVE_LANES = 64  # lanes of the parity fleets
+# Phase 21: B3 on the fixture families. Each full-width fleet's data and
+# its 4096 starts come from a fresh numpy generator seeded BENCH_SEED
+# (`fixture_data`): Neal's funnel at n = 4 (tests/test_edge_cases.py:91-110's
+# shape; float64, since at v* = -4.5(n-1) e^{-v} overflows float32 once
+# n > 20), the Gaussian mixture of 8 components at n = 60 (means 3·N(0, 1),
+# sigma 4, starts 3·N(0, 1)), the Poisson GLM of tests/test_baseline_configs.py:69-90
+# (n = 50, 400 observations, prior scale 10) in float32 and float64, and
+# the AR(1) with drift at the JAX class's defaults (n = 8, 32 steps,
+# spectral radius 0.6). float32 runs at the tolerance its Armijo value
+# test can certify (mixture 1e-3, Poisson 1e-2); float64 at 1e-6.
+# The JAX package on the same data (`python scripts/jax_fixture_reference.py`,
+# its fleet engine on the CPU, at most 3000 iterations): (converged, median,
+# max) funnel (4010, 34, 99; 86 LINESEARCH_FAILURE), mixture (4096, 5, 62),
+# Poisson f32 (4096, 12, 28), Poisson f64 (4096, 26, 60), AR(1) (4074, 29,
+# 36; 22 LINESEARCH_FAILURE).
+FIXTURE_FLEETS = {  # name: (fixture, dtype, tol, JAX converged, median, max)
+    "funnel": ("funnel", torch.float64, 1e-6, 4010, 34, 99),
+    "mixture": ("mixture", torch.float32, 1e-3, 4096, 5, 62),
+    "poisson f32": ("poisson", torch.float32, 1e-2, 4096, 12, 28),
+    "poisson f64": ("poisson", torch.float64, 1e-6, 4096, 26, 60),
+    "ar1": ("ar1", torch.float64, 1e-6, 4074, 29, 36),
+}
+FUNNEL_N = 4
+MIXTURE_K, MIXTURE_N, MIXTURE_SIGMA = 8, 60, 4.0
+POISSON_N, POISSON_OBS, POISSON_PRIOR = 50, 400, 10.0
+AR1_N, AR1_STEPS, AR1_RADIUS, AR1_OBS_SCALE, AR1_PRIOR = 8, 32, 0.6, 0.5, 10.0
+# The parity fleets (OBJECTIVE_LANES lanes each): the full-width n, n where
+# the lane group's layout changes (two warps from 65) and, for the funnel,
+# n = 10, where the float64 fleet already fails many lanes; whole solves at
+# the first two n, caps only at the last.
+FIXTURE_PARITY = {  # fixture: (n, dtypes)
+    "funnel": ((4, 10, 70), (torch.float64,)),
+    "mixture": ((60, 7, 100), (torch.float32, torch.float64)),
+    "poisson": ((50, 7, 100), (torch.float32, torch.float64)),
+    "ar1": ((8, 5, 70), (torch.float64,)),
+}
+FIXTURE_TOL = {"funnel": {torch.float64: 1e-6},
+               "mixture": {torch.float32: 1e-3, torch.float64: 1e-6},
+               "poisson": {torch.float32: 1e-2, torch.float64: 1e-6},
+               "ar1": {torch.float64: 1e-6}}
 # Published peaks of one H100 SXM: device memory and float32 outside the
-# tensor cores (the kernels' type on the main path).
+# tensor cores (the kernels' type on the main path); float64 outside the
+# tensor cores for the float64 fleets (NVIDIA's data sheet).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_F64_FLOPS = 34e12
 
 
 def log(msg):
@@ -441,10 +512,12 @@ def time_calls(fn, args, calls=20):
     return start.elapsed_time(end) / calls
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, itemsize=4):
     """(ms, "bytes" or "operations"): the least time the card could take to
-    move ``nbytes`` and do ``flops`` float32 operations."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
+    move ``nbytes`` and do ``flops`` operations in float32 (``itemsize``
+    4) or float64 (8)."""
+    peak = PEAK_F32_FLOPS if itemsize == 4 else PEAK_F64_FLOPS
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -485,12 +558,45 @@ def objective_ops(n, itemsize, objective=None):
     the residual y - σ(z) 4 (exp, 1 + e, the division, the subtraction),
     per entry 5 (w², its sum, w / σ², the subtraction, the tolerance
     test); a trial the logits, 12 per observation and 4 per entry (x + αd
-    2, w² and its sum); data X and y."""
-    if objective is None:
+    2, w² and its sum); data X and y. Poisson over m observations: the
+    same products, per observation the term y·z - exp(z) 4 (exp, the
+    product, the subtraction, the accumulation) and the residual y - exp(z)
+    1 (exp shared), per entry 5; a trial the logits, 4 per observation and
+    4 per entry. Funnel: per entry 5 (x², its sum, the gradient's two
+    products, the tolerance test) and 20 for v's terms (exp, the value's
+    and v's gradient's products and sums); a trial 4 per entry (x + αd 2,
+    x², its sum) and 12. Mixture of K components: per component and entry
+    3 for the distance ((x - mu)², its sum) and 4 for the gradient (x - mu,
+    the product by p/sigma², the sum over components), per component 12
+    (two logarithms, sigma², the component's products and sums, its exp
+    for the logsumexp and for p, p/sigma²) and 2 for the logsumexp's log
+    and shift, per entry 1 (the tolerance test); a trial x + αd 2 per
+    entry, 3 per component and entry, 8 per component. AR(1) over T steps:
+    forward per step 2n² (A z) and 4n (+ w, y - z, its square, its sum),
+    the adjoint per step 2n² (Aᵀ mu) and 4n (2 (y - z), the product, the
+    sum, the accumulation into the gradient), per entry 5 (w², its sum,
+    w / p², the subtraction, the tolerance test) and 4 for the value; a
+    trial the forward recursion, x + αd 2n and w² 2n; data A and ys."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import objective_name
+
+    name = objective_name(objective)
+    if name == "rosenbrock":
         return 7 * n, 6 * n, 0
-    if not hasattr(objective, "X"):
+    if name == "quadratic":
         return 6 * n, 6 * n, 2 * n * itemsize
+    if name == "funnel":
+        return 5 * n + 20, 4 * n + 12, 0
+    if name == "mixture":
+        K = objective.means.shape[0]
+        return (7 * K * n + 12 * K + 2 + n, 2 * n + 3 * K * n + 8 * K + 2,
+                (K * n + 2 * K) * itemsize)
+    if name == "ar1":
+        T = objective.ys.shape[0]
+        return (T * (4 * n * n + 8 * n) + 5 * n + 4, T * (2 * n * n + 4 * n) + 4 * n + 4,
+                (n * n + T * n) * itemsize)
     m = objective.X.shape[0]
+    if name == "poisson":
+        return (4 * m * n + 5 * m + 5 * n, 2 * m * n + 4 * m + 4 * n, (m * n + m) * itemsize)
     return (4 * m * n + 16 * m + 5 * n, 2 * m * n + 12 * m + 4 * n,
             (m * n + m) * itemsize)
 
@@ -519,7 +625,7 @@ def b3_bound(res, n, itemsize, h0_scale, objective=None):
     ops = (update_ops(n, updates, updates - resets, scaled)
            + gev * vag_ops + trials * trial_ops + iters * 2 * n)
     nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1) + data_bytes
-    return bound(nbytes, float(ops.sum()))
+    return bound(nbytes, float(ops.sum()), itemsize)
 
 
 def shape_line(occupancy):
@@ -1823,7 +1929,8 @@ def objective_phase(qt, device, smi):
     res_q, flagged_q, wall_q = resident_run(qt, quad, Xq, TOL)
     c = read_counters(qt)
     launches = dict(counted_kernels()["B3"].objective_launches)
-    check(launches == {"rosenbrock": 0, "quadratic": 1, "logistic": 1} and c["B3"] == 2
+    check(launches == {**dict.fromkeys(launches, 0), "quadratic": 1, "logistic": 1}
+          and c["B3"] == 2
           and c["B1"] == c["B2a"] == c["B2b"] == 0, f"launches {launches}, {c}")
     check(flagged == flagged_q == 0, f"{flagged} + {flagged_q} host synchronisations inside the "
           "resident solves")
@@ -1901,6 +2008,273 @@ def objective_phase(qt, device, smi):
     }
 
 
+
+def fixture_data(name):
+    """A full-width fixture's data and its fleet's starts, float64 numpy,
+    from a fresh generator seeded BENCH_SEED, drawn in the order
+    scripts/jax_fixture_reference.py draws them (see phase 21 above)."""
+    rng = np.random.default_rng(BENCH_SEED)
+    if name == "funnel":
+        return {"starts": rng.standard_normal((BATCH, FUNNEL_N))}
+    if name == "mixture":
+        means = 3.0 * rng.standard_normal((MIXTURE_K, MIXTURE_N))
+        return {"means": means, "starts": 3.0 * rng.standard_normal((BATCH, MIXTURE_N))}
+    if name == "poisson":
+        X = rng.standard_normal((POISSON_OBS, POISSON_N)) / np.sqrt(POISSON_N)
+        w_true = 0.5 * rng.standard_normal(POISSON_N)
+        y = rng.poisson(np.exp(X @ w_true)).astype(np.float64)
+        return {"X": X, "y": y, "starts": rng.standard_normal((BATCH, POISSON_N))}
+    A, w_true, ys = ar1_data(rng, AR1_N, AR1_STEPS)
+    return {"A": A, "ys": ys, "w_true": w_true, "starts": rng.standard_normal((BATCH, AR1_N))}
+
+
+def ar1_data(rng, n, steps):
+    """The AR(1)'s A scaled to AR1_RADIUS, w_true and the observations of
+    the recursion from z_0 = 0 (models/statespace.py's recipe, in numpy)."""
+    A = rng.standard_normal((n, n))
+    A = A * (AR1_RADIUS / np.max(np.abs(np.linalg.eigvals(A))))
+    w_true, z, zs = rng.standard_normal(n), np.zeros(n), []
+    for _ in range(steps):
+        z = A @ z + w_true
+        zs.append(z)
+    return A, w_true, np.stack(zs) + AR1_OBS_SCALE * rng.standard_normal((steps, n))
+
+
+def fixture_model(name, data, dtype, device):
+    """The port's model of fixture ``name`` on ``data`` (see
+    `fixture_data`), its data on ``device`` in ``dtype``."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        AR1DriftMAP,
+        GaussianMixture,
+        PoissonRegressionMAP,
+        funnel_logdensity,
+    )
+
+    if name == "funnel":
+        return funnel_logdensity
+    if name == "mixture":
+        return GaussianMixture(data["means"], sigmas=MIXTURE_SIGMA, dtype=dtype, device=device)
+    if name == "poisson":
+        return PoissonRegressionMAP(data["X"].shape[1], data["X"].shape[0],
+                                    prior_scale=POISSON_PRIOR, X=data["X"], y=data["y"],
+                                    dtype=dtype, device=device)
+    return AR1DriftMAP(data["A"].shape[0], data["ys"].shape[0], spectral_radius=AR1_RADIUS,
+                       obs_scale=AR1_OBS_SCALE, prior_scale=AR1_PRIOR, A=data["A"],
+                       ys=data["ys"], w_true=data["w_true"], dtype=dtype, device=device)
+
+
+def fixture_parity_fleet(name, n, dtype, device, batch=OBJECTIVE_LANES):
+    """A parity fleet of fixture ``name`` at width n, from seed
+    BENCH_SEED + n: the full-width recipe at that width (the mixture's 8
+    components, the Poisson GLM's 400 observations, the AR(1)'s 32 steps)."""
+    rng = np.random.default_rng(BENCH_SEED + n)
+    data = {}
+    if name == "mixture":
+        data["means"] = 3.0 * rng.standard_normal((MIXTURE_K, n))
+    elif name == "poisson":
+        data["X"] = rng.standard_normal((POISSON_OBS, n)) / np.sqrt(n)
+        data["y"] = rng.poisson(np.exp(data["X"] @ (0.5 * rng.standard_normal(n)))).astype(float)
+    elif name == "ar1":
+        data["A"], data["w_true"], data["ys"] = ar1_data(rng, n, AR1_STEPS)
+    scale = 3.0 if name == "mixture" else 1.0
+    X = torch.tensor(scale * rng.standard_normal((batch, n)), dtype=dtype, device=device)
+    return fixture_model(name, data, dtype, device), X
+
+
+def fixture_parity(qt, model, X, tol, label, whole=True):
+    """B3's instantiation for ``model`` against its plain version on the
+    fleet ``X`` (phase 9's method): over caps 0, 1 and 5 every counter equal
+    on every lane and x, grad and B normwise within EXACT_RTOL (1e-10 in
+    f64, 1e-5 in f32) or, where more, within ROUNDING_FACTOR times what the
+    plain version itself moves when run on the CPU (the funnel's curvature,
+    up to e^{4.5(n-1)}, grows a last-bit difference by orders of magnitude
+    within 5 iterations, in float64 too); with ``whole``, over whole solves
+    every converged lane
+    certified, and the lanes whose status differs from the plain run's at
+    most ROUNDING_FACTOR times as many as a change of rounding alone gives
+    the plain version, the largest count of three witnesses (the run from
+    x0 one ulp up, one ulp down, and the run on the CPU; taken only where
+    some lane differs). Returns (summary, max abs error at the caps,
+    failures)."""
+    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
+
+    ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
+    worst_abs = worst_rel = worst_cpu = 0.0
+    failures, same_runs = [], 0
+    for cap in SHORT_CAPS:
+        kern = qt.optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=cap,
+                                            kernel="cuda")
+        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, stall, model)
+        err_abs, err_rel = state_err(kern, plain)
+        limit = EXACT_RTOL[X.dtype]
+        if cap > 0:
+            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, stall, model)
+            witness = state_err(cpu, plain)[1]
+            worst_cpu = max(worst_cpu, witness)
+            limit = max(limit, ROUNDING_FACTOR * witness)
+        same = bool(counters_equal(kern, plain).all())
+        same_runs += same
+        worst_abs, worst_rel = max(worst_abs, err_abs), max(worst_rel, err_rel)
+        if not (same and err_rel <= limit):
+            failures.append(f"{label} cap={cap}: counters equal {same}, normwise {err_rel:.3e} "
+                            f"(limit {limit:.3e})")
+    summary = (f"{label}: caps {SHORT_CAPS} {same_runs}/{len(SHORT_CAPS)} runs with every counter "
+               f"equal, max normwise {worst_rel:.3e} (the CPU's run moves the plain version "
+               f"{worst_cpu:.3e}), max abs {worst_abs:.3e}")
+    if not whole:
+        return summary, worst_abs, failures
+    kern = qt.optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=MAX_ITERS,
+                                        kernel="cuda")
+
+    def plain_run(x0):
+        return optimize_batched_resident_reference(x0, ls, tol, MAX_ITERS, True, stall, model)
+
+    plain = plain_run(X)
+    flips = int((kern.status != plain.status).sum())
+    witness_flips = {}
+    if flips:
+        for key, x0 in (("1 ulp up", torch.nextafter(X, torch.full_like(X, float("inf")))),
+                        ("1 ulp down", torch.nextafter(X, torch.full_like(X, float("-inf")))),
+                        ("CPU", X.cpu())):
+            witness_flips[key] = int((plain_run(x0).status.to(X.device) != plain.status).sum())
+    ok = kern.status == qt.Status.CONVERGED
+    gmax = float(kern.grad[ok].abs().max()) if bool(ok.any()) else 0.0
+    if flips > ROUNDING_FACTOR * max(witness_flips.values(), default=0) or gmax >= tol:
+        failures.append(f"{label} cap={MAX_ITERS}: {flips} lanes with another status than the "
+                        f"plain run's (rounding witnesses {witness_flips}), max|grad| of the "
+                        f"converged {gmax:.3e} (tol {tol})")
+    lanes = int((~counters_equal(kern, plain)).sum())
+    summary += (f"; cap {MAX_ITERS}: converged {int(ok.sum())}/{X.shape[0]} (plain "
+                f"{int((plain.status == qt.Status.CONVERGED).sum())}), lanes with another status "
+                f"{flips}" + (f" (witnesses {witness_flips})" if flips else "")
+                + f", with other counters {lanes}")
+    return summary, worst_abs, failures
+
+
+def fixture_phase(qt, device, smi):
+    """B3 on the fixture families (see phase 21 above). Returns each new
+    instantiation's (launches, max abs error, (ms, plain ms, bound ms,
+    bound kind, library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        IllConditionedQuadratic,
+        LogisticRegressionMAP,
+    )
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
+
+    t_phase = time.perf_counter()
+    failures = []
+    for name, (ns, dtypes) in FIXTURE_PARITY.items():
+        for dtype in dtypes:
+            tol = FIXTURE_TOL[name][dtype]
+            for i, n in enumerate(ns):
+                model, X = fixture_parity_fleet(name, n, dtype, device)
+                summary, _, bad = fixture_parity(
+                    qt, model, X, tol, f"{name} {OBJECTIVE_LANES}x{n} "
+                    f"{str(dtype).replace('torch.', '')} tol {tol}", whole=i < 2)
+                print(f"  B3 vs plain {summary}", file=sys.stderr)
+                failures += bad
+
+    fleets = {}
+    for key, (name, dtype, tol, *_) in FIXTURE_FLEETS.items():
+        data = fixture_data(name)
+        fleets[key] = (fixture_model(name, data, dtype, device),
+                       torch.tensor(data["starts"], dtype=dtype, device=device), tol)
+    main_summary, main_err = {}, {}
+    for key, (model, X, tol) in fleets.items():
+        main_summary[key], main_err[key], bad = fixture_parity(
+            qt, model, X, tol, f"{key} {X.shape[0]}x{X.shape[1]} tol {tol}")
+        print(f"  B3 vs plain {main_summary[key]}", file=sys.stderr)
+        failures += bad
+    log(f"[fixtures] B3 vs plain (the fleet engine with the plain update on the same model), "
+        f"{OBJECTIVE_LANES} lanes at n in "
+        + "; ".join(f"{k} {ns} {'/'.join(str(d).replace('torch.', '') for d in dts)}"
+                    for k, (ns, dts) in FIXTURE_PARITY.items())
+        + " (rows on stderr); at full width: " + "; ".join(main_summary.values()))
+    check(not failures, f"B3 and its plain version differ on the fixtures: {failures}")
+
+    # the slice's main path: the five full-width fleets through B3 and B1, counted
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    resident, fleet, lines = {}, {}, []
+    for key, (model, X, tol) in fleets.items():
+        res, flagged, wall = resident_run(qt, model, X, tol)
+        check(flagged == 0, f"{key}: {flagged} host synchronisations inside the resident solve")
+        resident[key] = (res, wall)
+        fleet[key] = qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS)
+    c = read_counters(qt)
+    launches = dict(counted_kernels()["B3"].objective_launches)
+    check(launches == {**dict.fromkeys(launches, 0), "funnel": 1, "mixture": 1, "poisson": 2,
+                       "ar1": 1} and c["B3"] == 5
+          and c["B2a"] == c["B2b"] == 0 and c["B1"] == c["bodies"] > 0,
+          f"launches {launches}, {c}")
+    for key, (name, dtype, tol, jax_conv, jax_med, jax_max) in FIXTURE_FLEETS.items():
+        for engine, res in (("B3", resident[key][0]), ("B1", fleet[key])):
+            conv = int((res.status == qt.Status.CONVERGED).sum())
+            iters = res.iterations.cpu().numpy()
+            med = float(np.median(iters))
+            in_band = bool(((res.status == qt.Status.CONVERGED)
+                            | (res.status == qt.Status.LINESEARCH_FAILURE)).all())
+            ok = res.status == qt.Status.CONVERGED
+            gmax = float(res.grad[ok].abs().max()) if conv else 0.0
+            p = fewer_converged_p(conv, jax_conv, BATCH)
+            lines.append(f"{key} through {engine}: converged {conv}/{BATCH} (JAX {jax_conv}, "
+                         f"one-sided Fisher p = {p:.3f}), iterations median {med:g} max "
+                         f"{int(iters.max())} (JAX {jax_med:g} / {jax_max}), max|grad| of the "
+                         f"converged {gmax:.3e}")
+            check(in_band and gmax < tol, f"{key} through {engine}: a status out of band or "
+                  f"a converged lane not certified (max|grad| {gmax})")
+            if jax_conv == BATCH:
+                check(conv == BATCH, f"{key} through {engine}: {conv}/{BATCH} converged")
+            check(p >= 0.01, f"{key} through {engine}: {conv} converged against JAX's "
+                  f"{jax_conv}: fewer than chance allows (p = {p:.4f})")
+            check(abs(med - jax_med) <= 0.1 * jax_med,
+                  f"{key} through {engine}: median {med} not within 10% of {jax_med}")
+    log(f"[fixtures] full-width fleets of {BATCH} starts on {device}: optimize_batched_resident "
+        f"launches B3 {c['B3']} ({', '.join(f'{k} {v}' for k, v in launches.items() if v)}), "
+        f"host synchronisations 0 in each; optimize_batched B1 {c['B1']} = loop bodies "
+        f"{c['bodies']}; " + "; ".join(lines))
+
+    records, timings = {}, []
+    for key, (model, X, tol) in fleets.items():
+        name, dtype = FIXTURE_FLEETS[key][:2]
+        itemsize = X.element_size()
+        ms = per_call_ms({
+            "B3": lambda: qt.optimize_batched_resident(model, X, tol=tol,
+                                                       max_iterations=MAX_ITERS),
+            "B1": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
+                                              kernel="cuda"),
+            "plain": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
+                                                 kernel="torch"),
+        }, (), rounds=2, calls=1)
+        b = b3_bound(resident[key][0], X.shape[1], itemsize, True, model)
+        timings.append(
+            f"{key} {BATCH}x{X.shape[1]}: B3 {ms['B3']:.4f} ms ({1e3 * BATCH / ms['B3']:.1f} "
+            f"solves/s), fleet engine with B1 {ms['B1']:.4f} ms, with the plain update "
+            f"{ms['plain']:.4f} ms; B3's bound {b[0]:.4f} ms ({b[1]}), B3 at "
+            f"{100 * b[0] / ms['B3']:.1f} %; launch "
+            f"{shape_line(resident_occupancy(X.shape[1], itemsize, model))}")
+        if name not in records:  # the first fleet of each instantiation (Poisson: f32)
+            records[name] = (launches[name], main_err[key], (ms["B3"], ms["plain"], *b, None))
+        else:
+            records[name] = (launches[name], max(records[name][1], main_err[key]),
+                             records[name][2])
+    log(f"[time] fixture fleets per solve (CUDA events, median of 2 in turns): "
+        + "; ".join(timings) + f" on {smi}")
+
+    # registers of every instantiation at its full-width n (ptxas's count)
+    shapes = {"rosenbrock": (N, None), "quadratic": (QUAD_N, IllConditionedQuadratic(3)),
+              "logistic": (LOGISTIC_N, LogisticRegressionMAP(3, 5))}
+    shapes.update({FIXTURE_FLEETS[k][0]: (fleets[k][1].shape[1], fleets[k][0])
+                   for k in FIXTURE_FLEETS})
+    # (f64 at n <= 165, the largest that fits: the quadratic's 236 does not)
+    regs = [f"{name} n={n} " + "/".join(
+        str(resident_occupancy(min(n, 165) if size == 8 else n, size, model)["registers"])
+        for size in (4, 8)) for name, (n, model) in shapes.items()]
+    log(f"[fixtures] B3 registers per thread (f32/f64, cudaFuncGetAttributes = ptxas's count): "
+        f"{', '.join(regs)}; phase 21 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -1930,6 +2304,7 @@ def main():
     ring_phase(qt, device, smi)
     vmap_phase(qt, device)
     objectives = objective_phase(qt, device, smi)
+    objectives.update(fixture_phase(qt, device, smi))
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms

@@ -1,5 +1,7 @@
 // The objectives the resident solver B3 (resident_solve.cu) evaluates on
-// the card. The JAX kernel traces any jnp objective into its body, closed
+// the card: the split Rosenbrock, the ill-conditioned quadratic, the GLM
+// posteriors (logistic and Poisson: one row loop, two links), Neal's
+// funnel, the Gaussian mixture and the AR(1)-with-drift state-space MAP. The JAX kernel traces any jnp objective into its body, closed
 // over data arrays that it hoists into kernel inputs
 // (quasinewtonmethods_jl_tpu/resident_solve.py :: _hoist_consts); a kernel
 // written by hand takes its objective as a template argument instead, one
@@ -14,8 +16,12 @@
 //   value(terms, extra)  the value from those totals;
 //   value_along(alpha)   the value at X + alpha·d (a line-search trial): a
 //                        fresh evaluation, with a lane sum of its own;
+//   prepare(...)         once per lane before the first evaluation: puts
+//                        constant data in its shared memory (the AR(1)'s A)
+//                        and publishes them; empty for the others;
 //   extra_values(n)      the shared memory it needs beyond the solver's, in
-//                        values (host side).
+//                        values (host side too, on an objective that holds
+//                        only its sizes).
 // Each evaluates in the plain versions' order of operations (the
 // models/*.py expressions, term for term); only the order of the sums
 // differs. Lane sums also publish the shared writes made before them, and
@@ -51,6 +57,8 @@ __device__ __forceinline__ float exp_of(float v) { return expf(v); }
 __device__ __forceinline__ double exp_of(double v) { return exp(v); }
 __device__ __forceinline__ float log1p_of(float v) { return log1pf(v); }
 __device__ __forceinline__ double log1p_of(double v) { return log1p(v); }
+__device__ __forceinline__ float log_of(float v) { return logf(v); }
+__device__ __forceinline__ double log_of(double v) { return log(v); }
 
 // models/rosenbrock.py: -Σ 100 r² + (1 - a)², r = b - a², over the pairs
 // (a, b) = (x[i], x[half + i]), and -(1 - x[n-1])² for odd n. A thread owns
@@ -61,7 +69,9 @@ __device__ __forceinline__ double log1p_of(double v) { return log1p(v); }
 template <typename T>
 struct RosenbrockObjective {
   static constexpr int kOwned = 3;
-  static size_t extra_values(int) { return 0; }
+  size_t extra_values(int) const { return 0; }
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>&, int, T*) const {}
 
   __device__ __forceinline__ Owned<3> owned(int n) const {
     const int half = n >> 1;
@@ -130,7 +140,9 @@ struct QuadraticObjective {
   const T* __restrict__ x_star;
 
   static constexpr int kOwned = 2;
-  static size_t extra_values(int) { return 0; }
+  size_t extra_values(int) const { return 0; }
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>&, int, T*) const {}
 
   __device__ __forceinline__ Owned<2> owned(int n) const { return owned_columns(n); }
 
@@ -166,23 +178,60 @@ struct QuadraticObjective {
   }
 };
 
-// models/logistic.py: Σ_i [y_i log σ(z_i) + (1 - y_i) log σ(-z_i)] -
-// (1/2) Σ w² / prior_scale², z = X w, with X (n_obs, n) row-major and y
-// (n_obs) in device memory, read by every lane (through L2). log σ(z) =
-// min(z, 0) - log1p(exp(-|z|)), as torch's logsigmoid; σ(z) in its stable
-// two-branch form. The gradient is Xᵀ(y - σ(z)) - w / prior_scale².
+// The GLM posteriors: Σ_i term(z_i, y_i) - (1/2) Σ w² / prior_scale², z =
+// X w, with X (n_obs, n) row-major and y (n_obs) in device memory, read by
+// every lane (through L2). The gradient is Xᵀ r - w / prior_scale², r_i =
+// residual(z_i, y_i) = ∂term/∂z_i. The link is a policy:
+//   LogitLink (models/logistic.py): term y log σ(z) + (1 - y) log σ(-z),
+//     log σ(z) = min(z, 0) - log1p(exp(-|z|)) as torch's logsigmoid;
+//     residual y - σ(z), σ in its stable two-branch form;
+//   LogLink (models/poisson.py): term y·z - exp(z), residual y - exp(z).
 //
-// Every row's logit reads the whole of w, so the point goes to shared
-// memory (n values). The logits are taken over the rows in chunks of the
-// lane group's threads: thread t takes row i0 + t's dot product Σ_j X[i, j]
-// w_j and its residual y_i - σ(z_i), which it puts in shared memory (one
-// chunk); the column owners then accumulate g_j += X[i, j] r_i over the
-// chunk's rows, in row order. The scratch is one chunk whatever n_obs is,
-// so what fits depends on n alone. A trial needs no residuals: each thread
-// sums its rows' terms. Barriers: after the point is written, and before
-// and after the owners read a chunk's residuals.
-template <typename T>
-struct LogisticObjective {
+// Every row's z reads the whole of w, so the point goes to shared memory
+// (n values). The rows are taken in chunks of the lane group's threads:
+// thread t takes row i0 + t's dot product Σ_j X[i, j] w_j and its residual,
+// which it puts in shared memory (one chunk); the column owners then
+// accumulate g_j += X[i, j] r_i over the chunk's rows, in row order. The
+// scratch is one chunk whatever n_obs is, so what fits depends on n alone.
+// A trial needs no residuals: each thread sums its rows' terms. Barriers:
+// after the point is written, and before and after the owners read a
+// chunk's residuals.
+struct LogitLink {
+  template <typename T>
+  __device__ __forceinline__ static T term(T z, T yi) {
+    const T e = log1p_of(exp_of(-fabs(z)));
+    const T lp = (z < T(0) ? z : T(0)) - e;
+    const T lm = (-z < T(0) ? -z : T(0)) - e;
+    return yi * lp + (T(1) - yi) * lm;
+  }
+
+  template <typename T>
+  __device__ __forceinline__ static T sigmoid(T z) {
+    if (z >= T(0)) return T(1) / (T(1) + exp_of(-z));
+    const T e = exp_of(z);
+    return e / (T(1) + e);
+  }
+
+  template <typename T>
+  __device__ __forceinline__ static T residual(T z, T yi) {
+    return yi - sigmoid(z);
+  }
+};
+
+struct LogLink {
+  template <typename T>
+  __device__ __forceinline__ static T term(T z, T yi) {
+    return yi * z - exp_of(z);
+  }
+
+  template <typename T>
+  __device__ __forceinline__ static T residual(T z, T yi) {
+    return yi - exp_of(z);
+  }
+};
+
+template <typename T, typename Link>
+struct GlmObjective {
   const T* __restrict__ X;
   const T* __restrict__ y;
   int n_obs;
@@ -190,7 +239,9 @@ struct LogisticObjective {
 
   static constexpr int kOwned = 2;
   // the point (n) and one chunk of residuals (the lane's threads)
-  static size_t extra_values(int n) { return size_t(n) + size_t(32 * lane_warps(n)); }
+  size_t extra_values(int n) const { return size_t(n) + size_t(32 * lane_warps(n)); }
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>&, int, T*) const {}
 
   __device__ __forceinline__ Owned<2> owned(int n) const { return owned_columns(n); }
 
@@ -198,20 +249,6 @@ struct LogisticObjective {
     T z = T(0);
     for (int j = 0; j < n; ++j) z = z + row[j] * w[j];
     return z;
-  }
-
-  // y log σ(z) + (1 - y) log σ(-z)
-  __device__ __forceinline__ static T loglik_term(T z, T yi) {
-    const T e = log1p_of(exp_of(-fabs(z)));
-    const T lp = (z < T(0) ? z : T(0)) - e;
-    const T lm = (-z < T(0) ? -z : T(0)) - e;
-    return yi * lp + (T(1) - yi) * lm;
-  }
-
-  __device__ __forceinline__ static T sigmoid(T z) {
-    if (z >= T(0)) return T(1) / (T(1) + exp_of(-z));
-    const T e = exp_of(z);
-    return e / (T(1) + e);
   }
 
   // terms: the thread's rows' log-likelihood terms; extra: Σ w² of its entries
@@ -236,8 +273,8 @@ struct LogisticObjective {
       if (i < n_obs) {
         const T z = row_dot(X + size_t(i) * n, sW, n);
         const T yi = y[i];
-        terms += loglik_term(z, yi);
-        r = yi - sigmoid(z);
+        terms += Link::term(z, yi);
+        r = Link::residual(z, yi);
       }
       sR[threadIdx.x] = r;
       grp.sync();
@@ -273,8 +310,291 @@ struct LogisticObjective {
     }
     grp.sync();
     for (int i = threadIdx.x; i < n_obs; i += blockDim.x) {
-      v[0] += loglik_term(row_dot(X + size_t(i) * n, sW, n), y[i]);
+      v[0] += Link::term(row_dot(X + size_t(i) * n, sW, n), y[i]);
     }
+    grp.sum(v);
+    return value(v[0], v[1], n);
+  }
+};
+
+template <typename T>
+using LogisticObjective = GlmObjective<T, LogitLink>;
+template <typename T>
+using PoissonObjective = GlmObjective<T, LogLink>;
+
+// models/funnel.py: -v²/9/2 - (n-1)·v/2 - e^{-v}·Σ x²/2 over θ = (v, x),
+// the update's column ownership, v (entry 0) with thread 0. v's gradient
+// -v/9 - (n-1)/2 + e^{-v}·Σx²/2 needs Σx² of the whole lane, and every
+// x_i's gradient -e^{-v}·x_i needs v: one lane sum, in which only v's
+// owner adds v, gives both to every thread. The value is then known on
+// every thread, and thread 0 alone adds it to the solver's sum. No data.
+template <typename T>
+struct FunnelObjective {
+  static constexpr int kOwned = 2;
+  size_t extra_values(int) const { return 0; }
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>&, int, T*) const {}
+
+  __device__ __forceinline__ Owned<2> owned(int n) const { return owned_columns(n); }
+
+  // (v, Σ x²) of the lane's point th, on every thread
+  template <bool kOneWarp>
+  __device__ __forceinline__ static void spread(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                                const T (&th)[2], T& v, T& xx) {
+    T s[2] = {T(0), T(0)};  // Σ x², v
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!own.has[e]) continue;
+      if (own.idx[e] == 0) {
+        s[1] = th[e];
+      } else {
+        s[0] += th[e] * th[e];
+      }
+    }
+    grp.sum(s);
+    xx = s[0];
+    v = s[1];
+  }
+
+  __device__ __forceinline__ static T value_at(T v, T xx, int n) {
+    return ((T(-0.5) * v) * v) / T(9) - (T(0.5) * T(n - 1)) * v - (T(0.5) * exp_of(-v)) * xx;
+  }
+
+  // terms: the value, on thread 0 only
+  template <bool kOneWarp>
+  __device__ __forceinline__ void value_and_grad(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                                 int n, T*, const T (&x)[2], T (&g)[2], T& terms,
+                                                 T&) const {
+    T v, xx;
+    spread(grp, own, x, v, xx);
+    const T h = T(0.5) * exp_of(-v);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      g[e] = own.idx[e] == 0 ? (-v / T(9) - T(0.5) * T(n - 1)) + h * xx : -(h * (T(2) * x[e]));
+    }
+    if (threadIdx.x == 0) terms = value_at(v, xx, n);
+  }
+
+  __device__ __forceinline__ T value(T terms, T, int) const { return terms; }
+
+  template <bool kOneWarp>
+  __device__ __forceinline__ T value_along(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                           int n, T*, const T (&x)[2], const T (&d)[2],
+                                           T alpha) const {
+    T th[2], v, xx;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) th[e] = x[e] + alpha * d[e];
+    spread(grp, own, th, v, xx);
+    return value_at(v, xx, n);
+  }
+};
+
+// models/mixture.py: logsumexp_k comp_k, comp_k = log w_k - (1/2) d2_k /
+// sigma_k² - n log sigma_k, d2_k = Σ_j (x_j - mu_kj)², with means (K, n),
+// weights (K) and sigmas (K) in device memory; the column owners read
+// means' rows coalesced. The K distances are one lane sum (so K <= 8,
+// kMaxComponents: a compile-time maximum, which keeps the components in
+// registers); every thread then takes the max-shifted logsumexp as
+// torch.logsumexp does (an infinite max shifts by 0). The gradient of an
+// owned entry is Σ_k (-p_k / sigma_k²)(x_j - mu_kj), p = exp(comp - lse),
+// the logsumexp's own backward. Thread 0 alone adds the value to the
+// solver's sum. No shared memory.
+constexpr int kMaxComponents = kMaxSums;
+
+template <typename T>
+struct MixtureObjective {
+  const T* __restrict__ means;
+  const T* __restrict__ weights;
+  const T* __restrict__ sigmas;
+  int K;
+
+  static constexpr int kOwned = 2;
+  size_t extra_values(int) const { return 0; }
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>&, int, T*) const {}
+
+  __device__ __forceinline__ Owned<2> owned(int n) const { return owned_columns(n); }
+
+  // the components comp_k and their logsumexp at the lane's point th, on
+  // every thread
+  template <bool kOneWarp>
+  __device__ __forceinline__ T components(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own, int n,
+                                          const T (&th)[2], T (&comp)[kMaxComponents]) const {
+    T d2[kMaxComponents];
+#pragma unroll
+    for (int k = 0; k < kMaxComponents; ++k) {
+      d2[k] = T(0);
+      if (k >= K) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!own.has[e]) continue;
+        const T r = th[e] - means[size_t(k) * n + own.idx[e]];
+        d2[k] += r * r;
+      }
+    }
+    grp.sum(d2);
+    T top = -INFINITY;  // a NaN component makes the sum below NaN, as amax would
+#pragma unroll
+    for (int k = 0; k < kMaxComponents; ++k) {
+      if (k >= K) continue;
+      const T s = sigmas[k];
+      comp[k] = (log_of(weights[k]) - (T(0.5) * d2[k]) / (s * s)) - T(n) * log_of(s);
+      top = comp[k] > top ? comp[k] : top;
+    }
+    const T shift = isinf(top) ? T(0) : top;
+    T total = T(0);
+#pragma unroll
+    for (int k = 0; k < kMaxComponents; ++k) {
+      if (k < K) total += exp_of(comp[k] - shift);
+    }
+    return log_of(total) + shift;
+  }
+
+  // terms: the value, on thread 0 only
+  template <bool kOneWarp>
+  __device__ __forceinline__ void value_and_grad(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                                 int n, T*, const T (&x)[2], T (&g)[2], T& terms,
+                                                 T&) const {
+    T comp[kMaxComponents];
+    const T lse = components(grp, own, n, x, comp);
+    T acc[2] = {T(0), T(0)};
+#pragma unroll
+    for (int k = 0; k < kMaxComponents; ++k) {
+      if (k >= K) continue;
+      const T s = sigmas[k];
+      const T coef = -exp_of(comp[k] - lse) / (s * s);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) acc[e] += coef * (x[e] - means[size_t(k) * n + own.idx[e]]);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) g[e] = acc[e];
+    if (threadIdx.x == 0) terms = lse;
+  }
+
+  __device__ __forceinline__ T value(T terms, T, int) const { return terms; }
+
+  template <bool kOneWarp>
+  __device__ __forceinline__ T value_along(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                           int n, T*, const T (&x)[2], const T (&d)[2],
+                                           T alpha) const {
+    T th[2], comp[kMaxComponents];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) th[e] = x[e] + alpha * d[e];
+    return components(grp, own, n, th, comp);
+  }
+};
+
+// models/statespace.py: Σ_t -(1/(2s²)) Σ_i (y_ti - z_ti)² - (1/2) Σ w² /
+// prior_scale² over the recursion z_t = A z_{t-1} + w, z_0 = 0, t = 1..T,
+// with ys (T, n) in device memory and A (n, n) copied once per lane into
+// shared memory (`prepare`). The hand-written counterpart of the JAX
+// package's scan-bodied objective. Column ownership: the forward recursion
+// is one matvec per step, row i of A against z_{t-1} for each owned i,
+// with every z_t kept in shared memory (T + 1 rows of n, row 0 the zero
+// start) for the adjoint; the gradient is the reverse recursion
+//   mu_T = ∇l_T,  mu_t = ∇l_t + Aᵀ mu_{t+1},  ∇_w = Σ_t mu_t - w / p²,
+// ∇l_t = (2 (y_t - z_t))/(2s²), with mu in two shared buffers of n used in
+// turn. One barrier per step publishes z_t (or mu_t); a trial runs the
+// forward recursion only. Shared memory: n² + (T + 1)·n + 2n values, so
+// what fits depends on n and T.
+template <typename T>
+struct Ar1Objective {
+  const T* __restrict__ A;
+  const T* __restrict__ ys;
+  int n_steps;
+  T inv2s2;    // 1 / (2 obs_scale²)
+  T prior_sq;  // prior_scale²
+
+  static constexpr int kOwned = 2;
+  size_t extra_values(int n) const {
+    return size_t(n) * n + size_t(n_steps + 1) * n + 2 * size_t(n);
+  }
+
+  __device__ __forceinline__ Owned<2> owned(int n) const { return owned_columns(n); }
+
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(LaneGroup<T, kOneWarp>& grp, int n, T* scratch) const {
+    for (int i = threadIdx.x; i < n * n; i += blockDim.x) scratch[i] = A[i];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) scratch[n * n + i] = T(0);  // z_0
+    grp.sync();
+  }
+
+  // The forward recursion at the lane's drift w: z_1..z_T into shared
+  // memory; returns the thread's Σ_t Σ_owned (y_t - z_t)².
+  template <bool kOneWarp>
+  __device__ __forceinline__ T forward(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own, int n,
+                                       T* scratch, const T (&w)[2]) const {
+    const T* sA = scratch;
+    T* sZ = scratch + size_t(n) * n;
+    T acc = T(0);
+    for (int t = 1; t <= n_steps; ++t) {
+      const T* zp = sZ + size_t(t - 1) * n;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!own.has[e]) continue;
+        const int i = own.idx[e];
+        T m = T(0);
+        for (int j = 0; j < n; ++j) m = m + sA[i * n + j] * zp[j];
+        const T z = m + w[e];
+        sZ[size_t(t) * n + i] = z;
+        const T r = ys[size_t(t - 1) * n + i] - z;
+        acc += r * r;
+      }
+      grp.sync();  // publishes z_t
+    }
+    return acc;
+  }
+
+  // terms: the thread's Σ_t Σ_owned (y_t - z_t)²; extra: Σ w² of its entries
+  template <bool kOneWarp>
+  __device__ __forceinline__ void value_and_grad(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                                 int n, T* scratch, const T (&x)[2], T (&g)[2],
+                                                 T& terms, T& extra) const {
+    const T* sA = scratch;
+    const T* sZ = scratch + size_t(n) * n;
+    T* sMu = scratch + size_t(n) * n + size_t(n_steps + 1) * n;
+    terms = forward(grp, own, n, scratch, x);
+    T acc[2] = {T(0), T(0)};
+    for (int t = n_steps; t >= 1; --t) {
+      const T* next = sMu + ((t + 1) & 1) * n;  // mu_{t+1}
+      T* cur = sMu + (t & 1) * n;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (!own.has[e]) continue;
+        const int i = own.idx[e];
+        T mu = inv2s2 * (T(2) * (ys[size_t(t - 1) * n + i] - sZ[size_t(t) * n + i]));
+        if (t < n_steps) {
+          T m = T(0);
+          for (int j = 0; j < n; ++j) m = m + sA[j * n + i] * next[j];
+          mu = mu + m;
+        }
+        cur[i] = mu;
+        acc[e] += mu;
+      }
+      grp.sync();  // publishes mu_t
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (own.has[e]) extra += x[e] * x[e];
+      g[e] = acc[e] - x[e] / prior_sq;
+    }
+  }
+
+  __device__ __forceinline__ T value(T terms, T extra, int) const {
+    return -inv2s2 * terms - (T(0.5) * extra) / prior_sq;
+  }
+
+  template <bool kOneWarp>
+  __device__ __forceinline__ T value_along(LaneGroup<T, kOneWarp>& grp, const Owned<2>& own,
+                                           int n, T* scratch, const T (&x)[2], const T (&d)[2],
+                                           T alpha) const {
+    T w[2], v[2] = {T(0), T(0)};  // Σ (y - z)², Σ w²
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      w[e] = x[e] + alpha * d[e];
+      if (own.has[e]) v[1] += w[e] * w[e];
+    }
+    v[0] = forward(grp, own, n, scratch, w);
     grp.sum(v);
     return value(v[0], v[1], n);
   }

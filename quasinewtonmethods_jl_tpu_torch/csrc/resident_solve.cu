@@ -33,9 +33,13 @@
 // kernel (resident_objectives.cuh), one instantiation and one entry point
 // each: the split Rosenbrock of models/rosenbrock.py (no data), the
 // ill-conditioned quadratic of models/quadratic.py (diag and x* in device
-// memory) and the logistic-regression MAP of models/logistic.py (X, y in
-// device memory, shared by every lane through L2). Terms are summed by the
-// lane group's deterministic sums, so repeated runs give identical results.
+// memory), the logistic-regression and Poisson MAPs of models/logistic.py
+// and models/poisson.py (X, y in device memory, shared by every lane
+// through L2), Neal's funnel of models/funnel.py (no data), the Gaussian
+// mixture of models/mixture.py (means, weights, sigmas in device memory)
+// and the AR(1) state-space MAP of models/statespace.py (A in shared
+// memory, ys in device memory). Terms are summed by the lane group's
+// deterministic sums, so repeated runs give identical results.
 //
 // What bounds it: per iteration a lane does ~12 n² flops on B in shared
 // memory (the matvecs and the update) and a few lane sums, so the issue
@@ -164,6 +168,7 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
   T* const sObj = sY + 5 * n + kRedValues;  // the objective's scratch
   const qnm::Columns cols(n);
   const qnm::Owned<kOwned> own = obj.owned(n);
+  obj.prepare(grp, n, sObj);  // the objective's constant data, if any
 
   // the fresh carry of batched_solve.py :: _fresh_bfgs_carry; B = I by columns
 #pragma unroll
@@ -320,10 +325,10 @@ __global__ void __launch_bounds__(qnm::kMaxLaneWarps * 32)
 }
 
 template <typename T, typename Objective>
-auto launch_for(int n) {
+auto launch_for(int n, const Objective& obj) {
   return qnm::lane_launch(n, &resident_solve_kernel<T, true, Objective>,
                           &resident_solve_kernel<T, false, Objective>,
-                          smem_bytes(n, sizeof(T), Objective::extra_values(n)));
+                          smem_bytes(n, sizeof(T), obj.extra_values(n)));
 }
 
 template <typename T, typename Objective>
@@ -332,7 +337,7 @@ int launch(const void* X0, void* X, void* G, void* G_old, void* step, void* B, v
            void* fresh, void* stall, int batch, int n, const Params<T>& p,
            const Objective& obj, void* stream) {
   if (batch == 0 || n == 0) return 0;
-  const auto l = launch_for<T, Objective>(n);
+  const auto l = launch_for<T>(n, obj);
   if (l.err != cudaSuccess) return int(l.err);
   l.kernel<<<batch, l.threads, l.smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(X0), static_cast<T*>(X), static_cast<T*>(G),
@@ -344,147 +349,194 @@ int launch(const void* X0, void* X, void* G, void* G_old, void* step, void* B, v
 }
 
 // The objectives by the numbers the entry points below take.
-enum ObjectiveId { kRosenbrock = 0, kQuadratic = 1, kLogistic = 2 };
+enum ObjectiveId {
+  kRosenbrock = 0,
+  kQuadratic = 1,
+  kLogistic = 2,
+  kFunnel = 3,
+  kMixture = 4,
+  kPoisson = 5,
+  kAr1 = 6
+};
 
-template <typename T>
-size_t smem_bytes_of(int objective, int n) {
+// f(objective) for an objective of the given number that holds only its
+// sizes (`size`: the AR(1)'s number of steps; the others have none that
+// their shared memory depends on): the host side's queries.
+template <typename T, typename F>
+auto with_objective(int objective, int size, F&& f) {
   switch (objective) {
     case kQuadratic:
-      return smem_bytes(n, sizeof(T), qnm::QuadraticObjective<T>::extra_values(n));
+      return f(qnm::QuadraticObjective<T>{});
     case kLogistic:
-      return smem_bytes(n, sizeof(T), qnm::LogisticObjective<T>::extra_values(n));
+      return f(qnm::LogisticObjective<T>{});
+    case kFunnel:
+      return f(qnm::FunnelObjective<T>{});
+    case kMixture:
+      return f(qnm::MixtureObjective<T>{});
+    case kPoisson:
+      return f(qnm::PoissonObjective<T>{});
+    case kAr1: {
+      qnm::Ar1Objective<T> ar1{};
+      ar1.n_steps = size;
+      return f(ar1);
+    }
     default:
-      return smem_bytes(n, sizeof(T), qnm::RosenbrockObjective<T>::extra_values(n));
+      return f(qnm::RosenbrockObjective<T>{});
   }
 }
 
 template <typename T>
-int occupancy_of(int objective, int n, int* regs, int* threads, int* blocks_per_sm) {
-  switch (objective) {
-    case kQuadratic:
-      return qnm::lane_occupancy(launch_for<T, qnm::QuadraticObjective<T>>(n), regs, threads,
-                                 blocks_per_sm);
-    case kLogistic:
-      return qnm::lane_occupancy(launch_for<T, qnm::LogisticObjective<T>>(n), regs, threads,
-                                 blocks_per_sm);
-    default:
-      return qnm::lane_occupancy(launch_for<T, qnm::RosenbrockObjective<T>>(n), regs, threads,
-                                 blocks_per_sm);
-  }
+size_t smem_bytes_of(int objective, int n, int size) {
+  return with_objective<T>(objective, size, [n](const auto& obj) {
+    return smem_bytes(n, sizeof(T), obj.extra_values(n));
+  });
+}
+
+template <typename T>
+int occupancy_of(int objective, int n, int size, int* regs, int* threads, int* blocks_per_sm) {
+  return with_objective<T>(objective, size, [&](const auto& obj) {
+    return qnm::lane_occupancy(launch_for<T>(n, obj), regs, threads, blocks_per_sm);
+  });
 }
 
 }  // namespace
 
+// The arguments every solve entry takes (the objective's data follow), and
+// its launch on objective `obj` of type real.
+#define QNM_SOLVE_ARGS(real)                                                                  \
+  const void *X0, void *X, void *G, void *G_old, void *step, void *B, void *fun, void *status, \
+      void *iterations, void *n_fev, void *n_gev, void *n_resets, void *fresh, void *stall,    \
+      int batch, int n, real tol, real c1, real rho_hi, real rho_lo, real eps, real sqrttol,   \
+      int budget, int max_iterations, int stall_limit, int order, int h0_scale
+#define QNM_SOLVE(real, obj)                                                                  \
+  launch<real>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev, n_resets,     \
+               fresh, stall, batch, n,                                                         \
+               Params<real>{tol, c1, rho_hi, rho_lo, eps, sqrttol, budget, max_iterations,     \
+                            stall_limit, order, h0_scale},                                     \
+               obj, stream)
+
 extern "C" {
 
 // Shared memory one block of the solve asks for, in bytes: for the
-// Rosenbrock (and the quadratic, which needs no scratch), and for each
-// objective by its number (ObjectiveId).
+// Rosenbrock (and every objective with no scratch), and for each objective
+// by its number (ObjectiveId) and size (the AR(1)'s number of steps).
 size_t qnm_resident_smem_bytes(int n, int itemsize) { return smem_bytes(n, size_t(itemsize)); }
 
-size_t qnm_resident_objective_smem_bytes(int objective, int n, int itemsize) {
-  return itemsize == 4 ? smem_bytes_of<float>(objective, n) : smem_bytes_of<double>(objective, n);
+size_t qnm_resident_objective_smem_bytes(int objective, int n, int size, int itemsize) {
+  return itemsize == 4 ? smem_bytes_of<float>(objective, n, size)
+                       : smem_bytes_of<double>(objective, n, size);
 }
 
 // The solve's launch at n: registers per thread, threads per block and
 // blocks per SM (the occupancy calculator's, with the attributes a launch
-// sets), for the Rosenbrock and for each objective by its number. Returns
-// a CUDA error code (0 = success).
-int qnm_resident_objective_occupancy(int objective, int n, int itemsize, int* regs,
+// sets), for the Rosenbrock and for each objective by its number and size.
+// Returns a CUDA error code (0 = success).
+int qnm_resident_objective_occupancy(int objective, int n, int size, int itemsize, int* regs,
                                      int* threads, int* blocks_per_sm) {
-  return itemsize == 4 ? occupancy_of<float>(objective, n, regs, threads, blocks_per_sm)
-                       : occupancy_of<double>(objective, n, regs, threads, blocks_per_sm);
+  return itemsize == 4
+             ? occupancy_of<float>(objective, n, size, regs, threads, blocks_per_sm)
+             : occupancy_of<double>(objective, n, size, regs, threads, blocks_per_sm);
 }
 
 int qnm_resident_occupancy(int n, int itemsize, int* regs, int* threads, int* blocks_per_sm) {
-  return qnm_resident_objective_occupancy(kRosenbrock, n, itemsize, regs, threads,
+  return qnm_resident_objective_occupancy(kRosenbrock, n, 0, itemsize, regs, threads,
                                           blocks_per_sm);
 }
 
 // Every solve entry returns cudaGetLastError() after the launch (0 =
-// launched). The Rosenbrock's take no data; the quadratic's diag and x*
-// (n each), the logistic's X (n_obs, n) row-major, y (n_obs) and
-// prior_scale².
-int qnm_resident_solve_f32(const void* X0, void* X, void* G, void* G_old, void* step, void* B,
-                           void* fun, void* status, void* iterations, void* n_fev,
-                           void* n_gev, void* n_resets, void* fresh, void* stall, int batch,
-                           int n, float tol, float c1, float rho_hi, float rho_lo, float eps,
-                           float sqrttol, int budget, int max_iterations, int stall_limit,
-                           int order, int h0_scale, void* stream) {
-  const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                        budget, max_iterations, stall_limit, order, h0_scale};
-  return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                       n_resets, fresh, stall, batch, n, p, qnm::RosenbrockObjective<float>{},
-                       stream);
+// launched). The Rosenbrock's and the funnel's take no data; the
+// quadratic's diag and x* (n each); the GLMs' (logistic, Poisson) X
+// (n_obs, n) row-major, y (n_obs) and prior_scale²; the mixture's means
+// (K, n), weights (K, normalised) and sigmas (K), K <= 8; the AR(1)'s A
+// (n, n) and ys (n_steps, n) row-major, 1/(2 obs_scale²) and prior_scale².
+int qnm_resident_solve_f32(QNM_SOLVE_ARGS(float), void* stream) {
+  return QNM_SOLVE(float, qnm::RosenbrockObjective<float>{});
 }
 
-int qnm_resident_solve_f64(const void* X0, void* X, void* G, void* G_old, void* step, void* B,
-                           void* fun, void* status, void* iterations, void* n_fev,
-                           void* n_gev, void* n_resets, void* fresh, void* stall, int batch,
-                           int n, double tol, double c1, double rho_hi, double rho_lo,
-                           double eps, double sqrttol, int budget, int max_iterations,
-                           int stall_limit, int order, int h0_scale, void* stream) {
-  const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                         budget, max_iterations, stall_limit, order, h0_scale};
-  return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                        n_resets, fresh, stall, batch, n, p, qnm::RosenbrockObjective<double>{},
-                        stream);
+int qnm_resident_solve_f64(QNM_SOLVE_ARGS(double), void* stream) {
+  return QNM_SOLVE(double, qnm::RosenbrockObjective<double>{});
 }
 
-int qnm_resident_solve_quadratic_f32(
-    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
-    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
-    int batch, int n, float tol, float c1, float rho_hi, float rho_lo, float eps, float sqrttol,
-    int budget, int max_iterations, int stall_limit, int order, int h0_scale, const void* diag,
-    const void* x_star, void* stream) {
-  const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                        budget, max_iterations, stall_limit, order, h0_scale};
-  const qnm::QuadraticObjective<float> obj{static_cast<const float*>(diag),
-                                           static_cast<const float*>(x_star)};
-  return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                       n_resets, fresh, stall, batch, n, p, obj, stream);
+int qnm_resident_solve_quadratic_f32(QNM_SOLVE_ARGS(float), const void* diag,
+                                     const void* x_star, void* stream) {
+  return QNM_SOLVE(float, (qnm::QuadraticObjective<float>{static_cast<const float*>(diag),
+                                                          static_cast<const float*>(x_star)}));
 }
 
-int qnm_resident_solve_quadratic_f64(
-    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
-    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
-    int batch, int n, double tol, double c1, double rho_hi, double rho_lo, double eps,
-    double sqrttol, int budget, int max_iterations, int stall_limit, int order, int h0_scale,
-    const void* diag, const void* x_star, void* stream) {
-  const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                         budget, max_iterations, stall_limit, order, h0_scale};
-  const qnm::QuadraticObjective<double> obj{static_cast<const double*>(diag),
-                                            static_cast<const double*>(x_star)};
-  return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                        n_resets, fresh, stall, batch, n, p, obj, stream);
+int qnm_resident_solve_quadratic_f64(QNM_SOLVE_ARGS(double), const void* diag,
+                                     const void* x_star, void* stream) {
+  return QNM_SOLVE(double, (qnm::QuadraticObjective<double>{static_cast<const double*>(diag),
+                                                            static_cast<const double*>(x_star)}));
 }
 
-int qnm_resident_solve_logistic_f32(
-    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
-    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
-    int batch, int n, float tol, float c1, float rho_hi, float rho_lo, float eps, float sqrttol,
-    int budget, int max_iterations, int stall_limit, int order, int h0_scale, const void* data_X,
-    const void* data_y, int n_obs, float prior_sq, void* stream) {
-  const Params<float> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                        budget, max_iterations, stall_limit, order, h0_scale};
-  const qnm::LogisticObjective<float> obj{static_cast<const float*>(data_X),
-                                          static_cast<const float*>(data_y), n_obs, prior_sq};
-  return launch<float>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                       n_resets, fresh, stall, batch, n, p, obj, stream);
+int qnm_resident_solve_logistic_f32(QNM_SOLVE_ARGS(float), const void* data_X,
+                                    const void* data_y, int n_obs, float prior_sq,
+                                    void* stream) {
+  return QNM_SOLVE(float, (qnm::LogisticObjective<float>{static_cast<const float*>(data_X),
+                                                         static_cast<const float*>(data_y), n_obs,
+                                                         prior_sq}));
 }
 
-int qnm_resident_solve_logistic_f64(
-    const void* X0, void* X, void* G, void* G_old, void* step, void* B, void* fun, void* status,
-    void* iterations, void* n_fev, void* n_gev, void* n_resets, void* fresh, void* stall,
-    int batch, int n, double tol, double c1, double rho_hi, double rho_lo, double eps,
-    double sqrttol, int budget, int max_iterations, int stall_limit, int order, int h0_scale,
-    const void* data_X, const void* data_y, int n_obs, double prior_sq, void* stream) {
-  const Params<double> p{tol, c1, rho_hi, rho_lo, eps, sqrttol,
-                         budget, max_iterations, stall_limit, order, h0_scale};
-  const qnm::LogisticObjective<double> obj{static_cast<const double*>(data_X),
-                                           static_cast<const double*>(data_y), n_obs, prior_sq};
-  return launch<double>(X0, X, G, G_old, step, B, fun, status, iterations, n_fev, n_gev,
-                        n_resets, fresh, stall, batch, n, p, obj, stream);
+int qnm_resident_solve_logistic_f64(QNM_SOLVE_ARGS(double), const void* data_X,
+                                    const void* data_y, int n_obs, double prior_sq,
+                                    void* stream) {
+  return QNM_SOLVE(double, (qnm::LogisticObjective<double>{static_cast<const double*>(data_X),
+                                                           static_cast<const double*>(data_y),
+                                                           n_obs, prior_sq}));
+}
+
+int qnm_resident_solve_poisson_f32(QNM_SOLVE_ARGS(float), const void* data_X,
+                                   const void* data_y, int n_obs, float prior_sq, void* stream) {
+  return QNM_SOLVE(float, (qnm::PoissonObjective<float>{static_cast<const float*>(data_X),
+                                                        static_cast<const float*>(data_y), n_obs,
+                                                        prior_sq}));
+}
+
+int qnm_resident_solve_poisson_f64(QNM_SOLVE_ARGS(double), const void* data_X,
+                                   const void* data_y, int n_obs, double prior_sq,
+                                   void* stream) {
+  return QNM_SOLVE(double, (qnm::PoissonObjective<double>{static_cast<const double*>(data_X),
+                                                          static_cast<const double*>(data_y),
+                                                          n_obs, prior_sq}));
+}
+
+int qnm_resident_solve_funnel_f32(QNM_SOLVE_ARGS(float), void* stream) {
+  return QNM_SOLVE(float, qnm::FunnelObjective<float>{});
+}
+
+int qnm_resident_solve_funnel_f64(QNM_SOLVE_ARGS(double), void* stream) {
+  return QNM_SOLVE(double, qnm::FunnelObjective<double>{});
+}
+
+int qnm_resident_solve_mixture_f32(QNM_SOLVE_ARGS(float), const void* means,
+                                   const void* weights, const void* sigmas, int K,
+                                   void* stream) {
+  return QNM_SOLVE(float, (qnm::MixtureObjective<float>{static_cast<const float*>(means),
+                                                        static_cast<const float*>(weights),
+                                                        static_cast<const float*>(sigmas), K}));
+}
+
+int qnm_resident_solve_mixture_f64(QNM_SOLVE_ARGS(double), const void* means,
+                                   const void* weights, const void* sigmas, int K,
+                                   void* stream) {
+  return QNM_SOLVE(double, (qnm::MixtureObjective<double>{static_cast<const double*>(means),
+                                                          static_cast<const double*>(weights),
+                                                          static_cast<const double*>(sigmas),
+                                                          K}));
+}
+
+int qnm_resident_solve_ar1_f32(QNM_SOLVE_ARGS(float), const void* A, const void* ys,
+                               int n_steps, float inv2s2, float prior_sq, void* stream) {
+  return QNM_SOLVE(float, (qnm::Ar1Objective<float>{static_cast<const float*>(A),
+                                                    static_cast<const float*>(ys), n_steps,
+                                                    inv2s2, prior_sq}));
+}
+
+int qnm_resident_solve_ar1_f64(QNM_SOLVE_ARGS(double), const void* A, const void* ys,
+                               int n_steps, double inv2s2, double prior_sq, void* stream) {
+  return QNM_SOLVE(double, (qnm::Ar1Objective<double>{static_cast<const double*>(A),
+                                                      static_cast<const double*>(ys), n_steps,
+                                                      inv2s2, prior_sq}));
 }
 
 }  // extern "C"

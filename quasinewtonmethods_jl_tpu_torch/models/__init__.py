@@ -1,14 +1,23 @@
-"""Model fixtures (reference test/runtests.jl:4-33). The port has the
-Rosenbrock fixture, the ill-conditioned quadratic and the logistic
-regression MAP; the JAX package's other models come in later slices."""
+"""Model fixtures (reference test/runtests.jl:4-33) and the BASELINE.md
+benchmark configs: the JAX package's models, all but
+`HierarchicalRegression` (which waits for transforms.py)."""
 
+from .funnel import FUNNEL_V_STD, funnel_logdensity
 from .logistic import LogisticRegressionMAP
+from .mixture import GaussianMixture
+from .poisson import PoissonRegressionMAP
 from .quadratic import IllConditionedQuadratic, quadratic_logdensity
 from .rosenbrock import Rosenbrock, rosenbrock_logdensity, rosenbrock_value_and_grad
+from .statespace import AR1DriftMAP
 
 __all__ = [
-    "IllConditionedQuadratic",
+    "AR1DriftMAP",
+    "FUNNEL_V_STD",
+    "funnel_logdensity",
     "LogisticRegressionMAP",
+    "GaussianMixture",
+    "PoissonRegressionMAP",
+    "IllConditionedQuadratic",
     "quadratic_logdensity",
     "Rosenbrock",
     "rosenbrock_logdensity",

@@ -5,10 +5,15 @@ hand-written CUDA kernel ``csrc/resident_solve.cu`` (one block per lane,
 one warp up to n = 64, the lane's B and vectors in shared memory
 throughout, the objective evaluated on the card) and returns the result in
 the fleet engine's layout. The kernel has one instantiation per objective
-(csrc/resident_objectives.cuh): the split Rosenbrock, the ill-conditioned
-quadratic (`models.IllConditionedQuadratic`: diag and x* in device memory)
-and the logistic-regression MAP (`models.LogisticRegressionMAP`: X and y in
-device memory). On CPU tensors it takes the plain version,
+(csrc/resident_objectives.cuh): the split Rosenbrock and Neal's funnel
+(`models.funnel_logdensity`), which carry no data; the ill-conditioned
+quadratic (`models.IllConditionedQuadratic`: diag and x* in device memory);
+the logistic-regression and Poisson MAPs (`models.LogisticRegressionMAP`,
+`models.PoissonRegressionMAP`: X and y in device memory); the Gaussian
+mixture (`models.GaussianMixture`: means, weights and sigmas in device
+memory, at most 8 components); and the AR(1) state-space MAP
+(`models.AR1DriftMAP`: A, copied to shared memory, and ys in device
+memory). On CPU tensors it takes the plain version,
 `optimize_batched_resident_reference`: the fleet engine with the plain
 update on the same objective, which the kernel is held to.
 """
@@ -28,8 +33,12 @@ from ...batched_solve import (
     _result_from_batched_carry,
     optimize_batched_fused,
 )
+from ...models.funnel import funnel_logdensity
 from ...models.logistic import LogisticRegressionMAP
+from ...models.mixture import GaussianMixture
+from ...models.poisson import PoissonRegressionMAP
 from ...models.quadratic import IllConditionedQuadratic
+from ...models.statespace import AR1DriftMAP
 from ...models.rosenbrock import rosenbrock_logdensity, rosenbrock_value_and_grad
 from ...solve import OptimizeResult
 from ...utils.scalars import finite_halving_limit, sqrt_tolerance
@@ -48,19 +57,28 @@ __all__ = [
 ]
 
 # The kernel's objectives by the numbers its C entry points take (ObjectiveId).
-_OBJECTIVE_IDS = {"rosenbrock": 0, "quadratic": 1, "logistic": 2}
+_OBJECTIVE_IDS = {"rosenbrock": 0, "quadratic": 1, "logistic": 2, "funnel": 3, "mixture": 4,
+                  "poisson": 5, "ar1": 6}
 # The data-bearing models the kernel evaluates (exact types: a subclass may
 # evaluate something else): their instantiation and their data attributes.
 KERNEL_MODELS = {IllConditionedQuadratic: ("quadratic", ("diag", "x_star")),
-                 LogisticRegressionMAP: ("logistic", ("X", "y"))}
+                 LogisticRegressionMAP: ("logistic", ("X", "y")),
+                 GaussianMixture: ("mixture", ("means", "weights", "sigmas")),
+                 PoissonRegressionMAP: ("poisson", ("X", "y")),
+                 AR1DriftMAP: ("ar1", ("A", "ys"))}
+# The mixture's components are summed in one lane sum (kMaxComponents).
+MAX_MIXTURE_COMPONENTS = 8
 
 
 def objective_name(objective) -> str:
     """The kernel instantiation that evaluates ``objective``: 'rosenbrock'
-    for None (the split Rosenbrock), else that of a `KERNEL_MODELS` model.
-    Raises ValueError for any other objective."""
+    for None (the split Rosenbrock), 'funnel' for `funnel_logdensity`, else
+    that of a `KERNEL_MODELS` model. Raises ValueError for any other
+    objective."""
     if objective is None:
         return "rosenbrock"
+    if objective is funnel_logdensity:
+        return "funnel"
     if type(objective) not in KERNEL_MODELS:
         raise ValueError(
             f"the resident kernel has no instantiation for {type(objective).__name__}")
@@ -69,7 +87,10 @@ def objective_name(objective) -> str:
 
 def objective_on(objective, x0s: torch.Tensor):
     """A shallow copy of a `KERNEL_MODELS` model with its data on
-    ``x0s``'s device and dtype, contiguous, as the kernel reads them."""
+    ``x0s``'s device and dtype, contiguous, as the kernel reads them
+    (`funnel_logdensity`, which has none, as it is)."""
+    if objective is funnel_logdensity:
+        return objective
     model = copy.copy(objective)
     for attr in KERNEL_MODELS[type(objective)][1]:
         setattr(model, attr, getattr(objective, attr).to(device=x0s.device, dtype=x0s.dtype)
@@ -82,21 +103,34 @@ def _lane_warps(n: int) -> int:
     return 1 if n <= 64 else (n + 63) // 64
 
 
-def _extra_values(name: str, n: int) -> int:
+def _objective_size(objective) -> int:
+    """The size the objective's shared memory depends on besides n: the
+    AR(1)'s number of steps; 0 for the others."""
+    return objective.ys.shape[0] if objective_name(objective) == "ar1" else 0
+
+
+def _extra_values(objective, n: int) -> int:
     """The objective's own shared memory, in values (the ``extra_values``
-    of csrc/resident_objectives.cuh): the logistic's point and one chunk of
-    residuals, none for the others."""
-    return n + 32 * _lane_warps(n) if name == "logistic" else 0
+    of csrc/resident_objectives.cuh): the GLMs' point and one chunk of
+    residuals, the AR(1)'s A, its states z_0..z_T and two adjoint buffers,
+    none for the others."""
+    name = objective_name(objective)
+    if name in ("logistic", "poisson"):
+        return n + 32 * _lane_warps(n)
+    if name == "ar1":
+        return n * n + (_objective_size(objective) + 1) * n + 2 * n
+    return 0
 
 
 def resident_feasible(n: int, itemsize: int, objective=None) -> bool:
     """Whether one lane of B3 fits one block's shared memory: the count of
     ``smem_bytes`` in csrc/resident_solve.cu, (n² + 9n + the reduction
     scratch + the objective's own)·itemsize. For the Rosenbrock (the
-    default) and the quadratic n <= 236 in float32, n <= 165 in float64;
-    the logistic's scratch takes a little more. Larger n belong to
+    default), the quadratic, the funnel and the mixture n <= 236 in
+    float32, n <= 165 in float64; the GLMs' scratch takes a little more,
+    the AR(1)'s depends on its number of steps too. Larger n belong to
     `optimize_batched_fused`."""
-    values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective_name(objective), n)
+    values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective, n)
     return values * itemsize <= SMEM_LIMIT_BYTES
 
 
@@ -105,8 +139,8 @@ def optimize_batched_resident_reference(
     h0_scale: bool, stall_limit: int, objective=None,
 ) -> OptimizeResult:
     """The plain version of B3: the fleet engine with the plain PyTorch
-    update on ``objective`` (the split Rosenbrock when None), on ``x0s``'s
-    device.
+    update on ``objective`` (the split Rosenbrock when None: a model, or
+    `funnel_logdensity`), on ``x0s``'s device.
 
     The JAX package holds its resident engine lane for lane to its fleet
     engine with ``fold_eval=False`` (the same peel, masks, statuses and
@@ -114,7 +148,8 @@ def optimize_batched_resident_reference(
     reference. The kernel evaluates the objective's value and gradient at
     the top of an iteration and its value alone in line-search trials, as
     this run does: `rosenbrock_value_and_grad` and `rosenbrock_logdensity`;
-    a model's ``logdensity_and_gradient`` and ``logdensity``."""
+    a model's ``logdensity_and_gradient`` and ``logdensity``; the funnel's
+    gradient by ``torch.func``."""
     if objective is None:
         return optimize_batched_fused(
             rosenbrock_logdensity, x0s, ls, tol, max_iterations,
@@ -123,6 +158,19 @@ def optimize_batched_resident_reference(
         )
     return optimize_batched_fused(objective, x0s, ls, tol, max_iterations, kernel="torch",
                                   h0_scale=h0_scale, stall_limit=stall_limit)
+
+
+# The data arguments of each objective's C entry point after the common
+# ones (_REAL: the entry's float type).
+_REAL = object()
+_DATA_ARGTYPES = {
+    "quadratic": [ctypes.c_void_p] * 2,                            # diag, x*
+    "logistic": [ctypes.c_void_p] * 2 + [ctypes.c_int, _REAL],     # X, y, n_obs, prior²
+    "poisson": [ctypes.c_void_p] * 2 + [ctypes.c_int, _REAL],      # X, y, n_obs, prior²
+    "funnel": [],
+    "mixture": [ctypes.c_void_p] * 3 + [ctypes.c_int],             # means, weights, sigmas, K
+    "ar1": [ctypes.c_void_p] * 2 + [ctypes.c_int, _REAL, _REAL],   # A, ys, T, 1/(2s²), prior²
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -137,18 +185,16 @@ def _library() -> ctypes.CDLL:
     lib.qnm_resident_smem_bytes.restype = ctypes.c_size_t
     lib.qnm_resident_occupancy.argtypes = [i32, i32] + [ctypes.POINTER(i32)] * 3
     lib.qnm_resident_occupancy.restype = i32
-    # the data-bearing objectives: the same arguments, then the data
-    for fn, real, data in ((lib.qnm_resident_solve_quadratic_f32, ctypes.c_float, [ptr, ptr]),
-                           (lib.qnm_resident_solve_quadratic_f64, ctypes.c_double, [ptr, ptr]),
-                           (lib.qnm_resident_solve_logistic_f32, ctypes.c_float,
-                            [ptr, ptr, i32, ctypes.c_float]),
-                           (lib.qnm_resident_solve_logistic_f64, ctypes.c_double,
-                            [ptr, ptr, i32, ctypes.c_double])):
-        fn.argtypes = [ptr] * 14 + [i32, i32] + [real] * 6 + [i32] * 5 + data + [ptr]
-        fn.restype = i32
-    lib.qnm_resident_objective_smem_bytes.argtypes = [i32, i32, i32]
+    # the other objectives: the same arguments, then the data
+    for name, data in _DATA_ARGTYPES.items():
+        for suffix, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, f"qnm_resident_solve_{name}_{suffix}")
+            fn.argtypes = ([ptr] * 14 + [i32, i32] + [real] * 6 + [i32] * 5
+                           + [real if t is _REAL else t for t in data] + [ptr])
+            fn.restype = i32
+    lib.qnm_resident_objective_smem_bytes.argtypes = [i32] * 4
     lib.qnm_resident_objective_smem_bytes.restype = ctypes.c_size_t
-    lib.qnm_resident_objective_occupancy.argtypes = [i32] * 3 + [ctypes.POINTER(i32)] * 3
+    lib.qnm_resident_objective_occupancy.argtypes = [i32] * 4 + [ctypes.POINTER(i32)] * 3
     lib.qnm_resident_objective_occupancy.restype = i32
     return lib
 
@@ -157,17 +203,21 @@ def resident_occupancy(n: int, itemsize: int, objective=None) -> dict:
     """B3's launch at n on the current card, for ``objective``'s
     instantiation (see `objective_name`): registers per thread, threads per
     block, blocks per SM."""
-    query = functools.partial(_library().qnm_resident_objective_occupancy,
-                              _OBJECTIVE_IDS[objective_name(objective)])
+    number, size = _OBJECTIVE_IDS[objective_name(objective)], _objective_size(objective)
+
+    def query(n, itemsize, *out):
+        return _library().qnm_resident_objective_occupancy(number, n, size, itemsize, *out)
+
     return launch_occupancy(query, n, itemsize)
 
 
 def _data_args(name: str, objective, x0s: torch.Tensor) -> list:
     """The launch's data arguments for ``objective``: its tensors, which
     must lie on x0s's device in its dtype, contiguous (the entry point puts
-    them there once per solve, `objective_on`)."""
-    if name == "rosenbrock":
-        return []
+    them there once per solve, `objective_on`), then its sizes and
+    constants."""
+    if type(objective) not in KERNEL_MODELS:
+        return []  # the split Rosenbrock and the funnel
     tensors = [getattr(objective, attr) for attr in KERNEL_MODELS[type(objective)][1]]
     for t in tensors:
         if t.device != x0s.device or t.dtype != x0s.dtype or not t.is_contiguous():
@@ -175,22 +225,38 @@ def _data_args(name: str, objective, x0s: torch.Tensor) -> list:
                 f"the {name} objective's data must be contiguous {x0s.dtype} tensors on "
                 f"{x0s.device}, got {t.dtype} on {t.device}")
     n = x0s.shape[1]
+    ptrs = [t.data_ptr() for t in tensors]
     if name == "quadratic":
         if tensors[0].shape != (n,) or tensors[1].shape != (n,):
             raise ValueError(f"the quadratic's diag and x_star must be ({n},)")
-        return [t.data_ptr() for t in tensors]
+        return ptrs
+    if name == "mixture":
+        means, weights, sigmas = tensors
+        K = means.shape[0]
+        if means.shape != (K, n) or weights.shape != (K,) or sigmas.shape != (K,):
+            raise ValueError(f"the mixture's means must be (K, {n}), weights and sigmas (K,)")
+        if K > MAX_MIXTURE_COMPONENTS:
+            raise ValueError(f"the resident kernel's mixture takes at most "
+                             f"{MAX_MIXTURE_COMPONENTS} components, got {K}; use "
+                             "optimize_batched_fused")
+        return ptrs + [K]
+    if name == "ar1":
+        A, ys = tensors
+        if A.shape != (n, n) or ys.ndim != 2 or ys.shape[1] != n:
+            raise ValueError(f"the AR(1)'s A must be ({n}, {n}) and ys (n_steps, {n})")
+        return ptrs + [ys.shape[0], 0.5 / objective.obs_scale ** 2, objective.prior_scale ** 2]
     X, y = tensors
     if X.ndim != 2 or X.shape[1] != n or y.shape != X.shape[:1]:
-        raise ValueError(f"the logistic's X must be (n_obs, {n}) and y (n_obs,)")
-    return [X.data_ptr(), y.data_ptr(), X.shape[0], objective.prior_scale ** 2]
+        raise ValueError(f"the {name} model's X must be (n_obs, {n}) and y (n_obs,)")
+    return ptrs + [X.shape[0], objective.prior_scale ** 2]
 
 
 def resident_bfgs_solve(
     x0s: torch.Tensor, ls: BackTracking, tol: float, max_iterations: int,
     h0_scale: bool, stall_limit: int, objective=None,
 ) -> OptimizeResult:
-    """Maximize ``objective`` (the split Rosenbrock when None, or an
-    `IllConditionedQuadratic` / `LogisticRegressionMAP` whose data lie on
+    """Maximize ``objective`` (the split Rosenbrock when None,
+    `funnel_logdensity`, or a `KERNEL_MODELS` model whose data lie on
     ``x0s``'s device in its dtype) from each row of ``x0s`` (batch, n).
 
     On CUDA tensors this makes one launch of B3's instantiation for the
@@ -200,8 +266,9 @@ def resident_bfgs_solve(
     ``resident_bfgs_solve.objective_launches``. It raises where the kernel
     cannot run: TypeError for a dtype other than float32/float64,
     ValueError for an objective it has no instantiation for or whose data
-    are elsewhere, or when one lane does not fit a block's shared memory
-    (`resident_feasible`), RuntimeError on a failed build or launch. On CPU
+    are elsewhere, a mixture of more than 8 components, or when one lane
+    does not fit a block's shared memory (`resident_feasible`),
+    RuntimeError on a failed build or launch. On CPU
     tensors it computes the plain version."""
     name = objective_name(objective)
     if x0s.device.type == "cpu":
@@ -215,8 +282,8 @@ def resident_bfgs_solve(
     batch, n = x0s.shape
     if not resident_feasible(n, x0s.element_size(), objective):
         raise ValueError(
-            f"resident kernel infeasible for n={n} {dtype}: one lane's B and vectors do not "
-            "fit a block's shared memory; use optimize_batched_fused"
+            f"resident kernel infeasible for n={n} {dtype}: one lane's B, vectors and "
+            "objective scratch do not fit a block's shared memory; use optimize_batched_fused"
         )
     data = _data_args(name, objective, x0s)
     if max_iterations < 1:

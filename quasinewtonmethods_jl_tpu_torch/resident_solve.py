@@ -21,14 +21,21 @@ Objective contract. The JAX kernel traces any jnp objective into its body,
 its closed-over data hoisted into kernel inputs; a hand-written kernel
 cannot trace a torch function, so B3 evaluates its objective on the card,
 one instantiation per objective (csrc/resident_objectives.cuh). The port
-has three, recognised by identity or by exact type:
+has seven, recognised by identity or by exact type:
   * the split Rosenbrock of models/rosenbrock.py: `rosenbrock_logdensity`
     (with ``value_and_grad_fn`` None or `rosenbrock_value_and_grad`) or a
     `models.Rosenbrock` instance;
-  * a `models.IllConditionedQuadratic` instance (its ``diag`` and
-    ``x_star``), with ``value_and_grad_fn`` None;
-  * a `models.LogisticRegressionMAP` instance (its ``X``, ``y`` and
-    ``prior_scale``), with ``value_and_grad_fn`` None.
+  * Neal's funnel: `models.funnel_logdensity`, with ``value_and_grad_fn``
+    None;
+and, with ``value_and_grad_fn`` None, an instance of
+  * `models.IllConditionedQuadratic` (its ``diag`` and ``x_star``);
+  * `models.LogisticRegressionMAP` (its ``X``, ``y`` and ``prior_scale``);
+  * `models.PoissonRegressionMAP` (the same);
+  * `models.GaussianMixture` (its ``means``, ``weights`` and ``sigmas``;
+    at most 8 components);
+  * `models.AR1DriftMAP` (its ``A``, ``ys``, ``obs_scale`` and
+    ``prior_scale``; the hand-written counterpart of JAX's scan-bodied
+    objective, whose dot rewrite this engine does not need).
 A model's data go to ``x0s``'s device and dtype once per solve, for the
 kernel and the plain version alike. Every other objective (a subclass of
 those models too, which may evaluate something else) raises ValueError on
@@ -46,6 +53,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .models.funnel import funnel_logdensity
 from .models.rosenbrock import Rosenbrock, rosenbrock_logdensity, rosenbrock_value_and_grad
 from .ops.kernels.resident_kernel import (
     KERNEL_MODELS,
@@ -72,19 +80,21 @@ def _is_rosenbrock(obj, value_and_grad_fn) -> bool:
 
 
 def _kernel_objective(obj, value_and_grad_fn, x0s: torch.Tensor):
-    """The objective B3 evaluates: None for the split Rosenbrock, or a
-    shallow copy of a data-bearing model with its data on ``x0s``'s device
-    and dtype. Raises ValueError for any other objective."""
+    """The objective B3 evaluates: None for the split Rosenbrock,
+    `funnel_logdensity`, or a shallow copy of a data-bearing model with its
+    data on ``x0s``'s device and dtype. Raises ValueError for any other
+    objective."""
     if _is_rosenbrock(obj, value_and_grad_fn):
         return None
-    if value_and_grad_fn is None and type(obj) in KERNEL_MODELS:
+    if value_and_grad_fn is None and (obj is funnel_logdensity or type(obj) in KERNEL_MODELS):
         return objective_on(obj, x0s)
     raise ValueError(
         "the resident kernel evaluates its objective on the card and knows only the split "
         "Rosenbrock (rosenbrock_logdensity, with value_and_grad_fn None or "
-        "rosenbrock_value_and_grad, or a models.Rosenbrock instance), a "
-        "models.IllConditionedQuadratic and a models.LogisticRegressionMAP instance (with "
-        "value_and_grad_fn None); use optimize_batched_fused for any other objective"
+        "rosenbrock_value_and_grad, or a models.Rosenbrock instance), "
+        "models.funnel_logdensity, and instances of models.IllConditionedQuadratic, "
+        "LogisticRegressionMAP, PoissonRegressionMAP, GaussianMixture and AR1DriftMAP (each "
+        "with value_and_grad_fn None); use optimize_batched_fused for any other objective"
     )
 
 
@@ -104,9 +114,10 @@ def optimize_batched_resident(
 
     Args:
       obj: the split Rosenbrock (`rosenbrock_logdensity` or a
-        `models.Rosenbrock`), a `models.IllConditionedQuadratic` or a
-        `models.LogisticRegressionMAP`; any other objective raises
-        ValueError.
+        `models.Rosenbrock`), `models.funnel_logdensity`, or a
+        `models.IllConditionedQuadratic`, `LogisticRegressionMAP`,
+        `PoissonRegressionMAP`, `GaussianMixture` (K <= 8) or
+        `AR1DriftMAP`; any other objective raises ValueError.
       x0s: (batch, n) float32/float64 starting points. A tensor's device is
         where the solve runs; anything else goes to the CUDA card
         (`as_device_tensor`).

@@ -10,6 +10,8 @@ only the port's own dependencies are installed:
 It also holds the kernel-input builder the CPU tests share.
 """
 
+import importlib.util
+import os
 import warnings
 
 import numpy as np
@@ -23,8 +25,12 @@ from quasinewtonmethods_jl_tpu_torch import (
     optimize_batched_resident,
 )
 from quasinewtonmethods_jl_tpu_torch.models import (
+    AR1DriftMAP,
+    GaussianMixture,
     IllConditionedQuadratic,
     LogisticRegressionMAP,
+    PoissonRegressionMAP,
+    funnel_logdensity,
     rosenbrock_logdensity,
     rosenbrock_value_and_grad,
 )
@@ -227,10 +233,13 @@ def test_shared_memory_counts_match_the_kernels(cuda_device):
                 lib.qnm_bfgs_update_smem_bytes(n, itemsize) <= SMEM_LIMIT_BYTES)
             assert resident_feasible(n, itemsize) == (
                 rlib.qnm_resident_smem_bytes(n, itemsize) <= SMEM_LIMIT_BYTES)
-            for objective, number in ((None, 0), (IllConditionedQuadratic(3), 1),
-                                      (LogisticRegressionMAP(3, 5), 2)):
+            for objective, number, size in (
+                    (None, 0, 0), (IllConditionedQuadratic(3), 1, 0),
+                    (LogisticRegressionMAP(3, 5), 2, 0), (funnel_logdensity, 3, 0),
+                    (GaussianMixture(np.ones((2, 3))), 4, 0), (PoissonRegressionMAP(3, 5), 5, 0),
+                    (AR1DriftMAP(3, 32), 6, 32), (AR1DriftMAP(3, 200), 6, 200)):
                 assert resident_feasible(n, itemsize, objective) == (
-                    rlib.qnm_resident_objective_smem_bytes(number, n, itemsize)
+                    rlib.qnm_resident_objective_smem_bytes(number, n, size, itemsize)
                     <= SMEM_LIMIT_BYTES)
 
 
@@ -585,3 +594,156 @@ def test_logistic_fleet_launches_once_without_a_host_sync(cuda_device):
     assert torch.equal(res.x, again.x)
     occupancy = resident_occupancy(100, 4, model)
     assert occupancy["threads"] == 64 and occupancy["blocks_per_sm"] > 0
+
+
+def _fixture_fleet(kind, n, dtype, device, batch=64, seed=20260816):
+    """A fixture of ``kind`` with its data on the card in ``dtype`` and a
+    fleet of starts, drawn with numpy as chip_smoke.py's `fixture_data`
+    draws the full-width ones: the funnel from N(0, 1) starts; the mixture
+    of 8 components, means 3·N(0, 1), sigma 4, from 3·N(0, 1) starts; the
+    Poisson GLM of 400 observations; the AR(1) of 32 steps, spectral
+    radius 0.6."""
+    rng = np.random.default_rng(seed + n)
+    if kind == "funnel":
+        model = funnel_logdensity
+    elif kind == "mixture":
+        model = GaussianMixture(3.0 * rng.standard_normal((8, n)), sigmas=4.0, dtype=dtype,
+                                device=device)
+    elif kind == "poisson":
+        X = rng.standard_normal((400, n)) / np.sqrt(n)
+        y = rng.poisson(np.exp(X @ (0.5 * rng.standard_normal(n)))).astype(np.float64)
+        model = PoissonRegressionMAP(n, 400, X=X, y=y, dtype=dtype, device=device)
+    else:
+        A = rng.standard_normal((n, n))
+        A = A * (0.6 / np.max(np.abs(np.linalg.eigvals(A))))
+        w_true, z, zs = rng.standard_normal(n), np.zeros(n), []
+        for _ in range(32):
+            z = A @ z + w_true
+            zs.append(z)
+        ys = np.stack(zs) + 0.5 * rng.standard_normal((32, n))
+        model = AR1DriftMAP(n, 32, A=A, ys=ys, dtype=dtype, device=device)
+    scale = 3.0 if kind == "mixture" else 1.0
+    X0 = torch.tensor(scale * rng.standard_normal((batch, n)), dtype=dtype, device=device)
+    return model, X0
+
+
+# (fixture, n, dtype, tol, whole): the full-width n of chip_smoke.py's
+# phase 21, n where the lane group's layout changes (one warp to 64, two
+# from 65), each family's float32 case where it converges in float32
+# (mixture, Poisson); whole solves where they end within a few hundred
+# iterations.
+FIXTURE_CASES = (
+    [("funnel", n, torch.float64, 1e-6, n <= 10) for n in (4, 10, 70)]
+    + [("mixture", n, dt, tol, n == 60) for n in (7, 60, 100)
+       for dt, tol in ((torch.float32, 1e-3), (torch.float64, 1e-6))]
+    + [("poisson", n, dt, tol, n == 50) for n in (50, 100)
+       for dt, tol in ((torch.float32, 1e-2), (torch.float64, 1e-6))]
+    + [("ar1", n, torch.float64, 1e-6, n == 8) for n in (8, 70)]
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol, whole", FIXTURE_CASES)
+def test_resident_kernel_matches_plain_version_on_the_fixtures(cuda_device, kind, n, dtype, tol,
+                                                               whole):
+    """B3's funnel, mixture, Poisson and AR(1) instantiations against the
+    fleet engine with the plain update on the same objective: over caps 0,
+    1 and 5 every counter equal on every lane and x, grad and B normwise
+    within 1e-10 in float64 (in float32 within 1e-5 or, where more, twice
+    what the plain version moves when run on the CPU); over whole solves
+    the lanes whose status differs from the plain run's at most twice as
+    many as a change of rounding alone gives the plain version (started 1
+    ulp away, or run on the CPU): the funnel's and the AR(1)'s float64
+    trajectories end in LINESEARCH_FAILURE or not by rounding."""
+    model, X = _fixture_fleet(kind, n, dtype, cuda_device)
+    ls = BackTracking()
+    leaves = ("x", "grad", "B")
+    for cap in (0, 1, 5):
+        before = dict(resident_bfgs_solve.objective_launches)
+        kern = optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=cap,
+                                         kernel="cuda")
+        assert resident_bfgs_solve.objective_launches[kind] == before[kind] + (cap > 0)
+        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, 50, model)
+        for name in COUNTERS:
+            assert torch.equal(getattr(kern, name), getattr(plain, name)), (cap, name)
+        for name in ("fresh", "stall"):
+            assert torch.equal(getattr(kern.state, name), getattr(plain.state, name)), (cap, name)
+        limit = 1e-10
+        if dtype == torch.float32:
+            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, 50, model)
+            limit = max(1e-5, 2 * max(
+                normwise_diff(getattr(cpu.state, f).to(cuda_device), getattr(plain.state, f))
+                for f in leaves))
+        for name in leaves:
+            assert_normwise_close(getattr(kern.state, name), getattr(plain.state, name), limit)
+    if not whole:
+        return
+    full = optimize_batched_resident(model, X, ls=ls, tol=tol)
+    plain = optimize_batched_resident_reference(X, ls, tol, 10_000, True, 50, model)
+    nudged = optimize_batched_resident_reference(
+        torch.nextafter(X, torch.full_like(X, float("inf"))), ls, tol, 10_000, True, 50, model)
+    on_cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, 10_000, True, 50, model)
+    flips = int((full.status != plain.status).sum())
+    witness = max(int((nudged.status != plain.status).sum()),
+                  int((on_cpu.status.to(cuda_device) != plain.status).sum()))
+    assert flips <= 2 * witness, (flips, witness)
+    ok = full.status == Status.CONVERGED
+    assert float(full.grad[ok].abs().max()) < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, dtype, tol", [("funnel", torch.float64, 1e-6),
+                                              ("mixture", torch.float32, 1e-3),
+                                              ("poisson", torch.float32, 1e-2),
+                                              ("ar1", torch.float64, 1e-6)])
+def test_fixture_fleets_launch_once_without_a_host_sync(cuda_device, kind, dtype, tol):
+    """Each fixture at its full width (funnel n = 4, mixture n = 60,
+    Poisson n = 50, AR(1) n = 8) over 512 lanes: one launch of its own
+    instantiation, no synchronisation flagged by torch's sync debug mode,
+    every converged lane certified, every status in band."""
+    n = {"funnel": 4, "mixture": 60, "poisson": 50, "ar1": 8}[kind]
+    model, X = _fixture_fleet(kind, n, dtype, cuda_device, batch=512)
+    before = dict(resident_bfgs_solve.objective_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = optimize_batched_resident(model, X, tol=tol)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    after = resident_bfgs_solve.objective_launches
+    assert after[kind] == before[kind] + 1 and sum(after.values()) == sum(before.values()) + 1
+    in_band = (res.status == Status.CONVERGED) | (res.status == Status.LINESEARCH_FAILURE)
+    assert bool(in_band.all())
+    ok = res.status == Status.CONVERGED
+    assert int(ok.sum()) >= 0.9 * X.shape[0]
+    assert float(res.grad[ok].abs().max()) < tol
+
+
+# The results of B3's Rosenbrock, quadratic and logistic instantiations as
+# they were before the logistic objective became one link of the GLM row
+# loop it now shares with the Poisson GLM: scripts/torch_resident_digest.py
+# run on that earlier commit on one H100 80GB HBM3 with CUDA 12.8 (the
+# SHA-256 of every output of each fixed solve, and registers per thread).
+# The refactor moved no operation, so every byte and register count stays.
+EARLIER_DIGESTS = {
+    "rosenbrock f32": ("d00b1bdef48f5863b9b126da85937cb09a97151acc7fb04fd28da0f53460af5f", 80),
+    "quadratic f32": ("6c14063c5387fc23e2fd5373b7a70b7acf0f43dbcd06aa1043c49953d761a29f", 64),
+    "logistic f32": ("be1f95560eb90c929314cbdf2e1baa577b1b02e93458e4e1dab11f2c0f3f49c3", 96),
+    "logistic f64": ("c2f861824cc64625ef32381f8d31c948427c3fd899d011c141d0a7e295e038e7", 128),
+}
+
+
+@pytest.mark.cuda
+def test_resident_instantiations_keep_their_results_bit_for_bit(cuda_device):
+    """The logistic instantiation (and the Rosenbrock's and the
+    quadratic's) gives the same counters and floats, byte for byte, and
+    uses the same registers as before the GLM refactor."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
+                        "torch_resident_digest.py")
+    spec = importlib.util.spec_from_file_location("torch_resident_digest", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert module.digests(cuda_device) == EARLIER_DIGESTS
