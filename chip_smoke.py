@@ -4,10 +4,10 @@ NVIDIA GPU: builds the hand-written CUDA kernels, checks each against its
 plain PyTorch version, and drives the port's paths once at full width: the
 BFGS fleet engine through `optimize_batched` on the benchmark fleet (kernel
 B1), the same engine on a large-n fleet (the two-pass kernels B2a and B2b),
-the resident engine `optimize_batched_resident` (B3, on the bench fleet and
-on every model it has an instantiation for), the nonlinear-CG fleet
-`optimize_cg` (the benchmark's headline engine; torch ops, no hand-written
-kernel), the BFGS fleet with the Wolfe search (B1), with ``fold_eval``, and
+the resident engine `optimize_batched_resident` (B3, on the bench fleet, on
+every model it has an instantiation for, and on traced objectives), the
+nonlinear-CG fleet `optimize_cg` (the benchmark's headline engine; torch
+ops, no hand-written kernel), the BFGS fleet with the Wolfe search (B1), with ``fold_eval``, and
 with straggler compaction (`optimize_batched_compacted`, B1), the scalar
 BFGS and L-BFGS drivers (`optimize`, `optimize_lbfgs`), the L-BFGS fleets
 (`optimize_lbfgs_batched`) and ``backend="vmap"``, none of which runs a
@@ -17,7 +17,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
   2. build: the kernel library from ``quasinewtonmethods_jl_tpu_torch/csrc``
      for sm_90a, one nvcc per source in parallel (nvcc's resource report
-     goes to stderr);
+     goes to stderr), and beside it phase 22's objectives, traced, generated
+     and built one nvcc each;
   3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
      128} and the largest n that fits (237 f32, 167 f64), every lane kind
      (active, frozen, fresh, forced reset, NaN);
@@ -140,7 +141,36 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      and the median within 10 % of the JAX package's
      (scripts/jax_fixture_reference.py); ms per solve of B3, the fleet
      engine and the plain version in turns, B3's share of its bound and
-     launch shape, and every B3 instantiation's registers per thread.
+     launch shape, and every B3 instantiation's registers per thread;
+ 22. B3 on traced objectives (ops/kernels/objective_trace.py,
+     objective_codegen.py): every objective of the phase traced, generated
+     as CUDA and built together (one nvcc per source in parallel; build
+     seconds cold, loaded in the process and from the disk cache, ptxas's
+     registers and spills); B3 against its plain version (the fleet engine
+     with the plain update on the user's functions) on 64-lane fleets in
+     f64 and f32: the torch twins of the JAX package's inline objectives
+     (a quadratic form with a linear term, a logsumexp, a NaN-returning
+     where, a logistic with logaddexp) and the port's models in forms the
+     hand-written instantiations do not take (the Rosenbrock in a lambda
+     and with its value_and_grad_fn, the mixture's, logistic's and AR(1)'s
+     bound logdensity, the funnel in a lambda and with a user
+     value_and_grad_fn, the dense quadratic), caps 0, 1, 5 (every counter
+     equal on every lane, floats within twice what the plain version's own
+     run on the CPU moves it on the lanes where that run keeps its
+     counters) and whole solves (statuses, as in phase 21); then the slice at full width: the bench fleet as
+     ``lambda x: rosenbrock_logdensity(x)``, BASELINE config 3's logistic
+     posterior as ``model.logdensity``, ROADMAP B.1's dense quadratic
+     -0.5·x@(Q@x) + b@x (1024 starts at n = 232, the largest n B3 holds
+     for it in float32) and the mixture as ``model.logdensity``, each
+     against its plain version, through `optimize_batched_resident` (one
+     launch, no host synchronisation) and `optimize_batched` (B1): every
+     lane converged, the median within 10 % of the JAX package's
+     (scripts/jax_traced_reference.py); trace and codegen ms per call, ms
+     per solve of B3 on the trace, of the entry point on the function
+     itself (traced again each call), of the hand-written instantiation
+     (fleets 1, 2, 4), the fleet engine and the plain version in turns, B3
+     traced's share of its bound (what the function needs, as its
+     hand-written twin counts it) and launch shape.
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
@@ -158,6 +188,10 @@ B3's records, one per instantiation the run launches
 ``[mixture]``, ``[poisson]`` and ``[ar1]`` beside the Rosenbrock's), count
 the launches of phases 20's and 21's full-width runs; the Poisson record's
 times are its float32 fleet's (its float64 fleet's are on the log line).
+B3 with a traced objective has one record per full-width fleet of phase
+22 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
+``[traced:dense_quadratic]``, ``[traced:mixture]``), its source the
+generator that writes the objective into csrc/resident_solve.cuh's kernel.
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -171,6 +205,7 @@ import subprocess
 import sys
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -196,6 +231,9 @@ MATVEC_REPLACES = "quasinewtonmethods_jl_tpu/ops/pallas/bfgs_blocked.py:236"
 UPDATE_REPLACES = "quasinewtonmethods_jl_tpu/ops/pallas/bfgs_blocked.py:288"
 RESIDENT_SOURCE = "quasinewtonmethods_jl_tpu_torch/csrc/resident_solve.cu"
 RESIDENT_REPLACES = "quasinewtonmethods_jl_tpu/resident_solve.py:465"
+# B3 with a traced objective: the kernel of csrc/resident_solve.cuh around
+# the objective this generator writes
+TRACED_SOURCE = "quasinewtonmethods_jl_tpu_torch/ops/kernels/objective_codegen.py"
 # The JAX package on the phase-4 fleet (kernel="xla" on the CPU):
 # `optimize_cg` with its defaults 4096/4096 converged, median 218 and max 457
 # iterations (fold_eval: median 218, max 587); `optimize_batched_fused` with
@@ -293,6 +331,47 @@ FIXTURE_TOL = {"funnel": {torch.float64: 1e-6},
                "mixture": {torch.float32: 1e-3, torch.float64: 1e-6},
                "poisson": {torch.float32: 1e-2, torch.float64: 1e-6},
                "ar1": {torch.float64: 1e-6}}
+# Phase 22: B3 on traced objectives (ops/kernels/objective_trace.py,
+# objective_codegen.py). The full-width fleets, each drawn with numpy from a
+# fresh generator seeded BENCH_SEED, float32, at most 3000 iterations: the
+# bench fleet as ``lambda x: rosenbrock_logdensity(x)`` (tol 1e-3),
+# BASELINE config 3's logistic posterior as its model's bound
+# ``logdensity`` (tol 3e-3), ROADMAP B.1's dense quadratic -0.5·x@(Q@x) +
+# b@x with Q = U diag(logspace(-4, 0, n)) Uᵀ (config 2's spectrum, U from a
+# numpy QR), b = Q x*, over 1024 starts at n = 232, the largest n
+# `resident_feasible` admits for this traced form in float32 (tol 1e-3),
+# and the Gaussian mixture of phase 21 as its bound ``logdensity`` (tol
+# 1e-3). The JAX package on the same data (`python
+# scripts/jax_traced_reference.py`, its fleet engine on the CPU): (converged,
+# median, max) Rosenbrock (4096, 139, 227), logistic (4096, 11, 13), dense
+# quadratic (1024, 104, 127), mixture (4096, 5, 62).
+TRACED_FLEETS = {  # fleet: (dtype, tol, JAX converged, median, max)
+    "rosenbrock": (torch.float32, TOL, 4096, 139, 227),
+    "logistic": (torch.float32, LOGISTIC_TOL, 4096, 11, 13),
+    "dense quadratic": (torch.float32, TOL, 1024, 104, 127),
+    "mixture": (torch.float32, 1e-3, 4096, 5, 62),
+}
+DENSE_QUAD_BATCH, DENSE_QUAD_N = 1024, 232
+# The parity objectives (OBJECTIVE_LANES lanes, N(0, 1) starts from seed
+# BENCH_SEED + n, tol 1e-3 in float32 and 1e-6 in float64): the torch twins
+# of the JAX package's inline objectives (tests/test_resident.py:147-260)
+# and the port's models in the forms the hand-written instantiations do not
+# take. (kind, n, dtypes)
+TRACED_PARITY = (
+    ("quadratic with b", 60, (torch.float64, torch.float32)),
+    ("quadratic with b", 100, (torch.float64,)),
+    ("logsumexp", 60, (torch.float64, torch.float32)),
+    ("nan where", 60, (torch.float64, torch.float32)),
+    ("logistic with logaddexp", 60, (torch.float64, torch.float32)),
+    ("rosenbrock in a lambda", 60, (torch.float64, torch.float32)),
+    ("rosenbrock with its value_and_grad_fn", 61, (torch.float64,)),
+    ("mixture's bound logdensity", 60, (torch.float64, torch.float32)),
+    ("logistic's bound logdensity", 100, (torch.float64, torch.float32)),
+    ("ar1's bound logdensity", 8, (torch.float64,)),
+    ("funnel in a lambda", 4, (torch.float64,)),
+    ("funnel with value_and_grad_fn", 4, (torch.float64,)),
+    ("dense quadratic", 232, (torch.float32,)),
+)
 # Published peaks of one H100 SXM: device memory and float32 outside the
 # tensor cores (the kernels' type on the main path); float64 outside the
 # tensor cores for the float64 fleets (NVIDIA's data sheet).
@@ -324,20 +403,34 @@ def device_phase():
     return name, smi
 
 
-def build_phase():
+def build_phase(sources):
+    """The kernel library, and beside it, in parallel, the generated CUDA
+    ``sources`` (phase 22's, so that their nvcc runs overlap the library's):
+    returns the generated libraries and the seconds their build took."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels._build import (
         NVCC_FLAGS,
         SOURCES,
+        load_generated,
         load_library,
     )
 
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        return fn(*args), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = load_library()
-    seconds = time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        main = pool.submit(timed, load_library)
+        generated = pool.submit(timed, load_generated, *sources)
+        (lib, seconds), (libs, generated_seconds) = main.result(), generated.result()
+    wall = time.perf_counter() - t0
     print(lib.log, file=sys.stderr, flush=True)
     check("arch=compute_90a,code=sm_90a" in NVCC_FLAGS, "kernel not built for sm_90a")
     log(f"[build] {lib.path.name} from csrc/{{{', '.join(SOURCES)}}}: nvcc {lib.build_seconds:.2f}s, "
-        f"load {seconds:.2f}s, flags {' '.join(NVCC_FLAGS)}")
+        f"load {seconds:.2f}s, flags {' '.join(NVCC_FLAGS)}; beside it phase 22's "
+        f"{len({g.path for g in libs})} generated objectives in {generated_seconds:.2f}s; "
+        f"{wall:.2f}s in all")
+    return libs, generated_seconds
 
 
 def kernel_inputs(seed, n, batch, dtype, device, kinds=True):
@@ -576,7 +669,11 @@ def objective_ops(n, itemsize, objective=None):
     the adjoint per step 2n² (Aᵀ mu) and 4n (2 (y - z), the product, the
     sum, the accumulation into the gradient), per entry 5 (w², its sum,
     w / p², the subtraction, the tolerance test) and 4 for the value; a
-    trial the forward recursion, x + αd 2n and w² 2n; data A and ys."""
+    trial the forward recursion, x + αd 2n and w² 2n; data A and ys. A
+    traced objective needs what the function needs, which is its
+    hand-written twin's count where it has one, not its graph's
+    (`graph_ops` counts every op autograd wrote, products by a literal 1
+    among them)."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import objective_name
 
     name = objective_name(objective)
@@ -601,7 +698,16 @@ def objective_ops(n, itemsize, objective=None):
             (m * n + m) * itemsize)
 
 
-def b3_bound(res, n, itemsize, h0_scale, objective=None):
+def dense_quadratic_ops(n, itemsize):
+    """`objective_ops` of -0.5·x@(Q@x) + b@x for any Q, as the function
+    states it: a value and gradient Q x and Qᵀ x (2n² each), the value's
+    two dots (2n each), its scaling and sum (2), the gradient -0.5(Q x +
+    Qᵀ x) + b (3n) and the tolerance test (n); a trial x + αd (2n), Q x,
+    the two dots, the scaling and the sum; data Q and b."""
+    return 4 * n * n + 8 * n + 2, 2 * n * n + 6 * n + 2, (n * n + n) * itemsize
+
+
+def b3_bound(res, n, itemsize, h0_scale, objective=None, ops=None):
     """B3's bound from the solve's own counters: it reads X0 (and the
     objective's data) and writes X, G, G_old, STEP, B and the per-lane
     scalars once. Per lane: n_gev value-and-gradient evaluations with the
@@ -610,8 +716,8 @@ def b3_bound(res, n, itemsize, h0_scale, objective=None):
     reset B; an update right after a reset is scaled (with h0_scale): there
     are n_resets of those less one where the last iteration reset (the
     fresh flag it ends with), and at least that less the resets are rank-2
-    changes; n_fev - n_gev line-search trials (`objective_ops`); and a step
-    per iteration (2n)."""
+    changes; n_fev - n_gev line-search trials (`objective_ops`, or ``ops``
+    where given); and a step per iteration (2n)."""
     batch = res.x.shape[0]
     iters = res.iterations.to(torch.float64)
     gev = res.n_gev.to(torch.float64)
@@ -621,7 +727,7 @@ def b3_bound(res, n, itemsize, h0_scale, objective=None):
     resets = (n_resets - (iters > 0).to(torch.float64)).clamp(min=0)
     after_reset = n_resets - res.state.fresh.to(torch.float64)
     scaled = (after_reset - resets).clamp(min=0) * float(h0_scale)
-    vag_ops, trial_ops, data_bytes = objective_ops(n, itemsize, objective)
+    vag_ops, trial_ops, data_bytes = ops or objective_ops(n, itemsize, objective)
     ops = (update_ops(n, updates, updates - resets, scaled)
            + gev * vag_ops + trials * trial_ops + iters * 2 * n)
     nbytes = batch * ((5 * n + n * n + 1) * itemsize + 6 * 4 + 1) + data_bytes
@@ -962,10 +1068,14 @@ CONVERGED_DX = 1e-6
 ROUNDING_FACTOR = 2  # B3 against the rounding witnesses: errors, and shares of lanes
 
 
-def state_err(a, b):
-    """(max abs, max normwise) difference of x, grad and B, on b's device."""
-    errs = [normwise_err(getattr(a.state, f).to(getattr(b.state, f).device), getattr(b.state, f))
-            for f in ("x", "grad", "B")]
+def state_err(a, b, lanes=None):
+    """(max abs, max normwise) difference of x, grad and B, on b's device
+    (over ``lanes``, a mask, where given)."""
+    errs = []
+    for f in ("x", "grad", "B"):
+        ref = getattr(b.state, f)
+        mask = slice(None) if lanes is None else lanes.to(ref.device)
+        errs.append(normwise_err(getattr(a.state, f).to(ref.device)[mask], ref[mask]))
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
@@ -2275,6 +2385,380 @@ def fixture_phase(qt, device, smi):
     return records
 
 
+def dense_quadratic_data(rng, n=DENSE_QUAD_N, batch=DENSE_QUAD_BATCH):
+    """ROADMAP B.1's dense quadratic form's Q, b and starts, float64 numpy,
+    drawn as scripts/jax_traced_reference.py draws them: U from the QR of
+    N(0, 1), Q = U diag(logspace(-4, 0, n)) Uᵀ, b = Q x* for x* ~ N(0, 1),
+    then the starts N(0, 1)."""
+    U, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    Q = (U * np.logspace(-4.0, 0.0, n)) @ U.T
+    b = Q @ rng.standard_normal(n)
+    return Q, b, rng.standard_normal((batch, n))
+
+
+def dense_quadratic(Q, b, dtype, device):
+    Qt = torch.tensor(Q, dtype=dtype, device=device)
+    bt = torch.tensor(b, dtype=dtype, device=device)
+    return lambda x: -0.5 * x @ (Qt @ x) + bt @ x
+
+
+def traced_case(kind, n, dtype, device):
+    """(objective, value_and_grad_fn, numpy starts) of parity case ``kind`` at
+    width n, its data drawn with numpy from seed BENCH_SEED + n and put on
+    ``device`` in ``dtype`` (so that the plain version runs on the CPU too)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        AR1DriftMAP,
+        GaussianMixture,
+        LogisticRegressionMAP,
+        funnel_logdensity,
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    rng = np.random.default_rng(BENCH_SEED + n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    vgf, scale = None, 1.0
+    if kind == "quadratic with b":
+        A = rng.standard_normal((n, n))
+        Q, b = t(A @ A.T / n + np.eye(n)), t(rng.standard_normal(n))
+        obj = lambda x: -0.5 * x @ (Q @ x) + b @ x  # noqa: E731
+    elif kind == "dense quadratic":
+        Q, b, _ = dense_quadratic_data(rng, n, 0)
+        obj = dense_quadratic(Q, b, dtype, device)
+    elif kind == "logsumexp":
+        c = t(rng.standard_normal(n))
+        obj = lambda x: -torch.logsumexp(x * x + c, 0) - 0.01 * torch.sum(x * x)  # noqa: E731
+    elif kind == "nan where":  # starts with |x|² about 5, NaN beyond 9
+        obj = lambda x: torch.where(torch.sum(x * x) > 9.0, torch.nan, -torch.sum(x * x))  # noqa
+        scale = 0.3
+    elif kind == "logistic with logaddexp":
+        Xd, yd, zero = t(rng.standard_normal((200, n))), t(rng.random(200) < 0.5), t(0.0)
+
+        def obj(w):
+            z = Xd @ w
+            return torch.sum(yd * z - torch.logaddexp(zero, z)) - 0.5 * torch.sum(w * w)
+    elif kind.startswith("rosenbrock"):
+        obj = lambda x: rosenbrock_logdensity(x)  # noqa: E731
+        vgf = rosenbrock_value_and_grad if "value_and_grad_fn" in kind else None
+    elif kind.startswith("mixture"):
+        obj = GaussianMixture(3.0 * rng.standard_normal((MIXTURE_K, n)), sigmas=MIXTURE_SIGMA,
+                              dtype=dtype, device=device).logdensity
+        scale = 3.0
+    elif kind.startswith("logistic"):
+        Xd = rng.standard_normal((LOGISTIC_OBS, n)) / np.sqrt(n)
+        yd = (rng.random(LOGISTIC_OBS) < 1.0 / (1.0 + np.exp(-(Xd @ rng.standard_normal(n)))))
+        obj = LogisticRegressionMAP(n, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                    y=yd.astype(np.float64), dtype=dtype, device=device).logdensity
+    elif kind.startswith("ar1"):
+        A, w_true, ys = ar1_data(rng, n, AR1_STEPS)
+        obj = AR1DriftMAP(n, AR1_STEPS, spectral_radius=AR1_RADIUS, obs_scale=AR1_OBS_SCALE,
+                          prior_scale=AR1_PRIOR, A=A, ys=ys, w_true=w_true, dtype=dtype,
+                          device=device).logdensity
+    elif kind == "funnel in a lambda":
+        obj = lambda th: funnel_logdensity(th)  # noqa: E731
+    elif kind == "funnel with value_and_grad_fn":
+        obj = funnel_logdensity
+        vgf = lambda th: torch.func.grad_and_value(funnel_logdensity)(th)[::-1]  # noqa: E731
+    else:
+        raise AssertionError(kind)
+    return obj, vgf, scale * rng.standard_normal((OBJECTIVE_LANES, n))
+
+
+def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True):
+    """B3 on ``traced`` against its plain version (the fleet engine with the
+    plain update on the user's functions) on the fleet ``X``, phase 9's
+    method: over caps 0, 1 and 5 every counter equal on every lane and x,
+    grad and B normwise within EXACT_RTOL or, where more, ROUNDING_FACTOR
+    times what a change of rounding alone moves the plain version: its run
+    on the CPU (``cpu_traced``, the same objective there), measured on the
+    lanes where that run's own counters equal the plain run's (a lane that
+    takes another line-search decision there moves by a step, not by
+    rounding). Over whole solves the lanes whose status differs from the
+    plain run's are at most ROUNDING_FACTOR times as many as a change of
+    rounding gives the plain version (started one ulp up, one ulp down,
+    and with ``cpu_whole`` on the CPU). Returns (summary, max abs error at
+    the caps, failures)."""
+    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
+
+    ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
+
+    def plain_run(x0, cap, objective=traced):
+        return optimize_batched_resident_reference(x0, ls, tol, cap, True, stall, objective)
+
+    worst_abs, failures, same_runs, per_cap = 0.0, [], 0, []
+    for cap in SHORT_CAPS:
+        kern = qt.optimize_batched_resident(traced, X, ls=ls, tol=tol, max_iterations=cap,
+                                            kernel="cuda")
+        plain = plain_run(X, cap)
+        same = bool(counters_equal(kern, plain).all())
+        limit, moved, kept = EXACT_RTOL[X.dtype], 0.0, X.shape[0]
+        if cap > 0:
+            cpu = plain_run(X.cpu(), cap, cpu_traced)
+            followed = counters_equal(cpu, plain)
+            moved, kept = state_err(cpu, plain, followed)[1], int(followed.sum())
+            limit = max(limit, ROUNDING_FACTOR * moved)
+        err_abs, err_rel = state_err(kern, plain)
+        same_runs += same
+        worst_abs = max(worst_abs, err_abs)
+        per_cap.append(f"cap {cap} {err_rel:.3e} (limit {limit:.3e}" + (
+            f"; the CPU's run moves the plain version {moved:.3e} on its {kept} lanes with the "
+            f"plain run's counters)" if cap > 0 else ")"))
+        if not (same and err_rel <= limit):
+            failures.append(f"{label} cap={cap}: counters equal {same}, normwise {err_rel:.3e} "
+                            f"(limit {limit:.3e}: the CPU's run moves the plain version "
+                            f"{moved:.3e} on its {kept} lanes with the plain run's counters)")
+    kern = qt.optimize_batched_resident(traced, X, ls=ls, tol=tol, max_iterations=MAX_ITERS,
+                                        kernel="cuda")
+    plain = plain_run(X, MAX_ITERS)
+    flips = int((kern.status != plain.status).sum())
+    witness_flips = {}
+    if flips:
+        up = torch.nextafter(X, torch.full_like(X, float("inf")))
+        down = torch.nextafter(X, torch.full_like(X, float("-inf")))
+        for key, x0, objective in (("1 ulp up", up, traced), ("1 ulp down", down, traced),
+                                   ("CPU", X.cpu(), cpu_traced if cpu_whole else None)):
+            if objective is not None:
+                other = plain_run(x0, MAX_ITERS, objective).status.to(X.device)
+                witness_flips[key] = int((other != plain.status).sum())
+    ok = kern.status == qt.Status.CONVERGED
+    gmax = float(kern.grad[ok].abs().max()) if bool(ok.any()) else 0.0
+    if flips > ROUNDING_FACTOR * max(witness_flips.values(), default=0) or gmax >= tol:
+        failures.append(f"{label} cap={MAX_ITERS}: {flips} lanes with another status than the "
+                        f"plain run's (rounding witnesses {witness_flips}), max|grad| of the "
+                        f"converged {gmax:.3e} (tol {tol})")
+    lanes = int((~counters_equal(kern, plain)).sum())
+    summary = (f"{label}: caps {SHORT_CAPS} {same_runs}/{len(SHORT_CAPS)} runs with every counter "
+               f"equal on every lane, normwise " + ", ".join(per_cap)
+               + f", max abs {worst_abs:.3e}; "
+               f"cap {MAX_ITERS}: converged {int(ok.sum())}/{X.shape[0]} (plain "
+               f"{int(plain.converged.sum())}), lanes with another status {flips}"
+               + (f" (witnesses {witness_flips})" if flips else "")
+               + f", with other counters {lanes}")
+    return summary, worst_abs, failures
+
+
+def ptxas_spills(log):
+    """(registers, spill store bytes, spill load bytes) of the traced
+    kernel's entry in nvcc's -Xptxas -v output."""
+    regs = spill_st = spill_ld = None
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "resident_solve_kernel" in line:
+            for follow in lines[i + 1:i + 4]:
+                if "spill stores" in follow:
+                    words = follow.replace(",", "").split()
+                    spill_st = int(words[words.index("spill") - 2])
+                    spill_ld = int(words[words.index("loads") - 3])
+                if "Used" in follow and "registers" in follow:
+                    words = follow.replace(",", "").split()
+                    regs = int(words[words.index("registers") - 1])
+    return regs, spill_st, spill_ld
+
+
+def traced_fleets(device):
+    """The four full-width fleets (see phase 22 above): {name: (objective,
+    float32 starts, tol, hand-written instantiation or None, what a value
+    and gradient and a trial need: `objective_ops` of the hand-written
+    twin, `dense_quadratic_ops` of the dense quadratic)}."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        GaussianMixture,
+        LogisticRegressionMAP,
+        rosenbrock_logdensity,
+    )
+
+    f32 = torch.float32
+    fleets = {"rosenbrock": (lambda x: rosenbrock_logdensity(x), bench_fleet(device), TOL,
+                             rosenbrock_logdensity, objective_ops(N, 4))}
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    logistic = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                     y=yd, dtype=f32, device=device)
+    fleets["logistic"] = (logistic.logdensity, torch.tensor(starts, dtype=f32, device=device),
+                          LOGISTIC_TOL, logistic, objective_ops(LOGISTIC_N, 4, logistic))
+    Q, b, starts = dense_quadratic_data(np.random.default_rng(BENCH_SEED))
+    fleets["dense quadratic"] = (dense_quadratic(Q, b, f32, device),
+                                 torch.tensor(starts, dtype=f32, device=device), TOL, None,
+                                 dense_quadratic_ops(DENSE_QUAD_N, 4))
+    data = fixture_data("mixture")
+    mixture = GaussianMixture(data["means"], sigmas=MIXTURE_SIGMA, dtype=f32, device=device)
+    fleets["mixture"] = (mixture.logdensity, torch.tensor(data["starts"], dtype=f32, device=device),
+                         TRACED_FLEETS["mixture"][1], mixture,
+                         objective_ops(MIXTURE_N, 4, mixture))
+    return fleets
+
+
+def traced_objectives(qt, device):
+    """Phase 22's objectives, traced: the parity cases (label, trace, X,
+    tol, its recipe), the full-width fleets (`traced_fleets`), their traces
+    and the host's trace and codegen ms per call; "all": every trace;
+    "sources": every trace's generated CUDA."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
+
+    cases = []
+    for kind, n, dtypes in TRACED_PARITY:
+        for dtype in dtypes:
+            obj, vgf, starts = traced_case(kind, n, dtype, device)
+            X = torch.tensor(starts, dtype=dtype, device=device)
+            cases.append((f"{kind} {OBJECTIVE_LANES}x{n} {str(dtype).replace('torch.', '')}",
+                          qt.trace_objective(obj, vgf, X), X, TOL if dtype == torch.float32
+                          else 1e-6, (kind, n, dtype)))
+    fleets = traced_fleets(device)
+    traced, trace_ms, gen_ms = {}, {}, {}
+    for name, (obj, X, *_) in fleets.items():
+        t0 = time.perf_counter()
+        traced[name] = qt.trace_objective(obj, None, X)
+        t1 = time.perf_counter()
+        generate(traced[name])
+        trace_ms[name], gen_ms[name] = 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+    everything = [c[1] for c in cases] + list(traced.values())
+    return {"cases": cases, "fleets": fleets, "traced": traced, "trace_ms": trace_ms,
+            "gen_ms": gen_ms, "all": everything, "sources": [generate(t) for t in everything]}
+
+
+def traced_phase(qt, device, smi, objectives, build):
+    """B3 on traced objectives (see phase 22 above): ``objectives`` from
+    `traced_objectives`, ``build`` their build's report from `build_phase`.
+    Returns each full-width fleet's record: (launches, max abs error, (ms,
+    plain ms, bound ms, bound kind, library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels import _build
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import (
+        resident_feasible,
+        resident_occupancy,
+    )
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cases, fleets, traced = objectives["cases"], objectives["fleets"], objectives["traced"]
+    trace_ms, gen_ms, everything = objectives["trace_ms"], objectives["gen_ms"], objectives["all"]
+    libs, cold = build
+    t0 = time.perf_counter()
+    _build.load_generated(*objectives["sources"])
+    warm = time.perf_counter() - t0
+    _build._GENERATED.clear()  # the on-disk cache alone
+    t0 = time.perf_counter()
+    _build.load_generated(*objectives["sources"])
+    disk = time.perf_counter() - t0
+    sources = len({lib.path for lib in libs})
+    reports = [ptxas_spills(lib.log) for lib in libs if lib.log]
+    ptxas = "no source was built anew (no ptxas report)"
+    if reports:
+        regs_f, st_f, ld_f = zip(*reports)
+        ptxas = (f"ptxas: registers {min(regs_f)}-{max(regs_f)}, spill stores {max(st_f)} and "
+                 f"loads {max(ld_f)} bytes at most")
+    log(f"[traced] {len(everything)} objectives traced and generated ({sources} sources, one "
+        f"nvcc each in parallel, beside the kernel library's): build {cold:.1f} s cold, "
+        f"{1e3 * warm:.1f} ms loaded in the process, {1e3 * disk:.1f} ms from the disk cache; "
+        f"{ptxas}; host per call at full width: "
+        + ", ".join(f"{k} trace {trace_ms[k]:.1f} ms + codegen {gen_ms[k]:.1f} ms"
+                    for k in trace_ms))
+
+    # B3 against its plain version on every parity objective
+    failures = []
+    for label, trace, X, tol, (kind, n, dtype) in cases:
+        obj, vgf, _ = traced_case(kind, n, dtype, cpu)
+        cpu_traced = qt.trace_objective(obj, vgf, X.cpu())
+        summary, _, bad = traced_parity(qt, trace, X, tol, label, cpu_traced)
+        print(f"  B3 vs plain {summary}", file=sys.stderr)
+        failures += bad
+    log(f"[traced] B3 vs plain (the fleet engine with the plain update on the user's functions) "
+        f"on {len(cases)} traced objectives of {OBJECTIVE_LANES} lanes (rows on stderr): "
+        f"{len(cases) - len({f.split(' cap=')[0] for f in failures})}/{len(cases)} pass")
+    check(not failures, f"B3 and its plain version differ on traced objectives: {failures}")
+
+    # the slice's main path: the four full-width fleets, each at full width
+    # against its plain version, then through the entry points, counted
+    main_summary, main_err = {}, {}
+    for (name, (obj, X, tol, *_)), (cpu_obj, cpu_X, *_) in zip(fleets.items(),
+                                                           traced_fleets(cpu).values()):
+        main_summary[name], main_err[name], bad = traced_parity(
+            qt, traced[name], X, tol, f"{name} {X.shape[0]}x{X.shape[1]} f32 tol {tol}",
+            qt.trace_objective(cpu_obj, None, cpu_X), cpu_whole=False)
+        print(f"  B3 vs plain {main_summary[name]}", file=sys.stderr)
+        failures += bad
+    check(not failures, f"B3 and its plain version differ on the full-width fleets: {failures}")
+    n_q = DENSE_QUAD_N
+    feasible = (resident_feasible(n_q, 4, traced["dense quadratic"]),
+                resident_feasible(n_q + 1, 4, qt.trace_objective(
+                    dense_quadratic(np.eye(n_q + 1), np.ones(n_q + 1), torch.float32, device),
+                    None, torch.zeros((1, n_q + 1), device=device))))
+    check(feasible == (True, False), f"n = {n_q} is not the largest n B3 holds for the dense "
+          f"quadratic in float32: feasible at n, n + 1 = {feasible}")
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    resident, fleet, lines, launched = {}, {}, [], {}
+    for name, (obj, X, tol, *_) in fleets.items():
+        before = counted_kernels()["B3"].objective_launches["traced"]
+        res, flagged, wall = resident_run(qt, obj, X, tol)
+        launched[name] = counted_kernels()["B3"].objective_launches["traced"] - before
+        check(flagged == 0, f"{name}: {flagged} host synchronisations inside the resident solve")
+        resident[name] = res
+        fleet[name] = qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS)
+    c = read_counters(qt)
+    launches = dict(counted_kernels()["B3"].objective_launches)
+    check(launches == {**dict.fromkeys(launches, 0), "traced": 4} and c["B3"] == 4
+          and c["B2a"] == c["B2b"] == 0 and c["B1"] == c["bodies"] > 0,
+          f"launches {launches}, {c}")
+    for name, (_, X, tol, *_) in fleets.items():
+        jax_conv, jax_med, jax_max = TRACED_FLEETS[name][2:]
+        for engine, res in (("B3", resident[name]), ("B1", fleet[name])):
+            conv, med, itmax, gmax = fleet_line(qt, res)
+            lines.append(f"{name} {X.shape[0]}x{X.shape[1]} through {engine}: converged "
+                         f"{conv}/{X.shape[0]}, iterations median {med:g} max {itmax} (JAX "
+                         f"{jax_med} / {jax_max}), max|grad| {gmax:.3e}")
+            check(conv == X.shape[0] == jax_conv and gmax < tol,
+                  f"{name} through {engine}: {conv}/{X.shape[0]} converged, max|grad| {gmax}")
+            check(abs(med - jax_med) <= 0.1 * jax_med,
+                  f"{name} through {engine}: median {med} not within 10% of {jax_med}")
+    log(f"[traced] full-width fleets on {device}: optimize_batched_resident launches B3 "
+        f"{c['B3']} (traced {launches['traced']}), host synchronisations 0 in each; "
+        f"optimize_batched B1 {c['B1']} = loop bodies {c['bodies']}; the dense quadratic at "
+        f"n = {n_q}, the largest n B3 holds for it in float32 (n + 1 does not fit); "
+        f"at full width: " + "; ".join(main_summary.values()) + "; " + "; ".join(lines))
+
+    records, timings = {}, []
+    for name, (obj, X, tol, hand, needs) in fleets.items():
+        trace = traced[name]
+        fns = {
+            "B3 traced": lambda: qt.optimize_batched_resident(trace, X, tol=tol,
+                                                              max_iterations=MAX_ITERS),
+            "B3 on the function": lambda: qt.optimize_batched_resident(obj, X, tol=tol,
+                                                                       max_iterations=MAX_ITERS),
+            "B1": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
+                                              kernel="cuda"),
+            "plain": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
+                                                 kernel="torch"),
+        }
+        if hand is not None:
+            fns["B3 hand-written"] = lambda: qt.optimize_batched_resident(
+                hand, X, tol=tol, max_iterations=MAX_ITERS)
+        ms = per_call_ms(fns, (), rounds=2, calls=1)
+        n = X.shape[1]
+        b = b3_bound(resident[name], n, 4, True, ops=needs)
+        graph = b3_bound(resident[name], n, 4, True,
+                         ops=(trace.ops_vag + n, trace.ops_value + 2 * n, trace.const_bytes))
+        occ = resident_occupancy(n, 4, trace)
+        timings.append(
+            f"{name} {X.shape[0]}x{n}: B3 traced {ms['B3 traced']:.4f} ms "
+            f"({1e3 * X.shape[0] / ms['B3 traced']:.1f} solves/s), through the entry point on "
+            f"the function itself (traced again each call) {ms['B3 on the function']:.4f} ms"
+            + (f", B3 hand-written {ms['B3 hand-written']:.4f} ms (traced / hand-written "
+               f"{ms['B3 traced'] / ms['B3 hand-written']:.2f})" if hand is not None else "")
+            + f", fleet engine with B1 {ms['B1']:.4f} ms, with the plain update "
+            f"{ms['plain']:.4f} ms; B3 traced's bound {b[0]:.4f} ms ({b[1]}; the function "
+            f"needs {needs[0]} operations per value and gradient, {needs[1]} per trial, "
+            f"{needs[2]} data bytes), at {100 * b[0] / ms['B3 traced']:.1f} % (its graph "
+            f"counts {trace.ops_vag} and {trace.ops_value}, {trace.const_bytes} constant "
+            f"bytes, which would give {graph[0]:.4f} ms); {trace.extra_values} scratch values "
+            f"per lane; launch {shape_line(occ)}")
+        records[f"traced:{name.replace(' ', '_')}"] = (
+            launched[name], main_err[name], (ms["B3 traced"], ms["plain"], *b, None))
+    log(f"[time] traced fleets per solve (CUDA events, median of 2 in turns): "
+        + "; ".join(timings) + f" on {smi}; phase 22 took {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -2283,7 +2767,8 @@ def main():
 
     device = torch.device("cuda", 0)
     name, smi = device_phase()
-    build_phase()
+    phase22 = traced_objectives(qt, device)  # traced first, so that their build overlaps
+    build = build_phase(phase22["sources"])
     max_abs_err = kernel_phase(device)
     reset_counters(qt)
     launches, _ = main_path_phase(qt, device)
@@ -2305,6 +2790,7 @@ def main():
     vmap_phase(qt, device)
     objectives = objective_phase(qt, device, smi)
     objectives.update(fixture_phase(qt, device, smi))
+    traced = traced_phase(qt, device, smi, phase22, build)
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
@@ -2325,6 +2811,9 @@ def main():
         record(f"resident_bfgs_solve[{kind}]", RESIDENT_SOURCE, RESIDENT_REPLACES, launches, err,
                ms)
         for kind, (launches, err, ms) in objectives.items()
+    ] + [
+        record(f"resident_bfgs_solve[{kind}]", TRACED_SOURCE, RESIDENT_REPLACES, launches, err, ms)
+        for kind, (launches, err, ms) in traced.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

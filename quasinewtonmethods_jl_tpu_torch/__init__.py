@@ -34,7 +34,7 @@ from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .ops.wolfe import Wolfe, WolfeResult, wolfe_linesearch
 from .parallel.batch import optimize_batched, optimize_lbfgs_batched
-from .resident_solve import optimize_batched_resident, resident_feasible
+from .resident_solve import optimize_batched_resident, resident_feasible, trace_objective
 from .solve import (
     MAX_ITERATIONS_DEFAULT,
     STALL_LIMIT_DEFAULT,
@@ -90,6 +90,7 @@ __all__ = [
     "CGResult",
     "optimize_batched_resident",
     "resident_feasible",
+    "trace_objective",
     "OptimizeResult",
     "MAX_ITERATIONS_DEFAULT",
     "STALL_LIMIT_DEFAULT",

@@ -8,6 +8,12 @@ together, and one more nvcc links them. The file name carries a hash of
 the sources, the shared headers and the flags, so an edited file builds
 anew and an unchanged tree loads the earlier build. No PyTorch header is
 compiled, which keeps a build to seconds.
+
+`load_generated` builds the sources the port generates at run time (B3's
+objectives from a trace, ops/kernels/objective_codegen.py) the same way:
+one library per source, named by a hash of its text, the headers and the
+flags, all missing ones compiled in parallel, cached on disk and in the
+process.
 """
 
 from __future__ import annotations
@@ -23,13 +29,14 @@ import time
 from pathlib import Path
 from typing import NamedTuple
 
-__all__ = ["KernelLibrary", "load_library", "check_launch", "BUILD_DIR", "SOURCES", "HEADERS"]
+__all__ = ["KernelLibrary", "load_library", "load_generated", "check_launch", "BUILD_DIR",
+           "SOURCES", "HEADERS"]
 
 _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("bfgs_update.cu", "bfgs_blocked.cu", "resident_solve.cu")
-HEADERS = ("bfgs_common.cuh", "resident_objectives.cuh")
+HEADERS = ("bfgs_common.cuh", "resident_objectives.cuh", "resident_solve.cuh")
 # No --use_fast_math / -ftz: the kernels' NaN and inf semantics are part of
 # their contract. -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (
@@ -119,9 +126,87 @@ def load_library() -> KernelLibrary:
     return KernelLibrary(cdll, so, seconds, log)
 
 
-def check_launch(err: int, kernel: str) -> None:
+# The generated sources' flags: those of resident_solve.cu, whose kernel
+# they instantiate, and its headers.
+GENERATED_FLAGS = (*NVCC_FLAGS, *SOURCE_FLAGS["resident_solve.cu"])
+_GENERATED: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _header_bytes() -> tuple:
+    """csrc's headers, read once per process (as the kernel library is
+    loaded once)."""
+    return tuple((name, (CSRC_DIR / name).read_bytes()) for name in HEADERS)
+
+
+def _generated_digest(source: str) -> str:
+    digest = hashlib.sha256(" ".join(GENERATED_FLAGS).encode())
+    for name, text in _header_bytes():
+        digest.update(name.encode())
+        digest.update(text)
+    digest.update(source.encode())
+    return digest.hexdigest()[:16]
+
+
+def load_generated(*sources: str) -> list:
+    """Build (where needed) and load one library per generated CUDA
+    ``source`` (a translation unit that includes csrc's headers and defines
+    a plain C interface, with ``qnm_cuda_error_string`` among it); returns
+    their `KernelLibrary`s in order. The missing ones compile in parallel,
+    one nvcc each, into ``BUILD_DIR`` (the source beside its library).
+    Raises RuntimeError with nvcc's stderr when a build fails."""
+    keys = [_generated_digest(s) for s in sources]
+    todo = {k: s for k, s in zip(keys, sources)
+            if k not in _GENERATED and not (BUILD_DIR / f"libqnm_traced_{k}.so").exists()}
+    logs, seconds = {}, {}
+    if todo:
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(exist_ok=True)
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            procs = []
+            for key, source in todo.items():
+                cu = BUILD_DIR / f"traced_{key}.cu"
+                if not cu.exists():
+                    part = Path(tmp) / cu.name
+                    part.write_text(source)
+                    os.replace(part, cu)
+                lib = Path(tmp) / f"libqnm_traced_{key}.so"
+                cmd = [nvcc, *GENERATED_FLAGS, "-I", str(CSRC_DIR), "-shared", "-o", str(lib),
+                       str(cu)]
+                procs.append((key, lib, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+            failed = []
+            for key, lib, proc in procs:  # wait for every compiler before raising
+                out, err = proc.communicate()
+                logs[key] = f"== traced_{key}.cu\n{out}{err}"
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed on traced_{key}.cu with exit code "
+                                  f"{proc.returncode}:\n{err}")
+                else:
+                    os.replace(lib, BUILD_DIR / lib.name)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        elapsed = time.perf_counter() - t0
+        seconds = dict.fromkeys(todo, elapsed)
+    out = []
+    for key in keys:
+        if key not in _GENERATED:
+            so = BUILD_DIR / f"libqnm_traced_{key}.so"
+            cdll = ctypes.CDLL(str(so))
+            cdll.qnm_cuda_error_string.argtypes = [ctypes.c_int]
+            cdll.qnm_cuda_error_string.restype = ctypes.c_char_p
+            _GENERATED[key] = KernelLibrary(cdll, so, seconds.get(key, 0.0), logs.get(key, ""))
+        out.append(_GENERATED[key])
+    return out
+
+
+def check_launch(err: int, kernel: str, lib: ctypes.CDLL = None) -> None:
     """Raise RuntimeError when a launcher returned a CUDA error (its
-    ``cudaGetLastError()`` after the launch; 0 means launched)."""
+    ``cudaGetLastError()`` after the launch; 0 means launched); ``lib``:
+    the library whose ``qnm_cuda_error_string`` names it (the kernel
+    library's by default)."""
     if err != 0:
-        message = load_library().cdll.qnm_cuda_error_string(err).decode()
+        lib = lib if lib is not None else load_library().cdll
+        message = lib.qnm_cuda_error_string(err).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {message}")

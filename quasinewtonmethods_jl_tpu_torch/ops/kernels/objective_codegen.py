@@ -1,0 +1,414 @@
+"""Generate B3's objective as CUDA C++ from a traced objective.
+
+The JAX resident kernel evaluates its objective by lowering the traced
+jaxpr inside the kernel body (Mosaic does it for
+quasinewtonmethods_jl_tpu/resident_solve.py :: _make_kernel). The port's
+kernel B3 takes its objective as a template argument
+(csrc/resident_objectives.cuh states the contract); `generate` writes one
+such objective for a `TracedObjective` (ops/kernels/objective_trace.py),
+and one translation unit around it that instantiates B3 from
+csrc/resident_solve.cuh and exports plain C entry points:
+
+  qnm_traced_solve(<the solve's arguments>, consts, stream)
+      the launch; ``consts`` is a host array of the constants' device
+      pointers, copied into the objective, which goes to the kernel by
+      value;
+  qnm_traced_occupancy(regs, threads, blocks_per_sm)
+  qnm_cuda_error_string(code)
+
+Simple and right first. A lane runs the graph op by op: each op's output is
+a slot of the lane's shared scratch (the objective's ``extra_values``),
+stored flat, row-major; an elementwise op or a broadcast is a loop over its
+output elements strided by the lane group's threads, with its operands read
+through their index maps (a view is only an index map); a reduction to one
+value is a strided partial per thread and one lane sum (bfgs_common.cuh); a
+reduction over one dim, ``mv``, ``mm`` and a logsumexp's max take one
+output element per thread, summed in a fixed order; a constant is read
+from device memory. A barrier follows every op (``__syncwarp`` for one
+warp, ``__syncthreads`` above). Each graph is one device function that the
+kernel calls, not inlined (a trial's evaluation has two call sites). The
+unit is built with -fmad=false and without fast math, so every op rounds
+on its own as torch's does, and only the order of sums differs from the
+plain version (`objective_trace.evaluate` and, on the card, the fleet
+engine with the plain update). Elementwise functions take torch's CUDA
+formulas: a division by a literal is a product by its reciprocal, the
+log-sigmoid's backward needs no buffer.
+
+The text depends only on the graph, the shapes and the dtype: constant
+values are inputs, so two models of the same shape share one build.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .objective_trace import Graph, Op, Ref, TracedObjective, _contiguous_strides
+
+__all__ = ["generate", "lane_warps"]
+
+
+def lane_warps(n: int) -> int:
+    """Warps of one lane's block (bfgs_common.cuh :: lane_warps)."""
+    return 1 if n <= 64 else (n + 63) // 64
+
+
+def _lit(value: float) -> str:
+    if math.isnan(value):
+        return "Real(NAN)"
+    if math.isinf(value):
+        return "Real(INFINITY)" if value > 0 else "(-Real(INFINITY))"
+    return f"Real({float(value).hex()})"
+
+
+def _coords(shape, var: str = "i") -> tuple:
+    """(declarations, coordinate expressions) of flat index ``var`` in a
+    row-major ``shape`` of rank <= 2."""
+    if len(shape) == 0:
+        return "", []
+    if len(shape) == 1:
+        return "", [var]
+    return (f"const int {var}0 = {var} / {shape[1]}; const int {var}1 = {var} % {shape[1]}; ",
+            [f"{var}0", f"{var}1"])
+
+
+def _load(ref: Ref, coords) -> str:
+    """The C++ expression of ``ref``'s element at ``coords`` (one per dim of
+    ref, C++ int expressions)."""
+    if ref.kind == "lit":
+        return _lit(ref.value)
+    terms = [str(ref.offset)] if ref.offset else []
+    for c, size, stride in zip(coords, ref.shape, ref.strides):
+        if size != 1 and stride != 0:
+            terms.append(c if stride == 1 else f"{c} * {stride}")
+    index = " + ".join(terms) or "0"
+    base = "s" if ref.kind == "lane" else f"c{ref.index}"
+    return f"{base}[{index}]"
+
+
+def _broadcast(ref: Ref, out_coords) -> str:
+    """``ref`` read at the output element whose coordinates are
+    ``out_coords``, broadcast from the right as torch does."""
+    lead = len(out_coords) - len(ref.shape)
+    return _load(ref, [out_coords[lead + d] if ref.shape[d] != 1 else "0"
+                       for d in range(len(ref.shape))])
+
+
+def _pow(v: str, e: float) -> str:
+    # torch's pow_tensor_scalar: the special exponents it dispatches
+    if e == 0:
+        return "Real(1)"
+    if e == 1:
+        return v
+    if e == 2:
+        return f"{v} * {v}"
+    if e == 3:
+        return f"{v} * {v} * {v}"
+    if e == 0.5:
+        return f"sqrt({v})"
+    if e == -0.5:
+        return f"rsqrt({v})"
+    if e == -1:
+        return f"Real(1) / {v}"
+    if e == -2:
+        return f"Real(1) / ({v} * {v})"
+    return f"pow({v}, {_lit(e)})"
+
+
+def _ew_expr(op: Op, x: list) -> str:
+    name, p = op.name, op.params
+    if name == "copy":
+        return x[0]
+    if name in ("add", "sub"):
+        sign = "+" if name == "add" else "-"
+        return (f"{x[0]} {sign} {x[1]}" if p[0] == 1
+                else f"{x[0]} {sign} {_lit(p[0])} * {x[1]}")
+    if name == "rsub":
+        return f"{x[1]} - {x[0]}" if p[0] == 1 else f"{x[1]} - {_lit(p[0])} * {x[0]}"
+    if name == "mul":
+        return f"{x[0]} * {x[1]}"
+    if name == "div":
+        if op.args[1].kind == "lit":
+            return f"{x[0]} * (Real(1) / {x[1]})"
+        return f"{x[0]} / {x[1]}"
+    if name == "neg":
+        return f"-{x[0]}"
+    if name == "pow":
+        return _pow("a", p[0])
+    if name == "exp":
+        return f"qnm::exp_of({x[0]})"
+    if name == "log":
+        return f"qnm::log_of({x[0]})"
+    if name == "where":
+        return f"{x[0]} != Real(0) ? {x[1]} : {x[2]}"
+    if name == "gt":
+        return f"{x[0]} > {x[1]} ? Real(1) : Real(0)"
+    if name == "logaddexp":
+        return f"traced_logaddexp({x[0]}, {x[1]})"
+    if name == "log_sigmoid":
+        return f"traced_log_sigmoid({x[0]})"
+    if name == "log_sigmoid_backward":
+        return f"traced_log_sigmoid_backward({x[0]}, {x[1]})"
+    raise AssertionError(name)
+
+
+class _Emitter:
+    def __init__(self, threads: int):
+        self.threads = threads
+        self.lines = []
+
+    def emit(self, line: str):
+        self.lines.append("    " + line)
+
+    def loop(self, count: int, body: str, var: str = "i"):
+        if count == 0:
+            return
+        self.emit(f"for (int {var} = threadIdx.x; {var} < {count}; {var} += {self.threads}) "
+                  f"{{ {body}}}")
+
+    def lane_sum(self, out: Ref, count: int, decl: str, term: str):
+        """out[0] = Σ_i term(i) over i < count: strided partials, a lane sum."""
+        self.emit("{")
+        self.emit("  Real acc[1] = {Real(0)};")
+        self.loop(count, f"{decl}acc[0] += {term}; ")
+        self.emit("  grp.sum(acc);")
+        self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = acc[0];")
+        self.emit("}")
+
+    def op(self, op: Op):
+        out = op.out
+        self.emit(f"// {op.source}: {op.kind} {op.name} -> {out.shape} at {out.offset}")
+        if op.kind == "ew":
+            decl, oc = _coords(out.shape)
+            x = [_broadcast(r, oc) for r in op.args]
+            if op.name == "pow":
+                body = f"{decl}const Real a = {x[0]}; s[{out.offset} + i] = {_ew_expr(op, x)}; "
+            else:
+                body = f"{decl}s[{out.offset} + i] = {_ew_expr(op, x)}; "
+            self.loop(out.numel, body)
+        elif op.kind in ("sum", "lse"):
+            self.reduce(op)
+        elif op.kind == "mv":  # M v, or M V: one output element per thread
+            M, v = op.args
+            k = M.shape[1]
+            decl, oc = _coords(out.shape)
+            rhs = _load(v, ["j"] if len(v.shape) == 1 else ["j", oc[1]])
+            self.loop(out.numel, f"{decl}Real acc = Real(0); for (int j = 0; j < {k}; ++j) "
+                                 f"acc = acc + {_load(M, [oc[0], 'j'])} * {rhs}; "
+                                 f"s[{out.offset} + i] = acc; ")
+        elif op.kind == "dot":
+            u, v = op.args
+            self.lane_sum(out, u.numel, "", f"{_load(u, ['i'])} * {_load(v, ['i'])}")
+        elif op.kind == "scatter":
+            dim, start, step, count = op.params
+            decl, oc = _coords(out.shape)
+            inner = list(oc)
+            inner[dim] = "kk"
+            body = (f"{decl}const int k = {oc[dim]} - {start}; "
+                    f"const bool in = k >= 0 && k % {step} == 0 && k / {step} < {count}; "
+                    f"const int kk = in ? k / {step} : 0; "
+                    f"s[{out.offset} + i] = in ? {_load(op.args[0], inner)} : Real(0); ")
+            self.loop(out.numel, body)
+        elif op.kind == "cat":
+            (dim,) = op.params
+            strides, start = _contiguous_strides(out.shape), 0
+            for ref in op.args:
+                decl, ic = _coords(ref.shape)
+                full = [c if d != dim else f"({c} + {start})" for d, c in enumerate(ic)]
+                target = " + ".join(f"{c} * {st}" for c, st in zip(full, strides))
+                self.loop(ref.numel, f"{decl}s[{out.offset} + {target}] = {_load(ref, ic)}; ")
+                start += ref.shape[dim]
+        else:
+            raise AssertionError(op.kind)
+        self.emit("grp.sync();")
+
+    def reduce(self, op: Op):
+        out, (src,), (dims,) = op.out, op.args, op.params
+        lse = op.kind == "lse"
+        if not dims:  # a reduction of a scalar over no dim is the scalar
+            self.loop(1, f"s[{out.offset}] = {_load(src, [])}; ")
+            return
+        if len(dims) == len(src.shape):  # to one value
+            decl, ic = _coords(src.shape)
+            term = _load(src, ic)
+            if not lse:
+                self.lane_sum(out, src.numel, decl, term)
+                return
+            # torch.logsumexp: the max (NaN wins), an infinite max shifts by 0
+            self.emit("{")
+            self.emit("  Real top = -Real(INFINITY);")
+            self.emit(f"  for (int i = 0; i < {src.numel}; ++i) {{ {decl}const Real v = {term}; "
+                      "top = isnan(top) || top >= v ? top : v; }")
+            self.emit("  const Real shift = isinf(top) ? Real(0) : top;")
+            self.emit("  Real acc[1] = {Real(0)};")
+            self.loop(src.numel, f"{decl}acc[0] += qnm::exp_of({term} - shift); ")
+            self.emit("  grp.sum(acc);")
+            self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = qnm::log_of(acc[0]) + shift;")
+            self.emit("}")
+            return
+        # one of two dims: one output element per thread, in order
+        (red,) = dims
+        keep = 1 - red
+        coords = ["i", "r"] if red == 1 else ["r", "i"]
+        term = _load(src, coords)
+        count = src.shape[red]
+        if not lse:
+            self.loop(out.numel, f"Real acc = Real(0); for (int r = 0; r < {count}; ++r) "
+                                 f"acc += {term}; s[{out.offset} + i] = acc; ")
+            return
+        assert src.shape[keep] == out.numel
+        self.loop(out.numel,
+                  f"Real top = -Real(INFINITY); for (int r = 0; r < {count}; ++r) "
+                  f"{{ const Real v = {term}; top = isnan(top) || top >= v ? top : v; }} "
+                  f"const Real shift = isinf(top) ? Real(0) : top; Real acc = Real(0); "
+                  f"for (int r = 0; r < {count}; ++r) acc += qnm::exp_of({term} - shift); "
+                  f"s[{out.offset} + i] = qnm::log_of(acc) + shift; ")
+
+
+def _graph_body(graph: Graph, threads: int) -> str:
+    em = _Emitter(threads)
+    for op in graph.ops:
+        em.op(op)
+    return "\n".join(em.lines)
+
+
+_PRELUDE = r"""
+// torch's CUDA formulas (BinaryMiscOpsKernels.cu, LogSigmoid.cu)
+__device__ __forceinline__ Real traced_logaddexp(Real a, Real b) {
+  if (isinf(a) && a == b) return a;
+  const Real m = a > b ? a : b;
+  return m + qnm::log1p_of(qnm::exp_of(-fabs(a - b)));
+}
+__device__ __forceinline__ Real traced_log_sigmoid(Real a) {
+  const Real lo = a < Real(0) ? a : Real(0);
+  return lo - qnm::log1p_of(qnm::exp_of(-fabs(a)));
+}
+__device__ __forceinline__ Real traced_log_sigmoid_backward(Real g, Real a) {
+  const bool neg = a < Real(0);
+  const Real max_deriv = neg ? Real(1) : Real(0);
+  const Real sign = neg ? Real(1) : -Real(1);
+  const Real z = qnm::exp_of(-fabs(a));
+  return g * (max_deriv - sign * (z / (Real(1) + z)));
+}
+"""
+
+
+def generate(traced: TracedObjective) -> str:
+    """The CUDA translation unit of ``traced``'s objective and B3 around it
+    (see the module docstring)."""
+    n = traced.n
+    real = {torch.float32: "float", torch.float64: "double"}[traced.dtype]
+    threads = 32 * lane_warps(n)
+    one_warp = "true" if threads == 32 else "false"
+    slots = traced.extra_values
+    consts = max(1, len(traced.consts))
+    vag, val = traced.vag, traced.val
+    const_params = "".join(f", const Real* __restrict__ c{i}" for i in range(len(traced.consts)))
+    const_args = "".join(f", c[{i}]" for i in range(len(traced.consts)))
+    return f"""// Generated by quasinewtonmethods_jl_tpu_torch/ops/kernels/objective_codegen.py
+// from a traced objective: n = {n}, {real}, {len(traced.consts)} constants,
+// {len(vag.ops)} ops for the value and gradient, {len(val.ops)} for a trial value,
+// {slots} values of scratch per lane. B3 (resident_solve.cuh) around it.
+
+#include "resident_solve.cuh"
+
+namespace {{
+
+using Real = {real};
+constexpr int kN = {n};
+constexpr int kSlots = {slots};
+{_PRELUDE}
+// The two graphs, each one function that the kernel calls (not inlined:
+// a trial's evaluation has two call sites, and the kernel's size and its
+// build time stay those of one copy). The lane's scratch s holds the point
+// at 0..n-1 and one slot per op's output; c<i> are the constants.
+template <bool kOneWarp>
+__device__ __noinline__ void traced_value_and_grad(qnm::LaneGroup<Real, kOneWarp>& grp,
+                                                   Real* __restrict__ s{const_params}) {{
+{_graph_body(vag, threads)}
+}}
+
+template <bool kOneWarp>
+__device__ __noinline__ void traced_value(qnm::LaneGroup<Real, kOneWarp>& grp,
+                                          Real* __restrict__ s{const_params}) {{
+{_graph_body(val, threads)}
+}}
+
+// The objective (the contract of resident_objectives.cuh), the update's
+// column ownership.
+struct TracedObjective {{
+  const Real* __restrict__ c[{consts}];
+
+  static constexpr int kOwned = 2;
+  size_t extra_values(int) const {{ return kSlots; }}
+  template <bool kOneWarp>
+  __device__ __forceinline__ void prepare(qnm::LaneGroup<Real, kOneWarp>&, int, Real*) const {{}}
+
+  __device__ __forceinline__ qnm::Owned<2> owned(int n) const {{ return qnm::owned_columns(n); }}
+
+  // terms: the value, on thread 0 only
+  template <bool kOneWarp>
+  __device__ __forceinline__ void value_and_grad(qnm::LaneGroup<Real, kOneWarp>& grp,
+                                                 const qnm::Owned<2>& own, int, Real* s,
+                                                 const Real (&x)[2], Real (&g)[2], Real& terms,
+                                                 Real&) const {{
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {{
+      if (own.has[e]) s[own.idx[e]] = x[e];
+    }}
+    grp.sync();
+    traced_value_and_grad(grp, s{const_args});
+#pragma unroll
+    for (int e = 0; e < 2; ++e) g[e] = s[{vag.grad.offset} + own.idx[e]];
+    if (threadIdx.x == 0) terms = s[{vag.value.offset}];
+  }}
+
+  __device__ __forceinline__ Real value(Real terms, Real, int) const {{ return terms; }}
+
+  template <bool kOneWarp>
+  __device__ __forceinline__ Real value_along(qnm::LaneGroup<Real, kOneWarp>& grp,
+                                              const qnm::Owned<2>& own, int, Real* s,
+                                              const Real (&x)[2], const Real (&d)[2],
+                                              Real alpha) const {{
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {{
+      if (own.has[e]) s[own.idx[e]] = x[e] + alpha * d[e];
+    }}
+    grp.sync();
+    traced_value(grp, s{const_args});
+    return s[{val.value.offset}];
+  }}
+}};
+
+// The one lane-group variant n needs.
+auto traced_launch() {{
+  const auto kernel = &resident_solve_kernel<Real, {one_warp}, TracedObjective>;
+  return qnm::lane_launch(kN, kernel, kernel, smem_bytes(kN, sizeof(Real), kSlots));
+}}
+
+}}  // namespace
+
+extern "C" {{
+
+// The solve (cudaGetLastError() after the launch; 0 = launched), with
+// consts[0..{len(traced.consts)}) the constants' device pointers, contiguous, in Real.
+int qnm_traced_solve(QNM_SOLVE_ARGS(Real), const void* const* consts, void* stream) {{
+  if (n != kN) return int(cudaErrorInvalidValue);
+  TracedObjective obj{{}};
+  for (int i = 0; i < {len(traced.consts)}; ++i) obj.c[i] = static_cast<const Real*>(consts[i]);
+  return launch_with<Real>(traced_launch(), X0, X, G, G_old, step, B, fun, status, iterations,
+                           n_fev, n_gev, n_resets, fresh, stall, batch, n,
+                           Params<Real>{{tol, c1, rho_hi, rho_lo, eps, sqrttol, budget,
+                                        max_iterations, stall_limit, order, h0_scale}},
+                           obj, stream);
+}}
+
+int qnm_traced_occupancy(int* regs, int* threads, int* blocks_per_sm) {{
+  return qnm::lane_occupancy(traced_launch(), regs, threads, blocks_per_sm);
+}}
+
+const char* qnm_cuda_error_string(int code) {{ return cudaGetErrorString(cudaError_t(code)); }}
+
+}}  // extern "C"
+"""

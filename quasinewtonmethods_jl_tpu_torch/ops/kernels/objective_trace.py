@@ -1,0 +1,834 @@
+"""Trace a torch objective into the small IR that B3's generated objective runs.
+
+The JAX resident kernel takes any jnp objective: it traces the objective to
+a jaxpr inside the kernel body and hoists the arrays the objective closes
+over into kernel inputs (quasinewtonmethods_jl_tpu/resident_solve.py ::
+_hoist_consts, _make_kernel). This module is that step for the port.
+`trace_objective` resolves the objective as the fleet engine does
+(api.py: an explicit ``value_and_grad_fn``, else the object's
+``logdensity_and_gradient``, else ``torch.func.grad_and_value`` of its
+log-density; line-search trials take `as_value_fn`), traces both functions
+for one lane's (n,) point in ``x0s``'s dtype with ``make_fx`` on fake
+tensors (no device work, no host read), and lowers the two graphs to a list
+of `Op`s over `Ref`s:
+
+  * a per-lane value ("lane") lives in a slot of the lane's shared scratch,
+    stored flat and row-major, with a static shape of rank <= 2;
+  * a closed-over tensor ("const") is a kernel input on ``x0s``'s device,
+    read from device memory; an expression of constants alone (the
+    mixture's log-weights, a ``.to()`` of the data) is computed here once
+    per solve with torch, on that device, and becomes a constant itself;
+  * a Python scalar, and a tensor filled with one (``ones_like``,
+    ``zeros``, ``scalar_tensor``), is a literal ("lit").
+
+A view (``t``, ``expand``, ``unsqueeze``, ``squeeze``, ``select``,
+``slice``, ``unbind``, and a reshape of a row-major value) only changes a
+`Ref`'s shape, strides and offset: no code, no copy. The ops that compute
+are elementwise (the table `_ELEMENTWISE`), reductions (``sum``,
+``logsumexp``), ``mv``, ``mm`` and ``dot``, the scatters of
+``select_backward`` / ``slice_backward``, and ``cat`` and ``stack``. An
+in-place op on an op's fresh output that nothing else reads (``matmul``'s
+own ``squeeze_``) is its out-of-place twin. Anything else raises
+ValueError, on every device, naming the op and, where the trace can tell,
+the user's line: an op outside the table, a per-lane value of rank > 2, a
+data-dependent shape or branch, ``.item()``, a random op, an in-place
+write to the point, a constant or a value read elsewhere, a constant in
+another floating dtype than ``x0s``.
+
+`evaluate` runs a lowered graph op by op in torch: the plain version of the
+generated evaluation (ops/kernels/objective_codegen.py), which the CPU
+tests hold to ``torch.func`` and to JAX. `TracedObjective.ops_vag` /
+``ops_value`` / ``const_bytes`` count the work of one evaluation for the
+kernel's bound.
+"""
+
+from __future__ import annotations
+
+import math
+import operator
+import os
+import traceback
+from dataclasses import dataclass, field, replace
+from typing import Callable, Optional
+
+import torch
+
+from ...api import as_value_and_grad, as_value_fn
+
+__all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate"]
+
+aten = torch.ops.aten
+
+_FUSED = "use optimize_batched_fused, which takes any objective"
+
+
+@dataclass(frozen=True)
+class Ref:
+    """An operand: its shape and where its values are. Element (i0, i1) of
+    a "lane" or "const" Ref is at ``offset + i0·strides[0] + i1·strides[1]``
+    of the lane's scratch or of constant ``index``; a "lit" is ``value``
+    everywhere. ``boolean``: the values are 0/1 truth values."""
+
+    kind: str
+    shape: tuple = ()
+    strides: tuple = ()
+    offset: int = 0
+    index: int = 0
+    value: float = 0.0
+    boolean: bool = False
+
+    @property
+    def numel(self) -> int:
+        return math.prod(self.shape)
+
+
+def _contiguous_strides(shape) -> tuple:
+    strides, step = [], 1
+    for size in reversed(shape):
+        strides.append(step)
+        step *= size
+    return tuple(reversed(strides))
+
+
+@dataclass(frozen=True)
+class Op:
+    """One computing op: ``out`` (a fresh contiguous lane slot) from
+    ``args``. ``kind``: "ew" (elementwise ``name`` with broadcasting),
+    "sum" / "lse" (a reduction of args[0] over ``params[0]``, its dims),
+    "mv" (a matrix times a vector or a matrix: ``mv`` and ``mm``), "dot",
+    "scatter" (args[0] written into zeros at positions ``params`` = (dim,
+    start, step, count) of its dim), "cat" (args concatenated along
+    ``params[0]``: ``cat`` and ``stack``). ``source``: the aten op it
+    lowers."""
+
+    kind: str
+    name: str
+    out: Ref
+    args: tuple
+    params: tuple = ()
+    source: str = ""
+
+
+@dataclass
+class Graph:
+    """A lowered function of the lane's point (scratch slot 0, n values):
+    its ops in order, its outputs, and the scratch it uses."""
+
+    ops: list
+    value: Ref
+    grad: Optional[Ref]
+    slots: int
+
+
+@dataclass
+class TracedObjective:
+    """An objective traced for B3 (see the module docstring): the
+    value-and-gradient graph, the value graph for line-search trials, and
+    the constants both read, on ``x0s``'s device in its dtype. ``obj`` and
+    ``value_and_grad_fn`` are the user's, for the plain version."""
+
+    obj: object
+    value_and_grad_fn: Optional[Callable]
+    n: int
+    dtype: torch.dtype
+    vag: Graph
+    val: Graph
+    consts: list = field(default_factory=list)
+    # B3's library for this trace, once built and loaded (resident_kernel.py
+    # :: traced_libraries), so that a trace solved again skips codegen and lookup
+    library: object = field(default=None, init=False, repr=False, compare=False)
+
+    @property
+    def extra_values(self) -> int:
+        """Scratch values one lane needs (the two graphs run in turn)."""
+        return max(self.vag.slots, self.val.slots)
+
+    @property
+    def ops_vag(self) -> int:
+        return graph_ops(self.vag)
+
+    @property
+    def ops_value(self) -> int:
+        return graph_ops(self.val)
+
+    @property
+    def const_bytes(self) -> int:
+        return sum(c.numel() * c.element_size() for c in self.consts)
+
+
+# ---------------------------------------------------------------------------
+# the op table
+
+# aten op -> the elementwise function it computes
+_ELEMENTWISE = {
+    aten.add.Tensor: "add", aten.add.Scalar: "add",
+    aten.sub.Tensor: "sub",
+    aten.rsub.Scalar: "rsub",
+    aten.mul.Tensor: "mul", aten.mul.Scalar: "mul",
+    aten.div.Tensor: "div",
+    aten.neg.default: "neg",
+    aten.pow.Tensor_Scalar: "pow",
+    aten.exp.default: "exp",
+    aten.log.default: "log",
+    aten.where.self: "where",
+    aten.gt.Scalar: "gt",
+    aten.logaddexp.default: "logaddexp",
+    aten.log_sigmoid_forward.default: "log_sigmoid",
+    aten.log_sigmoid_backward.default: "log_sigmoid_backward",
+}
+_UNARY = ("neg", "exp", "log", "log_sigmoid")
+# operations per element of each elementwise function, for the bound
+# (logaddexp: a - b, |.|, exp, log1p, max, +; log_sigmoid: |.|, exp,
+# log1p, min, -; its backward: |.|, exp, 1 + z, z / (1 + z), sign·, -, ·g)
+_EW_COST = {"add": 1, "sub": 1, "rsub": 1, "mul": 1, "div": 1, "neg": 1, "pow": 1, "exp": 1,
+            "log": 1, "where": 1, "gt": 1, "logaddexp": 6, "log_sigmoid": 5,
+            "log_sigmoid_backward": 7, "copy": 0}
+_VIEWS = {aten.t.default, aten.expand.default, aten.unsqueeze.default, aten.squeeze.dim,
+          aten.select.int, aten.slice.Tensor, aten.unbind.int}
+_FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.default: 0.0}
+# ops that stay literals rather than fold into a constant
+_KEEP = set(_FILLS) | {aten.scalar_tensor.default}
+_TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP
+          | {aten.lift_fresh_copy.default, aten.view.default, aten.sum.default,
+             aten.sum.dim_IntList, aten.logsumexp.default, aten.mv.default, aten.mm.default,
+             aten.dot.default, aten.select_backward.default, aten.slice_backward.default,
+             aten.stack.default, aten.cat.default, operator.getitem})
+
+
+def graph_ops(graph: Graph) -> int:
+    """Floating-point operations of one evaluation of ``graph`` (exp, log,
+    log1p and a division one each): the elementwise functions per output
+    element (`_EW_COST`), a sum one per input element, a logsumexp three
+    (the max, exp(a - max), the sum) and 2 per output, mv, mm and dot two
+    per product; copies, scatters and stacks move data and count none."""
+    ops = 0
+    for op in graph.ops:
+        if op.kind == "ew":
+            ops += _EW_COST[op.name] * op.out.numel
+        elif op.kind == "sum":
+            ops += op.args[0].numel
+        elif op.kind == "lse":
+            ops += 3 * op.args[0].numel + 2 * op.out.numel
+        elif op.kind == "mv":  # M (m, k) times a vector, or a matrix (k, p)
+            columns = op.args[1].shape[1] if len(op.args[1].shape) > 1 else 1
+            ops += 2 * op.args[0].numel * columns
+        elif op.kind == "dot":
+            ops += 2 * op.args[0].numel
+    return ops
+
+
+# ---------------------------------------------------------------------------
+# tracing
+
+
+def _user_line(tb_frames) -> str:
+    """The innermost of ``tb_frames`` (outermost first, all inside the
+    objective's call) outside torch and outside this tracing code, as
+    'file:line: code', or ''."""
+    torch_dir = os.path.dirname(torch.__file__)
+    own = {os.path.abspath(__file__),
+           os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..", "api.py"))}
+    for frame in reversed(list(tb_frames)):
+        path = os.path.abspath(frame.filename)
+        if path.startswith(torch_dir) or path in own or frame.filename.startswith("<"):
+            continue
+        return f"{frame.filename}:{frame.lineno}: {(frame.line or '').strip()}"
+    return ""
+
+
+def _refuse(what: str, line: str = "") -> ValueError:
+    where = f" (at {line})" if line else ""
+    return ValueError(
+        f"the resident kernel runs a traced objective on the card, and this one does not trace "
+        f"to its op table: {what}{where}; {_FUSED}")
+
+
+class _LineOf(torch.utils._python_dispatch.TorchDispatchMode):
+    """Records the user's line of the first dispatch of ``target``."""
+
+    def __init__(self, target):
+        super().__init__()
+        self.target, self.line = target, ""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func == self.target and not self.line:
+            stack = traceback.extract_stack()
+            starts = [i for i, f in enumerate(stack) if f.name == "_line_of"
+                      and os.path.abspath(f.filename) == os.path.abspath(__file__)]
+            self.line = _user_line(stack[starts[-1] + 1:] if starts else [])
+        return func(*args, **(kwargs or {}))
+
+
+def _line_of(fn, example, target) -> str:
+    """The user's line that calls ``target`` in a plain run of ``fn`` on
+    fake tensors ('' where the op is not in ``fn``'s own code, e.g. one
+    that autograd adds)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    mode = _LineOf(target)
+    try:
+        with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+            x = fake.from_tensor(example)
+            with mode:
+                fn(x)
+    except Exception:  # noqa: BLE001 - the line is a courtesy of the error message
+        pass
+    return mode.line
+
+
+def _make_graph(fn, example):
+    from torch.fx.experimental.proxy_tensor import make_fx
+
+    try:
+        return make_fx(lambda x: fn(x), tracing_mode="fake", _allow_non_fake_inputs=True)(example)
+    except Exception as exc:  # the user's code failed on a fake tensor
+        line = _user_line(traceback.extract_tb(exc.__traceback__))
+        name = type(exc).__name__
+        if "DataDependent" in name or "GuardOn" in name:
+            what = ("a data-dependent branch or shape (aten._local_scalar_dense: Python control "
+                    "flow or .item() on a traced value)")
+        else:
+            what = f"tracing failed with {name}: {str(exc).splitlines()[0] if str(exc) else ''}"
+        raise _refuse(what, line) from exc
+
+
+class _Lowering:
+    """Lowers one fx graph to `Op`s; constants go to ``consts`` (shared by
+    the two graphs of one objective)."""
+
+    def __init__(self, n, dtype, device, shared, fn, example):
+        self.n, self.dtype, self.device = n, dtype, device
+        self.consts, self.const_ids, self.folds = shared
+        self.fn, self.example = fn, example
+        self.ops = []
+        self.slots = n  # slot 0: the point
+
+    # refs --------------------------------------------------------------
+
+    def lane(self, shape) -> Ref:
+        shape = tuple(int(s) for s in shape)
+        ref = Ref("lane", shape, _contiguous_strides(shape), self.slots)
+        self.slots += max(1, math.prod(shape))
+        return ref
+
+    def const(self, tensor: torch.Tensor) -> Ref:
+        key = id(tensor)
+        if key not in self.const_ids:
+            self.const_ids[key] = (len(self.consts), tensor)  # keep the object alive
+            self.consts.append(tensor.to(self.device).contiguous())
+        index = self.const_ids[key][0]
+        t = self.consts[index]
+        return Ref("const", tuple(t.shape), _contiguous_strides(t.shape), 0, index,
+                   boolean=t.dtype == torch.bool)
+
+    def refuse(self, node, what):
+        line = _line_of(self.fn, self.example, node.target)
+        return _refuse(what, line)
+
+    # lowering ------------------------------------------------------------
+
+    def run(self, gm) -> Graph:
+        env = {}
+        for node in gm.graph.nodes:
+            if node.op == "placeholder":  # the point
+                env[node] = Ref("lane", (self.n,), (1,), 0)
+            elif node.op == "get_attr":
+                env[node] = self.const(getattr(gm, node.target))
+            elif node.op == "call_function":
+                env[node] = self.call(node, env)
+            elif node.op == "output":
+                return self.outputs(node, env)
+        raise _refuse("the objective returns nothing")
+
+    def outputs(self, node, env) -> Graph:
+        out = node.args[0]
+        outs = list(out) if isinstance(out, (tuple, list)) else [out]
+        refs = [self.output(self.arg(o, env), i == 1) for i, o in enumerate(outs)]
+        value, grad = refs[0], (refs[1] if len(refs) > 1 else None)
+        if value.numel != 1:
+            raise _refuse(f"the value has shape {value.shape}, not a scalar")
+        if grad is not None and grad.shape != (self.n,):
+            raise _refuse(f"the gradient has shape {grad.shape}, not ({self.n},)")
+        return Graph(self.ops, value, grad, self.slots)
+
+    def copy(self, ref: Ref) -> Ref:
+        out = self.lane(ref.shape)
+        self.ops.append(Op("ew", "copy", out, (ref,), source="copy"))
+        return out
+
+    def output(self, ref: Ref, grad: bool) -> Ref:
+        """``ref`` where the kernel reads an output: in lane scratch clear of
+        the point (whose slot the next evaluation writes before its first
+        barrier), the gradient contiguous; else copied into a fresh slot."""
+        if not isinstance(ref, Ref) or ref.boolean:
+            raise _refuse("an output that is not a floating-point tensor")
+        if (ref.kind == "lane" and ref.offset >= self.n
+                and (not grad or ref.strides == (1,))):
+            return ref
+        return self.copy(ref)
+
+    def arg(self, a, env):
+        if isinstance(a, torch.fx.Node):
+            return env[a]
+        if isinstance(a, (int, float)) and not isinstance(a, bool):
+            return Ref("lit", value=float(a))
+        if isinstance(a, bool):
+            return Ref("lit", value=float(a), boolean=True)
+        return a  # a size, a dim, a dtype: read from the node's args where needed
+
+    def call(self, node, env):
+        target = node.target
+        name = str(target)
+        if target is operator.getitem:
+            seq = env[node.args[0]]
+            return seq[node.args[1]]
+        if not isinstance(target, torch._ops.OpOverload):
+            raise self.refuse(node, f"the call {name}")
+        if target._schema.is_mutable:
+            target = self.out_of_place(node, env)
+        if torch.Tag.nondeterministic_seeded in target.tags:
+            raise self.refuse(node, f"a random op ({name})")
+        if target == aten._local_scalar_dense.default:
+            raise self.refuse(node, f"a host read of a traced value ({name}: .item() or Python "
+                                    "control flow)")
+        val = node.meta.get("val")
+        for v in (val if isinstance(val, (tuple, list)) else [val]):
+            if isinstance(v, torch.Tensor) and not all(isinstance(s, int) for s in v.shape):
+                raise self.refuse(node, f"a data-dependent shape ({name})")
+        tensors = [env[a] for a in _flat_nodes(node.args, node.kwargs)]
+        flat = [r for t in tensors for r in (t if isinstance(t, (list, tuple)) else [t])]
+        lane_in = any(isinstance(r, Ref) and r.kind == "lane" for r in flat)
+        const_in = any(isinstance(r, Ref) and r.kind == "const" for r in flat)
+        if target not in _TABLE and not (const_in and not lane_in):
+            raise self.refuse(node, f"an op outside the table ({name})")
+        if (const_in and not lane_in and target not in _KEEP
+                and target != aten.lift_fresh_copy.default):
+            if target not in _VIEWS or len(_meta_shape(node)) > 2:
+                return self.fold(node, env)
+        result = self.lower(node, env, target)
+        for r in (result if isinstance(result, (list, tuple)) else [result]):
+            if isinstance(r, Ref) and r.kind in ("lane", "const") and len(r.shape) > 2:
+                raise self.refuse(node, f"a per-lane value of rank {len(r.shape)} ({name})")
+        return result
+
+    def out_of_place(self, node, env):
+        """The out-of-place twin of an in-place op, where the value it writes
+        is an op's fresh output that nothing else reads (``matmul``'s own
+        ``squeeze_``); an in-place write to the point, a constant or a value
+        read elsewhere raises."""
+        target, base = node.target, node.args[0] if node.args else None
+        packet = getattr(aten, target._schema.name.split("::")[1].rstrip("_"), None)
+        twin = getattr(packet, target._overloadname, None) if packet is not None else None
+        fresh = (isinstance(base, torch.fx.Node) and base.op == "call_function"
+                 and base.target not in _VIEWS and base.target is not operator.getitem
+                 and len(base.users) == 1 and isinstance(env.get(base), Ref)
+                 and env[base].kind == "lane")
+        if twin is None or twin not in _TABLE or not fresh:
+            raise self.refuse(node, f"an in-place write ({target})")
+        return twin
+
+    def fold(self, node, env):
+        """An expression of constants (and literals) alone, computed now
+        (once for both graphs)."""
+        key = repr((str(node.target), _substitute(node.args, env), _substitute(node.kwargs, env)))
+        if key not in self.folds:
+            self.folds[key] = self.compute(node, env)
+        return self.folds[key]
+
+    def compute(self, node, env):
+
+        def real(a):
+            if isinstance(a, torch.fx.Node):
+                r = env[a]
+                if isinstance(r, (list, tuple)):
+                    return [real_ref(x) for x in r]
+                return real_ref(r)
+            if isinstance(a, (list, tuple)):
+                return type(a)(real(x) for x in a)
+            return a
+
+        def real_ref(r):
+            if r.kind == "const":
+                base = self.consts[r.index]
+                return torch.as_strided(base, r.shape, r.strides, r.offset)
+            dtype = torch.bool if r.boolean else self.dtype
+            return torch.full(r.shape, r.value, dtype=dtype, device=self.device)
+
+        args = tuple(real(a) for a in node.args)
+        kwargs = {k: real(v) for k, v in node.kwargs.items()}
+        out = node.target(*args, **kwargs)
+        if isinstance(out, (list, tuple)):
+            return [self.const(t) if isinstance(t, torch.Tensor) else t for t in out]
+        if not isinstance(out, torch.Tensor):
+            raise self.refuse(node, f"a host value from constants ({node.target})")
+        return self.const(out)
+
+    def lower(self, node, env, target):
+        a = [self.arg(x, env) if not isinstance(x, (list, tuple)) else x for x in node.args]
+        kw = node.kwargs
+        out_shape = _meta_shape(node)
+        if target in _FILLS:
+            fill = _FILLS[target]
+            return Ref("lit", out_shape, (0,) * len(out_shape), value=fill)
+        if target == aten.scalar_tensor.default:
+            return Ref("lit", (), (), value=float(node.args[0]))
+        if target == aten.lift_fresh_copy.default:  # a tensor made in the objective
+            return a[0]
+        if target in _VIEWS:
+            return _view(target, a[0], node.args[1:], out_shape)
+        if target in _ELEMENTWISE:
+            return self.elementwise(node, _ELEMENTWISE[target], a, kw, out_shape)
+        if target in (aten.sum.default, aten.sum.dim_IntList, aten.logsumexp.default):
+            if kw.get("dtype") not in (None, self.dtype):
+                raise self.refuse(node, f"a sum in another dtype ({target})")
+            src = self.floats(node, a[0])
+            dims = node.args[1] if len(node.args) > 1 else None
+            keepdim = bool(node.args[2]) if len(node.args) > 2 else bool(kw.get("keepdim", False))
+            return self.reduce(node, "lse" if target == aten.logsumexp.default else "sum", src,
+                               dims, keepdim)
+        if target in (aten.mv.default, aten.mm.default):
+            M, v = self.floats(node, a[0]), self.floats(node, a[1])
+            out = self.lane(out_shape)
+            self.ops.append(Op("mv", "mv", out, (M, v), source=str(target)))
+            return out
+        if target == aten.dot.default:
+            u, v = self.floats(node, a[0]), self.floats(node, a[1])
+            out = self.lane(())
+            self.ops.append(Op("dot", "dot", out, (u, v), source=str(target)))
+            return out
+        if target in (aten.select_backward.default, aten.slice_backward.default):
+            grad, sizes, dim = self.floats(node, a[0]), tuple(node.args[1]), node.args[2]
+            dim = dim % len(sizes)
+            if target == aten.select_backward.default:
+                start, step, count = node.args[3] % sizes[dim], 1, 1
+                grad = _view(aten.unsqueeze.default, grad, (dim,), None)
+            else:
+                start, end, step = node.args[3], node.args[4], node.args[5]
+                start, end, _ = slice(start, end, step).indices(sizes[dim])
+                count = len(range(start, end, step))
+            out = self.lane(sizes)
+            self.ops.append(Op("scatter", "scatter", out, (grad,), (dim, start, step, count),
+                               str(target)))
+            return out
+        if target in (aten.stack.default, aten.cat.default):
+            parts = [self.floats(node, env[x]) for x in node.args[0]]
+            dim = node.args[1] if len(node.args) > 1 else kw.get("dim", 0)
+            dim = dim % len(out_shape)
+            if target == aten.stack.default:  # a concatenation of the parts, each unsqueezed
+                parts = [_view(aten.unsqueeze.default, r, (dim,), None) for r in parts]
+            out = self.lane(out_shape)
+            self.ops.append(Op("cat", "cat", out, tuple(parts), (dim,), str(target)))
+            return out
+        if target == aten.view.default:  # a new shape of the same row-major values
+            src = self.floats(node, a[0])
+            if src.kind == "lit":
+                return Ref("lit", out_shape, (0,) * len(out_shape), value=src.value)
+            if not _is_contiguous(src):
+                src = self.copy(src)
+            return replace(src, shape=out_shape, strides=_contiguous_strides(out_shape))
+        raise self.refuse(node, f"an op outside the table ({target})")
+
+    def floats(self, node, ref: Ref) -> Ref:
+        if ref.boolean:
+            raise self.refuse(node, f"truth values as numbers ({node.target})")
+        if ref.kind == "const":
+            dtype = self.consts[ref.index].dtype
+            if dtype != self.dtype:
+                raise self.refuse(node, f"a constant of dtype {dtype} where x0s is {self.dtype} "
+                                        f"({node.target})")
+        return ref
+
+    def elementwise(self, node, fn, a, kw, out_shape):
+        params = ()
+        if fn in ("add", "sub", "rsub"):
+            alpha = kw.get("alpha", 1)
+            params = (float(alpha),)
+            operands = a[:2]
+        elif fn == "pow":
+            if not isinstance(node.args[1], (int, float)):
+                raise self.refuse(node, f"a traced exponent ({node.target})")
+            params = (float(node.args[1]),)
+            operands = a[:1]
+        elif fn == "where":
+            operands = a[:3]
+            if not operands[0].boolean:
+                raise self.refuse(node, "a condition that is not a comparison (aten.where.self)")
+            if operands[0].kind == "const":  # a closed-over mask, as 0/1 in x0s's dtype
+                operands[0] = self.const(self.consts[operands[0].index].to(self.dtype))
+                operands[0] = replace(operands[0], boolean=True)
+        elif fn in _UNARY:
+            operands = a[:1]
+        elif fn == "log_sigmoid_backward":
+            operands = a[:2]  # the CUDA formula needs no buffer
+        else:
+            operands = a[:2]
+        checked = [operands[0]] if fn == "where" else []
+        checked += [self.floats(node, r) for r in operands[len(checked):]]
+        out = self.lane(out_shape)
+        out = replace(out, boolean=fn == "gt")
+        self.ops.append(Op("ew", fn, out, tuple(checked), params, str(node.target)))
+        if fn == "log_sigmoid":  # (output, buffer): the buffer is never read
+            return (out, Ref("lit"))
+        return out
+
+    def reduce(self, node, kind, src: Ref, dims, keepdim):
+        rank = len(src.shape)
+        dims = sorted({d % rank for d in dims}) if dims else list(range(rank))
+        if rank == 0:
+            dims = []
+        keep = [d for d in range(rank) if d not in dims]
+        out = self.lane(tuple(src.shape[d] for d in keep))
+        self.ops.append(Op(kind, kind, out, (src,), (tuple(dims),), str(node.target)))
+        if keepdim and dims:
+            shape = tuple(1 if d in dims else src.shape[d] for d in range(rank))
+            return Ref("lane", shape, _contiguous_strides(shape), out.offset)
+        return out
+
+
+def _is_contiguous(ref: Ref) -> bool:
+    return all(st == c for size, st, c in zip(ref.shape, ref.strides,
+                                              _contiguous_strides(ref.shape)) if size != 1)
+
+
+def _meta_shape(node) -> tuple:
+    val = node.meta.get("val")
+    if isinstance(val, (tuple, list)):
+        val = val[0]
+    return tuple(int(s) for s in val.shape) if isinstance(val, torch.Tensor) else ()
+
+
+def _substitute(a, env):
+    """``a`` with each node replaced by its lowered value (a fold's key)."""
+    if isinstance(a, torch.fx.Node):
+        return env[a]
+    if isinstance(a, (list, tuple)):
+        return tuple(_substitute(x, env) for x in a)
+    if isinstance(a, dict):
+        return tuple(sorted((k, _substitute(v, env)) for k, v in a.items()))
+    return a
+
+
+def _flat_nodes(args, kwargs):
+    out = []
+    for a in list(args) + list(kwargs.values()):
+        if isinstance(a, torch.fx.Node):
+            out.append(a)
+        elif isinstance(a, (list, tuple)):
+            out.extend(x for x in a if isinstance(x, torch.fx.Node))
+    return out
+
+
+def _view(target, ref: Ref, args, out_shape) -> Ref:
+    """The view ``target`` of ``ref``: a new shape, strides and offset over
+    the same values (a literal stays a literal of the new shape)."""
+    shape, strides, offset = list(ref.shape), list(ref.strides), ref.offset
+    if target == aten.t.default:
+        shape, strides = shape[::-1], strides[::-1]
+    elif target == aten.expand.default:
+        sizes = list(args[0])
+        lead = len(sizes) - len(shape)
+        new_strides = []
+        for i, size in enumerate(sizes):
+            if i < lead:
+                new_strides.append(0)
+            else:
+                old = shape[i - lead]
+                new_strides.append(strides[i - lead] if old == size or size == -1 else 0)
+        shape = [shape[i - lead] if (s == -1) else s for i, s in enumerate(sizes)]
+        strides = new_strides
+    elif target == aten.unsqueeze.default:
+        dim = args[0] % (len(shape) + 1)
+        shape.insert(dim, 1)
+        strides.insert(dim, 0)
+    elif target == aten.squeeze.dim:
+        dim = args[0] % max(1, len(shape))
+        if shape and shape[dim] == 1:
+            del shape[dim], strides[dim]
+    elif target == aten.select.int:
+        dim = args[0] % len(shape)
+        index = args[1] % shape[dim]
+        offset += index * strides[dim]
+        del shape[dim], strides[dim]
+    elif target == aten.slice.Tensor:
+        dim = args[0] % len(shape) if args else 0
+        start = args[1] if len(args) > 1 else None
+        end = args[2] if len(args) > 2 else None
+        step = args[3] if len(args) > 3 else 1
+        start, end, step = slice(start, end, step).indices(shape[dim])
+        offset += start * strides[dim]
+        shape[dim] = len(range(start, end, step))
+        strides[dim] *= step
+    elif target == aten.unbind.int:
+        dim = args[0] % len(shape) if args else 0
+        return [_view(aten.select.int, ref, (dim, i), None) for i in range(shape[dim])]
+    if ref.kind == "lit":
+        return replace(ref, shape=tuple(shape), strides=(0,) * len(shape))
+    return replace(ref, shape=tuple(shape), strides=tuple(strides), offset=offset)
+
+
+def trace_objective(obj, value_and_grad_fn: Optional[Callable], x0s: torch.Tensor
+                    ) -> TracedObjective:
+    """Trace ``obj`` (with ``value_and_grad_fn`` where given) for B3 on
+    ``x0s``'s lanes: (n,) points in its dtype, constants on its device.
+    Raises ValueError where the objective does not trace to the op table
+    (see the module docstring), on every device alike. The trace keeps its
+    B3 library once built: pass it to `optimize_batched_resident` as the
+    objective to solve again without tracing, generating or looking up."""
+    n, dtype, device = x0s.shape[1], x0s.dtype, x0s.device
+    vag_fn = as_value_and_grad(obj, value_and_grad_fn)
+    val_fn = as_value_fn(obj, value_and_grad_fn)
+    example = torch.empty(n, dtype=dtype, device=device)
+    consts = []
+    shared = (consts, {}, {})  # constants, their ids, folded expressions
+    graphs = []
+    # the value first: an in-place write shows there as itself, not as
+    # autograd's complaint about it
+    for fn, want_grad in ((val_fn, False), (vag_fn, True)):
+        gm = _make_graph(fn, example)
+        graph = _Lowering(n, dtype, device, shared, fn, example).run(gm)
+        if want_grad and graph.grad is None:
+            raise _refuse("the value-and-gradient function returns one output")
+        graphs.append(graph)
+    val, vag = graphs
+    val.grad = None
+    return TracedObjective(obj, value_and_grad_fn, n, dtype, vag, val,
+                           _kernel_consts(consts, (val, vag)))
+
+
+def _kernel_consts(consts, graphs) -> list:
+    """The constants the graphs' ops read (a constant folded into another
+    is not one), renumbered in place of the lowering's list."""
+    used = sorted({r.index for g in graphs for op in g.ops for r in op.args if r.kind == "const"})
+    number = {old: new for new, old in enumerate(used)}
+
+    def renumber(r):
+        return replace(r, index=number[r.index]) if r.kind == "const" else r
+
+    for g in graphs:
+        g.ops[:] = [replace(op, args=tuple(renumber(r) for r in op.args)) for op in g.ops]
+    return [consts[i] for i in used]
+
+
+# ---------------------------------------------------------------------------
+# the plain version of the generated evaluation
+
+
+def _load(ref: Ref, scratch: torch.Tensor, consts, dtype) -> torch.Tensor:
+    if ref.kind == "lit":
+        return torch.full(ref.shape, ref.value, dtype=dtype, device=scratch.device)
+    base = scratch if ref.kind == "lane" else consts[ref.index]
+    return torch.as_strided(base, ref.shape, ref.strides, ref.offset)
+
+
+def _pow(a, e):
+    if e == 0:
+        return torch.ones_like(a)
+    if e == 1:
+        return a.clone()
+    if e == 2:
+        return a * a
+    if e == 3:
+        return a * a * a
+    if e == 0.5:
+        return torch.sqrt(a)
+    if e == -0.5:
+        return torch.rsqrt(a)
+    if e == -1:
+        return 1.0 / a
+    if e == -2:
+        return 1.0 / (a * a)
+    return torch.pow(a, e)
+
+
+def _elementwise(op: Op, x, dtype):
+    """The kernel's formula for each elementwise function (torch's CUDA
+    one: a division by a literal is a product by its reciprocal, the
+    log-sigmoid's backward needs no buffer)."""
+    name, p = op.name, op.params
+    if name == "copy":
+        return x[0].clone()
+    if name == "add":
+        return x[0] + x[1] if p[0] == 1 else x[0] + p[0] * x[1]
+    if name == "sub":
+        return x[0] - x[1] if p[0] == 1 else x[0] - p[0] * x[1]
+    if name == "rsub":
+        return x[1] - x[0] if p[0] == 1 else x[1] - p[0] * x[0]
+    if name == "mul":
+        return x[0] * x[1]
+    if name == "div":
+        if op.args[1].kind == "lit":
+            inv = torch.tensor(1.0, dtype=dtype) / torch.tensor(op.args[1].value, dtype=dtype)
+            return x[0] * inv.to(x[0].device)
+        return x[0] / x[1]
+    if name == "neg":
+        return -x[0]
+    if name == "pow":
+        return _pow(x[0], p[0])
+    if name == "exp":
+        return torch.exp(x[0])
+    if name == "log":
+        return torch.log(x[0])
+    if name == "where":
+        return torch.where(x[0] != 0, x[1], x[2])
+    if name == "gt":
+        return (x[0] > x[1]).to(dtype)
+    if name == "logaddexp":
+        a, b = torch.broadcast_tensors(x[0], x[1])
+        m = torch.maximum(a, b)
+        r = m + torch.log1p(torch.exp(-torch.abs(a - b)))
+        return torch.where(torch.isinf(a) & (a == b), a, r)
+    if name == "log_sigmoid":
+        a = x[0]
+        return torch.clamp(a, max=0.0) - torch.log1p(torch.exp(-torch.abs(a)))
+    if name == "log_sigmoid_backward":
+        g, a = x[0], x[1]
+        neg = a < 0
+        z = torch.exp(-torch.abs(a))
+        max_deriv = neg.to(dtype)
+        sign = torch.where(neg, 1.0, -1.0).to(dtype)
+        return g * (max_deriv - sign * (z / (1.0 + z)))
+    raise AssertionError(name)
+
+
+def evaluate(graph: Graph, x: torch.Tensor, consts) -> tuple:
+    """Run ``graph`` op by op on one point ``x`` (n,) with torch: (value,
+    gradient or None), as the generated objective computes them (the order
+    of sums aside)."""
+    dtype = x.dtype
+    scratch = torch.zeros(graph.slots, dtype=dtype, device=x.device)
+    scratch[: x.shape[0]] = x
+    for op in graph.ops:
+        ins = [_load(r, scratch, consts, dtype) for r in op.args]
+        if op.kind == "ew":
+            y = _elementwise(op, ins, dtype)
+        elif op.kind == "sum":
+            dims = op.params[0]
+            y = ins[0].sum(dim=dims) if dims else ins[0].clone()
+        elif op.kind == "lse":
+            dims = op.params[0]
+            a = ins[0]
+            if not dims:
+                y = a.clone()
+            else:
+                m = torch.amax(a, dim=dims, keepdim=True)
+                m = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+                y = torch.log(torch.exp(a - m).sum(dim=dims)) + m.squeeze(dims)
+        elif op.kind == "mv":
+            y = ins[0] @ ins[1]
+        elif op.kind == "dot":
+            y = torch.dot(ins[0], ins[1])
+        elif op.kind == "scatter":
+            dim, start, step, count = op.params
+            y = torch.zeros(op.out.shape, dtype=dtype, device=x.device)
+            index = [slice(None)] * len(op.out.shape)
+            index[dim] = slice(start, start + step * count, step)
+            y[tuple(index)] = ins[0]
+        elif op.kind == "cat":
+            y = torch.cat(ins, dim=op.params[0])
+        else:
+            raise AssertionError(op.kind)
+        y = torch.broadcast_to(y, op.out.shape)
+        scratch[op.out.offset: op.out.offset + op.out.numel] = y.reshape(-1)
+    value = _load(graph.value, scratch, consts, dtype).reshape(())
+    grad = None if graph.grad is None else _load(graph.grad, scratch, consts, dtype).clone()
+    return value, grad

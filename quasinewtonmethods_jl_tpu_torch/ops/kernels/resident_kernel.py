@@ -13,7 +13,11 @@ the logistic-regression and Poisson MAPs (`models.LogisticRegressionMAP`,
 mixture (`models.GaussianMixture`: means, weights and sigmas in device
 memory, at most 8 components); and the AR(1) state-space MAP
 (`models.AR1DriftMAP`: A, copied to shared memory, and ys in device
-memory). On CPU tensors it takes the plain version,
+memory). Any other objective comes traced (`TracedObjective`,
+ops/kernels/objective_trace.py): its value and gradient are generated as
+CUDA for its graph and shapes (ops/kernels/objective_codegen.py), built at
+first use into a library of their own (`load_generated`), and its
+constants lie in device memory. On CPU tensors it takes the plain version,
 `optimize_batched_resident_reference`: the fleet engine with the plain
 update on the same objective, which the kernel is held to.
 """
@@ -43,8 +47,10 @@ from ...models.rosenbrock import rosenbrock_logdensity, rosenbrock_value_and_gra
 from ...solve import OptimizeResult
 from ...utils.scalars import finite_halving_limit, sqrt_tolerance
 from ..linesearch import BackTracking
-from ._build import check_launch, load_library
+from ._build import check_launch, load_generated, load_library
 from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES, launch_occupancy
+from .objective_codegen import generate, lane_warps
+from .objective_trace import TracedObjective
 
 __all__ = [
     "resident_bfgs_solve",
@@ -53,6 +59,7 @@ __all__ = [
     "resident_occupancy",
     "objective_name",
     "objective_on",
+    "traced_libraries",
     "KERNEL_MODELS",
 ]
 
@@ -72,9 +79,12 @@ MAX_MIXTURE_COMPONENTS = 8
 
 def objective_name(objective) -> str:
     """The kernel instantiation that evaluates ``objective``: 'rosenbrock'
-    for None (the split Rosenbrock), 'funnel' for `funnel_logdensity`, else
-    that of a `KERNEL_MODELS` model. Raises ValueError for any other
-    objective."""
+    for None (the split Rosenbrock), 'funnel' for `funnel_logdensity`,
+    'traced' for a `TracedObjective`, else that of a `KERNEL_MODELS` model.
+    Raises ValueError for any other objective (a function or a model not
+    yet traced)."""
+    if isinstance(objective, TracedObjective):
+        return "traced"
     if objective is None:
         return "rosenbrock"
     if objective is funnel_logdensity:
@@ -98,11 +108,6 @@ def objective_on(objective, x0s: torch.Tensor):
     return model
 
 
-def _lane_warps(n: int) -> int:
-    # bfgs_common.cuh :: lane_warps
-    return 1 if n <= 64 else (n + 63) // 64
-
-
 def _objective_size(objective) -> int:
     """The size the objective's shared memory depends on besides n: the
     AR(1)'s number of steps; 0 for the others."""
@@ -115,8 +120,10 @@ def _extra_values(objective, n: int) -> int:
     residuals, the AR(1)'s A, its states z_0..z_T and two adjoint buffers,
     none for the others."""
     name = objective_name(objective)
+    if name == "traced":
+        return objective.extra_values
     if name in ("logistic", "poisson"):
-        return n + 32 * _lane_warps(n)
+        return n + 32 * lane_warps(n)
     if name == "ar1":
         return n * n + (_objective_size(objective) + 1) * n + 2 * n
     return 0
@@ -128,7 +135,8 @@ def resident_feasible(n: int, itemsize: int, objective=None) -> bool:
     scratch + the objective's own)·itemsize. For the Rosenbrock (the
     default), the quadratic, the funnel and the mixture n <= 236 in
     float32, n <= 165 in float64; the GLMs' scratch takes a little more,
-    the AR(1)'s depends on its number of steps too. Larger n belong to
+    the AR(1)'s depends on its number of steps too, a traced objective's
+    on its graph (one slot per op's output). Larger n belong to
     `optimize_batched_fused`."""
     values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective, n)
     return values * itemsize <= SMEM_LIMIT_BYTES
@@ -149,7 +157,14 @@ def optimize_batched_resident_reference(
     the top of an iteration and its value alone in line-search trials, as
     this run does: `rosenbrock_value_and_grad` and `rosenbrock_logdensity`;
     a model's ``logdensity_and_gradient`` and ``logdensity``; the funnel's
-    gradient by ``torch.func``."""
+    gradient by ``torch.func``; a traced objective's user functions, as
+    the fleet engine resolves them."""
+    if isinstance(objective, TracedObjective):
+        return optimize_batched_fused(
+            objective.obj, x0s, ls, tol, max_iterations,
+            value_and_grad_fn=objective.value_and_grad_fn, kernel="torch", h0_scale=h0_scale,
+            stall_limit=stall_limit,
+        )
     if objective is None:
         return optimize_batched_fused(
             rosenbrock_logdensity, x0s, ls, tol, max_iterations,
@@ -199,10 +214,33 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def traced_libraries(*traced: TracedObjective) -> list:
+    """The libraries of B3 with each traced objective's generated
+    evaluation (ctypes), built where needed, in parallel, and loaded. Each
+    trace keeps its library (``library``): a trace solved again neither
+    generates its text nor looks it up."""
+    todo = [t for t in traced if t.library is None]
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for built, t in zip(load_generated(*(generate(t) for t in todo)), todo):
+        lib = built.cdll
+        real = ctypes.c_float if t.dtype == torch.float32 else ctypes.c_double
+        lib.qnm_traced_solve.argtypes = ([ptr] * 14 + [i32, i32] + [real] * 6 + [i32] * 5
+                                         + [ptr, ptr])
+        lib.qnm_traced_solve.restype = i32
+        lib.qnm_traced_occupancy.argtypes = [ctypes.POINTER(i32)] * 3
+        lib.qnm_traced_occupancy.restype = i32
+        t.library = lib
+    return [t.library for t in traced]
+
+
 def resident_occupancy(n: int, itemsize: int, objective=None) -> dict:
     """B3's launch at n on the current card, for ``objective``'s
-    instantiation (see `objective_name`): registers per thread, threads per
-    block, blocks per SM."""
+    instantiation (see `objective_name`; a traced objective's at its own n
+    and dtype): registers per thread, threads per block, blocks per SM."""
+    if isinstance(objective, TracedObjective):
+        lib = traced_libraries(objective)[0]
+        return launch_occupancy(lambda n, itemsize, *out: lib.qnm_traced_occupancy(*out),
+                                objective.n, objective.dtype.itemsize)
     number, size = _OBJECTIVE_IDS[objective_name(objective)], _objective_size(objective)
 
     def query(n, itemsize, *out):
@@ -216,6 +254,17 @@ def _data_args(name: str, objective, x0s: torch.Tensor) -> list:
     must lie on x0s's device in its dtype, contiguous (the entry point puts
     them there once per solve, `objective_on`), then its sizes and
     constants."""
+    if name == "traced":
+        if objective.n != x0s.shape[1] or objective.dtype != x0s.dtype:
+            raise ValueError(f"the objective was traced for ({objective.n},) {objective.dtype} "
+                             f"points, got x0s {tuple(x0s.shape)} {x0s.dtype}")
+        for t in objective.consts:
+            if t.device != x0s.device or t.dtype != x0s.dtype or not t.is_contiguous():
+                raise ValueError(f"a traced objective's constants must be contiguous "
+                                 f"{x0s.dtype} tensors on {x0s.device}, got {t.dtype} on "
+                                 f"{t.device}")
+        return [(ctypes.c_void_p * max(1, len(objective.consts)))(
+            *(t.data_ptr() for t in objective.consts))]
     if type(objective) not in KERNEL_MODELS:
         return []  # the split Rosenbrock and the funnel
     tensors = [getattr(objective, attr) for attr in KERNEL_MODELS[type(objective)][1]]
@@ -266,10 +315,10 @@ def resident_bfgs_solve(
     ``resident_bfgs_solve.objective_launches``. It raises where the kernel
     cannot run: TypeError for a dtype other than float32/float64,
     ValueError for an objective it has no instantiation for or whose data
-    are elsewhere, a mixture of more than 8 components, or when one lane
-    does not fit a block's shared memory (`resident_feasible`),
-    RuntimeError on a failed build or launch. On CPU
-    tensors it computes the plain version."""
+    are elsewhere (a traced objective's constants too, and its n and
+    dtype), a mixture of more than 8 components, or when one lane does not
+    fit a block's shared memory (`resident_feasible`), RuntimeError on a
+    failed build or launch. On CPU tensors it computes the plain version."""
     name = objective_name(objective)
     if x0s.device.type == "cpu":
         return optimize_batched_resident_reference(
@@ -297,10 +346,14 @@ def resident_bfgs_solve(
     ints = [torch.empty(batch, dtype=torch.int32, device=X0.device) for _ in range(6)]
     status, iterations, n_fev, n_gev, n_resets, stall = ints
     fresh = torch.empty(batch, dtype=torch.bool, device=X0.device)
-    lib = _library()
     suffix = "f32" if dtype == torch.float32 else "f64"
-    launch = getattr(lib, f"qnm_resident_solve_{suffix}" if name == "rosenbrock"
-                     else f"qnm_resident_solve_{name}_{suffix}")
+    if name == "traced":
+        lib = traced_libraries(objective)[0]
+        launch = lib.qnm_traced_solve
+    else:
+        lib = _library()
+        launch = getattr(lib, f"qnm_resident_solve_{suffix}" if name == "rosenbrock"
+                         else f"qnm_resident_solve_{name}_{suffix}")
     with torch.cuda.device(X0.device):
         stream = torch.cuda.current_stream(X0.device).cuda_stream
         err = launch(
@@ -310,7 +363,7 @@ def resident_bfgs_solve(
             sqrt_tolerance(dtype), ls.iterations + finite_halving_limit(dtype),
             max_iterations, stall_limit, ls.order, int(bool(h0_scale)), *data, stream,
         )
-    check_launch(err, f"resident_solve[{name}]")
+    check_launch(err, f"resident_solve[{name}]", lib)
     resident_bfgs_solve.launches += 1
     resident_bfgs_solve.objective_launches[name] += 1
     X, G, G_old, STEP = vec
@@ -322,4 +375,4 @@ def resident_bfgs_solve(
 
 
 resident_bfgs_solve.launches = 0
-resident_bfgs_solve.objective_launches = dict.fromkeys(_OBJECTIVE_IDS, 0)
+resident_bfgs_solve.objective_launches = dict.fromkeys((*_OBJECTIVE_IDS, "traced"), 0)

@@ -17,34 +17,45 @@ such a difference grows along a trajectory, so over a whole solve a lane's
 counters may differ from the plain run's while the statuses and the
 optimum agree (PERF.md).
 
-Objective contract. The JAX kernel traces any jnp objective into its body,
-its closed-over data hoisted into kernel inputs; a hand-written kernel
-cannot trace a torch function, so B3 evaluates its objective on the card,
-one instantiation per objective (csrc/resident_objectives.cuh). The port
-has seven, recognised by identity or by exact type:
-  * the split Rosenbrock of models/rosenbrock.py: `rosenbrock_logdensity`
-    (with ``value_and_grad_fn`` None or `rosenbrock_value_and_grad`) or a
-    `models.Rosenbrock` instance;
-  * Neal's funnel: `models.funnel_logdensity`, with ``value_and_grad_fn``
-    None;
-and, with ``value_and_grad_fn`` None, an instance of
-  * `models.IllConditionedQuadratic` (its ``diag`` and ``x_star``);
-  * `models.LogisticRegressionMAP` (its ``X``, ``y`` and ``prior_scale``);
-  * `models.PoissonRegressionMAP` (the same);
-  * `models.GaussianMixture` (its ``means``, ``weights`` and ``sigmas``;
-    at most 8 components);
-  * `models.AR1DriftMAP` (its ``A``, ``ys``, ``obs_scale`` and
-    ``prior_scale``; the hand-written counterpart of JAX's scan-bodied
-    objective, whose dot rewrite this engine does not need).
-A model's data go to ``x0s``'s device and dtype once per solve, for the
-kernel and the plain version alike. Every other objective (a subclass of
-those models too, which may evaluate something else) raises ValueError on
-every device, pointing to `optimize_batched_fused`, which takes any
-objective; nothing falls back to the plain version unasked.
+Objective contract: any objective whose value and gradient trace to B3's
+op table, as in the JAX engine, which traces any jnp objective into its
+kernel body with its closed-over arrays hoisted into kernel inputs. The
+port's kernel takes its objective as a template argument, so it has two
+routes:
+  * seven objectives written by hand (csrc/resident_objectives.cuh), taken
+    first, by identity or by exact type: the split Rosenbrock of
+    models/rosenbrock.py (`rosenbrock_logdensity`, with
+    ``value_and_grad_fn`` None or `rosenbrock_value_and_grad`, or a
+    `models.Rosenbrock` instance), Neal's funnel `models.funnel_logdensity`
+    (``value_and_grad_fn`` None), and instances of
+    `models.IllConditionedQuadratic`, `LogisticRegressionMAP`,
+    `PoissonRegressionMAP`, `GaussianMixture` (at most 8 components) and
+    `AR1DriftMAP` (``value_and_grad_fn`` None); their data go to ``x0s``'s
+    device and dtype once per solve;
+  * every other objective is traced (ops/kernels/objective_trace.py): its
+    value and gradient, resolved as the fleet engine resolves them
+    (``value_and_grad_fn``, else ``logdensity_and_gradient``, else
+    ``torch.func``; trials take the log-density), are traced for one lane
+    on fake tensors, lowered to a graph of static shapes whose closed-over
+    tensors become constants on ``x0s``'s device, and generated as CUDA
+    (ops/kernels/objective_codegen.py), built with nvcc at first use. A
+    bound method, a lambda around a model, a subclass, a user
+    ``value_and_grad_fn`` and any inline function of the table's ops run
+    there. The trace runs on every call that passes the function itself
+    (tens of milliseconds of host time); a caller that solves one
+    objective at one shape many times traces it once (`trace_objective`)
+    and passes the trace as ``obj``, which also keeps its built library.
+An objective that does not trace to the table (an op outside it, a
+per-lane value of rank > 2, data-dependent control flow or shapes,
+``.item()``, random ops, in-place writes, a constant in another floating
+dtype than ``x0s``) raises ValueError on every device, naming the op and
+the user's line, and points to `optimize_batched_fused`, which takes any
+objective; nothing falls back to the plain version or to the fleet engine
+unasked.
 
-The JAX engine's ``block_batch``, ``interpret``, ``rewrite_dots``,
-`_hoist_consts` and ``ops/dot_rewrite.py`` exist only for Mosaic and have
-no counterpart here.
+The JAX engine's ``block_batch``, ``interpret``, ``rewrite_dots`` and
+``ops/dot_rewrite.py`` exist only for Mosaic and have no counterpart here
+(``mv`` stays ``mv``); `_hoist_consts` is the trace's constants.
 """
 
 from __future__ import annotations
@@ -55,6 +66,7 @@ import torch
 
 from .models.funnel import funnel_logdensity
 from .models.rosenbrock import Rosenbrock, rosenbrock_logdensity, rosenbrock_value_and_grad
+from .ops.kernels.objective_trace import TracedObjective, trace_objective
 from .ops.kernels.resident_kernel import (
     KERNEL_MODELS,
     objective_on,
@@ -70,6 +82,7 @@ __all__ = [
     "optimize_batched_resident",
     "optimize_batched_resident_reference",
     "resident_feasible",
+    "trace_objective",
 ]
 
 
@@ -81,21 +94,17 @@ def _is_rosenbrock(obj, value_and_grad_fn) -> bool:
 
 def _kernel_objective(obj, value_and_grad_fn, x0s: torch.Tensor):
     """The objective B3 evaluates: None for the split Rosenbrock,
-    `funnel_logdensity`, or a shallow copy of a data-bearing model with its
-    data on ``x0s``'s device and dtype. Raises ValueError for any other
-    objective."""
+    `funnel_logdensity`, a shallow copy of a hand-written instantiation's
+    model with its data on ``x0s``'s device and dtype, or else the
+    objective traced for ``x0s`` (`trace_objective`, which raises
+    ValueError for an objective that does not trace to the op table)."""
     if _is_rosenbrock(obj, value_and_grad_fn):
         return None
     if value_and_grad_fn is None and (obj is funnel_logdensity or type(obj) in KERNEL_MODELS):
         return objective_on(obj, x0s)
-    raise ValueError(
-        "the resident kernel evaluates its objective on the card and knows only the split "
-        "Rosenbrock (rosenbrock_logdensity, with value_and_grad_fn None or "
-        "rosenbrock_value_and_grad, or a models.Rosenbrock instance), "
-        "models.funnel_logdensity, and instances of models.IllConditionedQuadratic, "
-        "LogisticRegressionMAP, PoissonRegressionMAP, GaussianMixture and AR1DriftMAP (each "
-        "with value_and_grad_fn None); use optimize_batched_fused for any other objective"
-    )
+    if isinstance(obj, TracedObjective) and value_and_grad_fn is None:
+        return obj  # traced once by the caller, for solves of one shape
+    return trace_objective(obj, value_and_grad_fn, x0s)
 
 
 def optimize_batched_resident(
@@ -113,17 +122,19 @@ def optimize_batched_resident(
     docstring); result-compatible with `optimize_batched_fused`.
 
     Args:
-      obj: the split Rosenbrock (`rosenbrock_logdensity` or a
-        `models.Rosenbrock`), `models.funnel_logdensity`, or a
-        `models.IllConditionedQuadratic`, `LogisticRegressionMAP`,
-        `PoissonRegressionMAP`, `GaussianMixture` (K <= 8) or
-        `AR1DriftMAP`; any other objective raises ValueError.
+      obj: a log-density (a callable or a model with ``logdensity``)
+        whose value and gradient trace to B3's op table (see the module
+        docstring); the seven hand-written instantiations are taken first.
+        An objective that does not trace raises ValueError.
       x0s: (batch, n) float32/float64 starting points. A tensor's device is
         where the solve runs; anything else goes to the CUDA card
         (`as_device_tensor`).
       kernel: 'cuda' (B3, CUDA tensors only; raises where one lane does not
         fit, see `resident_feasible`), 'torch' (the plain version, any
-        device) or 'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU).
+        device: the fleet engine with the plain update on the objective)
+        or 'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU). The trace runs
+        on every device, so an objective that does not trace raises on
+        the CPU too.
 
     Returns:
       OptimizeResult with a leading batch axis on every leaf.

@@ -2,9 +2,8 @@
 """Digests of the resident kernel B3's results, to show that a change of
 its source left an instantiation's arithmetic as it was.
 
-For each of the instantiations older than the GLM row loop (split
-Rosenbrock, ill-conditioned quadratic, logistic-regression MAP) one fixed
-solve runs on the card through `optimize_batched_resident(kernel="cuda")`,
+For each of the seven hand-written instantiations one fixed solve runs on
+the card through `optimize_batched_resident(kernel="cuda")`,
 and the SHA-256 of every output (the counters, fresh, stall, x, grad, B,
 fun, as bytes in that order) is printed with the instantiation's
 registers per thread (`resident_occupancy`):
@@ -16,7 +15,18 @@ registers per thread (`resident_occupancy`):
   - logistic f32: BASELINE config 3's posterior and its 4096 starts as
     chip_smoke.py's `logistic_data` draws them, tol 3e-3;
   - logistic f64: 64 x 20, 500 observations drawn by the model's recipe
-    with numpy from seed 20260836, tol 1e-6.
+    with numpy from seed 20260836, tol 1e-6;
+
+and for the four fixture instantiations, each over 64 starts from numpy
+seed 20260816 + n:
+
+  - funnel f64: n = 4, N(0, 1) starts, tol 1e-6;
+  - mixture f32: 8 components at n = 60, means and starts 3·N(0, 1),
+    sigma 4, tol 1e-3;
+  - poisson f32: n = 50, 400 observations (X = N(0, 1)/sqrt(n), y =
+    Poisson(exp(X w)), w = 0.5·N(0, 1)), prior scale 10, tol 1e-2;
+  - ar1 f64: n = 8, 32 steps, A scaled to spectral radius 0.6, observation
+    scale 0.5, prior scale 10, tol 1e-6.
 
 Each checkout named on the command line runs in a process of its own, so
 that two versions can be compared on one card:
@@ -57,8 +67,12 @@ def digests(device):
 
     import quasinewtonmethods_jl_tpu_torch as qt
     from quasinewtonmethods_jl_tpu_torch.models import (
+        AR1DriftMAP,
+        GaussianMixture,
         IllConditionedQuadratic,
         LogisticRegressionMAP,
+        PoissonRegressionMAP,
+        funnel_logdensity,
         rosenbrock_logdensity,
     )
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_occupancy
@@ -99,6 +113,37 @@ def digests(device):
     logistic = LogisticRegressionMAP(20, 500, X=Xd, y=yd, dtype=f64, device=device)
     X = torch.tensor(rng.standard_normal((64, 20)), dtype=f64, device=device)
     solve("logistic f64", logistic, X, 1e-6, logistic)
+
+    rng = np.random.default_rng(SEED + 4)
+    X = torch.tensor(rng.standard_normal((64, 4)), dtype=f64, device=device)
+    solve("funnel f64", funnel_logdensity, X, 1e-6, funnel_logdensity)
+
+    rng = np.random.default_rng(SEED + 60)
+    mixture = GaussianMixture(3.0 * rng.standard_normal((8, 60)), sigmas=4.0, dtype=f32,
+                              device=device)
+    X = torch.tensor(3.0 * rng.standard_normal((64, 60)), dtype=f32, device=device)
+    solve("mixture f32", mixture, X, 1e-3, mixture)
+
+    rng = np.random.default_rng(SEED + 50)
+    Xd = rng.standard_normal((400, 50)) / np.sqrt(50)
+    yd = rng.poisson(np.exp(Xd @ (0.5 * rng.standard_normal(50)))).astype(np.float64)
+    poisson = PoissonRegressionMAP(50, 400, prior_scale=10.0, X=Xd, y=yd, dtype=f32,
+                                   device=device)
+    X = torch.tensor(rng.standard_normal((64, 50)), dtype=f32, device=device)
+    solve("poisson f32", poisson, X, 1e-2, poisson)
+
+    rng = np.random.default_rng(SEED + 8)
+    A = rng.standard_normal((8, 8))
+    A = A * (0.6 / np.max(np.abs(np.linalg.eigvals(A))))
+    w_true, z, zs = rng.standard_normal(8), np.zeros(8), []
+    for _ in range(32):
+        z = A @ z + w_true
+        zs.append(z)
+    ys = np.stack(zs) + 0.5 * rng.standard_normal((32, 8))
+    ar1 = AR1DriftMAP(8, 32, spectral_radius=0.6, obs_scale=0.5, prior_scale=10.0, A=A, ys=ys,
+                      dtype=f64, device=device)
+    X = torch.tensor(rng.standard_normal((64, 8)), dtype=f64, device=device)
+    solve("ar1 f64", ar1, X, 1e-6, ar1)
     return out
 
 

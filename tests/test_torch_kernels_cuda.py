@@ -722,28 +722,161 @@ def test_fixture_fleets_launch_once_without_a_host_sync(cuda_device, kind, dtype
     assert float(res.grad[ok].abs().max()) < tol
 
 
-# The results of B3's Rosenbrock, quadratic and logistic instantiations as
-# they were before the logistic objective became one link of the GLM row
-# loop it now shares with the Poisson GLM: scripts/torch_resident_digest.py
-# run on that earlier commit on one H100 80GB HBM3 with CUDA 12.8 (the
-# SHA-256 of every output of each fixed solve, and registers per thread).
-# The refactor moved no operation, so every byte and register count stays.
+# The results of B3's seven hand-written instantiations as they were before
+# the kernel moved into csrc/resident_solve.cuh for the generated objectives
+# to share (and, for the Rosenbrock, quadratic and logistic ones, before the
+# logistic objective became one link of the GLM row loop it shares with the
+# Poisson GLM): scripts/torch_resident_digest.py run on those earlier
+# commits on one H100 80GB HBM3 with CUDA 12.8 (the SHA-256 of every output
+# of each fixed solve, and registers per thread). Neither change moved an
+# operation, so every byte and register count stays.
 EARLIER_DIGESTS = {
     "rosenbrock f32": ("d00b1bdef48f5863b9b126da85937cb09a97151acc7fb04fd28da0f53460af5f", 80),
     "quadratic f32": ("6c14063c5387fc23e2fd5373b7a70b7acf0f43dbcd06aa1043c49953d761a29f", 64),
     "logistic f32": ("be1f95560eb90c929314cbdf2e1baa577b1b02e93458e4e1dab11f2c0f3f49c3", 96),
     "logistic f64": ("c2f861824cc64625ef32381f8d31c948427c3fd899d011c141d0a7e295e038e7", 128),
+    "funnel f64": ("de0b37a3c8d8581598896fcf0f74ba5f6fb111cfcbab6b6e341ff1da481f897c", 118),
+    "mixture f32": ("6cbb701c7625e4209c6c47350d551fc199199b472a68ee202acb0f1897a4cf18", 80),
+    "poisson f32": ("a66a702b30126f8852b654b5c8926e5d8517475ed5f6f54b81d306b17dbb9ed6", 72),
+    "ar1 f64": ("9cea0eb3d42e7df215517f198a1d9a0b4c6c0d2681efc3e19db30efc69fa01fd", 122),
 }
 
 
 @pytest.mark.cuda
 def test_resident_instantiations_keep_their_results_bit_for_bit(cuda_device):
-    """The logistic instantiation (and the Rosenbrock's and the
-    quadratic's) gives the same counters and floats, byte for byte, and
-    uses the same registers as before the GLM refactor."""
+    """Every hand-written instantiation gives the same counters and
+    floats, byte for byte, and uses the same registers as before the
+    kernel moved into its header (and the logistic's, the Rosenbrock's and
+    the quadratic's as before the GLM refactor)."""
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "scripts",
                         "torch_resident_digest.py")
     spec = importlib.util.spec_from_file_location("torch_resident_digest", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     assert module.digests(cuda_device) == EARLIER_DIGESTS
+
+
+# B3 on traced objectives (ops/kernels/objective_trace.py, objective_codegen.py):
+# each objective generated as CUDA for its graph and shapes and built at first use.
+def _traced_case(kind, n, dtype, device):
+    """(objective, numpy starts) of chip_smoke.py's phase-22 parity case
+    ``kind`` at width n (an inline objective of the JAX package's
+    tests/test_resident.py:147-260 or a model's bound log-density), its data
+    drawn with numpy from seed 20260816 + n."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    obj, _, starts = module.traced_case(kind, n, dtype, device)
+    return obj, starts
+
+
+TRACED_CASES = [
+    ("quadratic with b", 60, torch.float64, 1e-6), ("quadratic with b", 100, torch.float32, 1e-3),
+    ("logsumexp", 60, torch.float64, 1e-6), ("logistic with logaddexp", 60, torch.float32, 1e-3),
+    ("mixture", 60, torch.float32, 1e-3), ("mixture", 70, torch.float64, 1e-6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", TRACED_CASES)
+def test_traced_objective_matches_plain_version(cuda_device, kind, n, dtype, tol):
+    """Over caps 0, 1 and 5 every counter equal on every lane and x, grad
+    and B normwise within 1e-10 (f64) or, in f32, within 1e-5 or twice
+    what the plain version moves when run on the CPU, on the lanes where
+    that run keeps the plain run's counters, where more (the mixture's
+    flat directions make a last-bit difference large): the
+    generated objective sums in another order than torch, nothing else
+    differs. Over a whole solve the statuses: lanes whose status differs
+    from the plain run's at most twice as many as a start one ulp up or
+    down changes in the plain run itself (at the f32 floor rounding decides
+    a few lanes), every status in band, every converged lane certified."""
+    from quasinewtonmethods_jl_tpu_torch import trace_objective
+
+    obj, starts = _traced_case(kind, n, dtype, cuda_device)
+    X = torch.tensor(starts, dtype=dtype, device=cuda_device)
+    traced = trace_objective(obj, None, X)
+    on_cpu = trace_objective(_traced_case(kind, n, dtype, torch.device("cpu"))[0], None, X.cpu())
+    ls = BackTracking()
+    for cap in (0, 1, 5):
+        before = resident_bfgs_solve.objective_launches["traced"]
+        kern = resident_bfgs_solve(X, ls, tol, cap, True, 50, traced)
+        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, 50, traced)
+        torch.cuda.synchronize()
+        assert resident_bfgs_solve.objective_launches["traced"] == before + (cap > 0)
+        for name in COUNTERS:
+            assert torch.equal(getattr(kern, name), getattr(plain, name)), (cap, name)
+        limit = 1e-10 if dtype == torch.float64 else 1e-5
+        if dtype == torch.float32 and cap > 0:
+            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, 50, on_cpu)
+            followed = torch.ones(X.shape[0], dtype=torch.bool, device=cuda_device)
+            for name in COUNTERS:  # the lanes where the CPU's run keeps the plain run's counters
+                followed &= getattr(cpu, name).to(cuda_device) == getattr(plain, name)
+            moved = max(normwise(getattr(cpu.state, f).to(cuda_device)[followed],
+                                 getattr(plain.state, f)[followed])
+                        for f in ("x", "grad", "B")) if bool(followed.any()) else 0.0
+            limit = max(1e-5, 2 * moved)
+        assert_normwise_close(kern.x, plain.x, limit)
+        assert_normwise_close(kern.grad, plain.grad, limit)
+        assert_normwise_close(kern.state.B, plain.state.B, limit)
+    full = optimize_batched_resident(obj, X, ls=ls, tol=tol)
+    plain = optimize_batched_resident_reference(X, ls, tol, 10_000, True, 50, traced)
+    flips = int((full.status != plain.status).sum())
+    witness = max(
+        int((optimize_batched_resident_reference(torch.nextafter(X, torch.full_like(X, d)), ls,
+                                                 tol, 10_000, True, 50, traced).status
+             != plain.status).sum())
+        for d in (float("inf"), float("-inf")))
+    assert flips <= 2 * witness, (flips, witness)
+    ok = full.status == Status.CONVERGED
+    assert bool((ok | (full.status == Status.LINESEARCH_FAILURE)).all())
+    assert float(full.grad[ok].abs().max()) < tol
+
+
+def normwise(a, b):
+    """max |a - b| / max |b| over the entries where b is not NaN (the
+    absolute difference where b is all zero)."""
+    keep = ~torch.isnan(b)
+    err, scale = float((a[keep] - b[keep]).abs().max()), float(b[keep].abs().max())
+    return err / scale if scale else err
+
+
+@pytest.mark.cuda
+def test_traced_fleet_launches_once_without_a_host_sync(cuda_device):
+    """A bound log-density the hand-written instantiations do not take, at
+    the bench shape over 512 lanes: the trace, one launch of B3 with the
+    generated objective, no synchronisation flagged by torch's sync debug
+    mode, every lane converged."""
+    obj, starts = _traced_case("mixture", 60, torch.float32, cuda_device)
+    X = torch.tensor(np.concatenate([starts] * 8), dtype=torch.float32, device=cuda_device)
+    optimize_batched_resident(obj, X[:4], tol=1e-3)  # the build, before the counted run
+    before = dict(resident_bfgs_solve.objective_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = optimize_batched_resident(obj, X, tol=1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    after = resident_bfgs_solve.objective_launches
+    assert after["traced"] == before["traced"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert (res.status == Status.CONVERGED).all()
+
+
+@pytest.mark.cuda
+def test_untraceable_objective_raises_before_any_build(cuda_device):
+    """An objective outside the table raises ValueError on the card as on
+    the CPU, naming its op, before anything is generated or built."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels import _build
+
+    built = set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()
+    loaded = dict(_build._GENERATED)
+    X = torch.zeros((8, 6), device=cuda_device)
+    with pytest.raises(ValueError, match=r"aten\.sin.*optimize_batched_fused"):
+        optimize_batched_resident(lambda x: torch.sin(x).sum(), X)
+    assert _build._GENERATED == loaded
+    assert (set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()) == built

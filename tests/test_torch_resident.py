@@ -10,7 +10,9 @@ Float leaves differ only by summation order (torch vs XLA): x, fun, the step
 and the gradients at 1e-12 absolute, except where the Hessian amplifies that
 noise at the optimum (Rosenbrock's is ~1e3, so ∇ and ∇_old at 1e-9), and
 the final B, whose last updates are built from s and y at the level of
-rounding (1e-5 relative to max|B|, checked only to convergence).
+rounding (1e-5 relative to max|B|, checked only to convergence). The
+guards: objectives that do not trace to B3's table raise on every device;
+those that do run (tests/test_torch_resident_traced.py holds them to JAX).
 """
 
 import jax.numpy as jnp
@@ -29,6 +31,7 @@ from quasinewtonmethods_jl_tpu.resident_solve import (
 from quasinewtonmethods_jl_tpu_torch import (
     BackTracking,
     Status,
+    optimize_batched_fused,
     optimize_batched_resident,
     resident_feasible,
 )
@@ -37,7 +40,9 @@ from quasinewtonmethods_jl_tpu_torch.models import (
     rosenbrock_logdensity,
     rosenbrock_value_and_grad,
 )
+from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import TracedObjective
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_bfgs_solve
+from quasinewtonmethods_jl_tpu_torch.resident_solve import _kernel_objective
 
 torch.set_num_threads(1)
 
@@ -133,14 +138,30 @@ class SubclassedRosenbrock(Rosenbrock):
         return 2.0 * super().logdensity(theta)
 
 
+def sin_logdensity(x):
+    return torch.sum(torch.sin(x))  # aten.sin is outside the trace's table
+
+
+def item_logdensity(x):
+    return -0.5 * torch.sum(x * x) * x[0].item()  # a host read
+
+
+def random_value_and_grad(x):
+    return quad_logdensity(x), -x + 0.0 * torch.randn_like(x)
+
+
+# Until the traced route, B3 refused every objective but its hand-written
+# ones; the three it refused here (a plain function, a subclass, a user
+# value_and_grad_fn) now run (test_resident_runs_objectives_it_traces), and
+# their places hold objectives that do not trace.
 @pytest.mark.parametrize(
     "kwargs, match",
     [
         ({"x0s": torch.zeros(6)}, "x0s must be"),
         ({"ls": object()}, "BackTracking"),
-        ({"obj": quad_logdensity}, "optimize_batched_fused"),
-        ({"obj": SubclassedRosenbrock(6)}, "optimize_batched_fused"),
-        ({"value_and_grad_fn": lambda x: (quad_logdensity(x), -x)}, "on the card"),
+        ({"obj": sin_logdensity}, "optimize_batched_fused"),
+        ({"obj": item_logdensity}, "optimize_batched_fused"),
+        ({"value_and_grad_fn": random_value_and_grad}, "on the card"),
         ({"kernel": "cuda"}, "cuda"),
         ({"kernel": "pallas"}, "kernel"),
     ],
@@ -150,6 +171,28 @@ def test_resident_guards(kwargs, match):
     args.update(kwargs)
     with pytest.raises(ValueError, match=match):
         optimize_batched_resident(**args)
+
+
+@pytest.mark.parametrize(
+    "kwargs",
+    [{"obj": quad_logdensity}, {"obj": SubclassedRosenbrock(6)},
+     {"value_and_grad_fn": lambda x: (quad_logdensity(x), -x)}],
+    ids=["function", "subclass", "value_and_grad_fn"],
+)
+def test_resident_runs_objectives_it_traces(rng, kwargs):
+    """The objectives B3 refused until it traced them, as JAX's resident
+    engine takes them: the kernel's route is the trace, and on the CPU the
+    run is the fleet engine with the plain update on the same functions."""
+    args = {"obj": rosenbrock_logdensity, "value_and_grad_fn": None}
+    args.update(kwargs)
+    X = torch.tensor(rng.standard_normal((4, 6)))
+    assert isinstance(_kernel_objective(args["obj"], args["value_and_grad_fn"], X),
+                      TracedObjective)
+    res = optimize_batched_resident(x0s=X, tol=1e-8, **args)
+    plain = optimize_batched_fused(x0s=X, tol=1e-8, kernel="torch", **args)
+    for name in COUNTERS:
+        assert torch.equal(getattr(res, name), getattr(plain, name)), name
+    assert torch.equal(res.x, plain.x)
 
 
 @pytest.mark.parametrize(

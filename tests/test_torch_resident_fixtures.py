@@ -10,9 +10,11 @@ through the dot rewrite). As in tests/test_torch_resident_objectives.py,
 statuses, iterations and n_resets must be equal, x within 1e-6 relative /
 1e-9 absolute and fun within 1e-9 relative, at tol 1e-6; on the funnel,
 whose trajectories are chaotic in the last bit (tests/test_torch_fixtures.py),
-the statuses and the optimum. The CUDA kernel is held to the plain version
-on the card in tests/test_torch_kernels_cuda.py and chip_smoke.py's phase
-21.
+the statuses and the optimum. The forms of these models that B3's
+hand-written instantiations do not take (a subclass, a bound method, a
+lambda, a user value_and_grad_fn) run through the trace; objectives that
+do not trace raise. The CUDA kernel is held to the plain version on the
+card in tests/test_torch_kernels_cuda.py and chip_smoke.py's phases 21-22.
 """
 
 import jax.numpy as jnp
@@ -31,6 +33,8 @@ from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import (
     objective_on,
     resident_bfgs_solve,
 )
+from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import TracedObjective
+from quasinewtonmethods_jl_tpu_torch.resident_solve import _kernel_objective
 from test_torch_fixtures import COUNTERS, FIXTURES, fixture_pair
 
 torch.set_num_threads(1)
@@ -104,12 +108,21 @@ class SubclassedAR1(tm.AR1DriftMAP):
     pass
 
 
+def funnel_value_and_grad(theta):
+    grad, value = torch.func.grad_and_value(tm.funnel_logdensity)(theta)
+    return value, grad
+
+
+# The seven forms B3 refused until it traced objectives: JAX's resident
+# engine takes them, and so does the port's, through the trace (the
+# hand-written instantiations keep exact types and identity).
 @pytest.mark.parametrize("case", [
     "mixture subclass", "poisson subclass", "ar1 subclass", "mixture's bound logdensity",
     "funnel in a lambda", "funnel with value_and_grad_fn", "ar1 with value_and_grad_fn",
 ])
-def test_resident_guards_for_the_fixtures(case):
-    x0s = torch.zeros((3, 4), dtype=torch.float64)
+def test_resident_guards_for_the_fixtures(rng, case):
+    """Each form runs through the traced route and equals the fleet engine
+    with the plain update on the same functions."""
     mixture = tm.GaussianMixture(np.ones((2, 4)))
     args = {
         "mixture subclass": {"obj": SubclassedMixture(np.ones((2, 4)))},
@@ -118,13 +131,45 @@ def test_resident_guards_for_the_fixtures(case):
         "mixture's bound logdensity": {"obj": mixture.logdensity},
         "funnel in a lambda": {"obj": lambda th: tm.funnel_logdensity(th)},
         "funnel with value_and_grad_fn": {
-            "obj": tm.funnel_logdensity,
-            "value_and_grad_fn": torch.func.grad_and_value(tm.funnel_logdensity)},
+            "obj": tm.funnel_logdensity, "value_and_grad_fn": funnel_value_and_grad},
         "ar1 with value_and_grad_fn": {
-            "obj": tm.AR1DriftMAP(4, 5), "value_and_grad_fn": lambda th: (th.sum(), th)},
+            "obj": tm.AR1DriftMAP(4, 5),
+            "value_and_grad_fn": lambda th: (-(th * th).sum(), -2.0 * th)},
     }[case]
-    with pytest.raises(ValueError, match="optimize_batched_fused"):
-        qt.optimize_batched_resident(x0s=x0s, **args)
+    args.setdefault("value_and_grad_fn", None)
+    x0s = torch.tensor(rng.standard_normal((3, 4)))
+    assert isinstance(_kernel_objective(args["obj"], args["value_and_grad_fn"], x0s),
+                      TracedObjective)
+    res = qt.optimize_batched_resident(x0s=x0s, tol=1e-6, **args)
+    plain = qt.optimize_batched_fused(x0s=x0s, tol=1e-6, kernel="torch", **args)
+    for name in COUNTERS:
+        assert torch.equal(getattr(res, name), getattr(plain, name)), name
+    assert torch.equal(res.x, plain.x)
+
+
+class MixtureWithASine(tm.GaussianMixture):
+    def logdensity(self, x):
+        return super().logdensity(x) + torch.sum(torch.sin(x))
+
+
+@pytest.mark.parametrize("case, match", [
+    ("a subclass with an op outside the table", r"aten\.sin"),
+    ("a funnel that branches on its point", r"data-dependent branch"),
+    ("an AR(1) that draws noise", r"random.*aten\.randn"),
+])
+def test_untraceable_fixture_forms_are_refused(case, match):
+    ar1 = tm.AR1DriftMAP(4, 5)
+    obj = {
+        "a subclass with an op outside the table": MixtureWithASine(np.ones((2, 4))),
+        "a funnel that branches on its point": (
+            lambda th: tm.funnel_logdensity(th) if th[0] > 0 else -th[0] * th[0]),
+        "an AR(1) that draws noise": (
+            lambda th: ar1.logdensity(th + 1e-3 * torch.randn(4, dtype=th.dtype))),
+    }[case]
+    x0s = torch.zeros((3, 4), dtype=torch.float64)
+    for kernel in ("auto", "torch"):
+        with pytest.raises(ValueError, match=match + ".*optimize_batched_fused"):
+            qt.optimize_batched_resident(obj, x0s, kernel=kernel)
 
 
 def test_kernel_objective_names_for_the_fixtures():

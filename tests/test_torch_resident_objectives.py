@@ -1,7 +1,9 @@
 """The data-bearing objectives of the port's resident engine — the
 logistic-regression MAP (models/logistic.py) and the ill-conditioned
 quadratic — against the JAX package, on the same numpy data in f64 on the
-CPU, plus the resident engine's dispatch guards for them.
+CPU, plus the resident engine's dispatch guards for them: the forms its
+hand-written instantiations do not take run through the trace, and
+objectives that do not trace raise.
 
 The JAX models draw their data with ``jax.random``; each test builds the
 JAX model and then gives it the numpy data (``X``, ``y`` or ``x_star``)
@@ -36,10 +38,12 @@ from quasinewtonmethods_jl_tpu_torch.models import (
     LogisticRegressionMAP,
     rosenbrock_logdensity,
 )
+from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import TracedObjective
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import (
     objective_name,
     resident_bfgs_solve,
 )
+from quasinewtonmethods_jl_tpu_torch.resident_solve import _kernel_objective
 
 torch.set_num_threads(1)
 
@@ -144,21 +148,46 @@ class SubclassedLogistic(LogisticRegressionMAP):
         return 2.0 * super().logdensity(w)
 
 
+# The closure, the subclass and the user value_and_grad_fn were refused
+# until B3 traced objectives; JAX's resident engine takes them, and the
+# port's now runs them through the trace. The device guard stays.
 @pytest.mark.parametrize("case", ["closure", "subclass", "value_and_grad_fn", "cuda on the cpu"])
 def test_resident_guards_for_data_bearing_objectives(rng, case):
     model = LogisticRegressionMAP(4, 10, seed=1)
-    args = {"obj": model, "x0s": torch.zeros((3, 4), dtype=torch.float64)}
-    match = "optimize_batched_fused"
+    args = {"obj": model, "x0s": torch.tensor(rng.standard_normal((3, 4))),
+            "value_and_grad_fn": None}
+    if case == "cuda on the cpu":
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            qt.optimize_batched_resident(kernel="cuda", **args)
+        return
     if case == "closure":
         args["obj"] = model.logdensity
     elif case == "subclass":
         args["obj"] = SubclassedLogistic(4, 10, seed=1)
-    elif case == "value_and_grad_fn":
-        args["value_and_grad_fn"] = model.logdensity_and_gradient
     else:
-        args["kernel"], match = "cuda", "needs CUDA tensors"
-    with pytest.raises(ValueError, match=match):
-        qt.optimize_batched_resident(**args)
+        args["value_and_grad_fn"] = model.logdensity_and_gradient
+    assert isinstance(_kernel_objective(args["obj"], args["value_and_grad_fn"], args["x0s"]),
+                      TracedObjective)
+    res = qt.optimize_batched_resident(tol=1e-6, **args)
+    plain = qt.optimize_batched_fused(tol=1e-6, kernel="torch", **args)
+    for name in ("status", "iterations", "n_fev", "n_gev", "n_resets"):
+        assert torch.equal(getattr(res, name), getattr(plain, name)), name
+    assert torch.equal(res.x, plain.x)
+
+
+@pytest.mark.parametrize("case, match", [
+    ("a prior with float32 scales and float64 points", r"float32"),
+    ("a quadratic with a data-dependent shape", r"data-dependent shape"),
+])
+def test_untraceable_data_bearing_objectives_are_refused(case, match):
+    scales32 = torch.ones(4, dtype=torch.float32)
+    Q = torch.eye(4, dtype=torch.float64)
+    obj = {
+        "a prior with float32 scales and float64 points": lambda w: -torch.sum(w * w * scales32),
+        "a quadratic with a data-dependent shape": lambda x: -0.5 * (x @ (Q @ x))[x > 0].sum(),
+    }[case]
+    with pytest.raises(ValueError, match=match + ".*optimize_batched_fused"):
+        qt.optimize_batched_resident(obj, torch.zeros((3, 4), dtype=torch.float64))
 
 
 def test_kernel_objective_names():
