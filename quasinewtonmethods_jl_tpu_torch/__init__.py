@@ -13,13 +13,15 @@ two-pass B2 for large n, ops/kernels/bfgs_blocked.py), the whole-solve
 resident engine (`optimize_batched_resident`, kernel B3), the nonlinear CG
 fleet (`optimize_cg`, `optimize_cg_from_state`) and L-BFGS, scalar
 (`optimize_lbfgs`, `optimize_lbfgs_from_state`) and as a fleet
-(`optimize_lbfgs_batched`, `optimize_lbfgs_batched_fused_from_state`);
-ROADMAP.md lists what is still to port. Entry points run on the CUDA card unless given a CPU
+(`optimize_lbfgs_batched`, `optimize_lbfgs_batched_fused_from_state`),
+and the constrained-parameter transforms (`transforms`,
+`transform_objective`); ROADMAP.md lists what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
 """
 
+from . import transforms
 from .api import ProbabilityModel, as_logdensity, as_value_and_grad, as_value_fn
 from .batched_solve import (
     optimize_batched_compacted,
@@ -42,6 +44,7 @@ from .solve import (
     optimize,
     optimize_from_state,
 )
+from .transforms import TransformedModel, transform_objective
 from .state import (
     BFGSState,
     CGState,
@@ -105,4 +108,7 @@ __all__ = [
     "bfgs_state_to_numpy",
     "cg_state_from_numpy",
     "cg_state_to_numpy",
+    "transforms",
+    "TransformedModel",
+    "transform_objective",
 ]

@@ -1,8 +1,8 @@
 """Model fixtures (reference test/runtests.jl:4-33) and the BASELINE.md
-benchmark configs: the JAX package's models, all but
-`HierarchicalRegression` (which waits for transforms.py)."""
+benchmark configs: every model of the JAX package."""
 
 from .funnel import FUNNEL_V_STD, funnel_logdensity
+from .hierarchical import HierarchicalRegression
 from .logistic import LogisticRegressionMAP
 from .mixture import GaussianMixture
 from .poisson import PoissonRegressionMAP
@@ -14,6 +14,7 @@ __all__ = [
     "AR1DriftMAP",
     "FUNNEL_V_STD",
     "funnel_logdensity",
+    "HierarchicalRegression",
     "LogisticRegressionMAP",
     "GaussianMixture",
     "PoissonRegressionMAP",

@@ -10,9 +10,9 @@ and one translation unit around it that instantiates B3 from
 csrc/resident_solve.cuh and exports plain C entry points:
 
   qnm_traced_solve(<the solve's arguments>, consts, stream)
-      the launch; ``consts`` is a host array of the constants' device
-      pointers, copied into the objective, which goes to the kernel by
-      value;
+      the launch; ``consts`` is a host array of the device pointers of the
+      constants and then of the int32 index tables, copied into the
+      objective, which goes to the kernel by value;
   qnm_traced_occupancy(regs, threads, blocks_per_sm)
   qnm_cuda_error_string(code)
 
@@ -23,19 +23,25 @@ output elements strided by the lane group's threads, with its operands read
 through their index maps (a view is only an index map); a reduction to one
 value is a strided partial per thread and one lane sum (bfgs_common.cuh); a
 reduction over one dim, ``mv``, ``mm`` and a logsumexp's max take one
-output element per thread, summed in a fixed order; a constant is read
-from device memory. A barrier follows every op (``__syncwarp`` for one
-warp, ``__syncthreads`` above). Each graph is one device function that the
-kernel calls, not inlined (a trial's evaluation has two call sites). The
+output element per thread, summed in a fixed order; a cumsum takes one
+row per thread, in index order; a gather is an index map through its
+int32 table; a put takes one output element per thread, which walks its
+sources (CSR tables) in ascending order, with no atomics; a constant and
+an index table are read from device memory. A barrier follows every op
+(``__syncwarp`` for one warp, ``__syncthreads`` above). Each graph is one
+device function that the kernel calls, not inlined (a trial's evaluation
+has two call sites). The
 unit is built with -fmad=false and without fast math, so every op rounds
 on its own as torch's does, and only the order of sums differs from the
 plain version (`objective_trace.evaluate` and, on the card, the fleet
 engine with the plain update). Elementwise functions take torch's CUDA
 formulas: a division by a literal is a product by its reciprocal, the
-log-sigmoid's backward needs no buffer.
+log-sigmoid's backward needs no buffer, sigmoid is 1/(1 + exp(-x)), the
+backwards of tanh and sigmoid g·(1 - y·y) and g·(1 - y)·y.
 
 The text depends only on the graph, the shapes and the dtype: constant
-values are inputs, so two models of the same shape share one build.
+values and index tables are inputs, so two models of the same shape share
+one build.
 """
 
 from __future__ import annotations
@@ -150,6 +156,16 @@ def _ew_expr(op: Op, x: list) -> str:
         return f"traced_log_sigmoid({x[0]})"
     if name == "log_sigmoid_backward":
         return f"traced_log_sigmoid_backward({x[0]}, {x[1]})"
+    if name == "tanh":
+        return f"traced_tanh({x[0]})"
+    if name == "log1p":
+        return f"qnm::log1p_of({x[0]})"
+    if name == "sigmoid":
+        return f"Real(1) / (Real(1) + qnm::exp_of(-{x[0]}))"
+    if name == "tanh_backward":
+        return f"{x[0]} * (Real(1) - {x[1]} * {x[1]})"
+    if name == "sigmoid_backward":
+        return f"{x[0]} * (Real(1) - {x[1]}) * {x[1]}"
     raise AssertionError(name)
 
 
@@ -210,6 +226,34 @@ class _Emitter:
                     f"const int kk = in ? k / {step} : 0; "
                     f"s[{out.offset} + i] = in ? {_load(op.args[0], inner)} : Real(0); ")
             self.loop(out.numel, body)
+        elif op.kind == "cumsum":  # one row per thread, in index order
+            (src,), (dim,) = op.args, op.params
+            rows = out.numel // out.shape[dim]
+            count = out.shape[dim]
+            if len(out.shape) == 1:
+                at, where = ["k"], "k"
+            else:
+                at = ["i", "k"] if dim == 1 else ["k", "i"]
+                where = f"i * {out.shape[1]} + k" if dim == 1 else f"k * {out.shape[1]} + i"
+            self.loop(rows, f"Real acc = Real(0); for (int k = 0; k < {count}; ++k) "
+                            f"{{ acc += {_load(src, at)}; s[{out.offset} + {where}] = acc; }} ")
+        elif op.kind == "gather":
+            (src,), (table,) = op.args, op.params
+            base = "s" if src.kind == "lane" else f"c{src.index}"
+            self.loop(out.numel, f"s[{out.offset} + i] = {base}[t{table}[i]]; ")
+        elif op.kind == "put":
+            (start, values), (ptr, src, accumulate, _) = op.args, op.params
+            decl, oc = _coords(out.shape)
+            value = (_lit(values.value) if values.kind == "lit"
+                     else f"{'s' if values.kind == 'lane' else f'c{values.index}'}[t{src}[k]]")
+            if accumulate:
+                walk = (f"for (int k = t{ptr}[i]; k < t{ptr}[i + 1]; ++k) "
+                        f"acc = acc + {value}; ")
+            else:  # the last source wins
+                walk = f"{{ const int k = t{ptr}[i + 1] - 1; if (k >= t{ptr}[i]) acc = {value}; }} "
+            decl = "" if start.kind == "lit" else decl
+            self.loop(out.numel, f"{decl}Real acc = {_load(start, oc)}; {walk}"
+                                 f"s[{out.offset} + i] = acc; ")
         elif op.kind == "cat":
             (dim,) = op.params
             strides, start = _contiguous_strides(out.shape), 0
@@ -291,6 +335,8 @@ __device__ __forceinline__ Real traced_log_sigmoid_backward(Real g, Real a) {
   const Real z = qnm::exp_of(-fabs(a));
   return g * (max_deriv - sign * (z / (Real(1) + z)));
 }
+__device__ __forceinline__ float traced_tanh(float a) { return tanhf(a); }
+__device__ __forceinline__ double traced_tanh(double a) { return tanh(a); }
 """
 
 
@@ -303,13 +349,24 @@ def generate(traced: TracedObjective) -> str:
     one_warp = "true" if threads == 32 else "false"
     slots = traced.extra_values
     consts = max(1, len(traced.consts))
+    n_consts, n_tables = len(traced.consts), len(traced.tables)
     vag, val = traced.vag, traced.val
-    const_params = "".join(f", const Real* __restrict__ c{i}" for i in range(len(traced.consts)))
-    const_args = "".join(f", c[{i}]" for i in range(len(traced.consts)))
+    const_params = "".join(f", const Real* __restrict__ c{i}" for i in range(n_consts))
+    const_params += "".join(f", const int* __restrict__ t{i}" for i in range(n_tables))
+    const_args = "".join(f", c[{i}]" for i in range(n_consts))
+    const_args += "".join(f", t[{i}]" for i in range(n_tables))
+    tables = (f"  const int* __restrict__ t[{n_tables}];\n" if n_tables else "")
+    take_tables = (f"  for (int i = 0; i < {n_tables}; ++i) "
+                   f"obj.t[i] = static_cast<const int*>(consts[{n_consts} + i]);\n"
+                   if n_tables else "")
+    table_count = f", {n_tables} int32 index tables" if n_tables else ""
+    table_note = ", t<i> the\n// index tables" if n_tables else ""
+    table_ptrs = (f",\n// then consts[{n_consts}..{n_consts + n_tables}) the index tables', int32"
+                  if n_tables else "")
     return f"""// Generated by quasinewtonmethods_jl_tpu_torch/ops/kernels/objective_codegen.py
 // from a traced objective: n = {n}, {real}, {len(traced.consts)} constants,
 // {len(vag.ops)} ops for the value and gradient, {len(val.ops)} for a trial value,
-// {slots} values of scratch per lane. B3 (resident_solve.cuh) around it.
+// {slots} values of scratch per lane{table_count}. B3 (resident_solve.cuh) around it.
 
 #include "resident_solve.cuh"
 
@@ -322,7 +379,7 @@ constexpr int kSlots = {slots};
 // The two graphs, each one function that the kernel calls (not inlined:
 // a trial's evaluation has two call sites, and the kernel's size and its
 // build time stay those of one copy). The lane's scratch s holds the point
-// at 0..n-1 and one slot per op's output; c<i> are the constants.
+// at 0..n-1 and one slot per op's output; c<i> are the constants{table_note}.
 template <bool kOneWarp>
 __device__ __noinline__ void traced_value_and_grad(qnm::LaneGroup<Real, kOneWarp>& grp,
                                                    Real* __restrict__ s{const_params}) {{
@@ -339,7 +396,7 @@ __device__ __noinline__ void traced_value(qnm::LaneGroup<Real, kOneWarp>& grp,
 // column ownership.
 struct TracedObjective {{
   const Real* __restrict__ c[{consts}];
-
+{tables}
   static constexpr int kOwned = 2;
   size_t extra_values(int) const {{ return kSlots; }}
   template <bool kOneWarp>
@@ -392,12 +449,12 @@ auto traced_launch() {{
 extern "C" {{
 
 // The solve (cudaGetLastError() after the launch; 0 = launched), with
-// consts[0..{len(traced.consts)}) the constants' device pointers, contiguous, in Real.
+// consts[0..{len(traced.consts)}) the constants' device pointers, contiguous, in Real{table_ptrs}.
 int qnm_traced_solve(QNM_SOLVE_ARGS(Real), const void* const* consts, void* stream) {{
   if (n != kN) return int(cudaErrorInvalidValue);
   TracedObjective obj{{}};
   for (int i = 0; i < {len(traced.consts)}; ++i) obj.c[i] = static_cast<const Real*>(consts[i]);
-  return launch_with<Real>(traced_launch(), X0, X, G, G_old, step, B, fun, status, iterations,
+{take_tables}  return launch_with<Real>(traced_launch(), X0, X, G, G_old, step, B, fun, status, iterations,
                            n_fev, n_gev, n_resets, fresh, stall, batch, n,
                            Params<Real>{{tol, c1, rho_hi, rho_lo, eps, sqrttol, budget,
                                         max_iterations, stall_limit, order, h0_scale}},

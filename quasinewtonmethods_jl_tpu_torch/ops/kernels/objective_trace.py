@@ -21,19 +21,31 @@ of `Op`s over `Ref`s:
   * a Python scalar, and a tensor filled with one (``ones_like``,
     ``zeros``, ``scalar_tensor``), is a literal ("lit").
 
-A view (``t``, ``expand``, ``unsqueeze``, ``squeeze``, ``select``,
-``slice``, ``unbind``, and a reshape of a row-major value) only changes a
-`Ref`'s shape, strides and offset: no code, no copy. The ops that compute
-are elementwise (the table `_ELEMENTWISE`), reductions (``sum``,
-``logsumexp``), ``mv``, ``mm`` and ``dot``, the scatters of
-``select_backward`` / ``slice_backward``, and ``cat`` and ``stack``. An
-in-place op on an op's fresh output that nothing else reads (``matmul``'s
-own ``squeeze_``) is its out-of-place twin. Anything else raises
-ValueError, on every device, naming the op and, where the trace can tell,
-the user's line: an op outside the table, a per-lane value of rank > 2, a
-data-dependent shape or branch, ``.item()``, a random op, an in-place
-write to the point, a constant or a value read elsewhere, a constant in
-another floating dtype than ``x0s``.
+A view (``t``, ``permute``, ``expand``, ``unsqueeze``, ``squeeze``,
+``select``, ``slice``, ``unbind``, ``diagonal``, ``flip``, and a reshape
+of a row-major value) only changes a `Ref`'s shape, strides (negative
+after a flip) and offset: no code, no copy. The ops that compute are
+elementwise (the table `_ELEMENTWISE`), reductions (``sum``,
+``logsumexp``), ``cumsum`` along one dim, ``mv``, ``mm`` and ``dot``, the
+scatters of ``select_backward`` / ``slice_backward``, ``cat`` and
+``stack``, and the index maps with constant indices: a gather
+(``index.Tensor``: each output element reads one element of its source,
+through an int32 table of addresses) and a put (``index_put`` with and
+without ``accumulate``, ``diag_embed``, ``diagonal_backward``: each output
+element starts from the base tensor's and takes, in ascending order, the
+values its sources give, through two int32 tables, a row pointer and the
+sources' addresses, as in CSR; no atomics). Integer index constants are
+folded on the host like other constant expressions (``tril_indices``,
+``arange`` and what is computed from them), and the tables go to the
+kernel as int32 inputs (``TracedObjective.tables``). An in-place op on an
+op's fresh output that nothing else reads (``matmul``'s own ``squeeze_``)
+is its out-of-place twin. Anything else raises ValueError, on every
+device, naming the op and, where the trace can tell, the user's line: an
+op outside the table, a per-lane value of rank > 2, a data-dependent shape
+or branch, ``.item()``, a random op, an in-place write to the point, a
+constant or a value read elsewhere, a constant in another floating dtype
+than ``x0s``, an index computed from the point (a gather's or a
+scatter's), a boolean-mask index, an index tensor of rank > 1 per dim.
 
 `evaluate` runs a lowered graph op by op in torch: the plain version of the
 generated evaluation (ops/kernels/objective_codegen.py), which the CPU
@@ -98,8 +110,15 @@ class Op:
     "mv" (a matrix times a vector or a matrix: ``mv`` and ``mm``), "dot",
     "scatter" (args[0] written into zeros at positions ``params`` = (dim,
     start, step, count) of its dim), "cat" (args concatenated along
-    ``params[0]``: ``cat`` and ``stack``). ``source``: the aten op it
-    lowers."""
+    ``params[0]``: ``cat`` and ``stack``), "cumsum" (along ``params[0]``,
+    in index order), "gather" (output element i is element ``table[i]``
+    of args[0]'s base, ``params`` = (table,)), "put" (output element i is
+    args[0]'s, then each source k in ``src[ptr[i]:ptr[i + 1]]`` in turn
+    added to it (``accumulate``) or, the last one, written over it, where
+    the value of source k is element ``src[k]`` of args[1]'s base;
+    ``params`` = (ptr table, src table, accumulate, number of sources)). A
+    table is an index into the objective's ``tables``. ``source``: the
+    aten op it lowers."""
 
     kind: str
     name: str
@@ -123,8 +142,9 @@ class Graph:
 @dataclass
 class TracedObjective:
     """An objective traced for B3 (see the module docstring): the
-    value-and-gradient graph, the value graph for line-search trials, and
-    the constants both read, on ``x0s``'s device in its dtype. ``obj`` and
+    value-and-gradient graph, the value graph for line-search trials, the
+    constants both read, on ``x0s``'s device in its dtype, and their
+    gathers' and puts' int32 index tables. ``obj`` and
     ``value_and_grad_fn`` are the user's, for the plain version."""
 
     obj: object
@@ -134,6 +154,8 @@ class TracedObjective:
     vag: Graph
     val: Graph
     consts: list = field(default_factory=list)
+    # int32 index tables of the gathers and puts, on the constants' device
+    tables: list = field(default_factory=list)
     # B3's library for this trace, once built and loaded (resident_kernel.py
     # :: traced_libraries), so that a trace solved again skips codegen and lookup
     library: object = field(default=None, init=False, repr=False, compare=False)
@@ -153,7 +175,8 @@ class TracedObjective:
 
     @property
     def const_bytes(self) -> int:
-        return sum(c.numel() * c.element_size() for c in self.consts)
+        """Bytes of the constants and index tables in device memory."""
+        return sum(c.numel() * c.element_size() for c in (*self.consts, *self.tables))
 
 
 # ---------------------------------------------------------------------------
@@ -175,32 +198,47 @@ _ELEMENTWISE = {
     aten.logaddexp.default: "logaddexp",
     aten.log_sigmoid_forward.default: "log_sigmoid",
     aten.log_sigmoid_backward.default: "log_sigmoid_backward",
+    aten.tanh.default: "tanh",
+    aten.tanh_backward.default: "tanh_backward",
+    aten.log1p.default: "log1p",
+    aten.sigmoid.default: "sigmoid",
+    aten.sigmoid_backward.default: "sigmoid_backward",
 }
-_UNARY = ("neg", "exp", "log", "log_sigmoid")
+_UNARY = ("neg", "exp", "log", "log_sigmoid", "tanh", "log1p", "sigmoid")
 # operations per element of each elementwise function, for the bound
 # (logaddexp: a - b, |.|, exp, log1p, max, +; log_sigmoid: |.|, exp,
-# log1p, min, -; its backward: |.|, exp, 1 + z, z / (1 + z), sign·, -, ·g)
+# log1p, min, -; its backward: |.|, exp, 1 + z, z / (1 + z), sign·, -, ·g;
+# sigmoid: exp, 1 +, 1 / .; the backwards of tanh and sigmoid three products
+# and differences)
 _EW_COST = {"add": 1, "sub": 1, "rsub": 1, "mul": 1, "div": 1, "neg": 1, "pow": 1, "exp": 1,
             "log": 1, "where": 1, "gt": 1, "logaddexp": 6, "log_sigmoid": 5,
-            "log_sigmoid_backward": 7, "copy": 0}
-_VIEWS = {aten.t.default, aten.expand.default, aten.unsqueeze.default, aten.squeeze.dim,
-          aten.select.int, aten.slice.Tensor, aten.unbind.int}
-_FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.default: 0.0}
+            "log_sigmoid_backward": 7, "tanh": 1, "log1p": 1, "sigmoid": 3,
+            "tanh_backward": 3, "sigmoid_backward": 3, "copy": 0}
+_VIEWS = {aten.t.default, aten.permute.default, aten.expand.default, aten.unsqueeze.default,
+          aten.squeeze.dim, aten.select.int, aten.slice.Tensor, aten.unbind.int,
+          aten.diagonal.default, aten.flip.default}
+_FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.default: 0.0,
+          aten.new_zeros.default: 0.0}
+# the index maps with constant indices (see the module docstring)
+_PUTS = {aten.index_put.default, aten.diag_embed.default, aten.diagonal_backward.default}
 # ops that stay literals rather than fold into a constant
 _KEEP = set(_FILLS) | {aten.scalar_tensor.default}
 _TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP
           | {aten.lift_fresh_copy.default, aten.view.default, aten.sum.default,
              aten.sum.dim_IntList, aten.logsumexp.default, aten.mv.default, aten.mm.default,
              aten.dot.default, aten.select_backward.default, aten.slice_backward.default,
-             aten.stack.default, aten.cat.default, operator.getitem})
+             aten.stack.default, aten.cat.default, aten.cumsum.default, aten.index.Tensor,
+             operator.getitem} | _PUTS)
 
 
 def graph_ops(graph: Graph) -> int:
     """Floating-point operations of one evaluation of ``graph`` (exp, log,
-    log1p and a division one each): the elementwise functions per output
-    element (`_EW_COST`), a sum one per input element, a logsumexp three
-    (the max, exp(a - max), the sum) and 2 per output, mv, mm and dot two
-    per product; copies, scatters and stacks move data and count none."""
+    log1p, tanh and a division one each): the elementwise functions per
+    output element (`_EW_COST`), a sum and a cumsum one per input element,
+    a logsumexp three (the max, exp(a - max), the sum) and 2 per output,
+    mv, mm and dot two per product, a put with ``accumulate`` one per
+    source; copies, gathers, scatters and stacks move data and count
+    none."""
     ops = 0
     for op in graph.ops:
         if op.kind == "ew":
@@ -214,6 +252,10 @@ def graph_ops(graph: Graph) -> int:
             ops += 2 * op.args[0].numel * columns
         elif op.kind == "dot":
             ops += 2 * op.args[0].numel
+        elif op.kind == "cumsum":
+            ops += op.args[0].numel
+        elif op.kind == "put" and op.params[2]:
+            ops += op.params[3]  # the sources
     return ops
 
 
@@ -298,7 +340,7 @@ class _Lowering:
 
     def __init__(self, n, dtype, device, shared, fn, example):
         self.n, self.dtype, self.device = n, dtype, device
-        self.consts, self.const_ids, self.folds = shared
+        self.consts, self.const_ids, self.folds, self.tables = shared
         self.fn, self.example = fn, example
         self.ops = []
         self.slots = n  # slot 0: the point
@@ -320,6 +362,11 @@ class _Lowering:
         t = self.consts[index]
         return Ref("const", tuple(t.shape), _contiguous_strides(t.shape), 0, index,
                    boolean=t.dtype == torch.bool)
+
+    def table(self, index: torch.Tensor) -> int:
+        """A new int32 index table (on the constants' device): its number."""
+        self.tables.append(index.reshape(-1).to(torch.int32).contiguous())
+        return len(self.tables) - 1
 
     def refuse(self, node, what):
         line = _line_of(self.fn, self.example, node.target)
@@ -399,9 +446,17 @@ class _Lowering:
         flat = [r for t in tensors for r in (t if isinstance(t, (list, tuple)) else [t])]
         lane_in = any(isinstance(r, Ref) and r.kind == "lane" for r in flat)
         const_in = any(isinstance(r, Ref) and r.kind == "const" for r in flat)
-        if target not in _TABLE and not (const_in and not lane_in):
+        # constants alone, or no tensor at all outside the table (arange,
+        # tril_indices): computed now
+        foldable = not lane_in and (const_in or target not in _TABLE)
+        if target not in _TABLE and not foldable:
+            if any(isinstance(v, torch.Tensor) and not v.dtype.is_floating_point
+                   and v.dtype != torch.bool for v in (val if isinstance(val, (tuple, list))
+                                                       else [val])):
+                raise self.refuse(node, f"an index computed from the point ({name}): gathers "
+                                        "and scatters take constant indices")
             raise self.refuse(node, f"an op outside the table ({name})")
-        if (const_in and not lane_in and target not in _KEEP
+        if (foldable and target not in _KEEP
                 and target != aten.lift_fresh_copy.default):
             if target not in _VIEWS or len(_meta_shape(node)) > 2:
                 return self.fold(node, env)
@@ -449,8 +504,7 @@ class _Lowering:
 
         def real_ref(r):
             if r.kind == "const":
-                base = self.consts[r.index]
-                return torch.as_strided(base, r.shape, r.strides, r.offset)
+                return _strided(self.consts[r.index], r)
             dtype = torch.bool if r.boolean else self.dtype
             return torch.full(r.shape, r.value, dtype=dtype, device=self.device)
 
@@ -469,13 +523,14 @@ class _Lowering:
         out_shape = _meta_shape(node)
         if target in _FILLS:
             fill = _FILLS[target]
-            return Ref("lit", out_shape, (0,) * len(out_shape), value=fill)
+            return Ref("lit", out_shape, (0,) * len(out_shape), value=fill,
+                       boolean=node.meta["val"].dtype == torch.bool)
         if target == aten.scalar_tensor.default:
             return Ref("lit", (), (), value=float(node.args[0]))
         if target == aten.lift_fresh_copy.default:  # a tensor made in the objective
             return a[0]
         if target in _VIEWS:
-            return _view(target, a[0], node.args[1:], out_shape)
+            return _view(target, a[0], node.args[1:], out_shape, kw)
         if target in _ELEMENTWISE:
             return self.elementwise(node, _ELEMENTWISE[target], a, kw, out_shape)
         if target in (aten.sum.default, aten.sum.dim_IntList, aten.logsumexp.default):
@@ -519,6 +574,20 @@ class _Lowering:
             out = self.lane(out_shape)
             self.ops.append(Op("cat", "cat", out, tuple(parts), (dim,), str(target)))
             return out
+        if target == aten.cumsum.default:
+            if kw.get("dtype") not in (None, self.dtype):
+                raise self.refuse(node, f"a cumsum in another dtype ({target})")
+            src = self.floats(node, a[0])
+            if not src.shape:
+                return self.copy(src)
+            out = self.lane(out_shape)
+            self.ops.append(Op("cumsum", "cumsum", out, (src,), (node.args[1] % len(out_shape),),
+                               str(target)))
+            return out
+        if target == aten.index.Tensor:
+            return self.gather(node, self.floats(node, a[0]), node.args[1], env, out_shape)
+        if target in _PUTS:
+            return self.put(node, target, a, env, out_shape)
         if target == aten.view.default:  # a new shape of the same row-major values
             src = self.floats(node, a[0])
             if src.kind == "lit":
@@ -527,6 +596,82 @@ class _Lowering:
                 src = self.copy(src)
             return replace(src, shape=out_shape, strides=_contiguous_strides(out_shape))
         raise self.refuse(node, f"an op outside the table ({target})")
+
+    def indices(self, node, entries, env) -> tuple:
+        """The index tensors of ``index`` / ``index_put`` (constants, on the
+        constants' device) as a Python index (``slice(None)`` for None)."""
+        out = []
+        for e in entries:
+            if e is None:
+                out.append(slice(None))
+                continue
+            ref = env[e]
+            if ref.boolean:
+                raise self.refuse(node, f"a boolean-mask index ({node.target})")
+            if ref.kind == "lane":
+                raise self.refuse(node, f"an index computed from the point ({node.target}): "
+                                        "gathers and scatters take constant indices")
+            if len(ref.shape) > 1:
+                raise self.refuse(node, f"an index tensor of rank {len(ref.shape)} "
+                                        f"({node.target}): one of rank <= 1 per dim")
+            if ref.kind == "lit":
+                out.append(torch.full(ref.shape, int(ref.value), dtype=torch.int64,
+                                      device=self.device))
+                continue
+            index = _strided(self.consts[ref.index], ref)
+            if index.dtype.is_floating_point:
+                raise self.refuse(node, f"a floating-point index ({node.target})")
+            out.append(index.to(torch.int64))
+        return tuple(out)
+
+    def gather(self, node, src: Ref, entries, env, out_shape) -> Ref:
+        """``src[indices]``: each output element reads the element of
+        ``src``'s base whose address the table gives."""
+        index = self.indices(node, entries, env)
+        if src.kind == "lit":
+            return Ref("lit", out_shape, (0,) * len(out_shape), value=src.value)
+        table = _addresses(src, self.device)[index]
+        out = self.lane(out_shape)
+        self.ops.append(Op("gather", "gather", out, (src,), (self.table(table),),
+                           str(node.target)))
+        return out
+
+    def put(self, node, target, a, env, out_shape) -> Ref:
+        """``index_put`` (base args[0], values args[2]), ``diag_embed`` and
+        ``diagonal_backward`` (base zeros, values args[0]) as a put: the
+        destination of each value, in the output's flat order, from the
+        same indexing of the output's positions."""
+        positions = torch.arange(math.prod(out_shape), device=self.device).reshape(out_shape)
+        accumulate = False
+        if target == aten.index_put.default:
+            base, values = a[0], self.floats(node, a[2])
+            dest = positions[self.indices(node, node.args[1], env)]
+            accumulate = bool(node.args[3]) if len(node.args) > 3 else bool(
+                node.kwargs.get("accumulate", False))
+        else:
+            base = Ref("lit", out_shape, (0,) * len(out_shape), value=0.0)
+            values = self.floats(node, a[0])
+            if target == aten.diag_embed.default:
+                offset, dim1, dim2 = (list(node.args[1:]) + [0, -2, -1][len(node.args) - 1:])[:3]
+            else:
+                offset, dim1, dim2 = node.args[2:5]
+            dest = torch.diagonal(positions, offset, dim1, dim2)
+        if base.kind != "lit":
+            base = self.floats(node, base)
+        if values.kind == "lit":
+            where = torch.zeros(dest.shape, dtype=torch.int64, device=self.device)
+        else:
+            where = torch.broadcast_to(_addresses(values, self.device), dest.shape)
+        dest, where = dest.reshape(-1), where.reshape(-1)
+        order = torch.argsort(dest, stable=True)  # each destination's sources in ascending order
+        counts = torch.zeros(positions.numel(), dtype=torch.int64, device=self.device)
+        counts.index_add_(0, dest, torch.ones_like(dest))
+        ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+        out = self.lane(out_shape)
+        self.ops.append(Op("put", "put", out, (base, values),
+                           (self.table(ptr), self.table(where[order]), accumulate, dest.numel()),
+                           str(node.target)))
+        return out
 
     def floats(self, node, ref: Ref) -> Ref:
         if ref.boolean:
@@ -554,8 +699,12 @@ class _Lowering:
             if not operands[0].boolean:
                 raise self.refuse(node, "a condition that is not a comparison (aten.where.self)")
             if operands[0].kind == "const":  # a closed-over mask, as 0/1 in x0s's dtype
-                operands[0] = self.const(self.consts[operands[0].index].to(self.dtype))
-                operands[0] = replace(operands[0], boolean=True)
+                key = ("as floats", operands[0].index)
+                if key not in self.const_ids:
+                    mask = self.consts[operands[0].index].to(self.dtype)
+                    self.const_ids[key] = (len(self.consts), mask)
+                    self.consts.append(mask)
+                operands[0] = replace(operands[0], index=self.const_ids[key][0])
         elif fn in _UNARY:
             operands = a[:1]
         elif fn == "log_sigmoid_backward":
@@ -583,6 +732,22 @@ class _Lowering:
             shape = tuple(1 if d in dims else src.shape[d] for d in range(rank))
             return Ref("lane", shape, _contiguous_strides(shape), out.offset)
         return out
+
+
+def _addresses(ref: Ref, device) -> torch.Tensor:
+    """The address of each element of ``ref`` in its base, int64, shaped
+    like ``ref``."""
+    index = torch.full(ref.shape, ref.offset, dtype=torch.int64, device=device)
+    for d, (size, stride) in enumerate(zip(ref.shape, ref.strides)):
+        steps = torch.arange(size, dtype=torch.int64, device=device) * stride
+        index = index + steps.reshape([size if e == d else 1 for e in range(len(ref.shape))])
+    return index
+
+
+def _strided(base: torch.Tensor, ref: Ref) -> torch.Tensor:
+    """``ref``'s elements of ``base`` (any strides, a flip's negative ones
+    too), as a new tensor."""
+    return base.reshape(-1)[_addresses(ref, base.device)]
 
 
 def _is_contiguous(ref: Ref) -> bool:
@@ -618,12 +783,33 @@ def _flat_nodes(args, kwargs):
     return out
 
 
-def _view(target, ref: Ref, args, out_shape) -> Ref:
+def _view(target, ref: Ref, args, out_shape, kwargs=None) -> Ref:
     """The view ``target`` of ``ref``: a new shape, strides and offset over
     the same values (a literal stays a literal of the new shape)."""
     shape, strides, offset = list(ref.shape), list(ref.strides), ref.offset
+    kwargs = kwargs or {}
     if target == aten.t.default:
         shape, strides = shape[::-1], strides[::-1]
+    elif target == aten.permute.default:
+        dims = [d % len(shape) for d in args[0]]
+        shape, strides = [shape[d] for d in dims], [strides[d] for d in dims]
+    elif target == aten.flip.default:
+        for d in {d % len(shape) for d in args[0]}:
+            offset += (shape[d] - 1) * strides[d]
+            strides[d] = -strides[d]
+    elif target == aten.diagonal.default:
+        given = list(args) + [kwargs.get(k, v) for k, v in
+                              (("offset", 0), ("dim1", 0), ("dim2", 1))][len(args):]
+        diag, dim1, dim2 = given[0], given[1] % len(shape), given[2] % len(shape)
+        if diag >= 0:
+            offset += diag * strides[dim2]
+            size = max(0, min(shape[dim1], shape[dim2] - diag))
+        else:
+            offset -= diag * strides[dim1]
+            size = max(0, min(shape[dim1] + diag, shape[dim2]))
+        step = strides[dim1] + strides[dim2]
+        keep = [d for d in range(len(shape)) if d not in (dim1, dim2)]
+        shape, strides = [shape[d] for d in keep] + [size], [strides[d] for d in keep] + [step]
     elif target == aten.expand.default:
         sizes = list(args[0])
         lead = len(sizes) - len(shape)
@@ -678,8 +864,8 @@ def trace_objective(obj, value_and_grad_fn: Optional[Callable], x0s: torch.Tenso
     vag_fn = as_value_and_grad(obj, value_and_grad_fn)
     val_fn = as_value_fn(obj, value_and_grad_fn)
     example = torch.empty(n, dtype=dtype, device=device)
-    consts = []
-    shared = (consts, {}, {})  # constants, their ids, folded expressions
+    consts, tables = [], []
+    shared = (consts, {}, {}, tables)  # constants, their ids, folded expressions, index tables
     graphs = []
     # the value first: an in-place write shows there as itself, not as
     # autograd's complaint about it
@@ -692,7 +878,7 @@ def trace_objective(obj, value_and_grad_fn: Optional[Callable], x0s: torch.Tenso
     val, vag = graphs
     val.grad = None
     return TracedObjective(obj, value_and_grad_fn, n, dtype, vag, val,
-                           _kernel_consts(consts, (val, vag)))
+                           _kernel_consts(consts, (val, vag)), tables)
 
 
 def _kernel_consts(consts, graphs) -> list:
@@ -713,11 +899,14 @@ def _kernel_consts(consts, graphs) -> list:
 # the plain version of the generated evaluation
 
 
+def _base(ref: Ref, scratch: torch.Tensor, consts) -> torch.Tensor:
+    return (scratch if ref.kind == "lane" else consts[ref.index]).reshape(-1)
+
+
 def _load(ref: Ref, scratch: torch.Tensor, consts, dtype) -> torch.Tensor:
     if ref.kind == "lit":
         return torch.full(ref.shape, ref.value, dtype=dtype, device=scratch.device)
-    base = scratch if ref.kind == "lane" else consts[ref.index]
-    return torch.as_strided(base, ref.shape, ref.strides, ref.offset)
+    return _strided(_base(ref, scratch, consts), ref)
 
 
 def _pow(a, e):
@@ -780,6 +969,16 @@ def _elementwise(op: Op, x, dtype):
     if name == "log_sigmoid":
         a = x[0]
         return torch.clamp(a, max=0.0) - torch.log1p(torch.exp(-torch.abs(a)))
+    if name == "tanh":
+        return torch.tanh(x[0])
+    if name == "log1p":
+        return torch.log1p(x[0])
+    if name == "sigmoid":
+        return 1.0 / (1.0 + torch.exp(-x[0]))
+    if name == "tanh_backward":
+        return x[0] * (1.0 - x[1] * x[1])
+    if name == "sigmoid_backward":
+        return x[0] * (1.0 - x[1]) * x[1]
     if name == "log_sigmoid_backward":
         g, a = x[0], x[1]
         neg = a < 0
@@ -790,10 +989,35 @@ def _elementwise(op: Op, x, dtype):
     raise AssertionError(name)
 
 
-def evaluate(graph: Graph, x: torch.Tensor, consts) -> tuple:
+def _put(op: Op, base, scratch, consts, tables, dtype):
+    """A put as the kernel runs it: each output element from the base's,
+    its sources in ascending order, one round of sources at a time."""
+    ptr, src = (tables[t].long() for t in op.params[:2])
+    values = op.args[1]
+    acc = base.reshape(-1).clone()
+    counts = ptr[1:] - ptr[:-1]
+    flat = None if values.kind == "lit" else _base(values, scratch, consts)
+
+    def value(k):
+        if flat is None:
+            return torch.full(k.shape, values.value, dtype=dtype, device=acc.device)
+        return flat[src[k]]
+
+    if op.params[2]:  # accumulate
+        for r in range(int(counts.max()) if counts.numel() else 0):
+            has = counts > r
+            acc[has] = acc[has] + value(ptr[:-1][has] + r)
+    else:  # the last source wins
+        has = counts > 0
+        acc[has] = value(ptr[1:][has] - 1)
+    return acc.reshape(op.out.shape)
+
+
+def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
     """Run ``graph`` op by op on one point ``x`` (n,) with torch: (value,
     gradient or None), as the generated objective computes them (the order
-    of sums aside)."""
+    of sums aside; a cumsum and a put sum in the kernel's order).
+    ``tables``: the objective's index tables."""
     dtype = x.dtype
     scratch = torch.zeros(graph.slots, dtype=dtype, device=x.device)
     scratch[: x.shape[0]] = x
@@ -825,6 +1049,13 @@ def evaluate(graph: Graph, x: torch.Tensor, consts) -> tuple:
             y[tuple(index)] = ins[0]
         elif op.kind == "cat":
             y = torch.cat(ins, dim=op.params[0])
+        elif op.kind == "cumsum":
+            y = torch.cumsum(ins[0], dim=op.params[0])
+        elif op.kind == "gather":
+            y = _base(op.args[0], scratch, consts)[tables[op.params[0]].long()]
+            y = y.reshape(op.out.shape)
+        elif op.kind == "put":
+            y = _put(op, ins[0], scratch, consts, tables, dtype)
         else:
             raise AssertionError(op.kind)
         y = torch.broadcast_to(y, op.out.shape)

@@ -136,8 +136,9 @@ def resident_feasible(n: int, itemsize: int, objective=None) -> bool:
     default), the quadratic, the funnel and the mixture n <= 236 in
     float32, n <= 165 in float64; the GLMs' scratch takes a little more,
     the AR(1)'s depends on its number of steps too, a traced objective's
-    on its graph (one slot per op's output). Larger n belong to
-    `optimize_batched_fused`."""
+    on its graph (one slot per op's output, a cumsum's, a gather's and a
+    put's among them; its constants and int32 index tables lie in device
+    memory and take none). Larger n belong to `optimize_batched_fused`."""
     values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective, n)
     return values * itemsize <= SMEM_LIMIT_BYTES
 
@@ -263,8 +264,12 @@ def _data_args(name: str, objective, x0s: torch.Tensor) -> list:
                 raise ValueError(f"a traced objective's constants must be contiguous "
                                  f"{x0s.dtype} tensors on {x0s.device}, got {t.dtype} on "
                                  f"{t.device}")
-        return [(ctypes.c_void_p * max(1, len(objective.consts)))(
-            *(t.data_ptr() for t in objective.consts))]
+        for t in objective.tables:
+            if t.device != x0s.device or t.dtype != torch.int32 or not t.is_contiguous():
+                raise ValueError(f"a traced objective's index tables must be contiguous int32 "
+                                 f"tensors on {x0s.device}, got {t.dtype} on {t.device}")
+        pointers = [t.data_ptr() for t in (*objective.consts, *objective.tables)]
+        return [(ctypes.c_void_p * max(1, len(pointers)))(*pointers)]
     if type(objective) not in KERNEL_MODELS:
         return []  # the split Rosenbrock and the funnel
     tensors = [getattr(objective, attr) for attr in KERNEL_MODELS[type(objective)][1]]

@@ -41,10 +41,25 @@ routes:
     (ops/kernels/objective_codegen.py), built with nvcc at first use. A
     bound method, a lambda around a model, a subclass, a user
     ``value_and_grad_fn`` and any inline function of the table's ops run
-    there. The trace runs on every call that passes the function itself
-    (tens of milliseconds of host time); a caller that solves one
-    objective at one shape many times traces it once (`trace_objective`)
-    and passes the trace as ``obj``, which also keeps its built library.
+    there, and so do `transforms.py`'s maps and the models built on them
+    (`models.HierarchicalRegression` through `transform_objective`).
+    The entry point keeps its traces, the counterpart of the jit cache of
+    JAX's ``_optimize_batched_resident_jit``, whose objective is a static
+    argument: keyed by the objective and ``value_and_grad_fn`` (by their
+    own ``==`` and hash, as JAX's static arguments are) and by n, dtype and
+    device, the last `TRACE_CACHE_SIZE` of them, each with its built
+    library. So a second call with the same function or bound method
+    traces nothing, while a new lambda, another n or another dtype traces
+    again. Unlike JAX's jit, a kept trace does not go stale where the
+    plain version would see new data: it also keeps every tensor reachable
+    from the objective (a bound method's object, a function's closure and
+    defaults, a partial's arguments, attributes, the items of lists, tuples
+    and dicts) with its version counter, and the objective is traced again
+    when one of them was replaced or written in place, so B3 and the plain
+    version read the same data. A tensor reached only through a module's
+    globals is read at the first solve (pass it through the objective, or
+    pass `trace_objective`'s result as ``obj``, which is never traced
+    again).
 An objective that does not trace to the table (an op outside it, a
 per-lane value of rank > 2, data-dependent control flow or shapes,
 ``.item()``, random ops, in-place writes, a constant in another floating
@@ -60,6 +75,9 @@ The JAX engine's ``block_batch``, ``interpret``, ``rewrite_dots`` and
 
 from __future__ import annotations
 
+import functools
+import types
+from collections import OrderedDict
 from typing import Callable, Optional
 
 import torch
@@ -92,19 +110,100 @@ def _is_rosenbrock(obj, value_and_grad_fn) -> bool:
     return obj is rosenbrock_logdensity or type(obj) is Rosenbrock
 
 
+# The traces the entry point keeps (see the module docstring), oldest first:
+# key -> (TracedObjective, the data it was traced from).
+TRACE_CACHE_SIZE = 32
+_TRACES: OrderedDict = OrderedDict()
+# objects walked at most for one objective's data; beyond, it is traced every call
+_DATA_WALK_LIMIT = 4096
+_LEAVES = (type, types.ModuleType, str, bytes, int, float, complex, bool,
+           torch.dtype, torch.device)
+
+
+def _objective_data(*roots) -> Optional[tuple]:
+    """Every tensor reachable from ``roots`` through a bound method's
+    object, a function's closure and defaults, a partial's arguments, an
+    object's attributes and slots and the items of lists, tuples, sets and
+    dicts (not a module's globals), each with its version counter; None
+    where the walk passes `_DATA_WALK_LIMIT` objects."""
+    found, seen, stack = [], set(), list(roots)
+    while stack:
+        x = stack.pop()
+        if x is None or isinstance(x, _LEAVES) or id(x) in seen:
+            continue
+        seen.add(id(x))
+        if len(seen) > _DATA_WALK_LIMIT:
+            return None
+        if isinstance(x, torch.Tensor):
+            found.append((x, x._version))
+        elif isinstance(x, types.MethodType):
+            stack += [x.__self__, x.__func__]
+        elif isinstance(x, types.FunctionType):
+            for cell in x.__closure__ or ():
+                try:
+                    stack.append(cell.cell_contents)
+                except ValueError:  # an empty cell
+                    pass
+            stack += [*(x.__defaults__ or ()), *(x.__kwdefaults__ or {}).values()]
+        elif isinstance(x, functools.partial):
+            stack += [x.func, *x.args, *x.keywords.values()]
+        elif isinstance(x, (list, tuple, set, frozenset)):
+            stack += list(x)
+        elif isinstance(x, dict):
+            stack += list(x.values())
+        else:
+            stack += list(getattr(x, "__dict__", {}).values())
+            for cls in type(x).__mro__:
+                slots = getattr(cls, "__slots__", ())
+                for name in (slots,) if isinstance(slots, str) else slots:
+                    stack.append(getattr(x, name, None))
+    return tuple(found)
+
+
+def _same_data(kept: tuple, now: Optional[tuple]) -> bool:
+    return now is not None and len(kept) == len(now) and all(
+        a is b and va == vb for (a, va), (b, vb) in zip(kept, now))
+
+
+def _kept_trace(obj, value_and_grad_fn, x0s: torch.Tensor) -> TracedObjective:
+    """``obj`` traced for ``x0s``'s lanes, from the kept traces where one
+    matches and its objective's data are the same tensors at the same
+    versions (an unhashable objective, or one whose data walk is too long,
+    is traced on every call)."""
+    key = (obj, value_and_grad_fn, x0s.shape[1], x0s.dtype, x0s.device)
+    try:
+        kept = _TRACES.get(key)
+    except TypeError:
+        return trace_objective(obj, value_and_grad_fn, x0s)
+    data = _objective_data(obj, value_and_grad_fn)
+    if kept is not None and _same_data(kept[1], data):
+        _TRACES.move_to_end(key)
+        return kept[0]
+    traced = trace_objective(obj, value_and_grad_fn, x0s)
+    if data is None:
+        _TRACES.pop(key, None)
+        return traced
+    _TRACES[key] = (traced, data)
+    _TRACES.move_to_end(key)
+    while len(_TRACES) > TRACE_CACHE_SIZE:
+        _TRACES.popitem(last=False)
+    return traced
+
+
 def _kernel_objective(obj, value_and_grad_fn, x0s: torch.Tensor):
     """The objective B3 evaluates: None for the split Rosenbrock,
     `funnel_logdensity`, a shallow copy of a hand-written instantiation's
     model with its data on ``x0s``'s device and dtype, or else the
     objective traced for ``x0s`` (`trace_objective`, which raises
-    ValueError for an objective that does not trace to the op table)."""
+    ValueError for an objective that does not trace to the op table), kept
+    for the next call (`_kept_trace`)."""
     if _is_rosenbrock(obj, value_and_grad_fn):
         return None
     if value_and_grad_fn is None and (obj is funnel_logdensity or type(obj) in KERNEL_MODELS):
         return objective_on(obj, x0s)
     if isinstance(obj, TracedObjective) and value_and_grad_fn is None:
         return obj  # traced once by the caller, for solves of one shape
-    return trace_objective(obj, value_and_grad_fn, x0s)
+    return _kept_trace(obj, value_and_grad_fn, x0s)
 
 
 def optimize_batched_resident(
@@ -134,7 +233,8 @@ def optimize_batched_resident(
         device: the fleet engine with the plain update on the objective)
         or 'auto' (= 'cuda' on CUDA tensors, 'torch' on CPU). The trace runs
         on every device, so an objective that does not trace raises on
-        the CPU too.
+        the CPU too. A trace is kept for the next call with the same
+        objective, n, dtype and device (see the module docstring).
 
     Returns:
       OptimizeResult with a leading batch axis on every leaf.

@@ -162,8 +162,8 @@ def test_ar1_model_draws_its_data_by_jax_recipe():
         tm.AR1DriftMAP(3, 4, A=np.eye(2), ys=np.zeros((4, 3)))
 
 
-def test_models_export_the_jax_names_but_the_hierarchical_model():
-    assert set(tm.__all__) == set(jm.__all__) - {"HierarchicalRegression"}
+def test_models_export_every_jax_name():
+    assert set(tm.__all__) == set(jm.__all__)
 
 
 # tol 1e-6: at 1e-8 the Poisson and AR(1) posteriors, whose |f*| is a large

@@ -758,17 +758,22 @@ def test_resident_instantiations_keep_their_results_bit_for_bit(cuda_device):
 
 # B3 on traced objectives (ops/kernels/objective_trace.py, objective_codegen.py):
 # each objective generated as CUDA for its graph and shapes and built at first use.
-def _traced_case(kind, n, dtype, device):
-    """(objective, numpy starts) of chip_smoke.py's phase-22 parity case
-    ``kind`` at width n (an inline objective of the JAX package's
-    tests/test_resident.py:147-260 or a model's bound log-density), its data
-    drawn with numpy from seed 20260816 + n."""
+def _chip_smoke():
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "chip_smoke.py")
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    obj, _, starts = module.traced_case(kind, n, dtype, device)
+    return module
+
+
+def _traced_case(kind, n, dtype, device):
+    """(objective, numpy starts) of chip_smoke.py's phase-22 or phase-23
+    parity case ``kind`` at width n (an inline objective of the JAX
+    package's tests/test_resident.py:147-260, a model's bound log-density,
+    a transformed density or the transformed hierarchical model), its data
+    drawn with numpy from seed 20260816 + n."""
+    obj, _, starts = _chip_smoke().traced_case(kind, n, dtype, device)
     return obj, starts
 
 
@@ -776,6 +781,10 @@ TRACED_CASES = [
     ("quadratic with b", 60, torch.float64, 1e-6), ("quadratic with b", 100, torch.float32, 1e-3),
     ("logsumexp", 60, torch.float64, 1e-6), ("logistic with logaddexp", 60, torch.float32, 1e-3),
     ("mixture", 60, torch.float32, 1e-3), ("mixture", 70, torch.float64, 1e-6),
+    # the transforms' ops, one group each (phase 23)
+    ("interval and simplex", 60, torch.float32, 1e-3),
+    ("ordered and cov cholesky", 31, torch.float64, 1e-6),
+    ("corr cholesky", 28, torch.float32, 1e-3), ("gather with repeats", 60, torch.float64, 1e-6),
 ]
 
 
@@ -865,6 +874,66 @@ def test_traced_fleet_launches_once_without_a_host_sync(cuda_device):
     assert after["traced"] == before["traced"] + 1
     assert sum(after.values()) == sum(before.values()) + 1
     assert (res.status == Status.CONVERGED).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", [("hierarchical q=2", 23, torch.float32, 1e-3),
+                                                 ("hierarchical q=3", 34, torch.float64, 1e-6)])
+def test_hierarchical_objective_matches_plain_version(cuda_device, kind, n, dtype, tol):
+    """The transformed hierarchical model against the plain version by
+    chip_smoke.py's phase-23 rule (`traced_parity` with ``chaotic``): on
+    this model rounding alone changes lanes' counters within five
+    iterations (the plain version on the CPU, or started one ulp up or
+    down), so at caps 1 and 5 B3 may have other counters on at most twice
+    as many lanes as the witness with the most, and its floats on the
+    others are held to twice the witnesses' movement; cap 0 and the whole
+    solves as for the other objectives."""
+    import quasinewtonmethods_jl_tpu_torch as qt
+
+    cs = _chip_smoke()
+    obj, _, starts = cs.traced_case(kind, n, dtype, cuda_device)
+    X = torch.tensor(starts, dtype=dtype, device=cuda_device)
+    on_cpu = cs.traced_case(kind, n, dtype, torch.device("cpu"))[0]
+    _, _, failures = cs.traced_parity(qt, qt.trace_objective(obj, None, X), X, tol, kind,
+                                      qt.trace_objective(on_cpu, None, X.cpu()), chaotic=True)
+    assert not failures
+
+
+@pytest.mark.cuda
+def test_hierarchical_fleet_launches_once_without_a_host_sync(cuda_device):
+    """The transformed hierarchical model at phase 23's full width (n = 23,
+    512 observations) over 512 lanes, f32: its first call through the
+    entry point traces (index tables built on the card) and makes one
+    launch of B3, with no synchronisation flagged by torch's sync debug
+    mode; a second call takes the kept trace. Statuses are CONVERGED or
+    LINESEARCH_FAILURE (float32's floor)."""
+    from quasinewtonmethods_jl_tpu_torch import resident_solve
+
+    cs = _chip_smoke()
+    obj, starts = cs.hierarchical_objective(np.random.default_rng(cs.BENCH_SEED), 2,
+                                            torch.float32, cuda_device, 512)
+    X = torch.tensor(starts, dtype=torch.float32, device=cuda_device)
+    optimize_batched_resident(obj, X[:4], tol=1e-3)  # the build, before the counted run
+    resident_solve._TRACES.clear()
+    before = dict(resident_bfgs_solve.objective_launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            res = optimize_batched_resident(obj, X, tol=1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    after = resident_bfgs_solve.objective_launches
+    assert after["traced"] == before["traced"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    assert len(resident_solve._TRACES) == 1
+    ok = res.status == Status.CONVERGED
+    assert bool((ok | (res.status == Status.LINESEARCH_FAILURE)).all())
+    assert bool(torch.isfinite(res.x).all())
+    again = optimize_batched_resident(obj, X, tol=1e-3)
+    assert len(resident_solve._TRACES) == 1 and torch.equal(again.x, res.x)
 
 
 @pytest.mark.cuda

@@ -6,9 +6,14 @@ The IR's evaluator, the plain version of the generated evaluation, is held
 to ``torch.func.grad_and_value`` of the objective and to JAX's
 ``jax.value_and_grad`` of its jnp twin, on the same numpy inputs in float64
 to 1e-12 (the three sum in other orders), for every objective
-chip_smoke.py's phase 22 runs and every model of the port. Each class of
-objective that does not trace is refused with a ValueError that names its
-op. The generated text depends on the graph, the shapes and the dtype, not
+chip_smoke.py's phases 22 and 23 run and every model of the port, the
+transforms (transforms.py) and the hierarchical model among them: each op
+the transforms add to the table (tanh, log1p, sigmoid and their
+backwards; the views diagonal, permute and flip; cumsum; diag_embed,
+diagonal_backward and new_zeros; the gathers and puts of constant
+indices, with and without accumulate) in at least one objective. Each
+class of objective that does not trace is refused with a ValueError that
+names its op. The generated text depends on the graph, the shapes and the dtype, not
 on the constants' values. The kernel itself runs only on the card
 (tests/test_torch_kernels_cuda.py).
 """
@@ -20,7 +25,9 @@ import pytest
 import torch
 
 from quasinewtonmethods_jl_tpu import models as jm
+from quasinewtonmethods_jl_tpu import transforms as jt
 from quasinewtonmethods_jl_tpu_torch import models as tm
+from quasinewtonmethods_jl_tpu_torch import transforms as tt
 from quasinewtonmethods_jl_tpu_torch.api import as_value_and_grad
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import (
@@ -124,7 +131,70 @@ def pair(name, rng):
         ref = jm.IllConditionedQuadratic(n, condition=1e3)
         port = tm.IllConditionedQuadratic(n, condition=1e3, x_star=np.asarray(ref.x_star))
         return port, None, ref.logdensity, n
+    if name in TRANSFORMED:
+        return transformed_pair(name, rng)
+    if name == "tanh and log1p":
+        c = rng.standard_normal(n)
+        ct, cj = t(c), jnp.asarray(c)
+        return (lambda x: torch.sum(ct * torch.tanh(x)) - torch.sum(torch.log1p(x * x)), None,
+                lambda x: jnp.sum(cj * jnp.tanh(x)) - jnp.sum(jnp.log1p(x * x)), n)
+    if name == "gather with repeats":  # its backward a put with accumulate
+        idx, c = rng.integers(0, n, 40), rng.standard_normal(40)
+        it, ct, ij, cj = torch.tensor(idx), t(c), jnp.asarray(idx), jnp.asarray(c)
+        return (lambda x: -torch.sum((x[it] - ct) ** 2), None,
+                lambda x: -jnp.sum((x[ij] - cj) ** 2), n)
+    if name == "diag, permute and flip":
+        A = rng.standard_normal((3, 2))
+        At, Aj = t(A), jnp.asarray(A)
+
+        def port(x):
+            M = x.reshape(2, 3).permute(1, 0).flip(0)  # (3, 2)
+            return -torch.sum((M - At) ** 2) - torch.sum(torch.diag(x[:3]) @ M)
+
+        def ref(x):
+            M = jnp.flip(x.reshape(2, 3).T, 0)
+            return -jnp.sum((M - Aj) ** 2) - jnp.sum(jnp.diag(x[:3]) @ M)
+
+        return port, None, ref, n
     raise AssertionError(name)
+
+
+# transformed log-densities: (port transform, JAX transform, constrained log-density in both)
+TRANSFORMED = {
+    "interval transform": (lambda m: m.Interval(6, lo=-1.0, hi=3.0), "quadratic"),
+    "simplex transform": (lambda m: m.Simplex(7), "dirichlet"),
+    "ordered transform": (lambda m: m.Ordered(6), "quadratic"),
+    "corr cholesky transform": (lambda m: m.CorrCholesky(4), "quadratic"),
+    "cov cholesky transform": (lambda m: m.CovCholesky(3), "quadratic"),
+    "hierarchical model q=2": None,
+    "hierarchical model q=3": None,
+}
+
+
+def transformed_pair(name, rng):
+    if name.startswith("hierarchical"):
+        q = int(name[-1])
+        ref = jm.HierarchicalRegression(n_groups=4, q=q, p=2, n_obs=40, seed=q)
+        port = tm.HierarchicalRegression(
+            n_groups=4, q=q, p=2, n_obs=40,
+            **{k: np.asarray(getattr(ref, k)) for k in ("X", "Z", "group", "y")})
+        return (tt.transform_objective(port, port.transform), None,
+                jt.transform_objective(ref, ref.transform).logdensity, port.transform
+                .unconstrained_size)
+    make, kind = TRANSFORMED[name]
+    port_t, ref_t = make(tt), make(jt)
+    c = rng.standard_normal(port_t.constrained_size)
+    if kind == "dirichlet":
+        alpha = 1.0 + rng.random(port_t.constrained_size) * 3.0
+        at, aj = torch.tensor(alpha), jnp.asarray(alpha)
+        port_x, ref_x = (lambda x: torch.sum((at - 1.0) * torch.log(x)),
+                         lambda x: jnp.sum((aj - 1.0) * jnp.log(x)))
+    else:
+        ct, cj = torch.tensor(c), jnp.asarray(c)
+        port_x, ref_x = (lambda x: -0.5 * torch.sum((x - ct) ** 2),
+                         lambda x: -0.5 * jnp.sum((x - cj) ** 2))
+    return (tt.transform_objective(port_x, port_t), None,
+            jt.transform_objective(ref_x, ref_t).logdensity, port_t.unconstrained_size)
 
 
 OBJECTIVES = [
@@ -134,6 +204,7 @@ OBJECTIVES = [
     "funnel with value_and_grad_fn", "mixture's bound logdensity", "mixture model",
     "logistic's bound logdensity", "logistic model", "logistic with value_and_grad_fn",
     "poisson model", "ar1's bound logdensity", "ar1 model", "ill-conditioned quadratic model",
+    "tanh and log1p", "gather with repeats", "diag, permute and flip", *TRANSFORMED,
 ]
 
 
@@ -145,10 +216,13 @@ def test_ir_matches_torch_func_and_jax(rng, name, scale):
     traced = trace_objective(port, vgf, x0s)
     for _ in range(2):
         x = rng.standard_normal(n) * scale
-        value, grad = evaluate(traced.vag, torch.tensor(x), traced.consts)
-        trial, none = evaluate(traced.val, torch.tensor(x), traced.consts)
+        value, grad = evaluate(traced.vag, torch.tensor(x), traced.consts, traced.tables)
+        trial, none = evaluate(traced.val, torch.tensor(x), traced.consts, traced.tables)
         tvalue, tgrad = as_value_and_grad(port, vgf)(torch.tensor(x))
-        jvalue, jgrad = jax.value_and_grad(ref)(jnp.asarray(x))
+        jax_vag = jax.value_and_grad(ref)
+        if name in TRANSFORMED:  # compiled once, not op by op
+            jax_vag = jax.jit(jax_vag)
+        jvalue, jgrad = jax_vag(jnp.asarray(x))
         assert none is None and grad.shape == (n,)
         for other in (float(tvalue), float(jvalue)):
             np.testing.assert_allclose(float(value), other, rtol=1e-12, atol=1e-12)
@@ -158,6 +232,7 @@ def test_ir_matches_torch_func_and_jax(rng, name, scale):
 
 
 C32 = torch.ones(4, dtype=torch.float32)
+I22 = torch.tensor([[0, 1], [2, 3]])
 
 # one objective per class the table refuses, and the op its message names
 UNTRACEABLE = {
@@ -173,6 +248,15 @@ UNTRACEABLE = {
     "a random op": (lambda x: -(x * x).sum() + torch.randn_like(x).sum(), r"random.*randn_like"),
     "an in-place write": (lambda x: -(x.mul_(2.0)).sum(), r"in-place.*aten\.mul_"),
     "a constant of another dtype": (lambda x: -(x * C32).sum(), r"float32.*aten\.mul"),
+    "an index computed from the point": (
+        lambda x: -(x[(x > 0).long()] ** 2).sum(), r"index computed from the point.*_to_copy"),
+    "a scatter with non-constant indices": (
+        lambda x: -(torch.zeros(4, dtype=x.dtype).index_put(((x > 0).long(),), x) ** 2).sum(),
+        r"index computed from the point.*_to_copy"),
+    "a boolean-mask index": (
+        lambda x: -(torch.zeros(4, dtype=x.dtype).index_put((x > 0,), x) ** 2).sum(),
+        r"boolean-mask index.*aten\.index_put"),
+    "an index tensor of rank 2": (lambda x: -(x[I22] ** 2).sum(), r"rank 2.*aten\.index\.Tensor"),
 }
 
 
@@ -204,13 +288,26 @@ def test_generated_text_depends_on_shapes_not_on_constant_values(rng):
     assert generate(trace_objective(_quadratic(Q7, b7), None, torch.zeros((3, 7)))) != text
 
 
-def test_two_models_of_one_shape_share_their_text(rng):
-    x0s = torch.zeros((3, 6), dtype=torch.float64)
-    a, b = (tm.GaussianMixture(rng.standard_normal((4, 6)), sigmas=1.0 + rng.random(4))
-            for _ in range(2))
-    traced = [trace_objective(m.logdensity, None, x0s) for m in (a, b)]
-    assert generate(traced[0]) == generate(traced[1])
-    assert not torch.equal(traced[0].consts[0], traced[1].consts[0])
+@pytest.mark.parametrize("family", ["mixture", "hierarchical"])
+def test_two_models_of_one_shape_share_their_text(rng, family):
+    """Constants and index tables are kernel inputs: two datasets of one
+    shape (the hierarchical model's groups included) share one build."""
+    if family == "mixture":
+        x0s = torch.zeros((3, 6), dtype=torch.float64)
+        a, b = (tm.GaussianMixture(rng.standard_normal((4, 6)), sigmas=1.0 + rng.random(4))
+                for _ in range(2))
+        traced = [trace_objective(m.logdensity, None, x0s) for m in (a, b)]
+        assert generate(traced[0]) == generate(traced[1])
+        assert not torch.equal(traced[0].consts[0], traced[1].consts[0])
+    else:
+        a, b = (tm.HierarchicalRegression(n_groups=4, q=2, p=2, n_obs=30, seed=seed)
+                for seed in (1, 2))
+        x0s = torch.zeros((3, a.dimension - 1), dtype=torch.float64)
+        traced = [trace_objective(tt.transform_objective(m, m.transform), None, x0s)
+                  for m in (a, b)]
+        assert not all(torch.equal(t, u) for t, u in zip(traced[0].tables, traced[1].tables))
+        assert generate(traced[0]) == generate(traced[1])
+        assert not all(torch.equal(c, d) for c, d in zip(traced[0].consts, traced[1].consts))
 
 
 def test_constants_become_kernel_inputs_and_the_counts_follow_the_graph():
@@ -223,6 +320,23 @@ def test_constants_become_kernel_inputs_and_the_counts_follow_the_graph():
     assert graph_ops(traced.val) == n + 2 * n * n + 4 * n + 1
     assert traced.ops_vag > traced.ops_value
     assert traced.extra_values >= n + n  # the point and at least Q x
+
+
+def test_the_new_ops_count_in_the_graph():
+    """A cumsum counts one operation per element, a put with accumulate
+    one per source, a gather none; the tables count in const_bytes."""
+    n, idx = 5, torch.tensor([0, 1, 1, 4, 4, 4])
+    traced = trace_objective(lambda x: -torch.sum(torch.cumsum(x, 0) * x[idx].sum()), None,
+                             torch.zeros((2, n), dtype=torch.float64))
+    kinds = [op.kind for op in traced.vag.ops]
+    assert {"cumsum", "gather", "put"} <= set(kinds)
+    # the trial value: the cumsum (n), the gather (0), its sum (6), the product (n), the sum
+    # (n) and the negation (1)
+    assert graph_ops(traced.val) == n + 6 + n + n + 1
+    put = next(op for op in traced.vag.ops if op.kind == "put")
+    assert put.params[2] and put.params[3] == len(idx)  # accumulate, over six sources
+    assert traced.const_bytes == sum(t.numel() * 4 for t in traced.tables) + sum(
+        c.numel() * 8 for c in traced.consts)
 
 
 def test_generated_sources_are_named_by_text_headers_and_flags(monkeypatch):

@@ -203,3 +203,92 @@ def test_untraceable_objective_raises_on_the_cpu_too():
     with pytest.raises(ValueError, match=r"aten\.sin"):
         qt.optimize_batched_resident(lambda x: torch.sin(x).sum(),
                                      torch.zeros((3, 4), dtype=torch.float64), kernel="torch")
+
+
+def test_the_entry_point_keeps_its_traces(monkeypatch):
+    """The counterpart of JAX's jit cache: a second call with the same
+    function or bound method traces nothing; a new lambda, another n or
+    another dtype traces again, and `trace_objective`'s own result is
+    never traced."""
+    from quasinewtonmethods_jl_tpu_torch import resident_solve
+
+    traces = []
+
+    def counted(*args):
+        traces.append(args[0])
+        return qt.trace_objective(*args)
+
+    monkeypatch.setattr(resident_solve, "trace_objective", counted)
+    monkeypatch.setattr(resident_solve, "_TRACES", type(resident_solve._TRACES)())
+    model = qt.models.GaussianMixture(np.eye(3), sigmas=1.0)  # traced as its bound method
+    X = torch.zeros((2, 3), dtype=torch.float64)
+
+    def solve(obj, x0s=X):
+        return qt.optimize_batched_resident(obj, x0s, tol=1e-6, max_iterations=3)
+
+    def quad(x):
+        return -torch.sum(x * x)
+
+    for obj in (quad, model.logdensity, qt.transform_objective(quad, qt.transforms.Positive(3))):
+        before = len(traces)
+        first = solve(obj)
+        again = solve(obj)
+        assert len(traces) == before + 1, obj  # one trace, then none
+        assert torch.equal(first.x, again.x)
+    assert len(traces) == 3
+    solve(lambda x: -torch.sum(x * x))
+    solve(lambda x: -torch.sum(x * x))
+    assert len(traces) == 5  # a new lambda each call
+    solve(quad, torch.zeros((2, 4), dtype=torch.float64))
+    solve(quad, X.float())
+    assert len(traces) == 7  # another n, another dtype
+    solve(quad)
+    solve(qt.trace_objective(quad, None, X))
+    assert len(traces) == 7
+    monkeypatch.setattr(resident_solve, "TRACE_CACHE_SIZE", 2)
+    solve(lambda x: -torch.sum(x ** 4))
+    assert len(resident_solve._TRACES) == 2  # the oldest dropped
+
+
+@pytest.mark.parametrize("change", ["reassigned", "written_in_place"])
+def test_a_kept_trace_follows_its_objectives_data(monkeypatch, change):
+    """A model's data changed between two calls, by a new tensor or in
+    place, is traced again, so that the kept trace (what B3 evaluates)
+    computes what the live objective (what the plain version evaluates)
+    does; an unchanged model traces nothing."""
+    from quasinewtonmethods_jl_tpu_torch import resident_solve
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import evaluate
+
+    traces = []
+
+    def counted(*args):
+        traces.append(args[0])
+        return qt.trace_objective(*args)
+
+    monkeypatch.setattr(resident_solve, "trace_objective", counted)
+    monkeypatch.setattr(resident_solve, "_TRACES", type(resident_solve._TRACES)())
+    model = qt.models.HierarchicalRegression(n_groups=3, q=2, p=2, n_obs=16, seed=1)
+    obj = qt.transform_objective(model, model.transform)
+    rng = np.random.default_rng(5)
+    X = torch.tensor(rng.normal(size=(2, obj.dimension)))
+
+    def solve_and_check():
+        qt.optimize_batched_resident(obj, X, tol=1e-6, max_iterations=3)
+        ((traced, _),) = resident_solve._TRACES.values()
+        for z in X:
+            value, grad = evaluate(traced.vag, z, traced.consts, traced.tables)
+            want, want_grad = obj.logdensity_and_gradient(z)
+            torch.testing.assert_close(value, want, rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(grad, want_grad, rtol=1e-12, atol=1e-12)
+
+    solve_and_check()
+    solve_and_check()
+    assert len(traces) == 1
+    if change == "reassigned":
+        model.y = model.y + 1.0
+    else:
+        model.y.mul_(2.0)
+    solve_and_check()
+    assert len(traces) == 2
+    solve_and_check()
+    assert len(traces) == 2
