@@ -11,7 +11,8 @@ ops, no hand-written kernel), the BFGS fleet with the Wolfe search (B1), with ``
 with straggler compaction (`optimize_batched_compacted`, B1), the scalar
 BFGS and L-BFGS drivers (`optimize`, `optimize_lbfgs`), the L-BFGS fleets
 (`optimize_lbfgs_batched`) and ``backend="vmap"``, none of which runs a
-hand-written kernel.
+hand-written kernel, and the minimization front door: `least_squares`,
+`optimize_tr`, `optimize_auglag` (its BFGS fleet on B1) and `minimize`.
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -58,19 +59,19 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      (Hager–Zhang, approximate Wolfe); every lane must converge with the
      median iteration count within 10 % of the JAX package's, no kernel
      launched, and every host synchronisation a counted one (sync debug
-     mode); solves/s with and without ``fold_eval`` (3 turns each, with each
+     mode); solves/s with and without ``fold_eval`` (2 turns each, with each
      turn's difference), host syncs and loop bodies per solve, peak device memory, the device's busy share
      of one solve (torch.profiler);
  13. BFGS with the Wolfe search: the phase-4 fleet through
      `optimize_batched(ls=Wolfe())`, every lane converged, median within 10 %
      of the JAX package's, B1 launched once per loop body; then
      ``fold_eval=True`` for the BFGS and CG engines, which must converge
-     every lane with fewer evaluations; solves/s (3 turns each, with each
+     every lane with fewer evaluations; solves/s (2 turns each, with each
      turn's difference);
  14. compaction: the phase-4 fleet through `optimize_batched_compacted`
      with kernel='cuda': the statuses of `optimize_batched_fused`, every
      lane certified, B1 launched; the lanes whose counters differ from the
-     fused run's (rounding, not asserted); solves/s of both (3 turns each,
+     fused run's (rounding, not asserted); solves/s of both (2 turns each,
      with each turn's difference);
  15. entry points given numpy: `optimize_batched` and `optimize_cg` given a
      float64 numpy fleet return float32 results on the card (JAX's x64-off
@@ -93,11 +94,11 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      `optimize_lbfgs_batched` (seed 20260816, tol 1e-3, at most 3000
      iterations, analytic gradient): every lane converged, the median
      iteration count within 10 % of the JAX package's, every sync counted,
-     no kernel launched; solves/s (3 turns), host syncs and loop bodies per
+     no kernel launched; solves/s (2 turns), host syncs and loop bodies per
      solve, device events per body and busy share (torch.profiler), peak
      memory; each fleet resumed from a state saved as numpy; TF32 off; then
      the shift ring against the circular ring, whole solves in turns at
-     4096 x 60, 1024 x 512, 256 x 4096 and 64 x 16384 (wall per loop
+     4096 x 60, 1024 x 512 and 256 x 4096, one turn each (wall per loop
      body), beside the dispatch constant `_RING_CIRCULAR_MIN_N`;
  19. ``backend="vmap"``: the bench fleet's first 16 lanes through
      `optimize_batched(backend="vmap")` (the scalar driver lane by lane):
@@ -201,6 +202,41 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      version, the bound (what the function needs, `hierarchical_ops`),
      the share and the launch shape; the kernels line's record is the f64
      fleet's, whose time no floor decides.
+ 24. the minimization front door (least_squares.py, trust_region.py,
+     constrained.py, minimize.py): (a) B1 under `optimize_auglag(engine=
+     "bfgs")` against the plain update (``kernel="torch"``) on 64 lanes of
+     the disk-constrained Rosenbrock (the bench fleet's first lanes, n =
+     60, ineq 30 - x·x) in f64 (tol 1e-6) and f32 (tol 1e-3): at max_outer
+     1 and 2 and inner caps 0, 1, 5 every counter equal (n_outer,
+     iterations, n_fev, status, inner_status) and x, lam, mu, rho, viol
+     within EXACT_RTOL or ROUNDING_FACTOR times the plain version's move
+     on the CPU, B1 launched once per inner loop body; whole solves held
+     to the rounding witnesses (the plain version 1 ulp up, down, on the
+     CPU); (b) bench_full.py's configurations at full width, f32, data and
+     starts from numpy seed 20260816: `least_squares` on 4096 exponential
+     fits (config 8, n = 2, m = 40, tol 1e-3) and resumed from a state
+     saved as numpy; `optimize_tr` on 1024 starts of a 256-d quadratic of
+     condition 1e4 (config 9, tol 1e-3, max_cg 256), resumed from 5
+     iterations to 10 (statuses and counts those of the one-leg run), and
+     `minimize(method="tr")` on the negated function over its first
+     64 lanes, equal to `optimize_tr`'s after the sign flip;
+     `optimize_auglag` on the bench fleet with ineq 30 - x·x (config 14,
+     tol = ctol = 1e-3, at most 2000 inner iterations) through the CG
+     engine (no kernel) and the BFGS engine (B1), and `minimize(ineq=...,
+     method="bfgs")` over the first 64 lanes, equal to `optimize_auglag`'s
+     after the sign flip: every lane converged where the JAX package
+     converges every lane, else (TR, on float32's floor) the converged
+     count not below its by more than chance (one-sided Fisher at 1 %),
+     medians of iterations (and n_hev, n_outer) within 10 % of its
+     (scripts/jax_engines_reference.py), max viol <= ctol on every
+     converged auglag lane, every host synchronisation a counted one, no
+     kernel launched on the LM, TR and auglag CG paths and B1 once per
+     inner loop body on the auglag BFGS ones; solves/s of one call, host
+     syncs and loop bodies (outer and inner) per solve, peak device
+     memory, and the device's busy share of one TR and one auglag BFGS
+     solve (torch.profiler; the TR fleet's one call is counted, profiled
+     and timed at once, the auglag CG fleet's timed call is its counted
+     one: each takes several seconds).
 Then one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
@@ -218,7 +254,10 @@ B3's records, one per instantiation the run launches
 ``[mixture]``, ``[poisson]`` and ``[ar1]`` beside the Rosenbrock's), count
 the launches of phases 20's and 21's full-width runs; the Poisson record's
 times are its float32 fleet's (its float64 fleet's are on the log line).
-B3 with a traced objective has one record per full-width fleet of phases
+B1 has a second record, ``fused_bfgs_update_batched[auglag]``: its launches
+are phase 24's full-width auglag BFGS fleet's, its max_abs_err phase 24
+(a)'s largest difference of x at the caps, its times and bound phase 6's
+(the same 4096 x 60 f32 shape). B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -245,8 +284,8 @@ BENCH_SEED = 20260816
 BATCH, N = 4096, 60
 TOL, MAX_ITERS = 1e-3, 3000
 # Timed turns of each engine in phases 12-14, whose solves take 0.5-10 s
-# (3, which leaves room for phases 16-19 in the time limit).
-TURNS = 3
+# (2, which leaves room for phases 16-24 in the time limit).
+TURNS = 2
 # The JAX package on this protocol (same seed and sizes, kernel="xla" on the
 # CPU): 4096/4096 converged, median 139 and max 225 iterations.
 JAX_MEDIAN_ITERS, JAX_MAX_ITERS = 139, 225
@@ -297,7 +336,9 @@ LBFGS_N, JAX_LBFGS_ITERS = 4096, 22
 # 334, median n_fev 417.
 LBFGS_FLEETS = {(1024, 512): (156, 259), (256, 4096): (200, 334)}
 LBFGS_HISTORY = 10
-RING_SHAPES = ((BATCH, N), (1024, 512), (256, 4096), (64, 16384))
+# (64 x 16384 is not timed: the time limit holds phase 24 too)
+RING_SHAPES = ((BATCH, N), (1024, 512), (256, 4096))
+RING_TURNS = 1  # whole solves per ring and shape, after a warm-up
 VMAP_LANES = 16
 SPLIT_NS = (128, 192, 232)  # B1 fits up to n = 237 in f32
 B1_NS = (2, 7, 33, 60, 61, 65, 128)  # one warp per lane up to 64; ragged bulk copies at 7, 33, 61, 65
@@ -442,6 +483,27 @@ HIER_PARITY = (
     ("hierarchical q=2", 23, (torch.float64,)),
     ("hierarchical q=3", 34, (torch.float64, torch.float32)),
 )
+# Phase 24 (the minimization front door): bench_full.py's configurations 8
+# (LM, 4096 exponential fits of 40 points), 9 (TR, 1024 starts on a 256-d
+# quadratic of condition 1e4) and 14 (auglag, the bench fleet on the disk
+# x·x <= 30), f32, data from numpy seed BENCH_SEED. The JAX package's counts
+# on the same inputs (`JAX_PLATFORMS=cpu python scripts/jax_engines_reference.py`,
+# its fleet engines on the CPU in float32, ~30 s): lanes, converged, and
+# the medians the gates hold (TR: 909 of its lanes end LINESEARCH_FAILURE
+# on float32's floor, Δ-collapse on the stiff quadratic).
+LM_BATCH, LM_M = 4096, 40
+TR_BATCH, TR_N = 1024, 256
+TR_RESUME_CAP = 10  # the TR fleet's resume runs to this lifetime cap
+AUG_BATCH, AUG_TOL, AUG_MAX_ITERS = BATCH, 1e-3, 2000
+AUG_PARITY_LANES = 64  # phase 24 (a): B1 under auglag against the plain update
+AUG_MIN_LANES = 64  # the constrained minimize, and minimize(method="tr")
+JAX_ENGINES = {
+    "lm": {"lanes": 4096, "converged": 4096, "iterations": 4.0},
+    "tr": {"lanes": 1024, "converged": 115, "iterations": 26.0, "n_hev": 1865.0},
+    "auglag_cg": {"lanes": 4096, "converged": 4096, "iterations": 189.0, "n_outer": 2.0},
+    "auglag_bfgs": {"lanes": 4096, "converged": 4096, "iterations": 116.0, "n_outer": 2.0},
+    "minimize_bfgs": {"lanes": 64, "converged": 64, "iterations": 114.0, "n_outer": 2.0},
+}
 # Published peaks of one H100 SXM: device memory and float32 outside the
 # tensor cores (the kernels' type on the main path); float64 outside the
 # tensor cores for the float64 fleets (NVIDIA's data sheet).
@@ -869,7 +931,7 @@ def timing_phase(qt, device, smi):
     solve_bench(qt, X, "torch")  # warm-up of the plain path
     walls = {"cuda": [], "torch": []}
     syncs = {}
-    for order in (("torch", "cuda"), ("cuda", "torch")) * 2:
+    for order in (("torch", "cuda"), ("cuda", "torch")):
         for k in order:
             engine.host_syncs = 0
             torch.cuda.synchronize()
@@ -880,7 +942,7 @@ def timing_phase(qt, device, smi):
             syncs[k] = engine.host_syncs
             check(bool((res.status == qt.Status.CONVERGED).all()), f"kernel={k} run did not converge")
     rate = {k: BATCH / float(np.median(v)) for k, v in walls.items()}
-    log(f"[time] solves/s at {BATCH}x{N} f32 (median of 4 solves): kernel='cuda' {rate['cuda']:.1f} "
+    log(f"[time] solves/s at {BATCH}x{N} f32 (median of 2 solves): kernel='cuda' {rate['cuda']:.1f} "
         f"({float(np.median(walls['cuda'])):.4f} s/solve, {syncs['cuda']} host syncs), "
         f"kernel='torch' {rate['torch']:.1f} ({float(np.median(walls['torch'])):.4f} s/solve, "
         f"{syncs['torch']} host syncs) on {smi}")
@@ -889,11 +951,13 @@ def timing_phase(qt, device, smi):
 
 def engines(qt):
     """The port's loop drivers, each counting its host reads (and the fleet
-    engines their loop bodies)."""
+    engines their loop bodies; TR its Steihaug bodies, auglag its inner
+    engines' bodies)."""
     from quasinewtonmethods_jl_tpu_torch.lbfgs_batched_solve import optimize_lbfgs_batched_fused
 
     return {"bfgs": qt.optimize_batched_fused, "cg": qt.optimize_cg, "scalar": qt.optimize,
-            "lbfgs": qt.optimize_lbfgs, "lbfgs fleet": optimize_lbfgs_batched_fused}
+            "lbfgs": qt.optimize_lbfgs, "lbfgs fleet": optimize_lbfgs_batched_fused,
+            "lm": qt.least_squares, "tr": qt.optimize_tr, "auglag": qt.optimize_auglag}
 
 
 def counted_kernels():
@@ -916,9 +980,9 @@ def reset_counters(qt):
     counted_kernels()["B3"].objective_launches.update(
         dict.fromkeys(counted_kernels()["B3"].objective_launches, 0))
     for engine in engines(qt).values():
-        engine.host_syncs = 0
-        if hasattr(engine, "loop_bodies"):
-            engine.loop_bodies = 0
+        for counter in ("host_syncs", "loop_bodies", "cg_bodies", "inner_bodies"):
+            if hasattr(engine, counter):
+                setattr(engine, counter, 0)
 
 
 def read_counters(qt):
@@ -928,7 +992,12 @@ def read_counters(qt):
                   cg_bodies=e["cg"].loop_bodies, cg_syncs=e["cg"].host_syncs,
                   scalar_syncs=e["scalar"].host_syncs, lbfgs_syncs=e["lbfgs"].host_syncs,
                   lbfgs_fleet_bodies=e["lbfgs fleet"].loop_bodies,
-                  lbfgs_fleet_syncs=e["lbfgs fleet"].host_syncs)
+                  lbfgs_fleet_syncs=e["lbfgs fleet"].host_syncs,
+                  lm_syncs=e["lm"].host_syncs, lm_bodies=e["lm"].loop_bodies,
+                  tr_syncs=e["tr"].host_syncs, tr_bodies=e["tr"].loop_bodies,
+                  tr_cg_bodies=e["tr"].cg_bodies, auglag_syncs=e["auglag"].host_syncs,
+                  auglag_rounds=e["auglag"].loop_bodies,
+                  auglag_inner_bodies=e["auglag"].inner_bodies)
     return counts
 
 
@@ -936,11 +1005,12 @@ def no_kernel_launched(counts):
     return counts["B1"] == counts["B2a"] == counts["B2b"] == counts["B3"] == 0
 
 
-def counted_run(qt, fn, syncs_key):
+def counted_run(qt, fn, syncs_key, kernels=False):
     """``fn()`` with every counter and the peak memory at 0 and torch's sync
     debug mode on: (result, counters, synchronisations flagged, wall s).
     Each flagged synchronisation must be one of the engine's counted reads,
-    and no BFGS kernel may launch (the paths that use this run none)."""
+    and no BFGS kernel may launch unless ``kernels`` (the paths that use
+    this run none, but phase 24's auglag BFGS fleets, which run B1)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(qt)
@@ -957,7 +1027,7 @@ def counted_run(qt, fn, syncs_key):
     c = read_counters(qt)
     flagged = sum("synchroniz" in str(w.message) for w in caught)
     check(flagged == c[syncs_key], f"{flagged} synchronisations flagged, {c[syncs_key]} counted")
-    check(no_kernel_launched(c), f"a BFGS kernel launched on a path that has none: {c}")
+    check(kernels or no_kernel_launched(c), f"a BFGS kernel launched on a path that has none: {c}")
     return res, c, flagged, wall
 
 
@@ -1350,9 +1420,9 @@ def alternate_samples(fns, rounds):
 
 def per_call_ms(fns, args, rounds=4, calls=10):
     """Median ms per call of each of ``fns`` on ``args``, by CUDA events,
-    in turns after a warm-up."""
+    in turns after a warm-up call each."""
     for fn in fns.values():
-        time_calls(fn, args, calls=2)
+        time_calls(fn, args, calls=1)
     ms = {k: [] for k in fns}
     for r in range(rounds):
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
@@ -1487,8 +1557,8 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
         "B1": lambda: solve_bench(qt, X, "cuda"),
         "plain": lambda: solve_bench(qt, X, "torch"),
     }
-    walls, peaks = alternate(fns, 4)
-    log(f"[time] solves/s at {BATCH}x{N} f32 (median of 4 solves, in turns): resident B3 "
+    walls, peaks = alternate(fns, 2)
+    log(f"[time] solves/s at {BATCH}x{N} f32 (median of 2 solves, in turns): resident B3 "
         f"{BATCH / walls['B3']:.1f} ({walls['B3']:.4f} s/solve, peak {peaks['B3'] / 2**20:.1f} "
         f"MiB), fleet engine with B1 {BATCH / walls['B1']:.1f} ({walls['B1']:.4f} s/solve, peak "
         f"{peaks['B1'] / 2**20:.1f} MiB), with the plain update {BATCH / walls['plain']:.1f} "
@@ -1884,14 +1954,14 @@ def lbfgs_fleet_phase(qt, device, smi):
         check(abs(med - jax_med) <= 0.1 * jax_med,
               f"{label}: median iterations {med} not within 10% of {jax_med}")
 
-        secs, peaks = alternate_samples({"fleet": lambda: solve_lbfgs_fleet(qt, X)}, 3)
+        secs, peaks = alternate_samples({"fleet": lambda: solve_lbfgs_fleet(qt, X)}, 2)
         wall_s = float(np.median(secs["fleet"]))
         reset_counters(qt)
         prof = device_profile(lambda: solve_lbfgs_fleet(qt, X))
         prof_bodies = engines(qt)["lbfgs fleet"].loop_bodies
         busy = None if prof[1] is None else prof[1] / prof[0]
         log(f"[time] L-BFGS fleet {label} f32: {batch / wall_s:.1f} solves/s ({wall_s:.4f} s/solve, "
-            f"median of 3 after a warm-up; turns {', '.join(f'{s:.4f}' for s in secs['fleet'])} s), "
+            f"median of 2 after a warm-up; turns {', '.join(f'{s:.4f}' for s in secs['fleet'])} s), "
             f"{bodies} loop bodies and {syncs} host syncs per solve, {1e3 * wall_s / bodies:.3f} ms "
             f"of wall per body, peak memory {peaks['fleet'] / 2**20:.1f} MiB; device busy share "
             + ("not measured (no device events)" if busy is None else f"{100 * busy:.1f} %")
@@ -1940,7 +2010,8 @@ def ring_phase(qt, device, smi):
                 check(bool(res.converged.all()), f"{ring} ring {batch}x{n}: not every lane converged")
                 return res
 
-            secs, _ = alternate_samples({r: (lambda r=r: run(r)) for r in ("shift", "circular")}, 3)
+            secs, _ = alternate_samples({r: (lambda r=r: run(r)) for r in ("shift", "circular")},
+                                        RING_TURNS)
             ms = {r: 1e3 * float(np.median(v)) / bodies[r] for r, v in secs.items()}
             ratios = [(s_ / bodies["shift"]) / (c_ / bodies["circular"])
                       for s_, c_ in zip(secs["shift"], secs["circular"])]
@@ -1953,7 +2024,7 @@ def ring_phase(qt, device, smi):
     finally:
         lbs._RING_CIRCULAR_MIN_N = limit
     log(f"[ring] L-BFGS fleet f32, history {LBFGS_HISTORY}, whole solves per ring in turns (median "
-        f"of 3 after a warm-up, wall per loop body): {'; '.join(rows)}; dispatch: circular for "
+        f"of {RING_TURNS} after a warm-up, wall per loop body): {'; '.join(rows)}; dispatch: circular for "
         f"n >= {limit} on {smi}")
     return times
 
@@ -3154,6 +3225,299 @@ def hierarchical_phase(qt, device, smi, objectives, build):
                                     (ms64, plain64, *b64, None))}
 
 
+def lm_fleet_data(device):
+    """bench_full.py config 8's fleet (scripts/jax_engines_reference.py
+    draws the same): 4096 exponential fits of 40 points, f32, starts (1, 0)."""
+    rng = np.random.default_rng(BENCH_SEED)
+    t = np.linspace(0.0, 1.0, LM_M, dtype=np.float32)
+    amp = rng.uniform(0.5, 3.0, LM_BATCH).astype(np.float32)
+    rate = rng.uniform(-2.5, -0.5, LM_BATCH).astype(np.float32)
+    y = amp[:, None] * np.exp(rate[:, None] * t[None, :])
+    X = np.tile(np.array([1.0, 0.0], np.float32), (LM_BATCH, 1))
+    data = (torch.tensor(np.tile(t, (LM_BATCH, 1)), device=device), torch.tensor(y, device=device))
+    return torch.tensor(X, device=device), data
+
+
+def resid8(p, d):
+    tt, yy = d
+    return p[..., 0:1] * torch.exp(p[..., 1:2] * tt) - yy
+
+
+def tr_fleet_data(device):
+    """bench_full.py config 9's fleet: 1024 starts on a 256-d quadratic of
+    condition 1e4 (Q from a QR of a normal matrix), f32; returns (X, the
+    objective)."""
+    rng = np.random.default_rng(BENCH_SEED)
+    Q, _ = np.linalg.qr(rng.standard_normal((TR_N, TR_N)))
+    A = torch.tensor(((Q * np.geomspace(1.0, 1e4, TR_N)) @ Q.T).astype(np.float32), device=device)
+    b = torch.tensor(rng.standard_normal(TR_N).astype(np.float32), device=device)
+    X = torch.tensor(rng.standard_normal((TR_BATCH, TR_N)).astype(np.float32), device=device)
+
+    def quad9(x):
+        return -0.5 * x @ (A @ x) + b @ x
+
+    return X, quad9
+
+
+def disk14(x):
+    return 30.0 - torch.sum(x * x)
+
+
+def solve_auglag(qt, X, engine, **kw):
+    """bench_full.py config 14's call: the split Rosenbrock (autodiff) on
+    the disk x·x <= 30, tol = ctol = 1e-3, at most 2000 inner iterations."""
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    kw = {"tol": AUG_TOL, "ctol": AUG_TOL, "max_iterations": AUG_MAX_ITERS, **kw}
+    return qt.optimize_auglag(rosenbrock_logdensity, X, ineq=disk14, engine=engine, **kw)
+
+
+AUGLAG_COUNTERS = ("status", "n_outer", "iterations", "n_fev", "inner_status")
+
+
+def auglag_diff(a, b):
+    """(lanes whose counters differ, max normwise difference of x, lam, mu,
+    rho, viol, max abs difference of x) of two auglag fleet results."""
+    same = torch.ones(a.status.shape, dtype=torch.bool)
+    for name in AUGLAG_COUNTERS:
+        same &= getattr(a, name).cpu() == getattr(b, name).cpu()
+    errs = [normwise_err(getattr(a, f).to(getattr(b, f).device), getattr(b, f))
+            for f in ("x", "lam", "mu", "rho", "viol")]
+    return int((~same).sum()), max(e[1] for e in errs), errs[0][0]
+
+
+def auglag_b1_parity(qt, device):
+    """Phase 24 (a): the auglag BFGS fleet with B1 against the plain update
+    over 64 lanes of the disk-constrained Rosenbrock in f64 and f32: at
+    max_outer 1 and 2 and inner caps 0, 1, 5 every counter equal and the
+    floats within EXACT_RTOL or ROUNDING_FACTOR times what the plain
+    version moves on the CPU; B1 once per inner loop body; over whole
+    solves the lanes with another status at most ROUNDING_FACTOR times the
+    worst rounding witness (the plain version 1 ulp up, down, on the CPU).
+    Returns (summary, max abs error of x at the caps)."""
+    X32 = bench_fleet(device)[:AUG_PARITY_LANES]
+    worst_abs, lines, failures = 0.0, [], []
+    for dtype, tol in ((torch.float64, 1e-6), (torch.float32, AUG_TOL)):
+        X = X32.to(dtype)
+        kw = {"tol": tol, "ctol": tol}
+        same_runs = worst = 0
+        for max_outer in (1, 2):
+            for cap in SHORT_CAPS:
+                run = dict(kw, max_outer=max_outer, max_iterations=cap)
+                reset_counters(qt)
+                kern = solve_auglag(qt, X, "bfgs", kernel="cuda", **run)
+                c = read_counters(qt)
+                plain = solve_auglag(qt, X, "bfgs", kernel="torch", **run)
+                cpu = solve_auglag(qt, X.cpu(), "bfgs", kernel="torch", **run)
+                lanes, err, err_abs = auglag_diff(kern, plain)
+                limit = max(EXACT_RTOL[dtype], ROUNDING_FACTOR * auglag_diff(cpu, plain)[1])
+                worst, worst_abs = max(worst, err), max(worst_abs, err_abs)
+                same_runs += lanes == 0
+                if lanes or err > limit or c["B1"] != c["auglag_inner_bodies"]:
+                    failures.append(f"{dtype} max_outer={max_outer} cap={cap}: {lanes} lanes with "
+                                    f"other counters, normwise {err:.3e} (limit {limit:.3e}), B1 "
+                                    f"{c['B1']} launches for {c['auglag_inner_bodies']} bodies")
+        kern = solve_auglag(qt, X, "bfgs", kernel="cuda", **kw)
+        plain = solve_auglag(qt, X, "bfgs", kernel="torch", **kw)
+        flips = int((kern.status != plain.status).sum())
+        witness = {}
+        if flips:
+            for key, x0 in (*ulp_starts(X).items(), ("CPU", X.cpu())):
+                w = solve_auglag(qt, x0, "bfgs", kernel="torch", **kw)
+                witness[key] = int((w.status.to(device) != plain.status).sum())
+        if flips > ROUNDING_FACTOR * max(witness.values(), default=0):
+            failures.append(f"{dtype} whole solves: {flips} lanes with another status "
+                            f"(witnesses {witness})")
+        conv = int((kern.status == qt.Status.CONVERGED).sum())
+        lines.append(f"{dtype} (tol {tol}): caps {same_runs}/{2 * len(SHORT_CAPS)} runs with every "
+                     f"counter equal, max normwise {worst:.3e}; whole solves converged {conv}/"
+                     f"{X.shape[0]} (plain {int((plain.status == qt.Status.CONVERGED).sum())}), "
+                     f"another status on {flips} lanes"
+                     + (f" (witnesses {witness})" if flips else ""))
+    check(not failures, f"B1 under auglag differs from the plain update: {failures}")
+    return "; ".join(lines), worst_abs
+
+
+def fleet_gate(qt, res, label, jax, medians):
+    """The full-width gates against the JAX package's counts ``jax`` (see
+    phase 24 above): every lane converged where JAX converges every lane,
+    else the count not below JAX's by more than chance; the median of
+    each field of ``medians`` within 10 % of JAX's. Returns a summary."""
+    lanes = res.status.shape[0]
+    conv = int((res.status == qt.Status.CONVERGED).sum())
+    if jax["converged"] == jax["lanes"]:
+        check(conv == lanes, f"{label}: only {conv}/{lanes} lanes converged (JAX: every lane)")
+        p = None
+    else:
+        p = fewer_converged_p(conv, jax["converged"], lanes)
+        check(p >= 0.01, f"{label}: {conv}/{lanes} converged against JAX's {jax['converged']} "
+                         f"(one-sided Fisher p = {p:.2e})")
+    parts = [f"converged {conv}/{lanes} (JAX {jax['converged']}"
+             + ("" if p is None else f", Fisher p {p:.3f}") + ")"]
+    for field in medians:
+        med = float(getattr(res, field).float().median())
+        check(abs(med - jax[field]) <= 0.1 * jax[field],
+              f"{label}: median {field} {med} not within 10% of JAX's {jax[field]}")
+        parts.append(f"median {field} {med:g} (JAX {jax[field]:g})")
+    statuses = torch.bincount(res.status.cpu().long(), minlength=5).tolist()
+    return ", ".join(parts) + f", statuses {statuses}"
+
+
+def fleet_time(fn, lanes):
+    """Seconds of one call of ``fn`` (warm), ended by a synchronize, and the
+    solves/s it gives."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, lanes / wall
+
+
+def engines_phase(qt, device, smi):
+    """The minimization front door (see phase 24 above). Returns the auglag
+    BFGS fleet's B1 launches and the caps' max abs error of x."""
+    t_phase = time.perf_counter()
+    summary, b1_err = auglag_b1_parity(qt, device)
+    log(f"[engines] B1 under optimize_auglag(engine='bfgs') against the plain update, "
+        f"{AUG_PARITY_LANES} lanes of the disk-constrained Rosenbrock n={N}: {summary} "
+        f"({time.perf_counter() - t_phase:.1f} s into phase 24)")
+
+    # LM, config 8
+    X, data = lm_fleet_data(device)
+    res, c, flagged, _ = counted_run(
+        qt, lambda: qt.least_squares(resid8, X, data=data, tol=AUG_TOL), "lm_syncs")
+    peak = torch.cuda.max_memory_allocated(device)
+    gate = fleet_gate(qt, res, "LM", JAX_ENGINES["lm"], ("iterations",))
+    check(res.x.dtype == torch.float32 and bool(torch.isfinite(res.x).all()), "LM: result values")
+    wall, rate = fleet_time(lambda: qt.least_squares(resid8, X, data=data, tol=AUG_TOL), LM_BATCH)
+    part = qt.least_squares(resid8, X, data=data, tol=AUG_TOL, max_iterations=2)
+    resumed = qt.least_squares_from_state(resid8, qt.lm_state_to_numpy(part.state), data=data,
+                                          tol=AUG_TOL)
+    check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32
+          and bool(resumed.converged.all()), "LM: the numpy state did not resume to convergence")
+    log(f"[engines] least_squares {LM_BATCH} exponential fits (n=2, m={LM_M}) f32, tol {AUG_TOL}: "
+        f"{gate}; {c['lm_bodies']} loop bodies and {c['lm_syncs']} host syncs per solve (all "
+        f"{flagged} flagged counted), no kernel launched, peak {peak / 2**20:.1f} MiB; "
+        f"{rate:.1f} solves/s ({wall:.4f} s a call) on {smi}; resumed from a 2-iteration state "
+        f"saved as numpy: converged {int(resumed.converged.sum())}/{LM_BATCH}")
+    del X, data, res, part, resumed
+
+    # TR, config 9, and minimize(method="tr") on the negated function
+    X, quad9 = tr_fleet_data(device)
+
+    def tr_call():
+        return qt.optimize_tr(quad9, X, tol=AUG_TOL, max_cg=TR_N)
+
+    # host-bound at ~10 s a call: one call is counted, profiled and timed
+    # (its wall carries the profiler's cost)
+    counted = {}
+    prof = device_profile(lambda: counted.update(run=counted_run(qt, tr_call, "tr_syncs")))
+    res, c, flagged, wall = counted["run"]
+    peak = torch.cuda.max_memory_allocated(device)
+    rate = TR_BATCH / wall
+    busy = None if prof[1] is None else prof[1] / prof[0]
+    gate = fleet_gate(qt, res, "TR", JAX_ENGINES["tr"], ("iterations", "n_hev"))
+    # resumed from 5 iterations saved as numpy to a lifetime cap of 10: a
+    # lane the one-leg run ended by then ends the same, the others run on
+    part = qt.optimize_tr(quad9, X, tol=AUG_TOL, max_cg=TR_N, max_iterations=5)
+    resumed = qt.optimize_tr_from_state(quad9, qt.tr_state_to_numpy(part.state), tol=AUG_TOL,
+                                        max_cg=TR_N, max_iterations=TR_RESUME_CAP)
+    ended = res.iterations <= TR_RESUME_CAP
+    expect = torch.where(ended, res.status, int(qt.Status.MAX_ITERATIONS))
+    differ = int(((resumed.status != expect)
+                  | (resumed.iterations != torch.clamp_max(res.iterations, TR_RESUME_CAP))).sum())
+    check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32 and differ == 0,
+          f"TR: the numpy state resumed to another status or count on {differ} lanes")
+    sub = X[:AUG_MIN_LANES]
+    mini = qt.minimize(lambda x: -quad9(x), sub, method="tr", tol=AUG_TOL, max_cg=TR_N)
+    ref = qt.optimize_tr(quad9, sub, tol=AUG_TOL, max_cg=TR_N)
+    same = all(torch.equal(getattr(mini, f), getattr(ref, f))
+               for f in ("status", "iterations", "n_fev", "n_hev"))
+    flip_err = max(normwise_err(mini.x, ref.x)[1], normwise_err(-mini.fun, ref.fun)[1],
+                   normwise_err(-mini.grad, ref.grad)[1])
+    check(same and flip_err <= EXACT_RTOL[torch.float32],
+          f"TR: minimize on the negated function differs from optimize_tr (counters equal {same}, "
+          f"normwise {flip_err:.3e})")
+    log(f"[engines] optimize_tr {TR_BATCH}x{TR_N} f32 quadratic (condition 1e4), tol {AUG_TOL}, "
+        f"max_cg {TR_N}: {gate}; {c['tr_bodies']} outer and {c['tr_cg_bodies']} Steihaug bodies, "
+        f"{c['tr_syncs']} host syncs per solve (all {flagged} flagged counted), no kernel launched, "
+        f"peak {peak / 2**20:.1f} MiB; {rate:.1f} solves/s ({wall:.4f} s, the counted and "
+        "profiled call), device busy " + ("not measured (no device events)" if busy is None
+                                          else f"{100 * busy:.1f} %")
+        + f" on {smi}; resumed from a 5-iteration state saved as numpy to {TR_RESUME_CAP} "
+        f"iterations: statuses and counts as the one-leg run's on every lane ({int(ended.sum())} "
+        f"ended by then); minimize(method='tr') on the negated function over {AUG_MIN_LANES} "
+        f"lanes: counters equal, normwise {flip_err:.1e} after the sign flip")
+    log(profile_line(f"TR fleet {TR_BATCH}x{TR_N} f32", *prof, c["tr_cg_bodies"]))
+    del X, res, part, resumed, mini, ref
+
+    # auglag, config 14: the CG fleet (no kernel), the BFGS fleet (B1), and
+    # the constrained minimize (B1)
+    X = bench_fleet(device)
+    out = {}
+    for engine in ("cg", "bfgs"):
+        label = f"auglag {engine}"
+        res, c, flagged, wall = counted_run(qt, lambda: solve_auglag(qt, X, engine),
+                                            "auglag_syncs", kernels=engine == "bfgs")
+        peak = torch.cuda.max_memory_allocated(device)
+        gate = fleet_gate(qt, res, label, JAX_ENGINES[f"auglag_{engine}"],
+                          ("iterations", "n_outer"))
+        ok = res.status == qt.Status.CONVERGED
+        viol = float(res.viol[ok].max())
+        check(viol <= AUG_TOL, f"{label}: max viol {viol} over ctol on a converged lane")
+        if engine == "bfgs":
+            check(c["B1"] == c["auglag_inner_bodies"] > 0 and c["B2a"] == c["B3"] == 0,
+                  f"{label}: B1 not launched once per inner loop body: {c}")
+            out["launches"] = c["B1"]
+        else:
+            check(no_kernel_launched(c), f"{label}: a kernel launched: {c}")
+        # CG: host-bound at several s a call, the counted call is the one
+        # timed; BFGS: a second call
+        timed = "the counted call"
+        busy_text = ""
+        if engine == "bfgs":
+            wall, timed = fleet_time(lambda: solve_auglag(qt, X, engine), AUG_BATCH)[0], "a call"
+            reset_counters(qt)
+            prof = device_profile(lambda: solve_auglag(qt, X, engine))
+            prof_bodies = engines(qt)["auglag"].inner_bodies
+            busy = None if prof[1] is None else prof[1] / prof[0]
+            busy_text = ", device busy " + ("not measured (no device events)" if busy is None
+                                            else f"{100 * busy:.1f} %")
+        rate = AUG_BATCH / wall
+        log(f"[engines] optimize_auglag(engine='{engine}') {AUG_BATCH}x{N} f32 on the disk x·x <= "
+            f"30, tol = ctol = {AUG_TOL}: {gate}, max viol of the converged {viol:.3e}; "
+            f"{c['auglag_rounds']} outer rounds, {c['auglag_inner_bodies']} inner loop bodies and "
+            f"{c['auglag_syncs']} host syncs per solve (all {flagged} flagged counted), B1 "
+            f"{c['B1']} launches, peak {peak / 2**20:.1f} MiB; {rate:.1f} solves/s ({wall:.4f} s, "
+            f"{timed}){busy_text} on {smi}")
+        if engine == "bfgs":
+            log(profile_line(f"auglag BFGS fleet {AUG_BATCH}x{N} f32", *prof, prof_bodies))
+        del res
+
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    sub = X[:AUG_MIN_LANES]
+    mini, c, flagged, _ = counted_run(
+        qt, lambda: qt.minimize(lambda x: -rosenbrock_logdensity(x), sub, ineq=disk14,
+                                method="bfgs", tol=AUG_TOL, ctol=AUG_TOL,
+                                max_iterations=AUG_MAX_ITERS), "auglag_syncs", kernels=True)
+    ref = solve_auglag(qt, sub, "bfgs")
+    gate = fleet_gate(qt, mini, "minimize", JAX_ENGINES["minimize_bfgs"], ("iterations", "n_outer"))
+    lanes, err, _ = auglag_diff(ref, mini)
+    flip_err = max(normwise_err(-mini.fun, ref.fun)[1], normwise_err(-mini.grad, ref.grad)[1])
+    check(lanes == 0 and max(err, flip_err) <= EXACT_RTOL[torch.float32]
+          and c["B1"] == c["auglag_inner_bodies"] > 0,
+          f"minimize with ineq differs from optimize_auglag: {lanes} lanes with other counters, "
+          f"normwise {err:.3e} / {flip_err:.3e}, B1 {c['B1']} for {c['auglag_inner_bodies']} bodies")
+    log(f"[engines] minimize(ineq=..., method='bfgs') over {AUG_MIN_LANES} lanes: {gate}; equal "
+        f"to optimize_auglag after the sign flip (counters on every lane, normwise "
+        f"{max(err, flip_err):.1e}), B1 {c['B1']} launches, {c['auglag_syncs']} host syncs (all "
+        f"{flagged} flagged counted); phase 24 took {time.perf_counter() - t_phase:.1f} s")
+    out["err"] = b1_err
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -3189,6 +3553,7 @@ def main():
     objectives.update(fixture_phase(qt, device, smi))
     traced = traced_phase(qt, device, smi, phase22, (libs[:split], build_s))
     traced.update(hierarchical_phase(qt, device, smi, phase23, (libs[split:], build_s)))
+    auglag = engines_phase(qt, device, smi)
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
@@ -3199,6 +3564,8 @@ def main():
     print(json.dumps({"kernels": [
         record("fused_bfgs_update_batched", KERNEL_SOURCE, KERNEL_REPLACES, launches,
                max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
+        record("fused_bfgs_update_batched[auglag]", KERNEL_SOURCE, KERNEL_REPLACES,
+               auglag["launches"], auglag["err"], (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

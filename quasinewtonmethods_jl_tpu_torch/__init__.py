@@ -14,8 +14,13 @@ resident engine (`optimize_batched_resident`, kernel B3), the nonlinear CG
 fleet (`optimize_cg`, `optimize_cg_from_state`) and L-BFGS, scalar
 (`optimize_lbfgs`, `optimize_lbfgs_from_state`) and as a fleet
 (`optimize_lbfgs_batched`, `optimize_lbfgs_batched_fused_from_state`),
-and the constrained-parameter transforms (`transforms`,
-`transform_objective`); ROADMAP.md lists what is still to port. Entry points run on the CUDA card unless given a CPU
+the constrained-parameter transforms (`transforms`,
+`transform_objective`), Levenberg–Marquardt least squares
+(`least_squares`, `least_squares_from_state`), the trust-region
+Newton–Krylov engine (`optimize_tr`, `optimize_tr_from_state`), the
+augmented Lagrangian over all four engines (`optimize_auglag`) and the
+scipy-convention front door `minimize`; ROADMAP.md lists what is still to
+port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
@@ -29,8 +34,11 @@ from .batched_solve import (
     optimize_batched_fused_from_state,
 )
 from .cg_solve import CGResult, optimize_cg, optimize_cg_from_state
+from .constrained import AugLagResult, optimize_auglag
 from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
 from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
+from .least_squares import LeastSquaresResult, least_squares, least_squares_from_state
+from .minimize import minimize
 from .models import LogisticRegressionMAP
 from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
@@ -45,11 +53,14 @@ from .solve import (
     optimize_from_state,
 )
 from .transforms import TransformedModel, transform_objective
+from .trust_region import TRResult, optimize_tr, optimize_tr_from_state
 from .state import (
     BFGSState,
     CGState,
     LBFGSState,
+    LMState,
     Status,
+    TRState,
     bfgs_state_from_numpy,
     bfgs_state_to_numpy,
     cg_state_from_numpy,
@@ -58,6 +69,10 @@ from .state import (
     init_lbfgs_state,
     lbfgs_state_from_numpy,
     lbfgs_state_to_numpy,
+    lm_state_from_numpy,
+    lm_state_to_numpy,
+    tr_state_from_numpy,
+    tr_state_to_numpy,
 )
 
 __all__ = [
@@ -111,4 +126,19 @@ __all__ = [
     "transforms",
     "TransformedModel",
     "transform_objective",
+    "LMState",
+    "LeastSquaresResult",
+    "least_squares",
+    "least_squares_from_state",
+    "lm_state_from_numpy",
+    "lm_state_to_numpy",
+    "TRState",
+    "TRResult",
+    "optimize_tr",
+    "optimize_tr_from_state",
+    "tr_state_from_numpy",
+    "tr_state_to_numpy",
+    "AugLagResult",
+    "optimize_auglag",
+    "minimize",
 ]

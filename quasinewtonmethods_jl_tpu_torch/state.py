@@ -2,12 +2,14 @@
 
 `Status` keeps the JAX package's integers: they are a serialisation
 contract (saved states and results from either package read the same).
-`BFGSState`, `LBFGSState` and `CGState` are NamedTuples of tensors with the
-JAX field order (the JAX package keeps `CGState` in cg_solve.py; the port
-keeps its states here), so a state converts leaf by leaf between the two
-packages through numpy (`bfgs_state_from_numpy` / `bfgs_state_to_numpy`,
-`lbfgs_state_from_numpy` / `lbfgs_state_to_numpy`, `cg_state_from_numpy` /
-`cg_state_to_numpy`).
+`BFGSState`, `LBFGSState`, `CGState`, `LMState` and `TRState` are
+NamedTuples of tensors with the JAX field order (the JAX package keeps
+`CGState` in cg_solve.py, `LMState` in least_squares.py and `TRState` in
+trust_region.py; the port keeps its states here), so a state converts leaf
+by leaf between the two packages through numpy (`bfgs_state_from_numpy` /
+`bfgs_state_to_numpy`, `lbfgs_state_from_numpy` / `lbfgs_state_to_numpy`,
+`cg_state_from_numpy` / `cg_state_to_numpy`, `lm_state_from_numpy` /
+`lm_state_to_numpy`, `tr_state_from_numpy` / `tr_state_to_numpy`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,12 @@ __all__ = [
     "CGState",
     "cg_state_from_numpy",
     "cg_state_to_numpy",
+    "LMState",
+    "lm_state_from_numpy",
+    "lm_state_to_numpy",
+    "TRState",
+    "tr_state_from_numpy",
+    "tr_state_to_numpy",
 ]
 
 
@@ -179,6 +187,40 @@ class CGState(NamedTuple):
     stall: torch.Tensor  # (B,) int32 consecutive non-improving iterations
 
 
+class LMState(NamedTuple):
+    """Levenberg–Marquardt fleet state. Every leaf has a leading (batch,)
+    axis (a rank-1 solve's result squeezes it); (g, JTJ) always hold the
+    Jacobian products at ``x``."""
+
+    x: torch.Tensor  # (B, n) iterate
+    fun: torch.Tensor  # (B,) ½‖r(x)‖² (or the robust loss)
+    g: torch.Tensor  # (B, n) gradient Jᵀr at x
+    JTJ: torch.Tensor  # (B, n, n) Gauss–Newton matrix at x
+    lam: torch.Tensor  # (B,) Marquardt damping
+    nu: torch.Tensor  # (B,) damping growth factor (Madsen–Nielsen)
+    k: torch.Tensor  # (B,) int32 iterations executed
+    status: torch.Tensor  # (B,) int32 Status
+    n_fev: torch.Tensor  # (B,) int32 residual evaluations
+    n_jev: torch.Tensor  # (B,) int32 Jacobian evaluations
+    stall: torch.Tensor  # (B,) int32 consecutive rejected trials
+
+
+class TRState(NamedTuple):
+    """Trust-region fleet state. Every leaf has a leading (batch,) axis (a
+    rank-1 solve's result squeezes it); (fun, g) are the minimization
+    objective's (−obj's) evaluation at ``x``."""
+
+    x: torch.Tensor  # (B, n) iterate
+    fun: torch.Tensor  # (B,) −obj(x), the minimized value
+    g: torch.Tensor  # (B, n) ∇(−obj) at x
+    delta: torch.Tensor  # (B,) trust radius
+    k: torch.Tensor  # (B,) int32 iterations executed
+    status: torch.Tensor  # (B,) int32 Status
+    n_fev: torch.Tensor  # (B,) int32 objective evaluations
+    n_hev: torch.Tensor  # (B,) int32 Hessian-vector products
+    stall: torch.Tensor  # (B,) int32 consecutive rejected trials
+
+
 def _from_numpy(cls, state, device):
     return cls(*(torch.tensor(np.asarray(leaf), device=device) for leaf in state))
 
@@ -222,4 +264,28 @@ def cg_state_from_numpy(state, device) -> CGState:
 
 def cg_state_to_numpy(state: CGState) -> CGState:
     """The inverse of `cg_state_from_numpy`: a `CGState` of numpy arrays."""
+    return _to_numpy(state)
+
+
+def lm_state_from_numpy(state, device) -> LMState:
+    """`LMState` from any state with its fields whose leaves are numpy
+    arrays (e.g. a JAX ``LMState`` after ``np.asarray`` of each leaf),
+    scalar or batched. Dtypes are kept; leaves are copied."""
+    return _from_numpy(LMState, state, device)
+
+
+def lm_state_to_numpy(state: LMState) -> LMState:
+    """The inverse of `lm_state_from_numpy`: an `LMState` of numpy arrays."""
+    return _to_numpy(state)
+
+
+def tr_state_from_numpy(state, device) -> TRState:
+    """`TRState` from any state with its fields whose leaves are numpy
+    arrays (e.g. a JAX ``TRState`` after ``np.asarray`` of each leaf),
+    scalar or batched. Dtypes are kept; leaves are copied."""
+    return _from_numpy(TRState, state, device)
+
+
+def tr_state_to_numpy(state: TRState) -> TRState:
+    """The inverse of `tr_state_from_numpy`: a `TRState` of numpy arrays."""
     return _to_numpy(state)

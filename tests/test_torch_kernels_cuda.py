@@ -949,3 +949,37 @@ def test_untraceable_objective_raises_before_any_build(cuda_device):
         optimize_batched_resident(lambda x: torch.sin(x).sum(), X)
     assert _build._GENERATED == loaded
     assert (set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()) == built
+
+
+AUGLAG_COUNTERS = ("status", "n_outer", "iterations", "n_fev", "inner_status")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float64, 1e-6), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("max_outer, cap", [(1, 0), (1, 1), (1, 5), (2, 1), (2, 5)])
+def test_auglag_bfgs_fleet_through_b1_matches_the_plain_update(cuda_device, dtype, tol, max_outer,
+                                                               cap):
+    """The auglag BFGS fleet's inner update on the card (B1) against the
+    plain update, over 64 lanes of chip_smoke.py's disk-constrained
+    Rosenbrock at caps: every counter equal on every lane, floats to
+    rounding (the plain update's own error, 1e-10 / 1e-5 normwise), and
+    B1 launched once per inner loop body."""
+    from quasinewtonmethods_jl_tpu_torch import optimize_auglag
+
+    cs = _chip_smoke()
+    X = cs.bench_fleet(cuda_device)[:64].to(dtype)
+    kw = dict(ineq=cs.disk14, engine="bfgs", tol=tol, ctol=tol, max_outer=max_outer,
+              max_iterations=cap)
+    optimize_batched_fused.loop_bodies = 0
+    before = fused_bfgs_update_batched.launches
+    kern = optimize_auglag(rosenbrock_logdensity, X, kernel="cuda", **kw)
+    launches = fused_bfgs_update_batched.launches - before
+    assert launches == optimize_batched_fused.loop_bodies == max_outer * max(cap - 1, 0)
+    plain = optimize_auglag(rosenbrock_logdensity, X, kernel="torch", **kw)
+    assert fused_bfgs_update_batched.launches - before == launches
+    for name in AUGLAG_COUNTERS:
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    rtol = 1e-10 if dtype == torch.float64 else 1e-5
+    for name in ("x", "mu", "rho", "viol"):  # no eq: lam is (64, 0)
+        a, b = getattr(kern, name), getattr(plain, name)
+        assert float((a - b).abs().max()) <= rtol * max(float(b.abs().max()), 1.0), name
