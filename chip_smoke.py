@@ -11,8 +11,12 @@ ops, no hand-written kernel), the BFGS fleet with the Wolfe search (B1), with ``
 with straggler compaction (`optimize_batched_compacted`, B1), the scalar
 BFGS and L-BFGS drivers (`optimize`, `optimize_lbfgs`), the L-BFGS fleets
 (`optimize_lbfgs_batched`) and ``backend="vmap"``, none of which runs a
-hand-written kernel, and the minimization front door: `least_squares`,
-`optimize_tr`, `optimize_auglag` (its BFGS fleet on B1) and `minimize`.
+hand-written kernel, the minimization front door: `least_squares`,
+`optimize_tr`, `optimize_auglag` (its BFGS fleet on B1) and `minimize`,
+and the MAP back end: `optimize_multistart` (B1), `polish_newton`,
+`laplace_evidence`, checkpoints (`save_state` / `load_state`),
+`optimize_batched_pytree` (B1), `optimize_implicit` and the chain
+diagnostics.
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -237,7 +241,38 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      solve (torch.profiler; the TR fleet's one call is counted, profiled
      and timed at once, the auglag CG fleet's timed call is its counted
      one: each takes several seconds).
-Then one JSON line of kernel records and, last, the JSON result line. Each
+ 25. the MAP back end (multistart.py, polish.py, laplace.py,
+     utils/checkpoint.py, pytree.py, implicit.py, diagnostics.py), on the
+     bench fleet (4096 x 60 f32) unless said otherwise, held to the JAX
+     package's numbers on the same inputs
+     (scripts/jax_map_backend_reference.py): (a) `optimize_multistart`
+     (autodiff gradients, tol 1e-3, at most 3000 iterations) through B1,
+     once per loop body: every lane converged, the median within 10 % of
+     JAX's; then with a CUDA generator (seed 7) in place of the starts:
+     the starts drawn on the card in float32, every lane converged; (b)
+     `polish_newton(steps=3, dtype=torch.float64)` on that fleet: no
+     lane's max|grad| grows, as many lanes improved as in JAX, the largest
+     gradient left at most 10 times JAX's, the seconds it takes; (c)
+     `laplace_evidence` exact (f64) on the polished modes, its median
+     within 1e-8 of JAX's, and on the fleet's own B (f32), the gap to the
+     exact shown beside JAX's; (d) the fleet through
+     `optimize_batched_fused` to 20 iterations, `save_state`, `load_state`
+     (every leaf bit for bit, on the card) and
+     `optimize_batched_fused_from_state`: statuses and every counter equal
+     to an uninterrupted run's on every lane; (e) `optimize_batched_pytree`
+     on {'b': X[:, 30:], 'a': X[:, :30]} (raveled a, b as JAX orders a
+     dict) with the Rosenbrock of cat(a, b): x, statuses, counters and B1
+     launches equal to the flat solve's; (f) `optimize_implicit` of one
+     f64 solve on BASELINE config 3's data (drawn as in phase 20) with a
+     N(0, exp(log_s)²) prior, log_s = 0.7: d fun / d log_s within 1e-6 of
+     a central finite difference (step 1e-4) and 1e-8 of JAX's, d sum(x*) /
+     d log_s (the conjugate-gradient backward) within 1e-6 of JAX's; (g)
+     AR(1) chains (phi 0.9, 1000 x 64 x 60, f64, numpy seed 20260816) on
+     the card: every ``*_device`` statistic within 1e-8 of the port's
+     numpy version per element and of JAX's summaries (sum, min, max,
+     first element).
+Then a [timing] line (seconds per phase, the card's name and power limit),
+one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
 kernel's work on this run's inputs: the larger of the bytes it must move
 (each input read once, each output written once) over 3.35 TB/s and the
@@ -257,7 +292,10 @@ times are its float32 fleet's (its float64 fleet's are on the log line).
 B1 has a second record, ``fused_bfgs_update_batched[auglag]``: its launches
 are phase 24's full-width auglag BFGS fleet's, its max_abs_err phase 24
 (a)'s largest difference of x at the caps, its times and bound phase 6's
-(the same 4096 x 60 f32 shape). B3 with a traced objective has one record per full-width fleet of phases
+(the same 4096 x 60 f32 shape); and a third,
+``fused_bfgs_update_batched[multistart]``: its launches are phase 25 (a)'s
+multistart fleet's, its max_abs_err phase 3's at 4096 x 60 f32 and its
+times and bound phase 6's (the fleet's shape and dtype). B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -273,6 +311,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -284,8 +323,9 @@ BENCH_SEED = 20260816
 BATCH, N = 4096, 60
 TOL, MAX_ITERS = 1e-3, 3000
 # Timed turns of each engine in phases 12-14, whose solves take 0.5-10 s
-# (2, which leaves room for phases 16-24 in the time limit).
-TURNS = 2
+# (1, after the counted run that warmed each engine, which leaves room for
+# phases 16-25 in the time limit on the slowest hosts).
+TURNS = 1
 # The JAX package on this protocol (same seed and sizes, kernel="xla" on the
 # CPU): 4096/4096 converged, median 139 and max 225 iterations.
 JAX_MEDIAN_ITERS, JAX_MAX_ITERS = 139, 225
@@ -338,7 +378,7 @@ LBFGS_FLEETS = {(1024, 512): (156, 259), (256, 4096): (200, 334)}
 LBFGS_HISTORY = 10
 # (64 x 16384 is not timed: the time limit holds phase 24 too)
 RING_SHAPES = ((BATCH, N), (1024, 512), (256, 4096))
-RING_TURNS = 1  # whole solves per ring and shape, after a warm-up
+RING_TURNS = 1  # whole solves per ring and shape
 VMAP_LANES = 16
 SPLIT_NS = (128, 192, 232)  # B1 fits up to n = 237 in f32
 B1_NS = (2, 7, 33, 60, 61, 65, 128)  # one warp per lane up to 64; ragged bulk copies at 7, 33, 61, 65
@@ -504,6 +544,34 @@ JAX_ENGINES = {
     "auglag_bfgs": {"lanes": 4096, "converged": 4096, "iterations": 116.0, "n_outer": 2.0},
     "minimize_bfgs": {"lanes": 64, "converged": 64, "iterations": 114.0, "n_outer": 2.0},
 }
+# Phase 25, the MAP back end: the JAX package's numbers on the same inputs
+# (scripts/jax_map_backend_reference.py, on the CPU; float32 fleet with x64
+# off, the rest in float64). Summaries are [sum, min, max, first element].
+JAX_MAP = {
+    "multistart_converged": 4096, "multistart_median": 139.0,
+    "polish_improved": 4096, "polish_after_median": 0.0, "polish_after_max": 0.0,
+    "laplace_exact_median": -34.73565621434002, "laplace_gap_median": 93.90742545069904,
+    "laplace_gap_max": 109.73484854640216,
+    "implicit_fun": -341.1907670826241, "implicit_dfun": -65.87036253629162,
+    "implicit_dsum_x": 4.985616859944153,
+}
+JAX_DIAGNOSTICS = {
+    "split_rhat": [61.06667792909804, 1.0136828763388606, 1.023592964499655,
+                   1.0207538521487727],
+    "ess": [202957.49052815564, 2262.3226161682073, 3749.421987623164, 3144.8283761515863],
+    "rank_normalized_rhat": [61.06597039200578, 1.0136627911734089, 1.0235164119368452,
+                             1.0207065173871814],
+    "tail_ess": [442641.0630127286, 6254.409952392986, 8420.342164098445, 7215.577471041661],
+    "mean": [-0.5045120819232782, -0.11047750224939636, 0.07682352243864324,
+             -0.004794993802162193],
+    "std": [137.5481556054245, 2.247324370664974, 2.3461672991019484, 2.2933727873994645],
+    "energy_bfmi": [25.23270024373886, 0.32129062810744846, 0.4897109314390273,
+                    0.4342257510326339],
+}
+MAP_RTOL = 1e-8  # exact evidence, implicit gradient against JAX, diagnostics
+MAP_FD_RTOL, MAP_FD_STEP, MAP_LOG_S = 1e-6, 1e-4, 0.7
+CHECKPOINT_CAP = 20  # the checkpointed leg's iterations
+DIAG_DRAWS, DIAG_CHAINS, DIAG_PHI = 1000, 64, 0.9
 # Published peaks of one H100 SXM: device memory and float32 outside the
 # tensor cores (the kernels' type on the main path); float64 outside the
 # tensor cores for the float64 fleets (NVIDIA's data sheet).
@@ -1384,11 +1452,12 @@ def resident_path_phase(qt, device):
     return c, b3_bound(res, N, 4, h0_scale=True)  # the entry point's default
 
 
-def alternate(fns, rounds):
+def alternate(fns, rounds, warmup=True):
     """Median seconds of each of ``fns`` (name -> no-argument callable that
     ends with the device idle), run in turns, forward then backward, after
-    one warm-up call each; also each one's peak device memory."""
-    secs, peak = alternate_samples(fns, rounds)
+    one warm-up call each unless the caller has just run them
+    (``warmup=False``); also each one's peak device memory."""
+    secs, peak = alternate_samples(fns, rounds, warmup)
     return {k: float(np.median(v)) for k, v in secs.items()}, peak
 
 
@@ -1400,9 +1469,9 @@ def turn_gains(secs, base, other):
             f"{min(gains):+.1f} to {max(gains):+.1f} % over {len(gains)} turns)")
 
 
-def alternate_samples(fns, rounds):
+def alternate_samples(fns, rounds, warmup=True):
     """`alternate`, but each one's seconds of every turn."""
-    for fn in fns.values():
+    for fn in fns.values() if warmup else ():
         fn()
     secs = {k: [] for k in fns}
     peak = {}
@@ -1418,10 +1487,11 @@ def alternate_samples(fns, rounds):
     return secs, peak
 
 
-def per_call_ms(fns, args, rounds=4, calls=10):
+def per_call_ms(fns, args, rounds=4, calls=10, warmup=True):
     """Median ms per call of each of ``fns`` on ``args``, by CUDA events,
-    in turns after a warm-up call each."""
-    for fn in fns.values():
+    in turns after a warm-up call each (none with ``warmup=False``, for
+    callables the caller has just run)."""
+    for fn in fns.values() if warmup else ():
         time_calls(fn, args, calls=1)
     ms = {k: [] for k in fns}
     for r in range(rounds):
@@ -1444,17 +1514,22 @@ def device_profile(fn, top=4):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    # the raw kineto events, as prof.events() would keep them (hidden events
+    # skipped), without building its event tree: that takes tens of seconds
+    # at the 10^5 events of a host-bound solve
+    spans = sorted((e.start_ns(), e.end_ns(), e.name())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)())
     if not spans:
         return wall, None, 0, []
-    busy, end, per_name = 0.0, float("-inf"), {}
+    busy, end, per_name = 0, float("-inf"), {}
     for start, stop, name in spans:
-        busy += max(0.0, stop - max(start, end))
+        busy += max(0, stop - max(start, end))
         end = max(end, stop)
-        per_name[name] = per_name.get(name, 0.0) + (stop - start)
+        per_name[name] = per_name.get(name, 0) + (stop - start)
     ranked = sorted(per_name.items(), key=lambda kv: -kv[1])[:top]
-    return wall, busy * 1e-6, len(spans), [(name[:60], us * 1e-6) for name, us in ranked]
+    return wall, busy * 1e-9, len(spans), [(name[:60], ns * 1e-9) for name, ns in ranked]
 
 
 def profile_line(label, wall, busy, events, ranked, bodies):
@@ -1539,8 +1614,9 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
         f"{'; '.join(split)} (B1 fits up to n=237) on {smi}")
 
     X = large_fleet(device)
-    walls, peaks = alternate({k: (lambda k=k: solve_bench(qt, X, k)) for k in ("cuda", "torch")}, 2)
-    log(f"[time] solves/s at {LARGE_BATCH}x{LARGE_N} f32 (median of 2 solves, in turns): "
+    walls, peaks = alternate({k: (lambda k=k: solve_bench(qt, X, k)) for k in ("cuda", "torch")}, 1,
+                             warmup=False)  # phase 8 ran both paths at this shape
+    log(f"[time] solves/s at {LARGE_BATCH}x{LARGE_N} f32 (one solve each): "
         f"kernel='cuda' (B2) {LARGE_BATCH / walls['cuda']:.1f} ({walls['cuda']:.4f} s/solve, peak "
         f"{peaks['cuda'] / 2**30:.2f} GiB), kernel='torch' {LARGE_BATCH / walls['torch']:.1f} "
         f"({walls['torch']:.4f} s/solve, peak {peaks['torch'] / 2**30:.2f} GiB) on {smi}")
@@ -1557,8 +1633,8 @@ def blocked_and_resident_timing_phase(qt, device, smi, b3_bounds):
         "B1": lambda: solve_bench(qt, X, "cuda"),
         "plain": lambda: solve_bench(qt, X, "torch"),
     }
-    walls, peaks = alternate(fns, 2)
-    log(f"[time] solves/s at {BATCH}x{N} f32 (median of 2 solves, in turns): resident B3 "
+    walls, peaks = alternate(fns, 1, warmup=False)  # phases 4-10 ran all three
+    log(f"[time] solves/s at {BATCH}x{N} f32 (one solve each): resident B3 "
         f"{BATCH / walls['B3']:.1f} ({walls['B3']:.4f} s/solve, peak {peaks['B3'] / 2**20:.1f} "
         f"MiB), fleet engine with B1 {BATCH / walls['B1']:.1f} ({walls['B1']:.4f} s/solve, peak "
         f"{peaks['B1'] / 2**20:.1f} MiB), with the plain update {BATCH / walls['plain']:.1f} "
@@ -1643,14 +1719,15 @@ def cg_phase(qt, device, smi):
     check(c["bodies"] == 0, f"the CG path ran the BFGS fleet's loop: {c}")
 
     fns = {"cg": lambda: solve_cg(qt, X), "cg fold_eval": lambda: solve_cg(qt, X, fold_eval=True)}
-    secs, peaks = alternate_samples(fns, TURNS)  # a CG solve is host-bound and takes seconds
+    # a CG solve is host-bound and takes seconds; the counted run warmed the engine
+    secs, peaks = alternate_samples(fns, TURNS, warmup=False)
     walls = {k: float(np.median(v)) for k, v in secs.items()}
     qt.optimize_cg.loop_bodies = qt.optimize_cg.host_syncs = 0
     prof = device_profile(fns["cg"])
     bodies, syncs = qt.optimize_cg.loop_bodies, qt.optimize_cg.host_syncs
     wall_p, busy = prof[0], prof[1]
-    log(f"[time] CG solves/s at {BATCH}x{N} f32 (median of {TURNS} solves, in turns, after a "
-        f"warm-up): "
+    log(f"[time] CG solves/s at {BATCH}x{N} f32 (median of {TURNS} solves, in turns, after the "
+        f"counted run): "
         f"optimize_cg {BATCH / walls['cg']:.1f} ({walls['cg']:.4f} s/solve, peak "
         f"{peaks['cg'] / 2**20:.1f} MiB), with fold_eval {BATCH / walls['cg fold_eval']:.1f} "
         f"({walls['cg fold_eval']:.4f} s/solve, peak {peaks['cg fold_eval'] / 2**20:.1f} MiB), "
@@ -1699,7 +1776,7 @@ def wolfe_phase(qt, device, smi, cg_n_fev):
     fns = {"backtracking": lambda: solve_bench(qt, X, "cuda"),
            "wolfe": lambda: solve_bench(qt, X, "cuda", ls=qt.Wolfe()),
            "wolfe fold": lambda: solve_bench(qt, X, "cuda", ls=qt.Wolfe(), fold_eval=True)}
-    secs, _ = alternate_samples(fns, TURNS)
+    secs, _ = alternate_samples(fns, TURNS, warmup=False)  # each was just run, counted
     walls = {k: float(np.median(v)) for k, v in secs.items()}
     log(f"[time] BFGS fleet solves/s at {BATCH}x{N} f32 through B1 (median of {TURNS} solves, in "
         f"turns): " + ", ".join(f"{k} {BATCH / v:.1f} ({v:.4f} s/solve)" for k, v in walls.items())
@@ -1739,7 +1816,7 @@ def compacted_phase(qt, device, smi):
     check(torch.equal(comp.status, fused.status), "compacted statuses differ from fused")
     check_fleet(qt, comp, "compacted", None)
     secs, _ = alternate_samples({"fused": lambda: solve_bench(qt, X, "cuda"),
-                                 "compacted": compacted}, TURNS)
+                                 "compacted": compacted}, TURNS, warmup=False)
     walls = {k: float(np.median(v)) for k, v in secs.items()}
     log(f"[time] solves/s at {BATCH}x{N} f32 through B1 (median of {TURNS} solves, in turns): fused "
         f"{BATCH / walls['fused']:.1f} ({walls['fused']:.4f} s/solve), compacted "
@@ -1954,14 +2031,15 @@ def lbfgs_fleet_phase(qt, device, smi):
         check(abs(med - jax_med) <= 0.1 * jax_med,
               f"{label}: median iterations {med} not within 10% of {jax_med}")
 
-        secs, peaks = alternate_samples({"fleet": lambda: solve_lbfgs_fleet(qt, X)}, 2)
+        secs, peaks = alternate_samples({"fleet": lambda: solve_lbfgs_fleet(qt, X)}, 1,
+                                        warmup=False)  # after the counted run
         wall_s = float(np.median(secs["fleet"]))
         reset_counters(qt)
         prof = device_profile(lambda: solve_lbfgs_fleet(qt, X))
         prof_bodies = engines(qt)["lbfgs fleet"].loop_bodies
         busy = None if prof[1] is None else prof[1] / prof[0]
         log(f"[time] L-BFGS fleet {label} f32: {batch / wall_s:.1f} solves/s ({wall_s:.4f} s/solve, "
-            f"median of 2 after a warm-up; turns {', '.join(f'{s:.4f}' for s in secs['fleet'])} s), "
+            f"one solve after the counted run), "
             f"{bodies} loop bodies and {syncs} host syncs per solve, {1e3 * wall_s / bodies:.3f} ms "
             f"of wall per body, peak memory {peaks['fleet'] / 2**20:.1f} MiB; device busy share "
             + ("not measured (no device events)" if busy is None else f"{100 * busy:.1f} %")
@@ -2011,7 +2089,7 @@ def ring_phase(qt, device, smi):
                 return res
 
             secs, _ = alternate_samples({r: (lambda r=r: run(r)) for r in ("shift", "circular")},
-                                        RING_TURNS)
+                                        RING_TURNS, warmup=False)
             ms = {r: 1e3 * float(np.median(v)) / bodies[r] for r, v in secs.items()}
             ratios = [(s_ / bodies["shift"]) / (c_ / bodies["circular"])
                       for s_, c_ in zip(secs["shift"], secs["circular"])]
@@ -2024,7 +2102,7 @@ def ring_phase(qt, device, smi):
     finally:
         lbs._RING_CIRCULAR_MIN_N = limit
     log(f"[ring] L-BFGS fleet f32, history {LBFGS_HISTORY}, whole solves per ring in turns (median "
-        f"of {RING_TURNS} after a warm-up, wall per loop body): {'; '.join(rows)}; dispatch: circular for "
+        f"of {RING_TURNS}, wall per loop body): {'; '.join(rows)}; dispatch: circular for "
         f"n >= {limit} on {smi}")
     return times
 
@@ -2492,11 +2570,14 @@ def fixture_phase(qt, device, smi):
         ms = per_call_ms({
             "B3": lambda: qt.optimize_batched_resident(model, X, tol=tol,
                                                        max_iterations=MAX_ITERS),
+        }, (), rounds=2, calls=1)
+        # the fleet engine takes seconds a solve and has just run on this fleet: one call
+        ms.update(per_call_ms({
             "B1": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
                                               kernel="cuda"),
             "plain": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
                                                  kernel="torch"),
-        }, (), rounds=2, calls=1)
+        }, (), rounds=1, calls=1, warmup=False))
         b = b3_bound(resident[key][0], X.shape[1], itemsize, True, model)
         timings.append(
             f"{key} {BATCH}x{X.shape[1]}: B3 {ms['B3']:.4f} ms ({1e3 * BATCH / ms['B3']:.1f} "
@@ -2509,7 +2590,8 @@ def fixture_phase(qt, device, smi):
         else:
             records[name] = (launches[name], max(records[name][1], main_err[key]),
                              records[name][2])
-    log(f"[time] fixture fleets per solve (CUDA events, median of 2 in turns): "
+    log(f"[time] fixture fleets per solve (CUDA events; B3 median of 2 in turns, the fleet "
+        f"engine one call each): "
         + "; ".join(timings) + f" on {smi}")
 
     # registers of every instantiation at its full-width n (ptxas's count)
@@ -2709,7 +2791,8 @@ def ulp_starts(X):
             "1 ulp down": torch.nextafter(X, torch.full_like(X, float("-inf")))}
 
 
-def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic=False):
+def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic=False,
+                  walls=None):
     """B3 on ``traced`` against its plain version (the fleet engine with the
     plain update on the user's functions) on the fleet ``X``, phase 9's
     method: over caps 0, 1 and 5 every counter equal on every lane and x,
@@ -2728,8 +2811,10 @@ def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic
     may have other counters on at most ROUNDING_FACTOR times as many lanes
     as the witness with the most (none where no witness has any), and its
     floats, on the lanes where its counters are the plain run's, are held
-    to ROUNDING_FACTOR times the largest witness's movement. Returns
-    (summary, max abs error at the caps, failures)."""
+    to ROUNDING_FACTOR times the largest witness's movement. With ``walls``
+    (a dict), the plain version's whole solve is timed by CUDA events into
+    ``walls["plain"]`` (ms). Returns (summary, max abs error at the caps,
+    failures)."""
     from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
 
     ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
@@ -2779,7 +2864,12 @@ def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic
                                f"{kept} lanes with the plain run's counters") + ")")
     kern = qt.optimize_batched_resident(traced, X, ls=ls, tol=tol, max_iterations=MAX_ITERS,
                                         kernel="cuda")
-    plain = plain_run(X, MAX_ITERS)
+    if walls is None:
+        plain = plain_run(X, MAX_ITERS)
+    else:
+        walls["plain"] = time_calls(lambda: walls.update(run=plain_run(X, MAX_ITERS)), (),
+                                    calls=1)
+        plain = walls.pop("run")
     flips = int((kern.status != plain.status).sum())
     witness_flips = {}
     if flips:
@@ -3023,16 +3113,19 @@ def traced_phase(qt, device, smi, objectives, build):
                                                               max_iterations=MAX_ITERS),
             "B3 on the function": lambda: qt.optimize_batched_resident(obj, X, tol=tol,
                                                                        max_iterations=MAX_ITERS),
-            "B1": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
-                                              kernel="cuda"),
-            "plain": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
-                                                 kernel="torch"),
         }
         if hand is not None:
             fns["B3 hand-written"] = lambda: qt.optimize_batched_resident(
                 hand, X, tol=tol, max_iterations=MAX_ITERS)
         first = first_call_ms(qt, fns["B3 on the function"])
         ms = per_call_ms(fns, (), rounds=2, calls=1)
+        # the fleet engine takes seconds a solve and has just run on this fleet: one call
+        ms.update(per_call_ms({
+            "B1": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
+                                              kernel="cuda"),
+            "plain": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
+                                                 kernel="torch"),
+        }, (), rounds=1, calls=1, warmup=False))
         n = X.shape[1]
         b = b3_bound(resident[name], n, 4, True, ops=needs)
         graph = b3_bound(resident[name], n, 4, True,
@@ -3054,7 +3147,8 @@ def traced_phase(qt, device, smi, objectives, build):
             f"per lane; launch {shape_line(occ)}")
         records[f"traced:{name.replace(' ', '_')}"] = (
             launched[name], main_err[name], (ms["B3 traced"], ms["plain"], *b, None))
-    log(f"[time] traced fleets per solve (CUDA events, median of 2 in turns): "
+    log(f"[time] traced fleets per solve (CUDA events; B3 median of 2 in turns, the fleet "
+        f"engine one call each): "
         + "; ".join(timings) + f" on {smi}; phase 22 took {time.perf_counter() - t_phase:.1f} s")
     return records
 
@@ -3111,15 +3205,16 @@ def hierarchical_phase(qt, device, smi, objectives, build):
 
     # the full-width fleets against their plain version, then through the entry points, counted
     n = X.shape[1]
-    parity = {}
+    parity, plain_walls = {}, {}
     for dtype, (_, f_X, f_trace) in fleets.items():
         label = f"hierarchical {HIER_BATCH}x{n} {str(dtype).replace('torch.', '')} tol {TOL}"
         cpu_obj, cpu_starts = hierarchical_objective(np.random.default_rng(BENCH_SEED), HIER_Q,
                                                      dtype, torch.device("cpu"), HIER_BATCH)
+        plain_walls[dtype] = {}
         summary, err, bad = traced_parity(
             qt, f_trace, f_X, TOL, label,
             qt.trace_objective(cpu_obj, None, torch.tensor(cpu_starts, dtype=dtype)),
-            cpu_whole=False, chaotic=True)
+            cpu_whole=False, chaotic=True, walls=plain_walls[dtype])
         print(f"  B3 vs plain {summary} ({time.perf_counter() - t_phase:.1f} s into phase 23)",
               file=sys.stderr)
         check(not bad, f"B3 and its plain version differ on the hierarchical fleet: {bad}")
@@ -3197,18 +3292,18 @@ def hierarchical_phase(qt, device, smi, objectives, build):
     occ = resident_occupancy(n, 4, trace)
     # the kernels line's record: the float64 fleet, where every lane converges in both
     # packages, so that its time is not decided by where float32's floor stops lanes
-    obj64, X64, trace64 = fleets[torch.float64]
+    _, X64, trace64 = fleets[torch.float64]
     ms64 = per_call_ms({"B3 traced": lambda: qt.optimize_batched_resident(
         trace64, X64, tol=TOL, max_iterations=MAX_ITERS)}, (), rounds=2, calls=1)["B3 traced"]
-    plain64 = time_calls(lambda: qt.optimize_batched(obj64, X64, tol=TOL, kernel="torch",
-                                                     max_iterations=MAX_ITERS), (), calls=1)
+    plain64 = plain_walls[torch.float64]["plain"]  # its whole solve in the parity above
     needs64 = hierarchical_ops(n, itemsize=8)
     b64 = b3_bound(runs[torch.float64][0], n, 8, True, ops=needs64)
     occ64 = resident_occupancy(n, 8, trace64)
     log(f"[time] hierarchical {HIER_BATCH}x{n} per solve (CUDA events, median of 2 in turns): "
         f"float64 (the kernels line's record): B3 traced {ms64:.4f} ms "
         f"({1e3 * HIER_BATCH / ms64:.1f} solves/s), fleet engine (one call each: B1's the main "
-        f"path's) with B1 {b1_ms[torch.float64]:.4f} ms, with the plain update {plain64:.4f} ms; "
+        f"path's) with B1 {b1_ms[torch.float64]:.4f} ms, with the plain update {plain64:.4f} ms "
+        f"(the parity's whole solve); "
         f"bound {b64[0]:.4f} ms ({b64[1]}; the function needs {needs64[0]} operations per value "
         f"and gradient, {needs64[1]} per trial, {needs64[2]} data bytes), at "
         f"{100 * b64[0] / ms64:.1f} %, launch {shape_line(occ64)}; float32: B3 traced "
@@ -3518,6 +3613,271 @@ def engines_phase(qt, device, smi):
     return out
 
 
+def map_multistart(qt, device):
+    """Phase 25 (a): the multistart fleet through B1, then a generator's
+    starts. Returns (the fleet's result, B1's launches, its summary)."""
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    X = bench_fleet(device)
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    t0 = time.perf_counter()
+    ms = qt.optimize_multistart(rosenbrock_logdensity, None, BATCH, N, x0s=X, tol=TOL,
+                                max_iterations=MAX_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c = read_counters(qt)
+    fleet = ms.fleet
+    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+          f"multistart: B1 not launched once per loop body: {c}")
+    check(fleet.x.device.type == "cuda" and fleet.x.dtype == torch.float32
+          and bool(torch.isfinite(fleet.x).all()), "multistart: fleet values")
+    conv = int(ms.n_converged)
+    med = float(np.median(fleet.iterations.cpu().numpy()))
+    check(conv == JAX_MAP["multistart_converged"] == BATCH,
+          f"multistart: {conv}/{BATCH} converged (JAX {JAX_MAP['multistart_converged']})")
+    check(abs(med - JAX_MAP["multistart_median"]) <= 0.1 * JAX_MAP["multistart_median"],
+          f"multistart: median iterations {med} not within 10% of {JAX_MAP['multistart_median']}")
+    check(bool(torch.isfinite(ms.fun)) and float((ms.x - 1.0).abs().max()) < 0.05,
+          "multistart: the best mode is not the Rosenbrock's")
+    gen = torch.Generator(device=device).manual_seed(7)
+    drawn = qt.optimize_multistart(rosenbrock_logdensity, gen, BATCH, N, tol=TOL,
+                                   max_iterations=MAX_ITERS)
+    dconv = int(drawn.n_converged)
+    check(drawn.fleet.x.device.type == "cuda" and drawn.fleet.x.dtype == torch.float32,
+          "multistart: a CUDA generator's starts were not drawn on the card in float32")
+    check(dconv == BATCH, f"multistart from a CUDA generator: {dconv}/{BATCH} converged")
+    text = (f"optimize_multistart {BATCH}x{N} f32 (autodiff, tol {TOL}): converged {conv}/{BATCH} "
+            f"(JAX {JAX_MAP['multistart_converged']}), median iterations {med:g} (JAX "
+            f"{JAX_MAP['multistart_median']:g}), best lane {int(ms.best_index)} at fun "
+            f"{float(ms.fun):.3e}, B1 {c['B1']} launches = loop bodies, {wall:.3f} s (first call); "
+            f"from torch.Generator('cuda') seed 7: starts on {drawn.fleet.x.device} "
+            f"{str(drawn.fleet.x.dtype).replace('torch.', '')}, converged {dconv}/{BATCH}")
+    return fleet, c["B1"], text
+
+
+def map_polish_and_evidence(qt, fleet, device):
+    """Phase 25 (b) and (c): the f64 Newton polish of the fleet and the
+    Laplace evidence, exact on the polished modes and from the fleet's B.
+    Returns the summary."""
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pol = qt.polish_newton(rosenbrock_logdensity, fleet, steps=3, dtype=torch.float64)
+    torch.cuda.synchronize()
+    polish_s = time.perf_counter() - t0
+    check(pol.x.device.type == "cuda" and pol.x.dtype == torch.float64, "polish: x device/dtype")
+    check(bool((pol.grad_norm_after <= pol.grad_norm_before).all()),
+          "polish: a lane's max|grad| grew")
+    improved = int(pol.improved.sum())
+    after = pol.grad_norm_after.cpu().numpy()
+    after_med, after_max = float(np.median(after)), float(after.max())
+    check(improved == JAX_MAP["polish_improved"],
+          f"polish: {improved} lanes improved, JAX {JAX_MAP['polish_improved']}")
+    check(after_max <= 10.0 * JAX_MAP["polish_after_max"],
+          f"polish: max|grad| after {after_max:.3e} over 10 x JAX's {JAX_MAP['polish_after_max']}")
+    t0 = time.perf_counter()
+    lz = qt.laplace_evidence(pol, obj=rosenbrock_logdensity)
+    lz_b = qt.laplace_evidence(fleet)
+    torch.cuda.synchronize()
+    laplace_s = time.perf_counter() - t0
+    check(lz.dtype == torch.float64 and lz.device.type == "cuda" and lz.shape == (BATCH,)
+          and bool(torch.isfinite(lz).all()), "laplace: exact evidence values")
+    check(lz_b.dtype == torch.float32 and lz_b.shape == (BATCH,), "laplace: B-path values")
+    med = float(np.median(lz.cpu().numpy()))
+    rel = abs(med - JAX_MAP["laplace_exact_median"]) / abs(JAX_MAP["laplace_exact_median"])
+    check(rel <= MAP_RTOL, f"laplace: exact median {med!r} is {rel:.2e} from JAX's "
+                           f"{JAX_MAP['laplace_exact_median']!r}")
+    gap = (lz - lz_b.double()).abs().cpu().numpy()
+    return (f"polish_newton(steps=3, float64) on the {BATCH} lanes: {polish_s:.3f} s, improved "
+            f"{improved} (JAX {JAX_MAP['polish_improved']}), max|grad| after median {after_med:.3e} "
+            f"max {after_max:.3e} (JAX {JAX_MAP['polish_after_median']:.3e} / "
+            f"{JAX_MAP['polish_after_max']:.3e}), none grew; laplace_evidence exact (f64) median "
+            f"{med!r} (JAX {JAX_MAP['laplace_exact_median']!r}, rel {rel:.2e}), B path (f32) gap "
+            f"|exact - B| median {float(np.median(gap)):.4f} max {float(gap.max()):.4f} (JAX "
+            f"{JAX_MAP['laplace_gap_median']:.4f} / {JAX_MAP['laplace_gap_max']:.4f}), {laplace_s:.3f} s")
+
+
+def map_checkpoint(qt, device):
+    """Phase 25 (d): a checkpoint of the bench fleet at 20 iterations,
+    reloaded and resumed, against an uninterrupted run."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+    from quasinewtonmethods_jl_tpu_torch.utils.checkpoint import load_state, save_state
+
+    X = bench_fleet(device)
+    kw = {"tol": TOL, "value_and_grad_fn": rosenbrock_value_and_grad}
+    part = qt.optimize_batched_fused(rosenbrock_logdensity, X, max_iterations=CHECKPOINT_CAP, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fleet")
+        save_state(path, part.state)
+        size = os.path.getsize(path + ".npz")
+        loaded = load_state(path, qt.BFGSState)
+    for field, a, b in zip(qt.BFGSState._fields, loaded, part.state):
+        check(a.device.type == "cuda" and a.dtype == b.dtype and torch.equal(a, b),
+              f"checkpoint: leaf {field} did not reload bit for bit on the card")
+    resumed = qt.optimize_batched_fused_from_state(rosenbrock_logdensity, loaded,
+                                                   max_iterations=MAX_ITERS, **kw)
+    whole = qt.optimize_batched_fused(rosenbrock_logdensity, X, max_iterations=MAX_ITERS, **kw)
+    differ = {name: int((getattr(resumed, name) != getattr(whole, name)).sum())
+              for name in ("status", "iterations", "n_fev", "n_gev", "n_resets")}
+    dx = float((resumed.x - whole.x).abs().max())
+    check(not any(differ.values()), f"checkpoint: the resumed fleet differs from an "
+                                    f"uninterrupted run on {differ} lanes")
+    return (f"checkpoint of the fleet at {CHECKPOINT_CAP} iterations ({size / 2**20:.1f} MiB .npz): "
+            f"every leaf reloaded bit for bit on the card; resumed through "
+            f"optimize_batched_fused_from_state: statuses and counters equal to an uninterrupted "
+            f"run's on every lane, max|dx| {dx:.3e}")
+
+
+def map_pytree(qt, device):
+    """Phase 25 (e): the fleet over {'b': X[:, 30:], 'a': X[:, :30]}
+    against the flat solve."""
+    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+
+    X = bench_fleet(device)
+    tree = {"b": X[:, N // 2:], "a": X[:, :N // 2]}
+
+    def tree_rosenbrock(t):
+        return rosenbrock_logdensity(torch.cat([t["a"], t["b"]]))
+
+    kw = {"tol": TOL, "max_iterations": MAX_ITERS}
+    reset_counters(qt)
+    params, res = qt.optimize_batched_pytree(tree_rosenbrock, tree, **kw)
+    c_tree = read_counters(qt)
+    reset_counters(qt)
+    flat = qt.optimize_batched(rosenbrock_logdensity, X, **kw)
+    c_flat = read_counters(qt)
+    same = all(torch.equal(getattr(res, f), getattr(flat, f))
+               for f in ("x", "status", "iterations", "n_fev", "n_gev", "n_resets"))
+    check(same and list(params) == ["b", "a"] and torch.equal(params["a"], flat.x[:, :N // 2])
+          and torch.equal(params["b"], flat.x[:, N // 2:]),
+          "pytree: the fleet over the insertion-ordered dict differs from the flat solve")
+    check(c_tree["B1"] == c_flat["B1"] == c_flat["bodies"] > 0,
+          f"pytree: B1 launches {c_tree['B1']} against the flat solve's {c_flat['B1']}")
+    return (f"optimize_batched_pytree on {{'b': X[:, {N // 2}:], 'a': X[:, :{N // 2}]}}: x, statuses "
+            f"and counters equal to the flat solve's on every lane, B1 {c_tree['B1']} launches "
+            f"(flat {c_flat['B1']}), params back as b, a")
+
+
+def map_implicit(qt, device):
+    """Phase 25 (f): the implicit gradient of one f64 logistic MAP solve in
+    its prior's log scale."""
+    Xd, yd, _starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    Xt = torch.tensor(Xd, device=device)
+    yt = torch.tensor(yd, device=device)
+
+    def obj(w, log_s):
+        logits = Xt @ w
+        ls = torch.nn.functional.logsigmoid
+        loglik = torch.sum(yt * ls(logits) + (1.0 - yt) * ls(-logits))
+        return loglik - 0.5 * torch.sum(w * w) * torch.exp(-2.0 * log_s) - LOGISTIC_N * log_s
+
+    x0 = torch.zeros(LOGISTIC_N, dtype=torch.float64, device=device)
+    p = torch.tensor(MAP_LOG_S, dtype=torch.float64, device=device, requires_grad=True)
+    t0 = time.perf_counter()
+    x_star, fun = qt.optimize_implicit(obj, x0, p)
+    dfun, = torch.autograd.grad(fun, p, retain_graph=True)
+    dsum, = torch.autograd.grad(x_star.sum(), p)
+    seconds = time.perf_counter() - t0
+    fun = fun.detach()
+    check(x_star.device.type == "cuda" and bool(torch.isfinite(fun)),
+          f"implicit: the solve did not converge (fun {float(fun)})")
+
+    def solve_at(log_s):
+        s = torch.tensor(log_s, dtype=torch.float64, device=device)
+        r = qt.optimize(lambda w: obj(w, s), x0)
+        return float(r.last_value), float(r.x.sum())
+
+    (f_hi, x_hi), (f_lo, x_lo) = solve_at(MAP_LOG_S + MAP_FD_STEP), solve_at(MAP_LOG_S - MAP_FD_STEP)
+    fd, fd_sum = (f_hi - f_lo) / (2 * MAP_FD_STEP), (x_hi - x_lo) / (2 * MAP_FD_STEP)
+    dfun, dsum = float(dfun), float(dsum)
+    rel_fd = abs(dfun - fd) / abs(fd)
+    rel_jax = abs(dfun - JAX_MAP["implicit_dfun"]) / abs(JAX_MAP["implicit_dfun"])
+    rel_sum = abs(dsum - JAX_MAP["implicit_dsum_x"]) / abs(JAX_MAP["implicit_dsum_x"])
+    check(rel_fd <= MAP_FD_RTOL, f"implicit: d fun/d log_s {dfun!r} is {rel_fd:.2e} from the "
+                                 f"finite difference {fd!r}")
+    check(rel_jax <= MAP_RTOL, f"implicit: d fun/d log_s {dfun!r} is {rel_jax:.2e} from JAX's "
+                               f"{JAX_MAP['implicit_dfun']!r}")
+    check(rel_sum <= MAP_FD_RTOL, f"implicit: d sum(x*)/d log_s {dsum!r} is {rel_sum:.2e} from "
+                                  f"JAX's {JAX_MAP['implicit_dsum_x']!r}")
+    return (f"optimize_implicit, logistic MAP n={LOGISTIC_N} (config 3's data) f64 at log_s "
+            f"{MAP_LOG_S}: fun {float(fun)!r} (JAX {JAX_MAP['implicit_fun']!r}), d fun/d log_s "
+            f"{dfun!r} (finite difference {fd!r}, rel {rel_fd:.2e}; JAX rel {rel_jax:.2e}), "
+            f"d sum(x*)/d log_s {dsum!r} (JAX rel {rel_sum:.2e}, finite difference {fd_sum!r}), "
+            f"{seconds:.3f} s for the solve and both gradients")
+
+
+def ar1_chains():
+    """Phase 25 (g)'s draws: AR(1) chains from numpy seed BENCH_SEED, as
+    scripts/jax_map_backend_reference.py draws them."""
+    eps = np.random.default_rng(BENCH_SEED).standard_normal((DIAG_DRAWS, DIAG_CHAINS, N))
+    x = np.empty_like(eps)
+    x[0] = eps[0] / np.sqrt(1.0 - DIAG_PHI * DIAG_PHI)
+    for t in range(1, DIAG_DRAWS):
+        x[t] = DIAG_PHI * x[t - 1] + eps[t]
+    return x
+
+
+def map_diagnostics(qt, device):
+    """Phase 25 (g): every device statistic against the port's numpy
+    version, per element, and JAX's summaries."""
+    x = ar1_chains()
+    energies = 0.5 * np.sum(x * x, axis=-1)
+    xt, et = torch.tensor(x, device=device), torch.tensor(energies, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag = qt.diagnose_chains_device(xt, rank=True)
+    device_out = {"split_rhat": qt.split_rhat_device(xt), "ess": qt.ess_device(xt),
+                  "rank_normalized_rhat": qt.rank_normalized_rhat_device(xt),
+                  "tail_ess": qt.tail_ess_device(xt), "mean": diag.mean, "std": diag.std,
+                  "energy_bfmi": qt.energy_bfmi_device(et)}
+    torch.cuda.synchronize()
+    device_s = time.perf_counter() - t0
+    host = qt.diagnose_chains(x, rank=True)
+    host_out = {"split_rhat": host.rhat, "ess": host.ess, "rank_normalized_rhat": host.rhat_rank,
+                "tail_ess": host.ess_tail, "mean": host.mean, "std": host.std,
+                "energy_bfmi": qt.energy_bfmi(energies)}
+    check(torch.equal(diag.rhat, device_out["split_rhat"]) and torch.equal(diag.ess,
+                                                                          device_out["ess"]),
+          "diagnostics: diagnose_chains_device differs from its parts")
+    worst = {}
+    for name, value in device_out.items():
+        check(value.device.type == "cuda" and value.dtype == torch.float64, f"{name}: device/dtype")
+        v = value.cpu().numpy()
+        rel_host = float(np.max(np.abs(v - host_out[name]) / np.maximum(np.abs(host_out[name]),
+                                                                        1e-300)))
+        ref = JAX_DIAGNOSTICS[name]
+        mine = [float(v.sum()), float(v.min()), float(v.max()), float(v.reshape(-1)[0])]
+        rel_jax = max(abs(a - b) / abs(b) for a, b in zip(mine, ref))
+        worst[name] = (rel_host, rel_jax)
+        check(rel_host <= MAP_RTOL and rel_jax <= MAP_RTOL,
+              f"diagnostics: {name} is {rel_host:.2e} from the numpy version and {rel_jax:.2e} "
+              f"from JAX's summaries")
+    return (f"diagnostics on AR(1) chains {DIAG_DRAWS}x{DIAG_CHAINS}x{N} f64 (phi {DIAG_PHI}) on the "
+            f"card in {device_s:.3f} s: max rel err against numpy / JAX "
+            + ", ".join(f"{k} {a:.1e}/{b:.1e}" for k, (a, b) in worst.items()))
+
+
+def map_backend_phase(qt, device, smi):
+    """The MAP back end (see phase 25 above). Returns the multistart
+    fleet's B1 launches."""
+    t_phase = time.perf_counter()
+    fleet, launches, text = map_multistart(qt, device)
+    log(f"[map] {text} on {smi}")
+    log(f"[map] {map_polish_and_evidence(qt, fleet, device)} on {smi}")
+    del fleet
+    log(f"[map] {map_checkpoint(qt, device)}")
+    log(f"[map] {map_pytree(qt, device)}")
+    log(f"[map] {map_implicit(qt, device)} on {smi}")
+    log(f"[map] {map_diagnostics(qt, device)} on {smi}; phase 25 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -3525,35 +3885,48 @@ def main():
     import quasinewtonmethods_jl_tpu_torch as qt
 
     device = torch.device("cuda", 0)
-    name, smi = device_phase()
-    phase22 = traced_objectives(qt, device)  # traced first, so that their build overlaps
-    phase23 = hierarchical_objectives(qt, device)
-    libs, build_s = build_phase(phase22["sources"] + phase23["sources"])
+    t_start, stamps = time.perf_counter(), []
+
+    def timed(label, fn, *args):
+        """``fn(*args)``, its seconds kept for the [timing] line."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        stamps.append(f"{label} {time.perf_counter() - t0:.1f}")
+        return out
+
+    name, smi = timed("1", device_phase)
+    phase22 = timed("22 trace", traced_objectives, qt, device)  # traced first, so that
+    phase23 = timed("23 trace", hierarchical_objectives, qt, device)  # their build overlaps
+    libs, build_s = timed("2", build_phase, phase22["sources"] + phase23["sources"])
     split = len(phase22["sources"])
-    max_abs_err = kernel_phase(device)
+    max_abs_err = timed("3", kernel_phase, device)
     reset_counters(qt)
-    launches, _ = main_path_phase(qt, device)
-    parity_phase(qt, device)
-    kernel_ms, plain_ms, b1_bound_ms = timing_phase(qt, device, smi)
-    blocked_err = blocked_kernel_phase(device)
-    large = large_n_phase(qt, device)
-    resident_err = resident_parity_phase(qt, device)
-    resident, b3_bounds = resident_path_phase(qt, device)
-    times = blocked_and_resident_timing_phase(qt, device, smi, b3_bounds)
-    cg = cg_phase(qt, device, smi)
-    wolfe_phase(qt, device, smi, cg["n_fev"])
-    compacted_phase(qt, device, smi)
-    repair_phase(qt)
-    scalar_phase(qt, device)
-    lbfgs_scalar_phase(qt, device)
-    lbfgs_fleet_phase(qt, device, smi)
-    ring_phase(qt, device, smi)
-    vmap_phase(qt, device)
-    objectives = objective_phase(qt, device, smi)
-    objectives.update(fixture_phase(qt, device, smi))
-    traced = traced_phase(qt, device, smi, phase22, (libs[:split], build_s))
-    traced.update(hierarchical_phase(qt, device, smi, phase23, (libs[split:], build_s)))
-    auglag = engines_phase(qt, device, smi)
+    launches, _ = timed("4", main_path_phase, qt, device)
+    timed("5", parity_phase, qt, device)
+    kernel_ms, plain_ms, b1_bound_ms = timed("6", timing_phase, qt, device, smi)
+    blocked_err = timed("7", blocked_kernel_phase, device)
+    large = timed("8", large_n_phase, qt, device)
+    resident_err = timed("9", resident_parity_phase, qt, device)
+    resident, b3_bounds = timed("10", resident_path_phase, qt, device)
+    times = timed("11", blocked_and_resident_timing_phase, qt, device, smi, b3_bounds)
+    cg = timed("12", cg_phase, qt, device, smi)
+    timed("13", wolfe_phase, qt, device, smi, cg["n_fev"])
+    timed("14", compacted_phase, qt, device, smi)
+    timed("15", repair_phase, qt)
+    timed("16", scalar_phase, qt, device)
+    timed("17", lbfgs_scalar_phase, qt, device)
+    timed("18 fleets", lbfgs_fleet_phase, qt, device, smi)
+    timed("18 ring", ring_phase, qt, device, smi)
+    timed("19", vmap_phase, qt, device)
+    objectives = timed("20", objective_phase, qt, device, smi)
+    objectives.update(timed("21", fixture_phase, qt, device, smi))
+    traced = timed("22", traced_phase, qt, device, smi, phase22, (libs[:split], build_s))
+    traced.update(timed("23", hierarchical_phase, qt, device, smi, phase23,
+                        (libs[split:], build_s)))
+    auglag = timed("24", engines_phase, qt, device, smi)
+    multistart = timed("25", map_backend_phase, qt, device, smi)
+    log(f"[timing] seconds per phase: {', '.join(stamps)}; "
+        f"{time.perf_counter() - t_start:.1f} s in all on {smi}")
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
@@ -3566,6 +3939,8 @@ def main():
                max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("fused_bfgs_update_batched[auglag]", KERNEL_SOURCE, KERNEL_REPLACES,
                auglag["launches"], auglag["err"], (kernel_ms, plain_ms, *b1_bound_ms, None)),
+        record("fused_bfgs_update_batched[multistart]", KERNEL_SOURCE, KERNEL_REPLACES,
+               multistart, max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

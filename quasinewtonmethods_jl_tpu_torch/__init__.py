@@ -19,8 +19,13 @@ the constrained-parameter transforms (`transforms`,
 (`least_squares`, `least_squares_from_state`), the trust-region
 Newton–Krylov engine (`optimize_tr`, `optimize_tr_from_state`), the
 augmented Lagrangian over all four engines (`optimize_auglag`) and the
-scipy-convention front door `minimize`; ROADMAP.md lists what is still to
-port. Entry points run on the CUDA card unless given a CPU
+scipy-convention front door `minimize`, and the MAP back end:
+multistart (`optimize_multistart`), Newton polish (`polish_newton`),
+Laplace evidence (`laplace_evidence`), implicit gradients through a solve
+(`optimize_implicit`), checkpoints (`utils.checkpoint.save_state` /
+`load_state`), structured parameters (`optimize_pytree` and its siblings,
+`pytree_names`) and chain diagnostics (`diagnostics.py`); ROADMAP.md lists
+what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
@@ -35,15 +40,47 @@ from .batched_solve import (
 )
 from .cg_solve import CGResult, optimize_cg, optimize_cg_from_state
 from .constrained import AugLagResult, optimize_auglag
+from .diagnostics import (
+    ChainDiagnostics,
+    PosteriorSummary,
+    diagnose_chains,
+    diagnose_chains_device,
+    energy_bfmi,
+    energy_bfmi_device,
+    ess,
+    ess_device,
+    posterior_summary,
+    rank_normalized_rhat,
+    rank_normalized_rhat_device,
+    split_rhat,
+    split_rhat_device,
+    tail_ess,
+    tail_ess_device,
+)
+from .implicit import ImplicitOptions, optimize_implicit
+from .laplace import laplace_evidence
 from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
 from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
 from .least_squares import LeastSquaresResult, least_squares, least_squares_from_state
 from .minimize import minimize
 from .models import LogisticRegressionMAP
+from .multistart import MultistartResult, optimize_multistart
 from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .ops.wolfe import Wolfe, WolfeResult, wolfe_linesearch
 from .parallel.batch import optimize_batched, optimize_lbfgs_batched
+from .polish import PolishResult, polish_newton
+from .pytree import (
+    least_squares_pytree,
+    minimize_pytree,
+    optimize_auglag_pytree,
+    optimize_batched_pytree,
+    optimize_cg_pytree,
+    optimize_lbfgs_pytree,
+    optimize_pytree,
+    optimize_tr_pytree,
+    pytree_names,
+)
 from .resident_solve import optimize_batched_resident, resident_feasible, trace_objective
 from .solve import (
     MAX_ITERATIONS_DEFAULT,
@@ -74,6 +111,32 @@ from .state import (
     tr_state_from_numpy,
     tr_state_to_numpy,
 )
+
+
+def _resolve_version() -> str:
+    """The package's version from its distribution's metadata when
+    installed, else from pyproject.toml beside a source checkout (one
+    version for the repo, as the JAX package resolves its own)."""
+    try:
+        from importlib.metadata import version
+
+        return version("quasinewtonmethods-jl-tpu")
+    except Exception:
+        pass
+    import pathlib
+    import re
+
+    pyproject = pathlib.Path(__file__).resolve().parent.parent / "pyproject.toml"
+    try:
+        m = re.search(r'^version\s*=\s*"([^"]+)"', pyproject.read_text(), re.MULTILINE)
+        if m:
+            return m.group(1)
+    except OSError:
+        pass
+    return "0.0.0"
+
+
+__version__ = _resolve_version()
 
 __all__ = [
     "ProbabilityModel",
@@ -141,4 +204,36 @@ __all__ = [
     "AugLagResult",
     "optimize_auglag",
     "minimize",
+    "MultistartResult",
+    "optimize_multistart",
+    "PolishResult",
+    "polish_newton",
+    "laplace_evidence",
+    "ImplicitOptions",
+    "optimize_implicit",
+    "optimize_pytree",
+    "optimize_lbfgs_pytree",
+    "optimize_batched_pytree",
+    "optimize_cg_pytree",
+    "optimize_tr_pytree",
+    "least_squares_pytree",
+    "optimize_auglag_pytree",
+    "minimize_pytree",
+    "pytree_names",
+    "ChainDiagnostics",
+    "split_rhat",
+    "ess",
+    "rank_normalized_rhat",
+    "tail_ess",
+    "diagnose_chains",
+    "energy_bfmi",
+    "PosteriorSummary",
+    "posterior_summary",
+    "split_rhat_device",
+    "ess_device",
+    "rank_normalized_rhat_device",
+    "tail_ess_device",
+    "diagnose_chains_device",
+    "energy_bfmi_device",
+    "__version__",
 ]

@@ -51,11 +51,37 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.ops.wolfe, "
         "quasinewtonmethods_jl_tpu_torch.ops.hutchinson, "
         "quasinewtonmethods_jl_tpu_torch.trust_region, "
-        "quasinewtonmethods_jl_tpu_torch.utils.device; "
+        "quasinewtonmethods_jl_tpu_torch.utils.device, "
+        "quasinewtonmethods_jl_tpu_torch.utils.checkpoint, "
+        "quasinewtonmethods_jl_tpu_torch.diagnostics, "
+        "quasinewtonmethods_jl_tpu_torch.pytree; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
+
+
+# the JAX package's names the port does not have yet: sampling, evidence by
+# sampling, the sampling workflow and what follows them (ROADMAP.md A)
+NOT_YET_PORTED = {
+    "AISResult", "BridgeResult", "ChEESResult", "ChEESState", "DepthSortInfo",
+    "EnsembleResult", "EnsembleState", "HMCResult", "HMCState", "LOOResult", "LowRankMass",
+    "MCLMCResult", "MCLMCState", "MapThenSampleResult", "NUTSResult", "NUTSState", "PTResult",
+    "PTState", "PathfinderResult", "PytreeSampleResult", "SVGDResult", "SVGDState",
+    "WAICResult", "ais_evidence", "bridge_evidence", "chain_init_from_map", "chees_sample",
+    "chees_sample_from_state", "ensemble_autocorr_time", "ensemble_sample",
+    "ensemble_sample_from_state", "geometric_ladder", "hmc_sample", "hmc_sample_from_state",
+    "loo_compare", "loo_psis", "map_then_sample", "map_then_sample_pytree", "mclmc_sample",
+    "mclmc_sample_from_state", "nuts_sample", "nuts_sample_depth_sorted",
+    "nuts_sample_from_state", "pathfinder", "psis_smooth", "pt_sample",
+    "pt_sample_from_state", "svgd_sample", "svgd_sample_from_state", "waic",
+}
+
+
+def test_version_and_exported_names_match_jax():
+    assert qt.__version__ == qj.__version__
+    assert set(qj.__all__) - set(qt.__all__) == NOT_YET_PORTED
+    assert all(hasattr(qt, name) for name in qt.__all__)
 
 
 @pytest.mark.parametrize("n", [6, 7])
@@ -164,6 +190,28 @@ def test_init_states_place_arrays_as_the_entry_points_do(monkeypatch, init):
         state = init(torch.ones(3, dtype=dtype))
         assert all(leaf.device.type == "cpu" for leaf in state)
         assert state.x.dtype == state.grad.dtype == state.fun.dtype == dtype
+
+
+# the MAP back end's entry points given numpy input (PR 11's modules)
+MAP_ENTRY_POINTS = {
+    "optimize_multistart": lambda a: qt.optimize_multistart(rosenbrock_logdensity, None, 2, 3,
+                                                            x0s=a),
+    "optimize_implicit": lambda a: qt.optimize_implicit(lambda x, p: -((x - p) ** 2).sum(),
+                                                        a[0], torch.ones(3)),
+    "optimize_pytree": lambda a: qt.optimize_pytree(lambda t: rosenbrock_logdensity(t["x"]),
+                                                    {"x": a[0]}),
+    "split_rhat_device": lambda a: qt.split_rhat_device(np.ones((8, 2, 3))),
+    "energy_bfmi_device": lambda a: qt.energy_bfmi_device(np.ones((8, 2))),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(MAP_ENTRY_POINTS))
+def test_the_map_back_end_places_numpy_input_on_the_card(monkeypatch, entry):
+    """Numpy input goes to the card, as every entry point's: without one it
+    raises the entry points' error instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor"):
+        MAP_ENTRY_POINTS[entry](np.ones((2, 3)))
 
 
 @pytest.fixture(scope="module")

@@ -983,3 +983,28 @@ def test_auglag_bfgs_fleet_through_b1_matches_the_plain_update(cuda_device, dtyp
     for name in ("x", "mu", "rho", "viol"):  # no eq: lam is (64, 0)
         a, b = getattr(kern, name), getattr(plain, name)
         assert float((a - b).abs().max()) <= rtol * max(float(b.abs().max()), 1.0), name
+
+
+@pytest.mark.cuda
+def test_multistart_fleet_through_b1_matches_the_plain_update(cuda_device):
+    """`optimize_multistart` on 256 lanes of the bench fleet (n = 60, f32,
+    tol 1e-3) with kernel="cuda" (B1) against kernel="torch": B1 launched,
+    equal statuses on every lane, and the same best mode (every lane ends
+    at the Rosenbrock's one mode, so rounding may pick another lane of it:
+    the best iterates and values agree to the certificate)."""
+    from quasinewtonmethods_jl_tpu_torch import optimize_multistart
+
+    X = _chip_smoke().bench_fleet(cuda_device)[:256]
+    kw = dict(x0s=X, tol=1e-3, max_iterations=3000, value_and_grad_fn=rosenbrock_value_and_grad)
+    before = fused_bfgs_update_batched.launches
+    kern = optimize_multistart(rosenbrock_logdensity, None, 256, 60, kernel="cuda", **kw)
+    launches = fused_bfgs_update_batched.launches - before
+    assert launches > 0
+    plain = optimize_multistart(rosenbrock_logdensity, None, 256, 60, kernel="torch", **kw)
+    assert fused_bfgs_update_batched.launches - before == launches
+    assert torch.equal(kern.fleet.status, plain.fleet.status)
+    assert int(kern.n_converged) == int(plain.n_converged) == 256
+    for res in (kern, plain):
+        assert float((res.x - 1.0).abs().max()) < 0.05
+        assert 0 <= int(res.best_index) < 256 and bool(torch.isfinite(res.fun))
+    assert abs(float(kern.fun) - float(plain.fun)) < 1e-4
