@@ -23,7 +23,11 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
   2. build: the kernel library from ``quasinewtonmethods_jl_tpu_torch/csrc``
      for sm_90a, one nvcc per source in parallel (nvcc's resource report
      goes to stderr), and beside it phases 22's and 23's objectives, traced,
-     generated and built one nvcc each;
+     generated and built one nvcc each; both builds run in background
+     processes (niced, off one core) while the traces are made and phase
+     16's float32 starts, which launch no hand-written kernel and time
+     nothing, run, and this phase waits for them: the run's order is 1,
+     the traces, 16's float32 starts, 2, then 3-26;
   3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
      128} and the largest n that fits (237 f32, 167 f64), every lane kind
      (active, frozen, fresh, forced reset, NaN);
@@ -48,8 +52,12 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      1, 5 and 3000; a tol 1e-14 run and an f32 overflow start; the errors
      and, over whole solves, the lanes whose counters differ, each against
      what a change of rounding alone does to the plain version (started 1
-     ulp away; run on the CPU); and how fast a 1-ulp difference grows along
-     a trajectory;
+     ulp away; run on the CPU, but for the phase-4 fleet's whole solve);
+     and how fast a 1-ulp difference grows along a trajectory. A whole
+     solve's plain run and its one-ulp witnesses on the card run as one
+     fleet of their starts stacked (`stacked_runs`: the engine steps each
+     lane on its own, and the host, which bounds these runs, drives the
+     loop once), here and in phases 21-23;
  10. resident path: `optimize_batched_resident` on the phase-4 fleet, one
      launch and no host synchronisation;
  11. times: B2 and each pass against the plain version at 1024 x 512 f32,
@@ -222,8 +230,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      saved as numpy; `optimize_tr` on 1024 starts of a 256-d quadratic of
      condition 1e4 (config 9, tol 1e-3, max_cg 256), resumed from 5
      iterations to 10 (statuses and counts those of the one-leg run), and
-     `minimize(method="tr")` on the negated function over its first
-     64 lanes, equal to `optimize_tr`'s after the sign flip;
+     `minimize(method="tr")` on the negated function over the whole
+     fleet, equal to `optimize_tr`'s counted run after the sign flip;
      `optimize_auglag` on the bench fleet with ineq 30 - x·x (config 14,
      tol = ctol = 1e-3, at most 2000 inner iterations) through the CG
      engine (no kernel) and the BFGS engine (B1), and `minimize(ineq=...,
@@ -271,6 +279,33 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      the card: every ``*_device`` statistic within 1e-8 of the port's
      numpy version per element and of JAX's summaries (sum, min, max,
      first element).
+ 26. the samplers the MAP fleet hands over to (sampling.py), on BASELINE
+     config 3's logistic posterior (data and 4096 starts drawn as in
+     phase 20), f32, held to the JAX package's numbers
+     (scripts/jax_sampling_reference.py, which writes
+     scripts/jax_sampling_reference.json; its samplers run 512 chains):
+     (a) `optimize_batched(tol=3e-3)` through B1, once per loop body:
+     every lane converged, the median within 10 % of JAX's 11; then
+     `chain_init_from_map(jitter=0.05)`: the dense mass's Cholesky
+     succeeds and its diagonal is within 1e-2 relative of JAX's; B1 at
+     this fleet's shape (4096 x 100) against its plain version and timed;
+     (b) `hmc_sample` on all 4096 chains with JAX's defaults but the draws
+     (500 warmup, 16 leapfrog steps, the handed-over mass; 500 draws, not
+     1000, for the time limit), no host read in
+     its loop (sync debug mode): no NaN, max split R-hat < 1.01 (JAX's
+     value + 0.01 where JAX's own run exceeds 1.01), mean
+     accept within 0.05 of JAX's, median step size within 10 % of JAX's,
+     per coordinate |mean - JAX's| <= 5 combined MCSEs (sd / sqrt(ESS),
+     `ess_device`) and the sd within [0.9, 1.1] of JAX's; divergences and
+     E-BFMI printed beside JAX's; (c) `chees_sample` (no mass: the fleet
+     adapts its diagonal), the same gates, mean accept within 0.05 of its
+     0.75 target and one counted host read a round; step size and
+     trajectory length printed beside JAX's; (d) HMC's warmup and ChEES's
+     two warmup halves through `save_state` / `load_state` on the card
+     (every leaf bit for bit), then 100 draws, equal to the long runs'
+     first 100 bit for bit; for (b) and (c) seconds a call, draws/s,
+     gradient evaluations/s, host syncs, peak memory, and the device's
+     busy share over 20 profiled transitions from the warm state.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -295,7 +330,11 @@ are phase 24's full-width auglag BFGS fleet's, its max_abs_err phase 24
 (the same 4096 x 60 f32 shape); and a third,
 ``fused_bfgs_update_batched[multistart]``: its launches are phase 25 (a)'s
 multistart fleet's, its max_abs_err phase 3's at 4096 x 60 f32 and its
-times and bound phase 6's (the fleet's shape and dtype). B3 with a traced objective has one record per full-width fleet of phases
+times and bound phase 6's (the fleet's shape and dtype); and a fourth,
+``fused_bfgs_update_batched[sampling]``: its launches are phase 26 (a)'s
+logistic MAP fleet's, its max_abs_err, times and bound B1's at that
+fleet's shape (4096 x 100 f32, every lane active) in phase 26, its ``ms``
+by CUDA events over back-to-back launches. B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -314,7 +353,6 @@ import sys
 import tempfile
 import time
 import warnings
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -536,7 +574,7 @@ TR_BATCH, TR_N = 1024, 256
 TR_RESUME_CAP = 10  # the TR fleet's resume runs to this lifetime cap
 AUG_BATCH, AUG_TOL, AUG_MAX_ITERS = BATCH, 1e-3, 2000
 AUG_PARITY_LANES = 64  # phase 24 (a): B1 under auglag against the plain update
-AUG_MIN_LANES = 64  # the constrained minimize, and minimize(method="tr")
+AUG_MIN_LANES = 64  # the constrained minimize
 JAX_ENGINES = {
     "lm": {"lanes": 4096, "converged": 4096, "iterations": 4.0},
     "tr": {"lanes": 1024, "converged": 115, "iterations": 26.0, "n_hev": 1865.0},
@@ -603,10 +641,92 @@ def device_phase():
     return name, smi
 
 
-def build_phase(sources):
+# A build in the background: a process of its own that runs
+# `_build.load_library` (no sources given) or `_build.load_generated`
+# (the generated sources), niced and kept off one core, so that the phases
+# that launch no hand-written kernel run beside it; it writes nvcc's
+# reports and its seconds to a JSON file, and the library files to
+# `_build.BUILD_DIR`, where the loads in this process find them.
+BUILD_SCRIPT = r"""
+import importlib.util, json, sys, time
+spec = importlib.util.spec_from_file_location("_qnm_build", sys.argv[1])
+build = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(build)
+with open(sys.argv[2]) as f:
+    sources = json.load(f)
+t0 = time.perf_counter()
+if sources is None:
+    lib = build.load_library()
+    out = {"logs": {str(lib.path): lib.log}, "nvcc": lib.build_seconds}
+else:
+    libs = build.load_generated(*sources)
+    out = {"logs": {str(lib.path): lib.log for lib in libs},
+           "nvcc": max((lib.build_seconds for lib in libs), default=0.0)}
+out["wall"] = time.perf_counter() - t0
+with open(sys.argv[3], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def _background_priority():
+    os.nice(19)
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > 2:  # one core for this process's own phases
+        os.sched_setaffinity(0, cores[1:])
+
+
+def start_build(sources=None):
+    """Start building the kernel library (``sources`` None) or the
+    generated CUDA ``sources`` in the background (see BUILD_SCRIPT);
+    returns the handle `build_phase` waits on."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR)
+    request, result = os.path.join(tmp, "sources.json"), os.path.join(tmp, "result.json")
+    with open(request, "w") as f:
+        json.dump(sources, f)
+    with open(os.path.join(tmp, "output.txt"), "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", BUILD_SCRIPT, _build.__file__, request, result],
+            stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+            preexec_fn=_background_priority)
+    return {"proc": proc, "tmp": tmp, "result": result, "t0": time.perf_counter()}
+
+
+def stop_build(handle):
+    """End a background build and every compiler it started, if it still runs."""
+    if handle["proc"].poll() is None:
+        try:
+            os.killpg(handle["proc"].pid, 9)
+        except ProcessLookupError:
+            pass
+        handle["proc"].wait()
+
+
+def finish_build(handle):
+    """Wait for a background build: (nvcc's reports by library path, nvcc
+    seconds, the build's wall seconds from its start to its end here).
+    Raises with the build's output when it failed."""
+    rc = handle["proc"].wait()
+    try:
+        with open(os.path.join(handle["tmp"], "output.txt")) as f:
+            output = f.read()
+        check(rc == 0, f"the kernel build failed with exit code {rc}:\n{output[-20000:]}")
+        with open(handle["result"]) as f:
+            out = json.load(f)
+    finally:
+        shutil.rmtree(handle["tmp"], ignore_errors=True)
+    return out["logs"], out["nvcc"], time.perf_counter() - handle["t0"]
+
+
+def build_phase(sources, started=None):
     """The kernel library, and beside it, in parallel, the generated CUDA
-    ``sources`` (phases 22's and 23's, so that their nvcc runs overlap the library's):
-    returns the generated libraries and the seconds their build took."""
+    ``sources`` (phases 22's and 23's, so that their nvcc runs overlap the
+    library's), each in a background process (`start_build`; ``started``:
+    the two handles where they were started earlier, so that other phases
+    ran beside them): returns the generated libraries and the seconds
+    their build took."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels._build import (
         NVCC_FLAGS,
         SOURCES,
@@ -614,22 +734,23 @@ def build_phase(sources):
         load_library,
     )
 
-    def timed(fn, *args):
-        t0 = time.perf_counter()
-        return fn(*args), time.perf_counter() - t0
-
+    main, generated = started or (start_build(), start_build(sources))
+    try:
+        main_logs, main_nvcc, main_wall = finish_build(main)
+    except BaseException:
+        stop_build(generated)
+        raise
+    gen_logs, _, generated_seconds = finish_build(generated)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        main = pool.submit(timed, load_library)
-        generated = pool.submit(timed, load_generated, *sources)
-        (lib, seconds), (libs, generated_seconds) = main.result(), generated.result()
-    wall = time.perf_counter() - t0
-    print(lib.log, file=sys.stderr, flush=True)
+    lib = load_library()
+    seconds = time.perf_counter() - t0
+    libs = [g._replace(log=gen_logs.get(str(g.path), g.log)) for g in load_generated(*sources)]
+    print(main_logs.get(str(lib.path), lib.log), file=sys.stderr, flush=True)
     check("arch=compute_90a,code=sm_90a" in NVCC_FLAGS, "kernel not built for sm_90a")
-    log(f"[build] {lib.path.name} from csrc/{{{', '.join(SOURCES)}}}: nvcc {lib.build_seconds:.2f}s, "
-        f"load {seconds:.2f}s, flags {' '.join(NVCC_FLAGS)}; beside it phases 22 and 23's "
-        f"{len({g.path for g in libs})} generated objectives in {generated_seconds:.2f}s; "
-        f"{wall:.2f}s in all")
+    log(f"[build] {lib.path.name} from csrc/{{{', '.join(SOURCES)}}}: nvcc {main_nvcc:.2f}s "
+        f"in the background ({main_wall:.2f}s from its start), load {seconds:.2f}s, flags "
+        f"{' '.join(NVCC_FLAGS)}; beside it phases 22 and 23's {len({g.path for g in libs})} "
+        f"generated objectives in {generated_seconds:.2f}s from their start")
     return libs, generated_seconds
 
 
@@ -1099,6 +1220,29 @@ def counted_run(qt, fn, syncs_key, kernels=False):
     return res, c, flagged, wall
 
 
+def lanes_of(res, lanes):
+    """The fleet result ``res`` (a NamedTuple of per-lane leaves, nested)
+    on ``lanes`` (an index along its leading axis)."""
+    return type(res)(*(None if v is None else lanes_of(v, lanes) if isinstance(v, tuple)
+                       else v[lanes] for v in res))
+
+
+def stacked_runs(run, *starts):
+    """``run`` (a fleet solve of one tensor of starts) from each of
+    ``starts``, as one fleet of them all stacked: one result per tensor,
+    its lanes'. The fleet engine steps every lane on its own, so that a
+    lane's run is the run from its start (only the rounding of a batched
+    op may change with the fleet's size: the plain run and its rounding
+    witnesses differ by rounding in any case), and the host, which drives
+    its loop one body at a time, pays for all the runs once."""
+    res = run(torch.cat(starts))
+    out, at = [], 0
+    for x0 in starts:
+        out.append(lanes_of(res, slice(at, at + x0.shape[0])))
+        at += x0.shape[0]
+    return out
+
+
 def normwise_err(a, b):
     """(max |a - b|, that over max |b|) where both are finite; inf for both
     where one is not finite and the two differ (NaN matches NaN)."""
@@ -1298,7 +1442,9 @@ def resident_parity_phase(qt, device):
     exact = {g: [0.0, 0.0, 0.0] for g in groups}
     full_dx = 0.0
     witnesses = ("B3", "plain from x0 + 1 ulp", "plain on the CPU")
-    diverged = {g: dict.fromkeys(witnesses, 0) for g in groups}
+    # the main shape's whole solve takes no CPU witness: 4096 lanes of it on
+    # the CPU cost tens of seconds, and one witness fewer only lowers the limit
+    diverged = {"small": dict.fromkeys(witnesses, 0), "main": dict.fromkeys(witnesses[:2], 0)}
     full_lanes = dict.fromkeys(groups, 0)
 
     def compare(X, ls, tol, cap, h0_scale, label):
@@ -1309,7 +1455,11 @@ def resident_parity_phase(qt, device):
 
         kern = qt.optimize_batched_resident(rosenbrock_logdensity, X, ls=ls, tol=tol,
                                             max_iterations=cap, h0_scale=h0_scale, kernel="cuda")
-        plain = plain_run(X)
+        if cap in SHORT_CAPS:
+            plain = plain_run(X)
+        else:  # the whole solve and its witness from x0 + 1 ulp, as one fleet
+            nudged = torch.nextafter(X, torch.full_like(X, float("inf")))
+            plain, nudged_run = stacked_runs(plain_run, X, nudged)
         same = counters_equal(kern, plain)
         err_abs, err_rel = state_err(kern, plain)
         statuses = bool(torch.equal(kern.status, plain.status))
@@ -1331,9 +1481,11 @@ def resident_parity_phase(qt, device):
                 dx = float((kern.x - plain.x).abs().max())
                 full_dx = max(full_dx, dx)
                 ok = ok and dx <= CONVERGED_DX
-            nudged = torch.nextafter(X, torch.full_like(X, float("inf")))
             full_lanes[group] += X.shape[0]
-            for key, other in zip(witnesses, (kern, plain_run(nudged), plain_run(X.cpu()))):
+            runs = {"B3": kern, "plain from x0 + 1 ulp": nudged_run}
+            if "plain on the CPU" in diverged[group]:
+                runs["plain on the CPU"] = plain_run(X.cpu())
+            for key, other in runs.items():
                 diverged[group][key] += int((~counters_equal(other, plain)).sum())
         if not ok:
             failures.append(label)
@@ -1873,10 +2025,16 @@ def fewer_converged_p(port, ref, n):
                for k in range(max(0, total - n), port + 1)) / math.comb(2 * n, total)
 
 
-def scalar_f32_starts(qt, device, kw):
+def scalar_f32_starts(qt, device):
     """f32 DFP (H0 scaling off) and SR1 over `scalar_starts`, each held to
-    the JAX package's count of converged starts (see phase 16 above)."""
-    from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
+    the JAX package's count of converged starts (see phase 16 above; run
+    beside the build, its walls are shown, not measured)."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    kw = dict(tol=TOL, value_and_grad_fn=rosenbrock_value_and_grad)
 
     in_band = {int(qt.Status.CONVERGED), int(qt.Status.LINESEARCH_FAILURE),
                int(qt.Status.MAX_ITERATIONS)}
@@ -1902,7 +2060,8 @@ def scalar_f32_starts(qt, device, kw):
         check(p >= 0.01, f"f32 {method} converged {port}/{SCALAR_F32_STARTS} starts against "
               f"JAX's {ref}: fewer than chance allows (p = {p:.4f})")
     log(f"[scalar] optimize f32 on {device}, Rosenbrock n={N} from {SCALAR_F32_STARTS} starts near "
-        f"bench_full.py's (at most {MAX_ITERS} iterations): " + "; ".join(lines))
+        f"bench_full.py's (at most {MAX_ITERS} iterations; beside the build): "
+        + "; ".join(lines))
 
 
 def scalar_phase(qt, device):
@@ -1936,7 +2095,6 @@ def scalar_phase(qt, device):
         check(res.x.device == device and res.x.dtype == dtype, f"{method}: result device or dtype")
         check(status == "CONVERGED" and float(res.grad.abs().max()) < TOL,
               f"optimize {method} {dtype} did not converge: {status}")
-    scalar_f32_starts(qt, device, kw)
 
     model = IllConditionedQuadratic(256, condition=1e4, dtype=torch.float32, device=device)
     xq = scalar_start(device, 256)
@@ -2458,14 +2616,13 @@ def fixture_parity(qt, model, X, tol, label, whole=True):
     def plain_run(x0):
         return optimize_batched_resident_reference(x0, ls, tol, MAX_ITERS, True, stall, model)
 
-    plain = plain_run(X)
+    ulps = ulp_starts(X)  # the plain run and its two one-ulp witnesses as one fleet
+    plain, *ulp_runs = stacked_runs(plain_run, X, *ulps.values())
     flips = int((kern.status != plain.status).sum())
     witness_flips = {}
     if flips:
-        for key, x0 in (("1 ulp up", torch.nextafter(X, torch.full_like(X, float("inf")))),
-                        ("1 ulp down", torch.nextafter(X, torch.full_like(X, float("-inf")))),
-                        ("CPU", X.cpu())):
-            witness_flips[key] = int((plain_run(x0).status.to(X.device) != plain.status).sum())
+        for key, other in (*zip(ulps, ulp_runs), ("CPU", plain_run(X.cpu()))):
+            witness_flips[key] = int((other.status.to(X.device) != plain.status).sum())
     ok = kern.status == qt.Status.CONVERGED
     gmax = float(kern.grad[ok].abs().max()) if bool(ok.any()) else 0.0
     if flips > ROUNDING_FACTOR * max(witness_flips.values(), default=0) or gmax >= tol:
@@ -2864,22 +3021,25 @@ def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic
                                f"{kept} lanes with the plain run's counters") + ")")
     kern = qt.optimize_batched_resident(traced, X, ls=ls, tol=tol, max_iterations=MAX_ITERS,
                                         kernel="cuda")
-    if walls is None:
-        plain = plain_run(X, MAX_ITERS)
-    else:
-        walls["plain"] = time_calls(lambda: walls.update(run=plain_run(X, MAX_ITERS)), (),
-                                    calls=1)
-        plain = walls.pop("run")
+    ulps = ulp_starts(X)
+
+    def whole(x0):
+        return plain_run(x0, MAX_ITERS)
+
+    if walls is None:  # the plain run and its two one-ulp witnesses as one fleet
+        plain, *ulp_runs = stacked_runs(whole, X, *ulps.values())
+    else:  # the plain run alone, timed; its witnesses, where needed, as one fleet
+        walls["plain"] = time_calls(lambda: walls.update(run=whole(X)), (), calls=1)
+        plain, ulp_runs = walls.pop("run"), None
     flips = int((kern.status != plain.status).sum())
     witness_flips = {}
     if flips:
-        ulps = ulp_starts(X)
-        for key, x0, objective in (("1 ulp up", ulps["1 ulp up"], traced),
-                                   ("1 ulp down", ulps["1 ulp down"], traced),
-                                   ("CPU", X.cpu(), cpu_traced if cpu_whole else None)):
-            if objective is not None:
-                other = plain_run(x0, MAX_ITERS, objective).status.to(X.device)
-                witness_flips[key] = int((other != plain.status).sum())
+        ulp_runs = ulp_runs or stacked_runs(whole, *ulps.values())
+        others = dict(zip(ulps, ulp_runs))
+        if cpu_whole:
+            others["CPU"] = plain_run(X.cpu(), MAX_ITERS, cpu_traced)
+        for key, other in others.items():
+            witness_flips[key] = int((other.status.to(X.device) != plain.status).sum())
     ok = kern.status == qt.Status.CONVERGED
     gmax = float(kern.grad[ok].abs().max()) if bool(ok.any()) else 0.0
     if flips > ROUNDING_FACTOR * max(witness_flips.values(), default=0) or gmax >= tol:
@@ -2995,25 +3155,30 @@ def first_call_ms(qt, fn):
     return time_calls(fn, (), calls=1)
 
 
+def host_trace_ms(qt, obj, X):
+    """The host's ms to trace ``obj`` on ``X`` and to generate its CUDA,
+    measured once more where no build runs beside it."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
+
+    t0 = time.perf_counter()
+    trace = qt.trace_objective(obj, None, X)
+    t1 = time.perf_counter()
+    generate(trace)
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+
+
 def traced_objectives(qt, device):
     """Phase 22's objectives, traced: the parity cases (label, trace, X,
-    tol, its recipe), the full-width fleets (`traced_fleets`), their traces
-    and the host's trace and codegen ms per call; "all": every trace;
-    "sources": every trace's generated CUDA."""
+    tol, its recipe), the full-width fleets (`traced_fleets`) and their
+    traces; "all": every trace; "sources": every trace's generated CUDA."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
 
     cases = traced_cases(qt, device, TRACED_PARITY)
     fleets = traced_fleets(device)
-    traced, trace_ms, gen_ms = {}, {}, {}
-    for name, (obj, X, *_) in fleets.items():
-        t0 = time.perf_counter()
-        traced[name] = qt.trace_objective(obj, None, X)
-        t1 = time.perf_counter()
-        generate(traced[name])
-        trace_ms[name], gen_ms[name] = 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1)
+    traced = {name: qt.trace_objective(obj, None, X) for name, (obj, X, *_) in fleets.items()}
     everything = [c[1] for c in cases] + list(traced.values())
-    return {"cases": cases, "fleets": fleets, "traced": traced, "trace_ms": trace_ms,
-            "gen_ms": gen_ms, "all": everything, "sources": [generate(t) for t in everything]}
+    return {"cases": cases, "fleets": fleets, "traced": traced, "all": everything,
+            "sources": [generate(t) for t in everything]}
 
 
 def traced_phase(qt, device, smi, objectives, build):
@@ -3030,7 +3195,9 @@ def traced_phase(qt, device, smi, objectives, build):
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
     cases, fleets, traced = objectives["cases"], objectives["fleets"], objectives["traced"]
-    trace_ms, gen_ms, everything = objectives["trace_ms"], objectives["gen_ms"], objectives["all"]
+    everything = objectives["all"]
+    host_ms = {name: host_trace_ms(qt, obj, X) for name, (obj, X, *_) in
+               objectives["fleets"].items()}
     libs, cold = build
     t0 = time.perf_counter()
     _build.load_generated(*objectives["sources"])
@@ -3045,8 +3212,8 @@ def traced_phase(qt, device, smi, objectives, build):
         f"nvcc each in parallel, beside the kernel library's): build {cold:.1f} s cold, "
         f"{1e3 * warm:.1f} ms loaded in the process, {1e3 * disk:.1f} ms from the disk cache; "
         f"{ptxas}; host per call at full width: "
-        + ", ".join(f"{k} trace {trace_ms[k]:.1f} ms + codegen {gen_ms[k]:.1f} ms"
-                    for k in trace_ms))
+        + ", ".join(f"{k} trace {t:.1f} ms + codegen {g:.1f} ms"
+                    for k, (t, g) in host_ms.items()))
 
     # B3 against its plain version on every parity objective
     failures = parity_failures(qt, cases)
@@ -3155,25 +3322,19 @@ def traced_phase(qt, device, smi, objectives, build):
 
 def hierarchical_objectives(qt, device):
     """Phase 23's objectives, traced: the parity cases (`traced_cases`), the
-    full-width fleet (the objective, its float32 starts, its trace), the
-    host's trace and codegen ms; "sources": every trace's generated CUDA."""
+    full-width fleet (the objective, its float32 starts, its trace);
+    "sources": every trace's generated CUDA."""
     from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
 
     cases = traced_cases(qt, device, HIER_PARITY)
-    fleets, ms = {}, None
+    fleets = {}
     for dtype in (torch.float32, torch.float64):
         obj, starts = hierarchical_objective(np.random.default_rng(BENCH_SEED), HIER_Q, dtype,
                                              device, HIER_BATCH)
         X = torch.tensor(starts, dtype=dtype, device=device)
-        t0 = time.perf_counter()
-        trace = qt.trace_objective(obj, None, X)
-        t1 = time.perf_counter()
-        generate(trace)
-        ms = ms or (1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t1))  # float32's
-        fleets[dtype] = (obj, X, trace)
+        fleets[dtype] = (obj, X, qt.trace_objective(obj, None, X))
     everything = [c[1] for c in cases] + [f[2] for f in fleets.values()]
-    return {"cases": cases, "fleets": fleets, "host_ms": ms,
-            "sources": [generate(t) for t in everything]}
+    return {"cases": cases, "fleets": fleets, "sources": [generate(t) for t in everything]}
 
 
 def hierarchical_phase(qt, device, smi, objectives, build):
@@ -3188,7 +3349,7 @@ def hierarchical_phase(qt, device, smi, objectives, build):
     libs, cold = build
     cases, fleets = objectives["cases"], objectives["fleets"]
     obj, X, trace = fleets[torch.float32]
-    trace_ms, gen_ms = objectives["host_ms"]
+    trace_ms, gen_ms = host_trace_ms(qt, obj, X)
     log(f"[hierarchical] {len(cases) + 2} objectives traced and generated "
         f"({len({lib.path for lib in libs})} sources, built beside phase 22's in {cold:.1f} s "
         f"cold); {ptxas_report(libs)}; at full width in float32 the trace {trace_ms:.1f} ms "
@@ -3524,9 +3685,8 @@ def engines_phase(qt, device, smi):
                   | (resumed.iterations != torch.clamp_max(res.iterations, TR_RESUME_CAP))).sum())
     check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32 and differ == 0,
           f"TR: the numpy state resumed to another status or count on {differ} lanes")
-    sub = X[:AUG_MIN_LANES]
-    mini = qt.minimize(lambda x: -quad9(x), sub, method="tr", tol=AUG_TOL, max_cg=TR_N)
-    ref = qt.optimize_tr(quad9, sub, tol=AUG_TOL, max_cg=TR_N)
+    # minimize on the negated function over the whole fleet, against the counted run
+    mini, ref = qt.minimize(lambda x: -quad9(x), X, method="tr", tol=AUG_TOL, max_cg=TR_N), res
     same = all(torch.equal(getattr(mini, f), getattr(ref, f))
                for f in ("status", "iterations", "n_fev", "n_hev"))
     flip_err = max(normwise_err(mini.x, ref.x)[1], normwise_err(-mini.fun, ref.fun)[1],
@@ -3542,8 +3702,9 @@ def engines_phase(qt, device, smi):
                                           else f"{100 * busy:.1f} %")
         + f" on {smi}; resumed from a 5-iteration state saved as numpy to {TR_RESUME_CAP} "
         f"iterations: statuses and counts as the one-leg run's on every lane ({int(ended.sum())} "
-        f"ended by then); minimize(method='tr') on the negated function over {AUG_MIN_LANES} "
-        f"lanes: counters equal, normwise {flip_err:.1e} after the sign flip")
+        f"ended by then); minimize(method='tr') on the negated function over the {TR_BATCH} "
+        f"lanes: counters equal to the counted run's, normwise {flip_err:.1e} after the sign "
+        f"flip")
     log(profile_line(f"TR fleet {TR_BATCH}x{TR_N} f32", *prof, c["tr_cg_bodies"]))
     del X, res, part, resumed, mini, ref
 
@@ -3878,6 +4039,274 @@ def map_backend_phase(qt, device, smi):
     return launches
 
 
+# Phase 26, the samplers: config 3's logistic MAP fleet hands over to HMC and
+# ChEES at full width (4096 chains, n = 100, float32). JAX's numbers come
+# from scripts/jax_sampling_reference.py (the card's machine has no JAX),
+# which writes the JSON file beside it.
+SAMPLING_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                            "jax_sampling_reference.json")
+# 500 draws, not JAX's default 1000: the whole script's wall on the
+# slower hosts (the time limit); the warmup and every chain stay
+SAMPLING_JITTER, SAMPLING_DRAWS, SAMPLING_WARMUP, HMC_LEAPFROG = 0.05, 500, 500, 16
+CHEES_TARGET = 0.75  # chees_sample's default target_accept
+RESUME_DRAWS = 100
+MASS_DIAG_RTOL = 1e-2  # the handed-over mass's diagonal against JAX's
+ACCEPT_ATOL = 0.05
+MOMENT_Z = 5.0  # |mean - JAX's| within 5 combined MCSEs
+SD_RATIO = (0.9, 1.1)
+# max split R-hat; where JAX's own reference run exceeds it, JAX's value
+# + 0.01 (its HMC: 1.0204 over 512 chains)
+RHAT_LIMIT, RHAT_MARGIN = 1.01, 0.01
+PROFILED_TRANSITIONS = 20
+
+
+def chain_moments(qt, samples):
+    """Per coordinate, in float64 on the card: the pooled mean and sd and
+    the MCSE sd / sqrt(ESS) from the ported `ess_device`; and the largest
+    split R-hat."""
+    s = samples.double()
+    pooled = s.reshape(-1, s.shape[-1])
+    sd = pooled.std(dim=0, correction=0)
+    mcse = sd / torch.sqrt(qt.ess_device(s))
+    return pooled.mean(dim=0), sd, mcse, float(qt.split_rhat_device(s).max())
+
+
+def moment_gates(qt, label, res, ref):
+    """The moment, R-hat and NaN gates of one run against JAX's numbers
+    ``ref``. Returns its summary."""
+    check(bool(torch.isfinite(res.samples).all()), f"{label}: NaN or inf in the samples")
+    mean, sd, mcse, rhat = chain_moments(qt, res.samples)
+    ref_mean, ref_sd, ref_mcse = (torch.tensor(ref[k], dtype=torch.float64, device=mean.device)
+                                  for k in ("mean", "sd", "mcse"))
+    z = ((mean - ref_mean).abs() / torch.sqrt(mcse ** 2 + ref_mcse ** 2)).max()
+    ratio = sd / ref_sd
+    limit = RHAT_LIMIT if ref["rhat_max"] < RHAT_LIMIT else ref["rhat_max"] + RHAT_MARGIN
+    check(rhat < limit, f"{label}: max split R-hat {rhat:.4f} (limit {limit:.4f}; JAX "
+                        f"{ref['rhat_max']:.4f})")
+    check(float(z) <= MOMENT_Z, f"{label}: a posterior mean is {float(z):.2f} combined MCSEs "
+                                f"from JAX's (limit {MOMENT_Z})")
+    check(SD_RATIO[0] <= float(ratio.min()) and float(ratio.max()) <= SD_RATIO[1],
+          f"{label}: posterior sd ratio to JAX's in [{float(ratio.min()):.3f}, "
+          f"{float(ratio.max()):.3f}] (limits {SD_RATIO})")
+    bfmi = qt.energy_bfmi_device(res.energies.double())
+    acc = float(res.accept_rate.double().mean())
+    divs = int(res.divergences.sum())
+    return acc, (f"max split R-hat {rhat:.4f} (limit {limit:.4f}, JAX {ref['rhat_max']:.4f}), "
+                 f"means within "
+                 f"{float(z):.2f} combined MCSEs of JAX's (max), sd ratio to JAX's "
+                 f"[{float(ratio.min()):.3f}, {float(ratio.max()):.3f}], median MCSE "
+                 f"{float(mcse.median()):.2e} (JAX {float(ref_mcse.median()):.2e}); mean accept "
+                 f"{acc:.4f} (JAX {ref['accept_mean']:.4f}); divergences {divs} (JAX "
+                 f"{ref['divergences']} over {ref['chains']} chains); E-BFMI median "
+                 f"{float(bfmi.median()):.3f} min {float(bfmi.min()):.3f} (JAX "
+                 f"{ref['ebfmi_median']:.3f} / {ref['ebfmi_min']:.3f})")
+
+
+def sampler_run(qt, engine, fn):
+    """``fn()`` with the engine's counters at 0, the peak memory reset and
+    torch's sync debug mode on: (result, wall s, host syncs, gradient
+    evaluations, peak bytes). Every synchronisation flagged must be one of
+    the engine's counted reads, and no BFGS kernel may launch."""
+    engine.host_syncs = engine.gradient_evals = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(qt)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    check(flagged == engine.host_syncs, f"{flagged} synchronisations flagged, "
+                                        f"{engine.host_syncs} counted")
+    check(no_kernel_launched(read_counters(qt)), "a BFGS kernel launched inside a sampler")
+    return res, wall, engine.host_syncs, engine.gradient_evals, torch.cuda.max_memory_allocated()
+
+
+def rate_line(chains, draws, wall, syncs, grads, peak):
+    return (f"{wall:.2f} s a call, {chains * draws / wall:.0f} draws/s, "
+            f"{chains * grads / wall:.3e} gradient evaluations/s ({grads} fleet-wide), {syncs} "
+            f"host syncs, peak {peak / 2**20:.0f} MiB")
+
+
+def sampling_b1(qt, device):
+    """B1 at the sampling fleet's shape (4096 x 100 f32, every lane active
+    and not fresh) against its plain version: (max abs err, ms per launch,
+    plain ms per call, (bound ms, bound kind)). Both times by CUDA events
+    over back-to-back calls (median of 3 x 20, in turns): at this shape a
+    launch's device time (~0.12 ms) exceeds the wrapper's host time, and
+    late in the script torch.profiler has been seen to record no kernel."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import (
+        fused_bfgs_update_batched,
+        fused_bfgs_update_reference,
+    )
+
+    args, _ = kernel_inputs(BENCH_SEED + LOGISTIC_N, LOGISTIC_N, BATCH, torch.float32, device,
+                            kinds=False)
+    kern = fused_bfgs_update_batched(*(a.clone() for a in args))
+    plain = fused_bfgs_update_reference(*(a.clone() for a in args))
+    err = 0.0
+    for name, a, b in zip(("B", "d", "m"), kern[:3], plain[:3]):
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(rel <= KERNEL_RTOL[torch.float32], f"B1 at {BATCH}x{LOGISTIC_N}: {name} rel err "
+                                                 f"{rel:.3e}")
+        err = max(err, float((a - b).abs().max()))
+    lanes_reset = int(plain[3].sum())
+    ms = per_call_ms({"cuda": fused_bfgs_update_batched, "plain": fused_bfgs_update_reference},
+                     args, rounds=3, calls=20)
+    return (err, ms["cuda"], ms["plain"],
+            b1_bound(BATCH, LOGISTIC_N, 4, BATCH, lanes_reset))
+
+
+def sampling_resume(qt, model, x0s, mass, hmc, chees):
+    """Phase 26 (d): HMC's warmup and ChEES's two warmup halves through
+    checkpoints on the card, then RESUME_DRAWS draws each, against the
+    long runs' first draws; returns the summary and the warm states."""
+    from quasinewtonmethods_jl_tpu_torch.utils.checkpoint import load_state, save_state
+
+    def through_file(state, tmp, name):
+        path = os.path.join(tmp, name)
+        save_state(path, state)
+        loaded = load_state(path, type(state))
+        for field, a, b in zip(state._fields, loaded, state):
+            check((a is None) == (b is None), f"resume: leaf {field} lost")
+            if a is not None:
+                where = "cpu" if field == "key" else "cuda"
+                check(a.device.type == where and a.dtype == b.dtype
+                      and torch.equal(a, b.to(a.device)),
+                      f"resume: leaf {field} did not reload bit for bit")
+        return loaded
+
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=0,
+                             n_warmup=SAMPLING_WARMUP, n_leapfrog=HMC_LEAPFROG)
+        hmc_warm = through_file(warm.state, tmp, "hmc")
+        part = qt.hmc_sample_from_state(model, hmc_warm, mass, n_samples=RESUME_DRAWS,
+                                        n_leapfrog=HMC_LEAPFROG)
+        check(torch.equal(part.samples, hmc.samples[:RESUME_DRAWS]),
+              "resume: HMC's resumed draws differ from the long run's")
+        half = SAMPLING_WARMUP // 2
+        c1 = qt.chees_sample(model, BENCH_SEED, x0s, n_samples=0, n_warmup=half,
+                             total_warmup=SAMPLING_WARMUP)
+        c2 = qt.chees_sample_from_state(model, through_file(c1.state, tmp, "chees1"),
+                                        n_warmup=SAMPLING_WARMUP - half)
+        chees_warm = through_file(c2.state, tmp, "chees2")
+        c3 = qt.chees_sample_from_state(model, chees_warm, n_samples=RESUME_DRAWS)
+        check(torch.equal(c3.samples, chees.samples[:RESUME_DRAWS]),
+              "resume: ChEES's resumed draws differ from the long run's")
+    text = (f"resume on the card: HMC {SAMPLING_WARMUP} warmup steps, ChEES {half} + "
+            f"{SAMPLING_WARMUP - half} (total_warmup {SAMPLING_WARMUP}), each through "
+            f"save_state / load_state (every leaf bit for bit, the key on the CPU), then "
+            f"{RESUME_DRAWS} draws: equal to the long runs' first {RESUME_DRAWS} bit for bit")
+    return text, hmc_warm, chees_warm
+
+
+def sampling_phase(qt, device, smi):
+    """The samplers the MAP fleet hands over to (see phase 26 above).
+    Returns B1's [sampling] record: (launches, max abs error, (ms, plain
+    ms, bound ms, bound kind, library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
+
+    t_phase = time.perf_counter()
+    with open(SAMPLING_REF) as fh:
+        ref = json.load(fh)
+    # (a) the MAP fleet through B1, and the handoff
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                  y=yd, dtype=torch.float32, device=device)
+    starts = torch.tensor(starts, dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    fleet = qt.optimize_batched(model, starts, tol=LOGISTIC_TOL)
+    torch.cuda.synchronize()
+    c = read_counters(qt)
+    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+          f"sampling MAP fleet: B1 not launched once per loop body: {c}")
+    converged, med, itmax, gmax = fleet_line(qt, fleet)
+    check(converged == BATCH and gmax < LOGISTIC_TOL,
+          f"sampling MAP fleet: {converged}/{BATCH} converged, max|grad| {gmax}")
+    check(abs(med - JAX_LOGISTIC_MEDIAN) <= 0.1 * JAX_LOGISTIC_MEDIAN,
+          f"sampling MAP fleet: median {med} not within 10% of {JAX_LOGISTIC_MEDIAN}")
+    x0s, mass = qt.chain_init_from_map(fleet, jitter=SAMPLING_JITTER, key=BENCH_SEED)
+    info = torch.linalg.cholesky_ex(mass)[1]
+    diag = torch.diagonal(mass).double().cpu().numpy()
+    ref_diag = np.asarray(ref["map"]["mass_diag"])
+    diag_rel = float(np.max(np.abs(diag - ref_diag) / np.abs(ref_diag)))
+    check(int(info) == 0, "handoff: the mass's Cholesky failed")
+    check(diag_rel <= MASS_DIAG_RTOL, f"handoff: mass diagonal {diag_rel:.3e} from JAX's")
+    check(x0s.device.type == "cuda" and x0s.dtype == torch.float32 and mass.shape == (100, 100),
+          "handoff: x0s / mass device, dtype or shape")
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
+    log(f"[sampling] MAP fleet: optimize_batched on config 3's logistic (n={LOGISTIC_N}, "
+        f"{LOGISTIC_OBS} observations) {BATCH} starts f32 tol {LOGISTIC_TOL}: converged "
+        f"{converged}/{BATCH}, iterations median {med:g} max {itmax} (JAX median "
+        f"{ref['map']['median_iterations']:g}, {ref['map']['converged']} converged), B1 "
+        f"{c['B1']} launches = loop bodies; chain_init_from_map(jitter={SAMPLING_JITTER}): "
+        f"dense mass, Cholesky ok, diagonal max rel {diag_rel:.2e} from JAX's on the same "
+        f"starts; B1 at {BATCH}x{LOGISTIC_N} f32 against its plain version max abs err "
+        f"{err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), B1 at {100 * bound_ms / b1_ms:.1f} % of it on {smi}")
+    launches = c["B1"]
+    del fleet
+
+    # (b) HMC, JAX's defaults, on all chains
+    chains = x0s.shape[0]
+    hmc, wall, syncs, grads, peak = sampler_run(qt, qt.hmc_sample, lambda: qt.hmc_sample(
+        model, BENCH_SEED, x0s, mass, n_samples=SAMPLING_DRAWS, n_warmup=SAMPLING_WARMUP,
+        n_leapfrog=HMC_LEAPFROG))
+    check(syncs == 0, f"HMC: {syncs} host reads in its loop")
+    acc, summary = moment_gates(qt, "HMC", hmc, ref["hmc"])
+    step = float(hmc.step_size.double().median())
+    check(abs(acc - ref["hmc"]["accept_mean"]) <= ACCEPT_ATOL,
+          f"HMC: mean accept {acc:.4f}, JAX {ref['hmc']['accept_mean']:.4f}")
+    check(abs(step - ref["hmc"]["step_size_median"]) <= 0.1 * ref["hmc"]["step_size_median"],
+          f"HMC: median step size {step:.4f} not within 10% of JAX's "
+          f"{ref['hmc']['step_size_median']:.4f}")
+    log(f"[sampling] hmc_sample {chains} chains x n={LOGISTIC_N} f32, {SAMPLING_WARMUP} warmup + "
+        f"{SAMPLING_DRAWS} draws, {HMC_LEAPFROG} leapfrog steps, the handed-over dense mass: "
+        f"{summary}; median step size {step:.4f} (JAX {ref['hmc']['step_size_median']:.4f}); "
+        f"{rate_line(chains, SAMPLING_DRAWS, wall, syncs, grads, peak)} on {smi}")
+
+    # (c) ChEES, the workflow's route: no mass, the fleet adapts its diagonal
+    chees, wall_c, syncs_c, grads_c, peak_c = sampler_run(
+        qt, qt.chees_sample, lambda: qt.chees_sample(model, BENCH_SEED, x0s,
+                                                     n_samples=SAMPLING_DRAWS,
+                                                     n_warmup=SAMPLING_WARMUP))
+    rounds = SAMPLING_WARMUP + SAMPLING_DRAWS
+    check(syncs_c == rounds, f"ChEES: {syncs_c} host reads for {rounds} rounds")
+    acc_c, summary_c = moment_gates(qt, "ChEES", chees, ref["chees"])
+    check(abs(acc_c - CHEES_TARGET) <= ACCEPT_ATOL,
+          f"ChEES: mean accept {acc_c:.4f}, target {CHEES_TARGET}")
+    log(f"[sampling] chees_sample {chains} chains x n={LOGISTIC_N} f32, {SAMPLING_WARMUP} warmup "
+        f"+ {SAMPLING_DRAWS} draws, diagonal mass adapted by the fleet: {summary_c}; step size "
+        f"{float(chees.step_size):.4f}, trajectory length {float(chees.traj_length):.4f} (JAX "
+        f"on {ref['chees']['chains']} chains: {ref['chees']['step_size']:.4f} / "
+        f"{ref['chees']['traj_length']:.4f}, fleet-size dependent, not gated), "
+        f"{grads_c / rounds:.1f} leapfrog gradients a round; "
+        f"{rate_line(chains, SAMPLING_DRAWS, wall_c, syncs_c, grads_c, peak_c)} on {smi}")
+
+    # (d) resume through checkpoints, and the profiled steady state
+    text, hmc_warm, chees_warm = sampling_resume(qt, model, x0s, mass, hmc, chees)
+    log(f"[sampling] {text}")
+    del hmc, chees
+    for label, engine, fn in (
+            ("HMC", qt.hmc_sample, lambda: qt.hmc_sample_from_state(
+                model, hmc_warm, mass, n_samples=PROFILED_TRANSITIONS, n_leapfrog=HMC_LEAPFROG)),
+            ("ChEES", qt.chees_sample, lambda: qt.chees_sample_from_state(
+                model, chees_warm, n_samples=PROFILED_TRANSITIONS))):
+        engine.gradient_evals = 0
+        prof = device_profile(fn)
+        log(profile_line(f"{label} {chains}x{LOGISTIC_N} f32, {PROFILED_TRANSITIONS} transitions "
+                         f"from the warm state", *prof, engine.gradient_evals))
+    log(f"[sampling] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -3895,9 +4324,17 @@ def main():
         return out
 
     name, smi = timed("1", device_phase)
-    phase22 = timed("22 trace", traced_objectives, qt, device)  # traced first, so that
-    phase23 = timed("23 trace", hierarchical_objectives, qt, device)  # their build overlaps
-    libs, build_s = timed("2", build_phase, phase22["sources"] + phase23["sources"])
+    builds = [start_build()]  # the kernel library builds beside the traces and phase
+    try:  # 16's float32 starts, which launch no hand-written kernel and time nothing
+        phase22 = timed("22 trace", traced_objectives, qt, device)
+        phase23 = timed("23 trace", hierarchical_objectives, qt, device)
+        sources = phase22["sources"] + phase23["sources"]
+        builds.append(start_build(sources))
+        timed("16 starts", scalar_f32_starts, qt, device)
+        libs, build_s = timed("2", build_phase, sources, builds)
+    finally:
+        for handle in builds:
+            stop_build(handle)
     split = len(phase22["sources"])
     max_abs_err = timed("3", kernel_phase, device)
     reset_counters(qt)
@@ -3925,6 +4362,7 @@ def main():
                         (libs[split:], build_s)))
     auglag = timed("24", engines_phase, qt, device, smi)
     multistart = timed("25", map_backend_phase, qt, device, smi)
+    sampling_rec = timed("26", sampling_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}")
 
@@ -3941,6 +4379,8 @@ def main():
                auglag["launches"], auglag["err"], (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("fused_bfgs_update_batched[multistart]", KERNEL_SOURCE, KERNEL_REPLACES,
                multistart, max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
+        record("fused_bfgs_update_batched[sampling]", KERNEL_SOURCE, KERNEL_REPLACES,
+               *sampling_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

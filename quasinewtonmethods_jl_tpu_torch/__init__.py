@@ -24,7 +24,9 @@ multistart (`optimize_multistart`), Newton polish (`polish_newton`),
 Laplace evidence (`laplace_evidence`), implicit gradients through a solve
 (`optimize_implicit`), checkpoints (`utils.checkpoint.save_state` /
 `load_state`), structured parameters (`optimize_pytree` and its siblings,
-`pytree_names`) and chain diagnostics (`diagnostics.py`); ROADMAP.md lists
+`pytree_names`) and chain diagnostics (`diagnostics.py`), and the
+samplers the MAP fleet hands over to (`chain_init_from_map`, `hmc_sample`,
+`chees_sample` and their `*_from_state`, `LowRankMass`); ROADMAP.md lists
 what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
@@ -82,6 +84,18 @@ from .pytree import (
     pytree_names,
 )
 from .resident_solve import optimize_batched_resident, resident_feasible, trace_objective
+from .sampling import (
+    ChEESResult,
+    ChEESState,
+    HMCResult,
+    HMCState,
+    LowRankMass,
+    chain_init_from_map,
+    chees_sample,
+    chees_sample_from_state,
+    hmc_sample,
+    hmc_sample_from_state,
+)
 from .solve import (
     MAX_ITERATIONS_DEFAULT,
     STALL_LIMIT_DEFAULT,
@@ -235,5 +249,15 @@ __all__ = [
     "tail_ess_device",
     "diagnose_chains_device",
     "energy_bfmi_device",
+    "hmc_sample",
+    "hmc_sample_from_state",
+    "HMCResult",
+    "HMCState",
+    "LowRankMass",
+    "chain_init_from_map",
+    "chees_sample",
+    "chees_sample_from_state",
+    "ChEESResult",
+    "ChEESState",
     "__version__",
 ]

@@ -9,9 +9,14 @@ crosses between the packages in both directions. `load_state` restores the
 matching class, and the ``*_from_state`` entry points resume from it.
 
 The port covers the five solver states it has (`BFGSState`, `LBFGSState`,
-`CGState`, `LMState`, `TRState`). The sampler states the JAX package also
-saves (HMC, ChEES, NUTS, tempering, SVGD, ensemble, MCLMC) and files that
-hold PRNG keys raise a TypeError until sampling is ported.
+`CGState`, `LMState`, `TRState`) and the sampler states `HMCState` and
+`ChEESState`. A sampler state's ``key`` is written as the uint32 (2,)
+array of its two words with empty ``__key_fields__``, which JAX's
+`load_state` reads as a raw key; a JAX file's typed ``threefry2x32`` key
+(named in ``__key_fields__``) or raw key loads as those two words. A key
+of another impl, or a key in any other field, raises a TypeError, and so
+do the sampler states not ported yet (NUTS, tempering, SVGD, ensemble,
+MCLMC).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import os
 from typing import Optional, Type, Union
 
 import numpy as np
+import torch
 
 from ..state import (
     BFGSState,
@@ -33,18 +39,33 @@ from ..state import (
     lm_state_from_numpy,
     tr_state_from_numpy,
 )
+from ..sampling import ChEESState, HMCState
 from .device import as_device_state
 
 __all__ = ["save_state", "load_state"]
 
+
+def _sampler_state_from_numpy(state, device):
+    """A sampler state's numpy leaves as tensors on ``device``, dtypes
+    kept; the key as its (2,) int64 CPU tensor, None leaves None."""
+    return type(state)(*(
+        None if leaf is None
+        else torch.as_tensor(np.asarray(leaf).astype(np.int64)) if field == "key"
+        else torch.as_tensor(np.asarray(leaf), device=device)
+        for field, leaf in zip(state._fields, state)))
+
+
 _STATE_CLASSES = {"BFGSState": BFGSState, "LBFGSState": LBFGSState, "CGState": CGState,
-                  "LMState": LMState, "TRState": TRState}
+                  "LMState": LMState, "TRState": TRState, "HMCState": HMCState,
+                  "ChEESState": ChEESState}
 _FROM_NUMPY = {BFGSState: bfgs_state_from_numpy, LBFGSState: lbfgs_state_from_numpy,
                CGState: cg_state_from_numpy, LMState: lm_state_from_numpy,
-               TRState: tr_state_from_numpy}
-# the JAX package's sampler states (its checkpoint.py:28-43), not ported yet
-_SAMPLER_STATES = ("HMCState", "ChEESState", "NUTSState", "PTState", "SVGDState",
-                   "EnsembleState", "MCLMCState")
+               TRState: tr_state_from_numpy, HMCState: _sampler_state_from_numpy,
+               ChEESState: _sampler_state_from_numpy}
+# the JAX package's sampler states (its checkpoint.py:28-43) not ported yet
+_SAMPLER_STATES = ("NUTSState", "PTState", "SVGDState", "EnsembleState", "MCLMCState")
+# the key impl the port reads from a JAX file's typed keys
+_KEY_IMPL = "threefry2x32"
 
 
 def _npz_path(path) -> str:
@@ -56,20 +77,24 @@ def _npz_path(path) -> str:
 
 def _not_ported(cls_name: str) -> TypeError:
     return TypeError(f"{cls_name} is a sampler state, which the PyTorch port does not hold "
-                     "yet (sampling is not yet ported)")
+                     "yet (NUTS, tempering, SVGD, ensemble and MCLMC are not yet ported)")
 
 
 def save_state(path: Union[str, os.PathLike], state) -> None:
-    """Write a solver state NamedTuple to ``path`` (.npz, appended if
-    missing), every leaf copied to the host, the class name beside the
-    fields so that `load_state` can check (or infer) the type."""
+    """Write a solver or sampler state NamedTuple to ``path`` (.npz,
+    appended if missing), every leaf copied to the host, the class name
+    beside the fields so that `load_state` can check (or infer) the
+    type."""
     cls = type(state).__name__
     if cls in _SAMPLER_STATES:
         raise _not_ported(cls)
     if cls not in _STATE_CLASSES:
         raise TypeError(f"expected a solver or sampler state NamedTuple, got {cls}")
-    # a None field is omitted; load_state restores it from the default
-    arrays = {k: v.detach().cpu().numpy() for k, v in state._asdict().items() if v is not None}
+    # a None field is omitted; load_state restores it from the default. A
+    # sampler's key is its two words, a raw JAX key
+    arrays = {k: (np.asarray(v.tolist(), np.uint32) if k == "key"
+                  else v.detach().cpu().numpy())
+              for k, v in state._asdict().items() if v is not None}
     arrays["__class__"] = np.asarray(cls)
     arrays["__key_fields__"] = np.asarray([])
     arrays["__key_impls__"] = np.asarray([])
@@ -99,10 +124,16 @@ def load_state(
         if saved_cls in _SAMPLER_STATES:
             raise _not_ported(saved_cls)
         key_fields = z["__key_fields__"].tolist() if "__key_fields__" in z else []
-        if key_fields:
-            raise TypeError(f"checkpoint {path!r} holds PRNG keys in {key_fields}, which the "
-                            "PyTorch port does not restore yet (sampling is not yet ported)")
+        key_impls = z["__key_impls__"].tolist() if "__key_impls__" in z else []
         klass = _STATE_CLASSES[saved_cls]
+        if key_fields and ("key" not in klass._fields or key_fields != ["key"]):
+            raise TypeError(f"checkpoint {path!r} holds PRNG keys in {key_fields}; the "
+                            "PyTorch port restores a key only in a sampler state's 'key' field")
+        # files from before the impl was recorded hold the default impl
+        impl = key_impls[0] if key_impls else _KEY_IMPL
+        if key_fields and impl != _KEY_IMPL:
+            raise TypeError(f"checkpoint {path!r} holds a {impl} PRNG key; the PyTorch port "
+                            f"reads only {_KEY_IMPL} keys")
         defaults = klass._field_defaults
         fields = {}
         for k in klass._fields:

@@ -7,7 +7,8 @@ a ``torch.Tensor`` keeps its device and dtype (a CPU tensor is how a caller
 asks for the CPU, an f64 tensor how it asks for f64), anything else becomes
 a tensor on ``cuda`` with those dtypes. Without a card such input raises
 instead of running on the CPU unasked. `as_device_state` applies the rule
-to every leaf of a saved state.
+to every leaf of a saved state, except a sampler state's ``key``, which
+stays on the CPU.
 """
 
 from __future__ import annotations
@@ -39,6 +40,18 @@ def as_device_tensor(x, name: str = "x0s") -> torch.Tensor:
 def as_device_state(state, name: str = "state"):
     """``state`` (a NamedTuple of leaves) with every leaf through
     `as_device_tensor`: tensors keep their device, numpy leaves go to the
-    card."""
-    return type(state)(*(as_device_tensor(leaf, f"{name}.{field}")
-                         for field, leaf in zip(state._fields, state)))
+    card, and None leaves (a sampler state's optional fields) stay None.
+    The one exception is a sampler state's ``key``: it is the (2,) int64
+    tensor of the key's two uint32 words and stays on the CPU, so that no
+    seed derivation reads the card."""
+
+    def place(field, leaf):
+        if leaf is None:
+            return None
+        if field == "key":
+            if isinstance(leaf, torch.Tensor):
+                return leaf.detach().to(device="cpu", dtype=torch.int64)
+            return torch.as_tensor(np.asarray(leaf).astype(np.int64))
+        return as_device_tensor(leaf, f"{name}.{field}")
+
+    return type(state)(*(place(field, leaf) for field, leaf in zip(state._fields, state)))

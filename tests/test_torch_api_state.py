@@ -54,27 +54,27 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.utils.device, "
         "quasinewtonmethods_jl_tpu_torch.utils.checkpoint, "
         "quasinewtonmethods_jl_tpu_torch.diagnostics, "
-        "quasinewtonmethods_jl_tpu_torch.pytree; "
+        "quasinewtonmethods_jl_tpu_torch.pytree, "
+        "quasinewtonmethods_jl_tpu_torch.sampling; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
-# the JAX package's names the port does not have yet: sampling, evidence by
-# sampling, the sampling workflow and what follows them (ROADMAP.md A)
+# the JAX package's names the port does not have yet: NUTS and the other
+# samplers, evidence by sampling, the sampling workflow and what follows
+# them (ROADMAP.md A)
 NOT_YET_PORTED = {
-    "AISResult", "BridgeResult", "ChEESResult", "ChEESState", "DepthSortInfo",
-    "EnsembleResult", "EnsembleState", "HMCResult", "HMCState", "LOOResult", "LowRankMass",
+    "AISResult", "BridgeResult", "DepthSortInfo", "EnsembleResult", "EnsembleState", "LOOResult",
     "MCLMCResult", "MCLMCState", "MapThenSampleResult", "NUTSResult", "NUTSState", "PTResult",
-    "PTState", "PathfinderResult", "PytreeSampleResult", "SVGDResult", "SVGDState",
-    "WAICResult", "ais_evidence", "bridge_evidence", "chain_init_from_map", "chees_sample",
-    "chees_sample_from_state", "ensemble_autocorr_time", "ensemble_sample",
-    "ensemble_sample_from_state", "geometric_ladder", "hmc_sample", "hmc_sample_from_state",
-    "loo_compare", "loo_psis", "map_then_sample", "map_then_sample_pytree", "mclmc_sample",
-    "mclmc_sample_from_state", "nuts_sample", "nuts_sample_depth_sorted",
-    "nuts_sample_from_state", "pathfinder", "psis_smooth", "pt_sample",
-    "pt_sample_from_state", "svgd_sample", "svgd_sample_from_state", "waic",
+    "PTState", "PathfinderResult", "PytreeSampleResult", "SVGDResult", "SVGDState", "WAICResult",
+    "ais_evidence", "bridge_evidence", "ensemble_autocorr_time", "ensemble_sample",
+    "ensemble_sample_from_state", "geometric_ladder", "loo_compare", "loo_psis",
+    "map_then_sample", "map_then_sample_pytree", "mclmc_sample", "mclmc_sample_from_state",
+    "nuts_sample", "nuts_sample_depth_sorted", "nuts_sample_from_state", "pathfinder",
+    "psis_smooth", "pt_sample", "pt_sample_from_state", "svgd_sample", "svgd_sample_from_state",
+    "waic",
 }
 
 
@@ -82,6 +82,14 @@ def test_version_and_exported_names_match_jax():
     assert qt.__version__ == qj.__version__
     assert set(qj.__all__) - set(qt.__all__) == NOT_YET_PORTED
     assert all(hasattr(qt, name) for name in qt.__all__)
+
+
+# the JAX package's samplers that get_sampler names as not yet ported
+@pytest.mark.parametrize("name", ["ensemble", "mclmc", "nuts", "pt"])
+def test_get_sampler_names_what_is_not_yet_ported(name):
+    with pytest.raises(NotImplementedError, match=f"sampler '{name}' is not yet ported"):
+        qt.sampling.get_sampler(name)
+    assert qj.sampling.get_sampler(name) is not None
 
 
 @pytest.mark.parametrize("n", [6, 7])

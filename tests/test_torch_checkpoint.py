@@ -3,7 +3,8 @@ on the CPU in f64: a state JAX saved resumes in the port with the
 statuses and counters of JAX's own resume, and a state the port saved
 loads in JAX and resumes there with the port's counters, for each of the
 five solver states; then the file layout, the ``.npz`` suffix rule and the
-refusals (another class, a missing field, a sampler state, PRNG keys).
+refusals (another class, a missing field, a sampler state not yet ported,
+PRNG keys outside a sampler state's key).
 
 Counters equal lane by lane; floats within rtol 1e-8.
 """
@@ -197,26 +198,29 @@ def test_refusals_match_jax(tmp_path):
 
 
 def test_sampler_states_and_prng_keys_are_not_yet_ported(tmp_path):
+    """The sampler states still to port raise, and so does a PRNG key
+    anywhere but a sampler state's ``key`` field (HMCState and ChEESState
+    are ported: tests/test_torch_sampling_resume.py)."""
     import jax
 
-    from quasinewtonmethods_jl_tpu.sampling import HMCState
+    from quasinewtonmethods_jl_tpu.sampling import NUTSState
 
-    jax_state = HMCState(*(jnp.zeros(()) for _ in HMCState._fields))
-    jax_checkpoint.save_state(tmp_path / "hmc", jax_state)
-    with pytest.raises(TypeError, match="HMCState is a sampler state.*not yet ported"):
-        checkpoint.load_state(tmp_path / "hmc", device="cpu")
-    with np.load(tmp_path / "hmc.npz") as z:
+    jax_state = NUTSState(*(jnp.zeros(()) for _ in NUTSState._fields))
+    jax_checkpoint.save_state(tmp_path / "nuts", jax_state)
+    with pytest.raises(TypeError, match="NUTSState is a sampler state.*not yet ported"):
+        checkpoint.load_state(tmp_path / "nuts", device="cpu")
+    with np.load(tmp_path / "nuts.npz") as z:
         arrays = {k: z[k] for k in z.files}
     arrays["__class__"] = np.asarray("BFGSState")
     arrays["__key_fields__"] = np.asarray(["x"])
     arrays["__key_impls__"] = np.asarray([str(jax.random.key_impl(jax.random.key(0)))])
     np.savez(tmp_path / "keyed.npz", **arrays)
-    with pytest.raises(TypeError, match="PRNG keys in \\['x'\\].*not yet ported"):
+    with pytest.raises(TypeError, match="PRNG keys in \\['x'\\].*only in a sampler state"):
         checkpoint.load_state(tmp_path / "keyed.npz", device="cpu")
 
-    class HMCStateLike(tuple):
+    class NUTSStateLike(tuple):
         pass
 
-    HMCStateLike.__name__ = "HMCState"
-    with pytest.raises(TypeError, match="HMCState is a sampler state"):
-        checkpoint.save_state(tmp_path / "x", HMCStateLike())
+    NUTSStateLike.__name__ = "NUTSState"
+    with pytest.raises(TypeError, match="NUTSState is a sampler state"):
+        checkpoint.save_state(tmp_path / "x", NUTSStateLike())
