@@ -16,7 +16,8 @@ hand-written kernel, the minimization front door: `least_squares`,
 and the MAP back end: `optimize_multistart` (B1), `polish_newton`,
 `laplace_evidence`, checkpoints (`save_state` / `load_state`),
 `optimize_batched_pytree` (B1), `optimize_implicit` and the chain
-diagnostics.
+diagnostics, and the samplers the MAP fleet hands over to: HMC, ChEES,
+NUTS and depth-sorted NUTS.
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -27,7 +28,7 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      processes (niced, off one core) while the traces are made and phase
      16's float32 starts, which launch no hand-written kernel and time
      nothing, run, and this phase waits for them: the run's order is 1,
-     the traces, 16's float32 starts, 2, then 3-26;
+     the traces, 16's float32 starts, 2, then 3-27;
   3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
      128} and the largest n that fits (237 f32, 167 f64), every lane kind
      (active, frozen, fresh, forced reset, NaN);
@@ -306,6 +307,36 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      first 100 bit for bit; for (b) and (c) seconds a call, draws/s,
      gradient evaluations/s, host syncs, peak memory, and the device's
      busy share over 20 profiled transitions from the warm state.
+ 27. NUTS and depth-sorted NUTS (sampling.py), the workflow's
+     ``sampler="nuts"`` and ``depth_sort=True`` routes on the same
+     posterior, f32, held to the JAX package's numbers
+     (scripts/jax_nuts_reference.py, which writes
+     scripts/jax_nuts_reference.json; 512 chains, the same warmup and
+     more draws; the warmup and draws below were cut for the phase's
+     120 s and the script's limit): (a)
+     phase 26 (a)'s MAP fleet and gates (`logistic_map_fleet`), then
+     `chain_init_from_map(jitter=0.05)`; B1 at that shape timed again;
+     (b) `nuts_sample(n_samples=0, n_warmup=250, total_warmup=250)` on all
+     4096 chains with no mass (the fleet adapts its diagonal, max_depth
+     8), its state through `save_state` / `load_state` (every leaf bit for
+     bit), then `nuts_sample_from_state(n_samples=50)`: phase 26's moment
+     gates on ``accept_prob``, the mean accept within 0.05 of JAX's, the
+     median step size within 10 % of JAX's, the fleet's mean tree depth
+     within 0.5 of JAX's, every synchronisation flagged one of
+     ``nuts_sample.host_syncs`` and no BFGS launch; divergences, E-BFMI,
+     the chains' depth histogram and reads and gradients a draw printed
+     beside JAX's; (c) `nuts_sample_depth_sorted(warm, 10)` with its
+     defaults (its decision printed beside JAX's; unsorted, its draws
+     equal (b)'s first 10 bit for bit, sorted, (b)'s gates), then the
+     sorted path forced (4 groups, min_persistence -1, min_depth_spread
+     0, 10 draws): sorted, the group sizes summing to 4096, the moment
+     gates against JAX's forced run, final_x the merged state's x, which
+     resumes for 5 draws; (d) `nuts_sample(n_warmup=20, n_samples=10)`
+     against 10 + 10 warmup rounds and 10 draws through two checkpoints
+     on all chains: samples, warm_dsum and every state leaf bit for bit;
+     (e) for (b) seconds a call, draws/s, gradient evaluations/s, host
+     syncs, peak memory, and the busy share and device events a leaf over
+     3 profiled draws from the warm state.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -334,7 +365,10 @@ times and bound phase 6's (the fleet's shape and dtype); and a fourth,
 ``fused_bfgs_update_batched[sampling]``: its launches are phase 26 (a)'s
 logistic MAP fleet's, its max_abs_err, times and bound B1's at that
 fleet's shape (4096 x 100 f32, every lane active) in phase 26, its ``ms``
-by CUDA events over back-to-back launches. B3 with a traced objective has one record per full-width fleet of phases
+by CUDA events over back-to-back launches; and a fifth,
+``fused_bfgs_update_batched[nuts]``: its launches are phase 27 (a)'s
+fleet's, its max_abs_err, times and bound B1's at that shape measured
+again in phase 27. B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -4071,9 +4105,10 @@ def chain_moments(qt, samples):
     return pooled.mean(dim=0), sd, mcse, float(qt.split_rhat_device(s).max())
 
 
-def moment_gates(qt, label, res, ref):
+def moment_gates(qt, label, res, ref, accept="accept_rate"):
     """The moment, R-hat and NaN gates of one run against JAX's numbers
-    ``ref``. Returns its summary."""
+    ``ref`` (``accept``: the result's acceptance field, NUTS's
+    ``accept_prob``). Returns its mean acceptance and summary."""
     check(bool(torch.isfinite(res.samples).all()), f"{label}: NaN or inf in the samples")
     mean, sd, mcse, rhat = chain_moments(qt, res.samples)
     ref_mean, ref_sd, ref_mcse = (torch.tensor(ref[k], dtype=torch.float64, device=mean.device)
@@ -4089,7 +4124,7 @@ def moment_gates(qt, label, res, ref):
           f"{label}: posterior sd ratio to JAX's in [{float(ratio.min()):.3f}, "
           f"{float(ratio.max()):.3f}] (limits {SD_RATIO})")
     bfmi = qt.energy_bfmi_device(res.energies.double())
-    acc = float(res.accept_rate.double().mean())
+    acc = float(getattr(res, accept).double().mean())
     divs = int(res.divergences.sum())
     return acc, (f"max split R-hat {rhat:.4f} (limit {limit:.4f}, JAX {ref['rhat_max']:.4f}), "
                  f"means within "
@@ -4134,6 +4169,33 @@ def rate_line(chains, draws, wall, syncs, grads, peak):
             f"host syncs, peak {peak / 2**20:.0f} MiB")
 
 
+def logistic_map_fleet(qt, device, label):
+    """Phases 26 (a) and 27 (a): config 3's logistic model on the card
+    (data and 4096 starts drawn as in phase 20) and its MAP fleet through
+    `optimize_batched(tol=3e-3)`, B1 once per loop body, every lane
+    converged and the median within 10 % of JAX's 11. Returns (model,
+    fleet, B1 launches, (converged, median, max iterations))."""
+    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
+
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                  y=yd, dtype=torch.float32, device=device)
+    starts = torch.tensor(starts, dtype=torch.float32, device=device)
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    fleet = qt.optimize_batched(model, starts, tol=LOGISTIC_TOL)
+    torch.cuda.synchronize()
+    c = read_counters(qt)
+    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+          f"{label}: B1 not launched once per loop body: {c}")
+    converged, med, itmax, gmax = fleet_line(qt, fleet)
+    check(converged == BATCH and gmax < LOGISTIC_TOL,
+          f"{label}: {converged}/{BATCH} converged, max|grad| {gmax}")
+    check(abs(med - JAX_LOGISTIC_MEDIAN) <= 0.1 * JAX_LOGISTIC_MEDIAN,
+          f"{label}: median {med} not within 10% of {JAX_LOGISTIC_MEDIAN}")
+    return model, fleet, c["B1"], (converged, med, itmax)
+
+
 def sampling_b1(qt, device):
     """B1 at the sampling fleet's shape (4096 x 100 f32, every lane active
     and not fresh) against its plain version: (max abs err, ms per launch,
@@ -4163,25 +4225,29 @@ def sampling_b1(qt, device):
             b1_bound(BATCH, LOGISTIC_N, 4, BATCH, lanes_reset))
 
 
+def through_file(state, tmp, name):
+    """``state`` through `save_state` / `load_state` (the entry points'
+    device rule: the card, the key on the CPU), every leaf checked bit for
+    bit; returns the loaded state."""
+    from quasinewtonmethods_jl_tpu_torch.utils.checkpoint import load_state, save_state
+
+    path = os.path.join(tmp, name)
+    save_state(path, state)
+    loaded = load_state(path, type(state))
+    for field, a, b in zip(state._fields, loaded, state):
+        check((a is None) == (b is None), f"resume: leaf {field} lost")
+        if a is not None:
+            where = "cpu" if field == "key" else "cuda"
+            check(a.device.type == where and a.dtype == b.dtype
+                  and torch.equal(a, b.to(a.device)),
+                  f"resume: leaf {field} did not reload bit for bit")
+    return loaded
+
+
 def sampling_resume(qt, model, x0s, mass, hmc, chees):
     """Phase 26 (d): HMC's warmup and ChEES's two warmup halves through
     checkpoints on the card, then RESUME_DRAWS draws each, against the
     long runs' first draws; returns the summary and the warm states."""
-    from quasinewtonmethods_jl_tpu_torch.utils.checkpoint import load_state, save_state
-
-    def through_file(state, tmp, name):
-        path = os.path.join(tmp, name)
-        save_state(path, state)
-        loaded = load_state(path, type(state))
-        for field, a, b in zip(state._fields, loaded, state):
-            check((a is None) == (b is None), f"resume: leaf {field} lost")
-            if a is not None:
-                where = "cpu" if field == "key" else "cuda"
-                check(a.device.type == where and a.dtype == b.dtype
-                      and torch.equal(a, b.to(a.device)),
-                      f"resume: leaf {field} did not reload bit for bit")
-        return loaded
-
     with tempfile.TemporaryDirectory() as tmp:
         warm = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=0,
                              n_warmup=SAMPLING_WARMUP, n_leapfrog=HMC_LEAPFROG)
@@ -4210,28 +4276,12 @@ def sampling_phase(qt, device, smi):
     """The samplers the MAP fleet hands over to (see phase 26 above).
     Returns B1's [sampling] record: (launches, max abs error, (ms, plain
     ms, bound ms, bound kind, library ms))."""
-    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
-
     t_phase = time.perf_counter()
     with open(SAMPLING_REF) as fh:
         ref = json.load(fh)
     # (a) the MAP fleet through B1, and the handoff
-    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
-    model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
-                                  y=yd, dtype=torch.float32, device=device)
-    starts = torch.tensor(starts, dtype=torch.float32, device=device)
-    torch.cuda.synchronize()
-    reset_counters(qt)
-    fleet = qt.optimize_batched(model, starts, tol=LOGISTIC_TOL)
-    torch.cuda.synchronize()
-    c = read_counters(qt)
-    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
-          f"sampling MAP fleet: B1 not launched once per loop body: {c}")
-    converged, med, itmax, gmax = fleet_line(qt, fleet)
-    check(converged == BATCH and gmax < LOGISTIC_TOL,
-          f"sampling MAP fleet: {converged}/{BATCH} converged, max|grad| {gmax}")
-    check(abs(med - JAX_LOGISTIC_MEDIAN) <= 0.1 * JAX_LOGISTIC_MEDIAN,
-          f"sampling MAP fleet: median {med} not within 10% of {JAX_LOGISTIC_MEDIAN}")
+    model, fleet, launches, (converged, med, itmax) = logistic_map_fleet(
+        qt, device, "sampling MAP fleet")
     x0s, mass = qt.chain_init_from_map(fleet, jitter=SAMPLING_JITTER, key=BENCH_SEED)
     info = torch.linalg.cholesky_ex(mass)[1]
     diag = torch.diagonal(mass).double().cpu().numpy()
@@ -4246,12 +4296,11 @@ def sampling_phase(qt, device, smi):
         f"{LOGISTIC_OBS} observations) {BATCH} starts f32 tol {LOGISTIC_TOL}: converged "
         f"{converged}/{BATCH}, iterations median {med:g} max {itmax} (JAX median "
         f"{ref['map']['median_iterations']:g}, {ref['map']['converged']} converged), B1 "
-        f"{c['B1']} launches = loop bodies; chain_init_from_map(jitter={SAMPLING_JITTER}): "
+        f"{launches} launches = loop bodies; chain_init_from_map(jitter={SAMPLING_JITTER}): "
         f"dense mass, Cholesky ok, diagonal max rel {diag_rel:.2e} from JAX's on the same "
         f"starts; B1 at {BATCH}x{LOGISTIC_N} f32 against its plain version max abs err "
         f"{err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain {plain_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}), B1 at {100 * bound_ms / b1_ms:.1f} % of it on {smi}")
-    launches = c["B1"]
     del fleet
 
     # (b) HMC, JAX's defaults, on all chains
@@ -4304,6 +4353,193 @@ def sampling_phase(qt, device, smi):
         log(profile_line(f"{label} {chains}x{LOGISTIC_N} f32, {PROFILED_TRANSITIONS} transitions "
                          f"from the warm state", *prof, engine.gradient_evals))
     log(f"[sampling] phase 26 took {time.perf_counter() - t_phase:.1f} s")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
+
+# Phase 27, NUTS and depth-sorted NUTS: the workflow's sampler="nuts" and
+# depth_sort=True routes on config 3's logistic posterior at full width
+# (4096 chains, n = 100, float32). JAX's numbers come from
+# scripts/jax_nuts_reference.py (512 chains; the same warmup, max_depth and
+# groups, and more draws: 250 plain, 100 sorted).
+NUTS_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        "jax_nuts_reference.json")
+# cut for the phase's 120 s and the script's time limit, in this order:
+# (c)'s and (e)'s draws, then (b)'s, then the warmup (JAX's default 500;
+# 500 warmup rounds and 250, 50, 100 and 10 draws took 166.7 s on one
+# H100, and 500 with 100, 20, 20 and 5 left the whole script at 887.7 s);
+# every chain, the dimension, each check and gate stay
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MAX_DEPTH = 250, 50, 8
+NUTS_DEFAULT_SORT_DRAWS, NUTS_FORCED_DRAWS, NUTS_FORCED_GROUPS = 10, 10, 4
+NUTS_SORTED_RESUME_DRAWS = 5
+NUTS_SHORT_WARMUP, NUTS_SHORT_DRAWS = 20, 10  # (d)'s plan, chunked at 10 + 10
+NUTS_PROFILED_DRAWS = 3
+NUTS_STEP_RTOL, NUTS_DEPTH_ATOL = 0.1, 0.5
+
+
+def depth_histogram(mean_tree_depth):
+    """Fractions of chains whose mean depth lies in [0, 0.5), [0.5, 1), ...
+    (scripts/jax_nuts_reference.py's bins)."""
+    d = mean_tree_depth.double().cpu().numpy()
+    counts, _ = np.histogram(d, bins=np.arange(0.0, NUTS_MAX_DEPTH + 1.0, 0.5))
+    return counts / counts.sum()
+
+
+def histogram_text(port, jax):
+    """The non-empty bins of both histograms, as 'lo-hi: port (JAX)'."""
+    return ", ".join(f"{0.5 * k:g}-{0.5 * k + 0.5:g}: {p:.3f} ({j:.3f})"
+                     for k, (p, j) in enumerate(zip(port, jax)) if p or j)
+
+
+def nuts_short_resume(qt, model, x0s):
+    """Phase 27 (d): the short plan long and chunked through two
+    checkpoints, on all chains; samples, warm_dsum and every state leaf
+    bit for bit."""
+    kw = {"max_depth": NUTS_MAX_DEPTH}
+    half = NUTS_SHORT_WARMUP // 2
+    long = qt.nuts_sample(model, BENCH_SEED, x0s, n_samples=NUTS_SHORT_DRAWS,
+                          n_warmup=NUTS_SHORT_WARMUP, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        c1 = qt.nuts_sample(model, BENCH_SEED, x0s, n_samples=0, n_warmup=half,
+                            total_warmup=NUTS_SHORT_WARMUP, **kw)
+        c2 = qt.nuts_sample_from_state(model, through_file(c1.state, tmp, "nuts1"),
+                                       n_warmup=NUTS_SHORT_WARMUP - half, **kw)
+        c3 = qt.nuts_sample_from_state(model, through_file(c2.state, tmp, "nuts2"),
+                                       n_samples=NUTS_SHORT_DRAWS, **kw)
+    check(torch.equal(long.samples, c3.samples), "NUTS resume: chunked draws differ from the "
+                                                 "long run's")
+    for field, a, b in zip(qt.NUTSState._fields, long.state, c3.state):
+        check((a is None) == (b is None) and (a is None or torch.equal(a, b.to(a.device))),
+              f"NUTS resume: state leaf {field} differs from the long run's")
+    return (f"resume on the card: nuts_sample({NUTS_SHORT_WARMUP} warmup, {NUTS_SHORT_DRAWS} "
+            f"draws) against {half} + {NUTS_SHORT_WARMUP - half} warmup rounds and "
+            f"{NUTS_SHORT_DRAWS} draws through two save_state / load_state checkpoints on all "
+            f"{x0s.shape[0]} chains: samples, warm_dsum and every state leaf bit for bit")
+
+
+def nuts_phase(qt, device, smi):
+    """NUTS and depth-sorted NUTS (see phase 27 above). Returns B1's [nuts]
+    record: (launches, max abs error, (ms, plain ms, bound ms, bound kind,
+    library ms))."""
+    t_phase = time.perf_counter()
+    with open(NUTS_REF) as fh:
+        ref = json.load(fh)
+    plan = ref["plan"]
+    check((plan["warmup"], plan["max_depth"], plan["forced_groups"])
+          == (NUTS_WARMUP, NUTS_MAX_DEPTH, NUTS_FORCED_GROUPS)
+          and plan["draws"] >= NUTS_DRAWS and plan["forced_draws"] >= NUTS_FORCED_DRAWS,
+          f"NUTS: scripts/jax_nuts_reference.json ran another plan: {plan}")
+    kw = {"max_depth": NUTS_MAX_DEPTH}
+
+    # (a) the MAP fleet through B1, and the handoff the workflow makes
+    model, fleet, launches, (converged, med, itmax) = logistic_map_fleet(
+        qt, device, "NUTS MAP fleet")
+    x0s, _mass = qt.chain_init_from_map(fleet, jitter=SAMPLING_JITTER, key=BENCH_SEED)
+    del fleet, _mass
+    check(x0s.device.type == "cuda" and x0s.dtype == torch.float32
+          and x0s.shape == (BATCH, LOGISTIC_N), "NUTS handoff: x0s device, dtype or shape")
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
+    chains = x0s.shape[0]
+    log(f"[nuts] MAP fleet: optimize_batched on config 3's logistic {BATCH} starts f32 tol "
+        f"{LOGISTIC_TOL}: converged {converged}/{BATCH}, iterations median {med:g} max {itmax} "
+        f"(JAX median {ref['map']['median_iterations']:g}, {ref['map']['converged']} "
+        f"converged), B1 {launches} launches = loop bodies; chain_init_from_map(jitter="
+        f"{SAMPLING_JITTER}); B1 at {BATCH}x{LOGISTIC_N} f32 against its plain version max abs "
+        f"err {err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}) on {smi}")
+
+    # (b) the depth-sort route: warmup alone, a checkpoint, then the draws
+    warm_res, wall_w, syncs_w, grads_w, peak_w = sampler_run(
+        qt, qt.nuts_sample, lambda: qt.nuts_sample(model, BENCH_SEED, x0s, n_samples=0,
+                                                   n_warmup=NUTS_WARMUP,
+                                                   total_warmup=NUTS_WARMUP, **kw))
+    with tempfile.TemporaryDirectory() as tmp:
+        warm = through_file(warm_res.state, tmp, "nuts_warm")
+    del warm_res
+    nuts, wall, syncs, grads, peak = sampler_run(
+        qt, qt.nuts_sample, lambda: qt.nuts_sample_from_state(model, warm,
+                                                              n_samples=NUTS_DRAWS, **kw))
+    r = ref["nuts"]
+    acc, summary = moment_gates(qt, "NUTS", nuts, r, accept="accept_prob")
+    step = float(nuts.step_size.double().median())
+    depth = float(nuts.mean_tree_depth.double().mean())
+    check(abs(acc - r["accept_mean"]) <= ACCEPT_ATOL,
+          f"NUTS: mean accept {acc:.4f}, JAX {r['accept_mean']:.4f}")
+    check(abs(step - r["step_size_median"]) <= NUTS_STEP_RTOL * r["step_size_median"],
+          f"NUTS: median step size {step:.4f} not within 10% of JAX's "
+          f"{r['step_size_median']:.4f}")
+    check(abs(depth - r["mean_depth"]) <= NUTS_DEPTH_ATOL,
+          f"NUTS: mean tree depth {depth:.3f}, JAX {r['mean_depth']:.3f}")
+    hist = histogram_text(depth_histogram(nuts.mean_tree_depth), r["depth_histogram"])
+    log(f"[nuts] nuts_sample {chains} chains x n={LOGISTIC_N} f32, no mass (the fleet adapts "
+        f"its diagonal), max_depth {NUTS_MAX_DEPTH}: {NUTS_WARMUP} warmup rounds in "
+        f"{wall_w:.2f} s ({syncs_w} host reads, {grads_w} fleet-wide gradients, "
+        f"{syncs_w / NUTS_WARMUP:.1f} reads and {grads_w / NUTS_WARMUP:.1f} gradients a round), "
+        f"the state through save_state / load_state bit for bit, then nuts_sample_from_state "
+        f"{NUTS_DRAWS} draws (JAX {plan['draws']}): {summary}; median step size {step:.4f} (JAX "
+        f"{r['step_size_median']:.4f}); mean tree depth {depth:.3f} (JAX {r['mean_depth']:.3f}), "
+        f"chains' mean depths port (JAX) {hist}; {syncs / NUTS_DRAWS:.1f} host reads and "
+        f"{grads / NUTS_DRAWS:.1f} fleet-wide gradients a draw (JAX: none, its loops stay on the "
+        f"device; a chain's tree of depth d takes 2^d to 2^(d+1) - 1 leaves); "
+        f"{rate_line(chains, NUTS_DRAWS, wall, syncs, grads, peak)} on {smi}")
+
+    # (c) depth-sorted: the default decision, then the sorted path forced
+    (res_d, info_d), wall_d, syncs_d, _g, _p = sampler_run(
+        qt, qt.nuts_sample, lambda: qt.nuts_sample_depth_sorted(
+            model, warm, NUTS_DEFAULT_SORT_DRAWS, **kw))
+    jd = ref["default_sort"]
+    if info_d.sorted:
+        _acc, text_d = moment_gates(qt, "NUTS depth-sorted (default)", res_d, r,
+                                    accept="accept_prob")
+    else:
+        check(torch.equal(res_d.samples, nuts.samples[:NUTS_DEFAULT_SORT_DRAWS]),
+              "NUTS depth-sorted fallback: draws differ from the plain run's first "
+              f"{NUTS_DEFAULT_SORT_DRAWS}")
+        text_d = (f"its draws equal the first {NUTS_DEFAULT_SORT_DRAWS} of (b)'s bit for bit "
+                  f"(the fallback)")
+    log(f"[nuts] nuts_sample_depth_sorted(warm, {NUTS_DEFAULT_SORT_DRAWS}) with its defaults: "
+        f"sorted {info_d.sorted}, persistence {info_d.persistence:.4f}, depth spread "
+        f"{info_d.depth_spread:.4f} (JAX on {r['chains']} chains: sorted {jd['sorted']}, "
+        f"persistence {jd['persistence']:.4f}, spread {jd['depth_spread']:.4f}; not gated); "
+        f"{text_d}; {wall_d:.2f} s, {syncs_d} host reads on {smi}")
+    del res_d
+    (forced, info_f), wall_f, syncs_f, grads_f, _p = sampler_run(
+        qt, qt.nuts_sample, lambda: qt.nuts_sample_depth_sorted(
+            model, warm, NUTS_FORCED_DRAWS, groups=NUTS_FORCED_GROUPS, min_persistence=-1.0,
+            min_depth_spread=0.0, **kw))
+    jf = ref["forced_sort"]
+    check(info_f.sorted, f"NUTS forced sort: did not sort ({info_f})")
+    check(sum(info_f.group_sizes) == chains and len(info_f.group_sizes) == NUTS_FORCED_GROUPS,
+          f"NUTS forced sort: group sizes {info_f.group_sizes}")
+    _acc_f, text_f = moment_gates(qt, "NUTS forced sort", forced, jf, accept="accept_prob")
+    check(torch.equal(forced.final_x, forced.state.x),
+          "NUTS forced sort: final_x is not the merged state's x")
+    cont = qt.nuts_sample_from_state(model, forced.state, n_samples=NUTS_SORTED_RESUME_DRAWS, **kw)
+    check(cont.samples.shape == (NUTS_SORTED_RESUME_DRAWS, chains, LOGISTIC_N)
+          and bool(torch.isfinite(cont.samples).all()),
+          "NUTS forced sort: the merged state does not resume")
+    del cont
+    log(f"[nuts] nuts_sample_depth_sorted(warm, {NUTS_FORCED_DRAWS}, groups="
+        f"{NUTS_FORCED_GROUPS}, min_persistence=-1, min_depth_spread=0): sorted, groups "
+        f"{info_f.group_sizes}, their mean depths "
+        f"{', '.join(f'{v:.3f}' for v in info_f.group_mean_depths)} (JAX on {jf['chains']} "
+        f"chains and {jf['draws']} draws: "
+        f"{', '.join(f'{v:.3f}' for v in jf['group_mean_depths'])}); {text_f}; "
+        f"final_x = the merged state's x, which resumes for {NUTS_SORTED_RESUME_DRAWS} draws; "
+        f"{wall_f / NUTS_FORCED_DRAWS:.4f} s a draw over the {NUTS_FORCED_GROUPS} sub-fleets in "
+        f"turn ({grads_f / NUTS_FORCED_DRAWS:.1f} sub-fleet gradients a draw, {syncs_f} host "
+        f"reads) against (b)'s {wall / NUTS_DRAWS:.4f} s a draw (not gated) on {smi}")
+    del forced, nuts
+
+    # (d) the short plan through checkpoints
+    log(f"[nuts] {nuts_short_resume(qt, model, x0s)}")
+
+    # (e) the profiled steady state
+    qt.nuts_sample.gradient_evals = 0
+    prof = device_profile(lambda: qt.nuts_sample_from_state(
+        model, warm, n_samples=NUTS_PROFILED_DRAWS, **kw))
+    log(profile_line(f"NUTS {chains}x{LOGISTIC_N} f32, {NUTS_PROFILED_DRAWS} draws from the warm "
+                     f"state, per leaf, on {smi}", *prof, qt.nuts_sample.gradient_evals))
+    log(f"[nuts] phase 27 took {time.perf_counter() - t_phase:.1f} s on {smi}")
     return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
 
 
@@ -4363,6 +4599,7 @@ def main():
     auglag = timed("24", engines_phase, qt, device, smi)
     multistart = timed("25", map_backend_phase, qt, device, smi)
     sampling_rec = timed("26", sampling_phase, qt, device, smi)
+    nuts_rec = timed("27", nuts_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}")
 
@@ -4381,6 +4618,7 @@ def main():
                multistart, max_abs_err, (kernel_ms, plain_ms, *b1_bound_ms, None)),
         record("fused_bfgs_update_batched[sampling]", KERNEL_SOURCE, KERNEL_REPLACES,
                *sampling_rec),
+        record("fused_bfgs_update_batched[nuts]", KERNEL_SOURCE, KERNEL_REPLACES, *nuts_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

@@ -26,7 +26,8 @@ Laplace evidence (`laplace_evidence`), implicit gradients through a solve
 `load_state`), structured parameters (`optimize_pytree` and its siblings,
 `pytree_names`) and chain diagnostics (`diagnostics.py`), and the
 samplers the MAP fleet hands over to (`chain_init_from_map`, `hmc_sample`,
-`chees_sample` and their `*_from_state`, `LowRankMass`); ROADMAP.md lists
+`chees_sample`, `nuts_sample` and their `*_from_state`,
+`nuts_sample_depth_sorted`, `LowRankMass`); ROADMAP.md lists
 what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
@@ -87,14 +88,20 @@ from .resident_solve import optimize_batched_resident, resident_feasible, trace_
 from .sampling import (
     ChEESResult,
     ChEESState,
+    DepthSortInfo,
     HMCResult,
     HMCState,
     LowRankMass,
+    NUTSResult,
+    NUTSState,
     chain_init_from_map,
     chees_sample,
     chees_sample_from_state,
     hmc_sample,
     hmc_sample_from_state,
+    nuts_sample,
+    nuts_sample_depth_sorted,
+    nuts_sample_from_state,
 )
 from .solve import (
     MAX_ITERATIONS_DEFAULT,
@@ -259,5 +266,11 @@ __all__ = [
     "chees_sample_from_state",
     "ChEESResult",
     "ChEESState",
+    "nuts_sample",
+    "nuts_sample_from_state",
+    "nuts_sample_depth_sorted",
+    "NUTSState",
+    "NUTSResult",
+    "DepthSortInfo",
     "__version__",
 ]

@@ -1,6 +1,6 @@
-"""Batched HMC and ChEES-HMC warm-started by the MAP fleet — the PyTorch
-port of ``quasinewtonmethods_jl_tpu/sampling.py`` (HMC and ChEES; NUTS is
-not ported yet).
+"""Batched HMC, ChEES-HMC and NUTS warm-started by the MAP fleet — the
+PyTorch port of ``quasinewtonmethods_jl_tpu/sampling.py`` (HMC, ChEES,
+NUTS and depth-sorted NUTS).
 
 The reference is "the inner MAP/mode-finding engine intended for
 ProbabilityModels.jl + InplaceDHMC.jl (HMC chain initialization)"
@@ -27,9 +27,13 @@ the device. ChEES reads one number a round, its shared leapfrog count,
 which the Python loop needs; every read is counted in
 ``chees_sample.host_syncs`` (and the ``*_from_state`` entry points' reads
 of the phase counters in ``hmc_sample.host_syncs`` /
-``chees_sample.host_syncs``). ``hmc_sample.gradient_evals`` /
-``chees_sample.gradient_evals`` count the fleet-wide gradient evaluations
-(one evaluation over every chain counts one).
+``chees_sample.host_syncs``). NUTS builds its trees in lockstep: JAX's two
+``while_loop``s (doublings; leaves within a subtree) are Python loops whose
+conditions read one flag from the device a leaf and one a doubling,
+counted in ``nuts_sample.host_syncs``. ``hmc_sample.gradient_evals`` /
+``chees_sample.gradient_evals`` / ``nuts_sample.gradient_evals`` count the
+fleet-wide gradient evaluations (one evaluation over every chain counts
+one).
 
 Randomness. In JAX each transition's noise is a pure function of the
 run's key, the phase (0 warmup, 1 sampling) and the global step, which is
@@ -41,7 +45,11 @@ and then the Metropolis uniforms u. No stream is consumed across calls and
 no seed derivation reads the card. The draws differ from JAX's
 ``threefry`` streams: the two packages' runs agree in distribution, not
 draw for draw (the tests hold them draw for draw by injecting JAX's noise
-through `_step_noise`).
+through `_step_noise`). NUTS draws through its own seams
+(`_nuts_momentum_noise`, `_nuts_doubling_noise`, `_nuts_leaf_noise`), each
+seeded from (key, a NUTS stream word, phase, step, ...) the same way, so
+that its streams never meet HMC's or ChEES's, and the depth-sorted
+driver's sub-fleets run under keys derived by `_subfleet_key`.
 
 A ``key`` is an int seed (as ``jax.random.PRNGKey``: the high and low 32
 bits), a ``torch.Generator`` (one seed is drawn from it, a read on a CUDA
@@ -74,6 +82,12 @@ __all__ = [
     "chees_sample",
     "chees_sample_from_state",
     "chain_init_from_map",
+    "NUTSState",
+    "NUTSResult",
+    "nuts_sample",
+    "nuts_sample_from_state",
+    "DepthSortInfo",
+    "nuts_sample_depth_sorted",
 ]
 
 
@@ -121,14 +135,14 @@ class HMCResult(NamedTuple):
 
 
 # JAX's samplers that the port does not hold yet (get_sampler's registry)
-_NOT_PORTED_SAMPLERS = ("ensemble", "mclmc", "nuts", "pt")
+_NOT_PORTED_SAMPLERS = ("ensemble", "mclmc", "pt")
 
 
 def get_sampler(name: str):
     """Resolve a sampler by name — one registry for every dispatch site.
     The JAX package's other samplers raise NotImplementedError until they
     are ported."""
-    samplers = {"chees": chees_sample, "hmc": hmc_sample}
+    samplers = {"chees": chees_sample, "hmc": hmc_sample, "nuts": nuts_sample}
     if name in _NOT_PORTED_SAMPLERS:
         raise NotImplementedError(
             f"sampler {name!r} is not yet ported to the PyTorch port; "
@@ -149,6 +163,12 @@ def get_sampler(name: str):
 _MASK32 = 0xFFFFFFFF
 _MASK64 = (1 << 64) - 1
 _JITTER_STREAM = 2  # chain_init_from_map's stream (phases 0 and 1 are the samplers')
+# NUTS's streams: this word first, then (phase, step, kind, ...); the kinds
+# are the momenta, a doubling's direction and uniform, and a leaf's uniform
+_NUTS_STREAM = 3
+_NUTS_MOMENTUM, _NUTS_DOUBLING, _NUTS_LEAF = 0, 1, 2
+# the depth-sorted driver's sub-fleet keys
+_SUBFLEET_STREAM = 4
 
 
 def _as_key(key, engine=None) -> torch.Tensor:
@@ -214,6 +234,37 @@ def _jitter_noise(key, shape, dtype, device):
     """`chain_init_from_map`'s standard-normal jitter draw."""
     gen = _generator(key, device, _JITTER_STREAM)
     return torch.randn(shape, generator=gen, dtype=dtype, device=device)
+
+
+def _nuts_momentum_noise(key, phase, step, chains, n, dtype, device):
+    """The standard-normal momentum draw z (chains, n) of NUTS's transition
+    at global ``step`` of ``phase`` (0 warmup, 1 sampling)."""
+    gen = _generator(key, device, _NUTS_STREAM, phase, step, _NUTS_MOMENTUM)
+    return torch.randn((chains, n), generator=gen, dtype=dtype, device=device)
+
+
+def _nuts_doubling_noise(key, phase, step, j, chains, dtype, device):
+    """(d, u) of doubling ``j`` of that transition: the direction d, ±1 in
+    the chains' dtype, and the uniform of the multinomial step between the
+    old tree and the new subtree."""
+    gen = _generator(key, device, _NUTS_STREAM, phase, step, _NUTS_DOUBLING, j)
+    d = torch.randint(0, 2, (chains,), generator=gen, device=device).to(dtype) * 2 - 1
+    u = torch.rand((chains,), generator=gen, dtype=dtype, device=device)
+    return d, u
+
+
+def _nuts_leaf_noise(key, phase, step, j, i, chains, dtype, device):
+    """The progressive multinomial uniform (chains,) of leaf ``i`` of
+    doubling ``j`` of that transition."""
+    gen = _generator(key, device, _NUTS_STREAM, phase, step, _NUTS_LEAF, j, i)
+    return torch.rand((chains,), generator=gen, dtype=dtype, device=device)
+
+
+def _subfleet_key(key, group):
+    """The key sub-fleet ``group`` of `nuts_sample_depth_sorted` samples
+    under (JAX: ``fold_in(key, 2 + group)``), derived on the host."""
+    h = _seed(key, _SUBFLEET_STREAM, 2 + group)
+    return torch.tensor([h >> 32, h & _MASK32], dtype=torch.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -1160,3 +1211,727 @@ def chees_sample_from_state(
 
 chees_sample.host_syncs = 0
 chees_sample.gradient_evals = 0
+
+
+# ---------------------------------------------------------------------------
+# NUTS
+# ---------------------------------------------------------------------------
+
+
+class NUTSState(NamedTuple):
+    """Resumable state for `nuts_sample`: positions, cached (logdensity,
+    gradient), the per-chain dual-averaging accumulators, the
+    fleet-variance mass EMA, the base key and the phase counters.
+    ``n_warmup_total`` / ``mass_freeze`` pin the freeze schedule so
+    chunked runs replay the long run exactly. Serializable via
+    `utils.checkpoint.save_state`; ``key`` is the (2,) int64 CPU tensor of
+    the module docstring."""
+
+    x: torch.Tensor  # (chains, n)
+    f: torch.Tensor  # (chains,)
+    g: torch.Tensor  # (chains, n) gradient at x
+    log_eps: torch.Tensor  # (chains,)
+    log_eps_bar: torch.Tensor  # (chains,)
+    h_bar: torch.Tensor  # (chains,)
+    t_da: torch.Tensor  # ()
+    mu: torch.Tensor  # ()
+    var_ema: torch.Tensor  # (n,) variance or (n, n) covariance EMA
+    key: torch.Tensor  # (2,) int64 on the CPU
+    i_warm: torch.Tensor  # () int32
+    i_samp: torch.Tensor  # () int32
+    n_warmup_total: torch.Tensor  # () int32
+    mass_freeze: torch.Tensor  # () int32
+    # adapt_mass='lowrank' only: the tracked covariance subspace, None in
+    # every other mode
+    lr_Q: Optional[torch.Tensor] = None  # (n, r) orthonormal basis
+    lr_sig: Optional[torch.Tensor] = None  # (r,) eigenvalues along lr_Q
+    # warmup depth telemetry: per-chain tree-depth sums over the two tail
+    # windows of the warmup plan (`_warm_depth_windows`), the probe data of
+    # `nuts_sample_depth_sorted`; None on states from before it (the
+    # sorter then spends probe legs)
+    warm_dsum: Optional[torch.Tensor] = None  # (2, chains)
+
+
+class NUTSResult(NamedTuple):
+    """Samples and diagnostics for a batched NUTS run.
+
+    samples: (n_samples, chains, n) post-warmup draws
+    accept_prob: (chains,) mean leaf acceptance-probability surrogate
+    step_size: (chains,) adapted leapfrog step size
+    mean_tree_depth: (chains,) mean doublings per draw over sampling
+    mass_diag: (n,) the (possibly fleet-adapted) diagonal preconditioner
+    energies: (n_samples, chains) post-momentum-refresh Hamiltonian of
+        each transition — feed `diagnostics.energy_bfmi` for the
+        Betancourt E-BFMI check
+    divergences: (chains,) int32 count of draws whose tree hit a
+        divergent leaf (energy error past ``max_energy_change``)
+    final_x: (chains, n) last state
+    state: NUTSState — resume via `nuts_sample_from_state`
+    """
+
+    samples: torch.Tensor
+    accept_prob: torch.Tensor
+    step_size: torch.Tensor
+    mean_tree_depth: torch.Tensor
+    mass_diag: torch.Tensor
+    energies: torch.Tensor
+    divergences: torch.Tensor
+    final_x: torch.Tensor
+    state: NUTSState
+
+
+def _warm_depth_windows(total: int):
+    """The two tail windows of a warmup plan used for depth telemetry:
+    W rounds each (W = min(32, total // 4), >= 1), ending at the plan's
+    last round — post-freeze, so the step size is near-final and tree
+    depths are representative of the sampling phase."""
+    W = max(1, min(32, total // 4))
+    return total - 2 * W, total - W, total, W
+
+
+def _any(flags) -> bool:
+    """Whether any flag is set: one read of the device, counted in
+    ``nuts_sample.host_syncs``."""
+    nuts_sample.host_syncs += 1
+    return bool(flags.any())
+
+
+def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, target_accept,
+               max_energy_change, adapt_mass, value_and_grad_fn, i_warm0, i_samp0, mass_freeze,
+               warm_total) -> NUTSResult:
+    """Chunkable core (see `_hmc_core` for the noise discipline); the
+    algorithm notes are `nuts_sample`'s.
+
+    Batched multinomial NUTS, iterative formulation, over lockstep chains:
+    the trees double in lockstep, and chains that have U-turned or
+    diverged are frozen by masks (every leaf still evaluates every chain).
+    A round of doublings ends as soon as every chain is done, and a
+    subtree as soon as none of its chains is active: each such condition
+    is one counted read (`_any`). A subtree's first leaf needs no read,
+    since its chains are the ones the doubling's read found not done.
+
+    The checkpoint stack: leaf i (0-based) of a subtree stores its state
+    at slot popcount(i) when i is even; when i is odd, the subtrees ending
+    at i span [i - 2^k + 1, i] for k = 1..t (t the trailing one-bits of i)
+    and their start states sit at slots popcount(i) - k. The slot indices
+    are host ints. U-turn checks between a stored checkpoint and the
+    current leaf use forward-time orientation dx = d·(x - x_ckpt): the
+    leapfrog with -eps traces the forward trajectory into the past, so
+    stored momenta are already forward-convention.
+
+    A chain reads a stack slot only where it was active at every earlier
+    leaf of the subtree, so only slots it wrote in this subtree: the stack
+    is allocated once per call and not cleared between subtrees."""
+    vag_b, _f_b = _batched_objective(obj, value_and_grad_fn)
+    chains, n = state.x.shape
+    dtype, device = state.x.dtype, state.x.device
+    mass_b, chol_u = _mass_setup(mass, n, dtype, device)
+    key = state.key
+    stack_x = torch.zeros((max_depth + 1, chains, n), dtype=dtype, device=device)
+    stack_p = torch.zeros_like(stack_x)
+
+    def no_uturn(dx, va, vb):
+        """True where not turning: dx oriented forward-time, va and vb the
+        velocities M⁻¹p at its two ends."""
+        return (torch.sum(dx * va, dim=1) >= 0.0) & (torch.sum(dx * vb, dim=1) >= 0.0)
+
+    def build_subtree(x, p, g, d, n_leaf, eps, h0, alive, mass_d, phase, step, j):
+        """Integrate up to n_leaf leaves from (x, p) in direction d (±1),
+        multinomial-sampling a proposal and checking U-turns iteratively.
+        One fleet-wide value and gradient a leaf. A chain stops at its
+        first turning or divergent leaf, so the divergent chains are found
+        at the end: alive, not turned, and no longer active."""
+        e = (d * eps)[:, None]
+        half_e = 0.5 * e
+        lw = torch.full((chains,), -math.inf, dtype=dtype, device=device)
+        xp, fp, gp = x, torch.zeros((chains,), dtype=dtype, device=device), g
+        turn = torch.zeros((chains,), dtype=torch.bool, device=device)
+        sa = torch.zeros((chains,), dtype=dtype, device=device)
+        na = torch.zeros((chains,), dtype=torch.int32, device=device)
+        dcol = d[:, None]
+        act = alive  # alive & ~turn & ~div, carried from leaf to leaf
+        for i in range(n_leaf):
+            if i > 0 and not _any(act):
+                break
+            # one leapfrog step
+            p_half = p + half_e * g
+            x2 = x + e * _apply_mass(mass_d, p_half)
+            f2, g2 = vag_b(x2)
+            nuts_sample.gradient_evals += 1
+            p2 = p_half + half_e * g2
+            lw_leaf = f2 - _kinetic(p2, mass_d) - h0
+            # not divergent: finite and not below -max_energy_change
+            ok = act & torch.isfinite(lw_leaf) & (lw_leaf >= -max_energy_change)
+            # exp(min(lw, 0)) lies in [0, 1] or is NaN: NaN maps to 0
+            alpha = torch.nan_to_num(torch.exp(torch.clamp_max(lw_leaf, 0.0)), nan=0.0)
+            # progressive multinomial: take the new leaf w.p. w/W (u < NaN
+            # is False where both weights are -inf)
+            lw_new = torch.logaddexp(lw, lw_leaf)
+            u = _nuts_leaf_noise(key, phase, step, j, i, chains, dtype, device)
+            take = ok & (u < torch.exp(lw_leaf - lw_new))
+            xp = torch.where(take[:, None], x2, xp)
+            fp = torch.where(take, f2, fp)
+            gp = torch.where(take[:, None], g2, gp)
+            lw = torch.where(ok, lw_new, lw)
+            sa = sa + torch.where(act, alpha, 0.0)
+            na = na + act
+            slot = bin(i).count("1")
+            okc = ok[:, None]
+            if i % 2 == 0:
+                stack_x[slot] = torch.where(okc, x2, stack_x[slot])
+                stack_p[slot] = torch.where(okc, p2, stack_p[slot])
+                act = ok
+            else:
+                t_ones = bin(i ^ (i + 1)).count("1") - 1
+                v2 = _apply_mass(mass_d, p2)
+                good = None
+                for kk in range(1, t_ones + 1):
+                    ck = max(slot - kk, 0)
+                    g_k = no_uturn(dcol * (x2 - stack_x[ck]), _apply_mass(mass_d, stack_p[ck]),
+                                   v2)
+                    good = g_k if good is None else good & g_k
+                turn = turn | (ok & ~good)
+                act = ok & good
+            # frozen lanes keep their previous endpoint state
+            x = torch.where(okc, x2, x)
+            p = torch.where(okc, p2, p)
+            g = torch.where(okc, g2, g)
+        div = alive & ~turn & ~act
+        return x, p, g, lw, xp, fp, gp, turn, div, sa, na
+
+    def one_draw(x, f, g, eps, mass_d, chol_d, phase, step):
+        """One NUTS transition for all chains: the new (x, f, g), the mean
+        leaf-acceptance surrogate, the tree depth, the start-of-trajectory
+        Hamiltonian (for E-BFMI) and the per-chain divergence flag.
+        ``chol_d``: the dense mass's factor where it is fixed, None for the
+        adapting dense EMA (factored per draw)."""
+        z = _nuts_momentum_noise(key, phase, step, chains, n, dtype, device)
+        p0 = _momentum(z, mass_d, chol_d)
+        h0 = f - _kinetic(p0, mass_d)
+        x_l, p_l, g_l = x_r, p_r, g_r = x, p0, g
+        xp, fp, gp = x, f, g
+        lw_tot = torch.zeros((chains,), dtype=dtype, device=device)  # initial leaf weight exp(0)
+        sa = torch.zeros((chains,), dtype=dtype, device=device)
+        na = torch.zeros((chains,), dtype=torch.int32, device=device)
+        depth = torch.zeros((chains,), dtype=torch.int32, device=device)
+        divflag = torch.zeros((chains,), dtype=torch.bool, device=device)
+        done = torch.zeros_like(divflag)
+        for j in range(max_depth):
+            # no chain is done before the first doubling
+            if j > 0 and not _any(~done):
+                break
+            d, u = _nuts_doubling_noise(key, phase, step, j, chains, dtype, device)
+            fwd = (d > 0)[:, None]
+            (x_e, p_e, g_e, st_lw, st_xp, st_fp, st_gp, st_turn, st_div, st_sa,
+             st_na) = build_subtree(torch.where(fwd, x_r, x_l), torch.where(fwd, p_r, p_l),
+                                    torch.where(fwd, g_r, g_l), d, 2 ** j, eps, h0, ~done,
+                                    mass_d, phase, step, j)
+            ok = ~done & ~st_turn & ~st_div
+            # biased progressive between subtrees: favor the new one
+            take = ok & (u < torch.exp(torch.clamp_max(st_lw - lw_tot, 0.0)))
+            xp = torch.where(take[:, None], st_xp, xp)
+            fp = torch.where(take, st_fp, fp)
+            gp = torch.where(take[:, None], st_gp, gp)
+            lw_tot = torch.where(ok, torch.logaddexp(lw_tot, st_lw), lw_tot)
+            okm = ok[:, None] & fwd
+            x_r, p_r, g_r = (torch.where(okm, x_e, x_r), torch.where(okm, p_e, p_r),
+                             torch.where(okm, g_e, g_r))
+            okm = ok[:, None] & ~fwd
+            x_l, p_l, g_l = (torch.where(okm, x_e, x_l), torch.where(okm, p_e, p_l),
+                             torch.where(okm, g_e, g_l))
+            # global U-turn across the merged tree's true-time ends
+            turn_g = ~no_uturn(x_r - x_l, _apply_mass(mass_d, p_l), _apply_mass(mass_d, p_r))
+            depth = depth + ok.to(torch.int32)
+            sa = sa + torch.where(~done, st_sa, 0.0)
+            na = na + torch.where(~done, st_na, 0)
+            divflag = divflag | st_div
+            done = done | st_turn | st_div | (ok & turn_g)
+        alpha = sa / torch.clamp_min(na, 1).to(dtype)
+        return xp, fp, gp, alpha, depth, -h0, divflag
+
+    # first-ever call: populate the cached (logdensity, gradient)
+    if i_warm0 == 0 and i_samp0 == 0:
+        f, g = vag_b(state.x)
+        nuts_sample.gradient_evals += 1
+    else:
+        f, g = state.f, state.g
+    x = state.x
+
+    # ---- warmup: per-chain dual averaging + fleet mass ----
+    w1s, w2s, w2e, _W = _warm_depth_windows(warm_total)
+    wds = (torch.zeros((2, chains), dtype=dtype, device=device) if state.warm_dsum is None
+           else state.warm_dsum.clone())
+    log_eps, log_eps_bar, h_bar, t_da = state.log_eps, state.log_eps_bar, state.h_bar, state.t_da
+    var_ema, lr_Q, lr_sig = state.var_ema, state.lr_Q, state.lr_sig
+    frozen_chol = None  # the dense EMA's factor once it is frozen
+    for i in range(i_warm0, i_warm0 + n_warmup):
+        adapting = i < mass_freeze
+        if adapt_mass == "lowrank":
+            # diag-EMA outer scale x standardized low-rank core
+            mass_d, chol_d = _lowrank_metric(var_ema, lr_Q, lr_sig), None
+        elif adapt_mass:
+            if adapt_mass == "dense" and not adapting and frozen_chol is None:
+                frozen_chol = _chol_upper(var_ema)
+            # adapting dense rounds factor on the fly in _momentum
+            mass_d, chol_d = var_ema, frozen_chol
+        else:
+            mass_d, chol_d = mass_b, chol_u
+        x, f, g, alpha, depth, _e, _d = one_draw(x, f, g, torch.exp(log_eps), mass_d, chol_d,
+                                                 0, i)
+        # depth telemetry over the plan's two tail windows (post-freeze
+        # rounds: eps is near-final and depths match the sampling phase)
+        if w1s <= i < w2s:
+            wds[0] += depth.to(dtype)
+        elif w2s <= i < w2e:
+            wds[1] += depth.to(dtype)
+        log_eps, log_eps_bar, h_bar, t_da = _da_update(
+            h_bar, log_eps_bar, t_da, target_accept - alpha, state.mu)
+        if not adapting:
+            continue
+        if adapt_mass == "dense":
+            # full across-chain covariance EMA; PD: mixes the PD carry
+            # with a ridged PSD sample covariance
+            xc = x - torch.mean(x, dim=0, keepdim=True)
+            cov_now = xc.T @ xc / (chains - 1)
+            cov_now = cov_now + 1e-8 * torch.eye(n, dtype=dtype, device=device) * (
+                1.0 + torch.trace(cov_now) / n)
+            var_ema = 0.9 * var_ema + 0.1 * cov_now
+        elif adapt_mass == "lowrank":
+            lr_Q, lr_sig, var_ema = _lowrank_mass_step(x, var_ema, lr_Q, lr_sig, True, chains)
+        elif adapt_mass:
+            # chees_sample's fleet estimator: across-chain variance EMA,
+            # frozen at warmup/2 so eps re-adapts to the final metric
+            var_ema = 0.9 * var_ema + 0.1 * torch.clamp_min(_fleet_var(x), 1e-10)
+
+    eps_final = torch.exp(log_eps_bar)
+    if adapt_mass == "lowrank":
+        mass_final = _lowrank_metric(var_ema, lr_Q, lr_sig)
+    else:
+        mass_final = var_ema if adapt_mass else mass_b
+    if adapt_mass == "dense":
+        chol_final = frozen_chol if frozen_chol is not None else _chol_upper(mass_final)
+    else:
+        chol_final = chol_u if not adapt_mass else None
+
+    # ---- sampling at the adapted (eps, mass) ----
+    samples = torch.empty((n_samples, chains, n), dtype=dtype, device=device)
+    alphas = torch.empty((n_samples, chains), dtype=dtype, device=device)
+    depths = torch.empty((n_samples, chains), dtype=dtype, device=device)
+    energies = torch.empty((n_samples, chains), dtype=dtype, device=device)
+    divs = torch.empty((n_samples, chains), dtype=torch.int32, device=device)
+    for j in range(n_samples):
+        x, f, g, alpha, depth, energy, div = one_draw(x, f, g, eps_final, mass_final,
+                                                      chol_final, 1, i_samp0 + j)
+        samples[j], alphas[j], depths[j], energies[j], divs[j] = x, alpha, depth, energy, div
+    out_state = NUTSState(
+        x=x, f=f, g=g, log_eps=log_eps, log_eps_bar=log_eps_bar, h_bar=h_bar, t_da=t_da,
+        mu=state.mu, var_ema=var_ema, key=state.key,
+        i_warm=_counter(i_warm0 + n_warmup, device), i_samp=_counter(i_samp0 + n_samples, device),
+        n_warmup_total=state.n_warmup_total, mass_freeze=_counter(mass_freeze, device),
+        lr_Q=lr_Q, lr_sig=lr_sig, warm_dsum=wds,
+    )
+    # means as JAX's compiled mean takes them: the sum over draws times the
+    # reciprocal of their count (NaN without draws)
+    inv_count = 1.0 / n_samples if n_samples else math.nan
+    return NUTSResult(
+        samples=samples,
+        accept_prob=torch.sum(alphas, dim=0) * inv_count,
+        step_size=eps_final,
+        mean_tree_depth=torch.sum(depths, dim=0) * inv_count,
+        mass_diag=_mass_diag(mass_final),
+        energies=energies,
+        divergences=torch.sum(divs, dim=0, dtype=torch.int32),
+        final_x=x,
+        state=out_state,
+    )
+
+
+def nuts_sample(
+    obj,
+    key,
+    x0s,  # (chains, n) initial positions (e.g. the MAP fleet)
+    mass=None,  # (n, n) dense / (n,) diag ~ cov / LowRankMass; None = adapt
+    n_samples: int = 1000,
+    n_warmup: int = 500,
+    step_size: float = 0.1,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    max_energy_change: float = 1000.0,
+    adapt_mass=True,
+    value_and_grad_fn: Optional[Callable] = None,
+    total_warmup: Optional[int] = None,
+    mass_rank: int = 16,
+) -> NUTSResult:
+    """Batched multinomial NUTS over lockstep chains.
+
+    The No-U-Turn Sampler (Hoffman & Gelman 2014) with the refinements
+    Stan ships: multinomial sampling over the trajectory (progressive
+    within a subtree, biased toward the new subtree between subtrees —
+    Betancourt 2017), iterative tree building with a checkpoint stack of
+    O(max_depth) boundary states, dual-averaged per-chain step sizes
+    driven by the leaf acceptance-probability surrogate, divergence
+    rejection at ``max_energy_change``, and (with ``adapt_mass``, no
+    explicit ``mass``) `chees_sample`'s fleet mass adaptation, frozen at
+    warmup/2. ``adapt_mass`` takes the same modes: True/'diag', 'dense'
+    (full across-chain covariance EMA) and 'lowrank' (top-``mass_rank``
+    eigenspace by subspace iteration, sampling through `LowRankMass`).
+    Each doubling costs 2^j gradient evaluations, so a better metric,
+    which shrinks the depth, is a direct throughput lever.
+
+    Chains advance in lockstep (see `_nuts_core`): every chain waits for
+    the deepest tree of each draw, and the loops read one flag a leaf and
+    one a doubling (``nuts_sample.host_syncs``). `chees_sample` is the
+    lockstep-native alternative.
+
+    ``key``: see the module docstring. ``x0s`` follows the entry points'
+    device rule (`utils.device.as_device_tensor`). The result carries a
+    resumable `state`; `nuts_sample_from_state` continues the run
+    trajectory-identically. For chunked warmup announce the plan with
+    ``total_warmup`` (it pins the mass-freeze step and the depth
+    telemetry's windows) and run ``n_warmup <= total_warmup`` steps now,
+    the rest via the resume entry point.
+    """
+    x0s = as_device_tensor(x0s)
+    chains, n = x0s.shape
+    dtype, device = x0s.dtype, x0s.device
+    if total_warmup is None:
+        total_warmup = n_warmup
+    if n_warmup > total_warmup:
+        raise ValueError(
+            f"n_warmup ({n_warmup}) exceeds total_warmup ({total_warmup})"
+        )
+    if n_samples > 0 and n_warmup < total_warmup:
+        raise ValueError(
+            "cannot draw samples before the announced warmup plan is "
+            f"complete ({n_warmup} of {total_warmup} steps); chunk with "
+            "n_samples=0 and finish warmup via nuts_sample_from_state"
+        )
+    key = _as_key(key, nuts_sample)
+    adapt_mass = _chees_adapt_mass(adapt_mass, mass, chains)
+    var0 = (
+        torch.eye(n, dtype=dtype, device=device)
+        if adapt_mass == "dense"
+        else torch.ones((n,), dtype=dtype, device=device)
+    )
+    if adapt_mass == "lowrank":
+        lr_Q0, lr_sig0 = _lowrank_mass_init(mass_rank, n, chains, dtype, device)
+    else:
+        lr_Q0 = lr_sig0 = None
+    eps0 = _full(step_size, dtype, device)
+    log_eps0 = torch.log(eps0).expand(chains).clone()
+    mass_freeze = max(total_warmup // 2, 1)
+    state0 = NUTSState(
+        x=x0s,
+        f=_full(math.nan, dtype, device, (chains,)),
+        g=torch.zeros_like(x0s),
+        log_eps=log_eps0,
+        log_eps_bar=log_eps0,
+        h_bar=torch.zeros((chains,), dtype=dtype, device=device),
+        t_da=torch.zeros((), dtype=dtype, device=device),
+        mu=torch.log(10.0 * eps0),
+        var_ema=var0,
+        key=key,
+        i_warm=_counter(0, device),
+        i_samp=_counter(0, device),
+        n_warmup_total=_counter(total_warmup, device),
+        mass_freeze=_counter(mass_freeze, device),
+        lr_Q=lr_Q0,
+        lr_sig=lr_sig0,
+        warm_dsum=torch.zeros((2, chains), dtype=dtype, device=device),
+    )
+    return _nuts_core(obj, state0, mass, n_samples, n_warmup, max_depth, target_accept,
+                      max_energy_change, adapt_mass, value_and_grad_fn, 0, 0, mass_freeze,
+                      total_warmup)
+
+
+def nuts_sample_from_state(
+    obj,
+    state: NUTSState,
+    mass=None,
+    n_samples: int = 0,
+    n_warmup: int = 0,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    max_energy_change: float = 1000.0,
+    adapt_mass=True,
+    value_and_grad_fn: Optional[Callable] = None,
+) -> NUTSResult:
+    """Continue a `nuts_sample` run from its saved state; the chunking
+    contract of `chees_sample_from_state` (config args re-passed, phases
+    monotone, warmup plan pinned by the first call). The phase counters
+    are read once, counted in ``nuts_sample.host_syncs``."""
+    state = as_device_state(state)
+    i_warm0, i_samp0, n_total, mass_freeze = _read_counters(
+        nuts_sample, state.i_warm, state.i_samp, state.n_warmup_total, state.mass_freeze)
+    if n_warmup > 0 and i_samp0 > 0:
+        raise ValueError(
+            "cannot add warmup after sampling has begun "
+            f"(state has {i_samp0} draws)"
+        )
+    if i_warm0 + n_warmup > n_total:
+        raise ValueError(
+            f"warmup plan exceeded: state has {i_warm0} of "
+            f"{n_total} planned steps; requested {n_warmup} more"
+        )
+    if n_samples > 0 and i_warm0 + n_warmup < n_total:
+        raise ValueError(
+            "cannot draw samples before the announced warmup plan is "
+            f"complete ({i_warm0 + n_warmup} of {n_total} steps)"
+        )
+    chains = state.x.shape[0]
+    adapt_mass = _chees_adapt_mass(adapt_mass, mass, chains)
+    _check_resume_mass_mode(adapt_mass, state.var_ema, state.lr_Q)
+    return _nuts_core(obj, state, mass, n_samples, n_warmup, max_depth, target_accept,
+                      max_energy_change, adapt_mass, value_and_grad_fn, i_warm0, i_samp0,
+                      mass_freeze, n_total)
+
+
+nuts_sample.host_syncs = 0
+nuts_sample.gradient_evals = 0
+
+
+# ---------------------------------------------------------------------------
+# Depth-sorted NUTS sub-fleets
+# ---------------------------------------------------------------------------
+
+_NUTS_CHAIN_FIELDS = ("x", "f", "g", "log_eps", "log_eps_bar", "h_bar")
+
+
+class DepthSortInfo(NamedTuple):
+    """What `nuts_sample_depth_sorted` decided and why.
+
+    sorted: whether the sub-fleet path ran (False = persistence or spread
+        below threshold; the draws are then bitwise-identical to a plain
+        `nuts_sample_from_state` run of the same length)
+    persistence: leg-to-leg Pearson r of per-chain mean tree depth across
+        the two probe legs (nan when the fleet has no depth spread)
+    depth_spread: max - min per-chain mean depth on the second probe leg
+    group_sizes: chains per sub-fleet (empty when not sorted)
+    group_mean_depths: mean tree depth per sub-fleet over the main leg
+    """
+
+    sorted: bool
+    persistence: float
+    depth_spread: float
+    group_sizes: tuple
+    group_mean_depths: tuple
+
+
+def _nuts_take_chains(state: NUTSState, idx: torch.Tensor) -> NUTSState:
+    """Sub-fleet view of a NUTS state: per-chain fields gathered at
+    ``idx`` (an index tensor on the chains' device); the fleet-shared
+    fields (mass EMA, DA clock, key, phase counters) ride along
+    unchanged."""
+    out = state._replace(
+        **{k: torch.index_select(getattr(state, k), 0, idx) for k in _NUTS_CHAIN_FIELDS})
+    if state.warm_dsum is not None:
+        out = out._replace(warm_dsum=torch.index_select(state.warm_dsum, 1, idx))
+    return out
+
+
+def _host_float64(t: torch.Tensor) -> np.ndarray:
+    """``t`` on the host as float64 numpy: one read, counted in
+    ``nuts_sample.host_syncs``."""
+    nuts_sample.host_syncs += 1
+    return t.detach().cpu().numpy().astype(np.float64)
+
+
+def nuts_sample_depth_sorted(
+    obj,
+    state: NUTSState,
+    n_samples: int,
+    mass=None,
+    groups: int = 4,
+    probe_draws: int = 16,
+    min_persistence: float = 0.5,
+    min_depth_spread: float = 0.25,
+    max_depth: int = 8,
+    target_accept: float = 0.8,
+    max_energy_change: float = 1000.0,
+    adapt_mass=True,
+    value_and_grad_fn: Optional[Callable] = None,
+):
+    """Post-warmup NUTS sampling with depth-homogeneous sub-fleets.
+
+    Lockstep NUTS charges every chain the fleet-max tree work per draw.
+    When per-chain tree depth is recurringly predictable — chains in
+    tighter regions of the target keep needing deeper trees — sorting
+    chains by recent mean depth into ``groups`` sub-fleets cuts
+    sum(group_size x group_max_work) below fleet_size x fleet_max_work.
+    On a depth-homogeneous target the split only adds dispatch cost, which
+    is why this entry point probes first and only sorts when the geometry
+    can pay.
+
+    Probe data: the NUTS warmup records per-chain tree-depth telemetry
+    over the plan's two tail windows (``NUTSState.warm_dsum``), so by
+    default no probe draws are spent. States without it
+    (``warm_dsum=None``) fall back to two full-fleet probe legs of
+    ``probe_draws`` each (real post-warmup draws, counted toward
+    ``n_samples``). Either way, two per-chain mean-depth vectors d1/d2 are
+    measured on the host in float64; if their across-chain Pearson r
+    reaches ``min_persistence`` and the depth spread reaches
+    ``min_depth_spread`` doublings, chains sort (stably) into ``groups``
+    contiguous depth classes and the remaining draws run per sub-fleet,
+    scattered back to the original chain order on the device.
+
+    Noise: sub-fleets must not share the parent's streams (chains at the
+    same position would draw identical momenta), so sub-fleet g samples
+    under `_subfleet_key` (key, g); the sorted path is distributionally
+    equivalent to the unsorted run, not bitwise-identical. The fallback
+    path is bitwise-identical to a plain `nuts_sample_from_state` run of
+    the same length.
+
+    Returns ``(NUTSResult, DepthSortInfo)``. The result's ``state`` is
+    merged back to the original chain order under the parent key and
+    resumes through any NUTS entry point. Requires a completed warmup plan
+    (mass and DA schedules are fleet-shared and frozen). Every read (the
+    counters, the telemetry or the probe legs' depths, the groups' mean
+    depths) is counted in ``nuts_sample.host_syncs``.
+    """
+    state = as_device_state(state)
+    i_warm, n_total = _read_counters(nuts_sample, state.i_warm, state.n_warmup_total)
+    if i_warm < n_total:
+        raise ValueError(
+            "nuts_sample_depth_sorted requires a completed warmup plan "
+            f"(state has {i_warm} of "
+            f"{n_total} steps); finish warmup via "
+            "nuts_sample / nuts_sample_from_state first"
+        )
+    chains = state.x.shape[0]
+    device = state.x.device
+    if groups < 1:
+        raise ValueError(f"groups must be >= 1 (got {groups})")
+    if groups > chains:
+        raise ValueError(
+            f"groups ({groups}) exceeds the chain count ({chains})"
+        )
+    if n_samples < 0:
+        raise ValueError(f"n_samples must be >= 0 (got {n_samples})")
+
+    kw = dict(
+        mass=mass, max_depth=max_depth, target_accept=target_accept,
+        max_energy_change=max_energy_change, adapt_mass=adapt_mass,
+        value_and_grad_fn=value_and_grad_fn,
+    )
+
+    def plain(st, n):
+        return nuts_sample_from_state(obj, st, n_samples=n, **kw)
+
+    wds = None if state.warm_dsum is None else state.warm_dsum.double()
+    wds_host = None if wds is None else _host_float64(wds)
+    have_telemetry = wds_host is not None and bool(wds_host[1].sum() > 0)
+    if groups == 1 or n_samples <= 0 or (
+        not have_telemetry and (probe_draws <= 0 or n_samples <= 2 * probe_draws)
+    ):
+        res = plain(state, n_samples)
+        info = DepthSortInfo(
+            sorted=False, persistence=float("nan"),
+            depth_spread=float("nan"), group_sizes=(),
+            group_mean_depths=(),
+        )
+        return res, info
+
+    if have_telemetry:
+        # free probe data from the warmup's tail windows
+        _w1s, _w2s, _w2e, W = _warm_depth_windows(n_total)
+        d1, d2 = wds_host[0] / W, wds_host[1] / W
+        d2_dev = wds[1] / W
+        pre = []  # no probe legs spent
+        st = state
+        remaining = n_samples
+    else:
+        p1 = plain(state, probe_draws)
+        p2 = plain(p1.state, probe_draws)
+        d2_dev = p2.mean_tree_depth.double()
+        d1, d2 = _host_float64(torch.stack([p1.mean_tree_depth, p2.mean_tree_depth]))
+        pre = [(probe_draws, p1), (probe_draws, p2)]
+        st = p2.state
+        remaining = n_samples - 2 * probe_draws
+
+    spread = float(d2.max() - d2.min())
+    if d1.std() > 0.0 and d2.std() > 0.0:
+        persistence = float(np.corrcoef(d1, d2)[0, 1])
+    else:
+        persistence = float("nan")
+
+    def merge_legs(legs):
+        """Concatenate (n_draws, result) legs in original chain order."""
+        tot = sum(w for w, _ in legs)
+        return legs[-1][1]._replace(
+            samples=torch.cat([r.samples for _, r in legs]),
+            accept_prob=sum(w * r.accept_prob for w, r in legs) / tot,
+            mean_tree_depth=sum(w * r.mean_tree_depth for w, r in legs) / tot,
+            energies=torch.cat([r.energies for _, r in legs]),
+            divergences=sum(r.divergences for _, r in legs),
+        )
+
+    if not (persistence >= min_persistence and spread >= min_depth_spread):
+        # geometry can't pay: run unsorted — with telemetry this is one
+        # plain call; with probe legs, the chunking identity makes legs +
+        # tail one plain run of n_samples
+        tail = plain(st, remaining)
+        res = merge_legs(pre + [(remaining, tail)])
+        info = DepthSortInfo(
+            sorted=False, persistence=persistence, depth_spread=spread,
+            group_sizes=(), group_mean_depths=(),
+        )
+        return res, info
+
+    # numpy's stable argsort and array_split of d2, on the device from the
+    # same float64 values (a stable sort is one permutation), so that no
+    # index table is copied to the card
+    order = torch.argsort(d2_dev, stable=True)
+    sizes = [len(a) for a in np.array_split(np.arange(chains), groups)]
+    sub_results = []
+    for gi, idx in enumerate(torch.split(order, sizes)):
+        sub = _nuts_take_chains(st, idx)
+        sub = sub._replace(key=_subfleet_key(st.key, gi))
+        sub_results.append(plain(sub, remaining))
+
+    inv = torch.empty_like(order).scatter_(0, order, torch.arange(chains, device=device))
+
+    def scatter(parts, axis):
+        return torch.index_select(torch.cat(parts, dim=axis), axis, inv)
+
+    samples_main = scatter([r.samples for r in sub_results], 1)
+    acc_main = scatter([r.accept_prob for r in sub_results], 0)
+    dep_main = scatter([r.mean_tree_depth for r in sub_results], 0)
+    final_x = scatter([r.final_x for r in sub_results], 0)
+    energies = torch.cat([r.energies for _, r in pre]
+                         + [scatter([r.energies for r in sub_results], 1)])
+    divergences = sum(r.divergences for _, r in pre) + scatter(
+        [r.divergences for r in sub_results], 0)
+    samples = torch.cat([r.samples for _, r in pre] + [samples_main])
+    acc = (sum(w * r.accept_prob for w, r in pre) + remaining * acc_main) / n_samples
+    dep = (sum(w * r.mean_tree_depth for w, r in pre) + remaining * dep_main) / n_samples
+
+    first = sub_results[0].state
+    merged = st._replace(
+        key=st.key,  # the parent's; the groups sampled under _subfleet_key
+        i_samp=first.i_samp,
+        t_da=first.t_da,
+        var_ema=first.var_ema,
+        **{k: scatter([getattr(r.state, k) for r in sub_results], 0)
+           for k in _NUTS_CHAIN_FIELDS},
+    )
+    if st.warm_dsum is not None:
+        merged = merged._replace(warm_dsum=scatter([r.state.warm_dsum for r in sub_results], 1))
+    res = NUTSResult(
+        samples=samples,
+        accept_prob=acc,
+        step_size=scatter([r.step_size for r in sub_results], 0),
+        mean_tree_depth=dep,
+        mass_diag=sub_results[0].mass_diag,
+        energies=energies,
+        divergences=divergences,
+        final_x=final_x,
+        state=merged,
+    )
+    nuts_sample.host_syncs += 1
+    group_depths = torch.stack([torch.mean(r.mean_tree_depth) for r in sub_results]).tolist()
+    info = DepthSortInfo(
+        sorted=True, persistence=persistence, depth_spread=spread,
+        group_sizes=tuple(sizes),
+        group_mean_depths=tuple(group_depths),
+    )
+    return res, info

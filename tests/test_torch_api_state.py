@@ -62,17 +62,17 @@ def test_port_imports_no_jax():
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
-# the JAX package's names the port does not have yet: NUTS and the other
-# samplers, evidence by sampling, the sampling workflow and what follows
-# them (ROADMAP.md A)
+# the JAX package's names the port does not have yet: the other samplers,
+# evidence by sampling, the sampling workflow and what follows them
+# (ROADMAP.md A)
 NOT_YET_PORTED = {
-    "AISResult", "BridgeResult", "DepthSortInfo", "EnsembleResult", "EnsembleState", "LOOResult",
-    "MCLMCResult", "MCLMCState", "MapThenSampleResult", "NUTSResult", "NUTSState", "PTResult",
+    "AISResult", "BridgeResult", "EnsembleResult", "EnsembleState", "LOOResult",
+    "MCLMCResult", "MCLMCState", "MapThenSampleResult", "PTResult",
     "PTState", "PathfinderResult", "PytreeSampleResult", "SVGDResult", "SVGDState", "WAICResult",
     "ais_evidence", "bridge_evidence", "ensemble_autocorr_time", "ensemble_sample",
     "ensemble_sample_from_state", "geometric_ladder", "loo_compare", "loo_psis",
     "map_then_sample", "map_then_sample_pytree", "mclmc_sample", "mclmc_sample_from_state",
-    "nuts_sample", "nuts_sample_depth_sorted", "nuts_sample_from_state", "pathfinder",
+    "pathfinder",
     "psis_smooth", "pt_sample", "pt_sample_from_state", "svgd_sample", "svgd_sample_from_state",
     "waic",
 }
@@ -85,11 +85,18 @@ def test_version_and_exported_names_match_jax():
 
 
 # the JAX package's samplers that get_sampler names as not yet ported
-@pytest.mark.parametrize("name", ["ensemble", "mclmc", "nuts", "pt"])
+@pytest.mark.parametrize("name", ["ensemble", "mclmc", "pt"])
 def test_get_sampler_names_what_is_not_yet_ported(name):
     with pytest.raises(NotImplementedError, match=f"sampler '{name}' is not yet ported"):
         qt.sampling.get_sampler(name)
     assert qj.sampling.get_sampler(name) is not None
+
+
+# the samplers ported since get_sampler first named them as not yet ported
+@pytest.mark.parametrize("name", ["nuts"])
+def test_get_sampler_resolves_what_was_ported(name):
+    assert qt.sampling.get_sampler(name) is getattr(qt, f"{name}_sample")
+    assert qj.sampling.get_sampler(name) is getattr(qj, f"{name}_sample")
 
 
 @pytest.mark.parametrize("n", [6, 7])

@@ -199,17 +199,18 @@ def test_refusals_match_jax(tmp_path):
 
 def test_sampler_states_and_prng_keys_are_not_yet_ported(tmp_path):
     """The sampler states still to port raise, and so does a PRNG key
-    anywhere but a sampler state's ``key`` field (HMCState and ChEESState
-    are ported: tests/test_torch_sampling_resume.py)."""
+    anywhere but a sampler state's ``key`` field (HMCState, ChEESState and
+    NUTSState are ported: tests/test_torch_sampling_resume.py and
+    tests/test_torch_sampling_nuts_resume.py)."""
     import jax
 
-    from quasinewtonmethods_jl_tpu.sampling import NUTSState
+    from quasinewtonmethods_jl_tpu.tempering import PTState
 
-    jax_state = NUTSState(*(jnp.zeros(()) for _ in NUTSState._fields))
-    jax_checkpoint.save_state(tmp_path / "nuts", jax_state)
-    with pytest.raises(TypeError, match="NUTSState is a sampler state.*not yet ported"):
-        checkpoint.load_state(tmp_path / "nuts", device="cpu")
-    with np.load(tmp_path / "nuts.npz") as z:
+    jax_state = PTState(*(jnp.zeros(()) for _ in PTState._fields))
+    jax_checkpoint.save_state(tmp_path / "pt", jax_state)
+    with pytest.raises(TypeError, match="PTState is a sampler state.*not yet ported"):
+        checkpoint.load_state(tmp_path / "pt", device="cpu")
+    with np.load(tmp_path / "pt.npz") as z:
         arrays = {k: z[k] for k in z.files}
     arrays["__class__"] = np.asarray("BFGSState")
     arrays["__key_fields__"] = np.asarray(["x"])
@@ -218,9 +219,9 @@ def test_sampler_states_and_prng_keys_are_not_yet_ported(tmp_path):
     with pytest.raises(TypeError, match="PRNG keys in \\['x'\\].*only in a sampler state"):
         checkpoint.load_state(tmp_path / "keyed.npz", device="cpu")
 
-    class NUTSStateLike(tuple):
+    class PTStateLike(tuple):
         pass
 
-    NUTSStateLike.__name__ = "NUTSState"
-    with pytest.raises(TypeError, match="NUTSState is a sampler state"):
-        checkpoint.save_state(tmp_path / "x", NUTSStateLike())
+    PTStateLike.__name__ = "PTState"
+    with pytest.raises(TypeError, match="PTState is a sampler state"):
+        checkpoint.save_state(tmp_path / "x", PTStateLike())

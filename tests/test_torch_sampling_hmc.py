@@ -340,6 +340,7 @@ def test_step_noise_is_a_pure_function_of_key_phase_step():
 def test_get_sampler_resolves_and_keeps_jax_error_text():
     assert sampling.get_sampler("hmc") is qt.hmc_sample
     assert sampling.get_sampler("chees") is qt.chees_sample
+    assert sampling.get_sampler("nuts") is qt.nuts_sample
     with pytest.raises(ValueError) as port_err:
         sampling.get_sampler("gibbs")
     with pytest.raises(ValueError) as jax_err:
@@ -352,6 +353,8 @@ SAMPLER_ENTRY_POINTS = {
                                           n_warmup=0),
     "chees_sample": lambda a: qt.chees_sample(lambda x: -torch.sum(x * x), 0, a, n_samples=1,
                                               n_warmup=0),
+    "nuts_sample": lambda a: qt.nuts_sample(lambda x: -torch.sum(x * x), 0, a, n_samples=1,
+                                            n_warmup=0),
 }
 
 

@@ -255,13 +255,13 @@ def test_other_key_impls_and_unported_sampler_states_raise(tmp_path):
     np.savez(tmp_path / "rbg.npz", **arrays)
     with pytest.raises(TypeError, match="rbg PRNG key.*only threefry2x32"):
         checkpoint.load_state(tmp_path / "rbg.npz", device="cpu")
-    from quasinewtonmethods_jl_tpu.sampling import NUTSState
+    from quasinewtonmethods_jl_tpu.tempering import PTState
 
-    jax_checkpoint.save_state(tmp_path / "nuts", NUTSState(*(jnp.zeros(())
-                                                             for _ in NUTSState._fields)))
-    with pytest.raises(TypeError, match="NUTSState is a sampler state.*not yet ported"):
-        checkpoint.load_state(tmp_path / "nuts", device="cpu")
-    for name in ("NUTSState", "PTState", "SVGDState", "EnsembleState", "MCLMCState"):
+    jax_checkpoint.save_state(tmp_path / "pt", PTState(*(jnp.zeros(())
+                                                         for _ in PTState._fields)))
+    with pytest.raises(TypeError, match="PTState is a sampler state.*not yet ported"):
+        checkpoint.load_state(tmp_path / "pt", device="cpu")
+    for name in ("PTState", "SVGDState", "EnsembleState", "MCLMCState"):
         like = type(name, (tuple,), {})()
         with pytest.raises(TypeError, match=f"{name} is a sampler state.*not yet ported"):
             checkpoint.save_state(tmp_path / "x", like)
