@@ -25,10 +25,14 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      for sm_90a, one nvcc per source in parallel (nvcc's resource report
      goes to stderr), and beside it phases 22's and 23's objectives, traced,
      generated and built one nvcc each; both builds run in background
-     processes (niced, off one core) while the traces are made and phase
-     16's float32 starts, which launch no hand-written kernel and time
-     nothing, run, and this phase waits for them: the run's order is 1,
-     the traces, 16's float32 starts, 2, then 3-27;
+     processes (niced, off one core) while the traces are made; beside
+     them phase 16's float32 starts and phase 9's plain runs (made ahead,
+     saved to a file) run in processes of their own on the card, and this
+     one makes ahead the plain versions phases 22 and 23 compare against
+     (none of them launches a hand-written kernel or times anything;
+     `prefetch_plain` stops once the four processes have ended); this
+     phase waits for them: the run's order is 1, the traces and the runs
+     ahead, 2, then 3-28;
   3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
      128} and the largest n that fits (237 f32, 167 f64), every lane kind
      (active, frozen, fresh, forced reset, NaN);
@@ -53,7 +57,7 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      1, 5 and 3000; a tol 1e-14 run and an f32 overflow start; the errors
      and, over whole solves, the lanes whose counters differ, each against
      what a change of rounding alone does to the plain version (started 1
-     ulp away; run on the CPU, but for the phase-4 fleet's whole solve);
+     ulp away; at the phase-4 fleet's caps 1 and 5 also run on the CPU);
      and how fast a 1-ulp difference grows along a trajectory. A whole
      solve's plain run and its one-ulp witnesses on the card run as one
      fleet of their starts stacked (`stacked_runs`: the engine steps each
@@ -74,13 +78,13 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      launched, and every host synchronisation a counted one (sync debug
      mode); solves/s with and without ``fold_eval`` (2 turns each, with each
      turn's difference), host syncs and loop bodies per solve, peak device memory, the device's busy share
-     of one solve (torch.profiler);
+     over a solve's first 100 iterations (torch.profiler);
  13. BFGS with the Wolfe search: the phase-4 fleet through
      `optimize_batched(ls=Wolfe())`, every lane converged, median within 10 %
      of the JAX package's, B1 launched once per loop body; then
-     ``fold_eval=True`` for the BFGS and CG engines, which must converge
-     every lane with fewer evaluations; solves/s (2 turns each, with each
-     turn's difference);
+     ``fold_eval=True`` for the BFGS and CG engines (CG's: phase 12's
+     timed solve), which must converge every lane with fewer evaluations;
+     solves/s (2 turns each, with each turn's difference);
  14. compaction: the phase-4 fleet through `optimize_batched_compacted`
      with kernel='cuda': the statuses of `optimize_batched_fused`, every
      lane certified, B1 launched; the lanes whose counters differ from the
@@ -201,7 +205,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      ``transform_objective(m, m.transform)``, n = 23, 4096 starts, tol
      1e-3, in f32 and f64 against its plain version (the caps and whole
      solves held to the rounding witnesses, as the model is chaotic in its
-     first iterations: `traced_parity` with ``chaotic``), then in f32 and
+     first iterations: `traced_parity` with ``chaotic``; f64's plain whole
+     solve timed alone, f32's stacked with its witnesses), then in f32 and
      f64 through `optimize_batched_resident` on the function itself (one
      launch each, no host synchronisation, its first call: it traces) and
      `optimize_batched` (B1): statuses CONVERGED or LINESEARCH_FAILURE
@@ -232,7 +237,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      condition 1e4 (config 9, tol 1e-3, max_cg 256), resumed from 5
      iterations to 10 (statuses and counts those of the one-leg run), and
      `minimize(method="tr")` on the negated function over the whole
-     fleet, equal to `optimize_tr`'s counted run after the sign flip;
+     fleet for 5 iterations, equal to `optimize_tr`'s 5-iteration run
+     after the sign flip;
      `optimize_auglag` on the bench fleet with ineq 30 - x·x (config 14,
      tol = ctol = 1e-3, at most 2000 inner iterations) through the CG
      engine (no kernel) and the BFGS engine (B1), and `minimize(ineq=...,
@@ -246,10 +252,10 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      kernel launched on the LM, TR and auglag CG paths and B1 once per
      inner loop body on the auglag BFGS ones; solves/s of one call, host
      syncs and loop bodies (outer and inner) per solve, peak device
-     memory, and the device's busy share of one TR and one auglag BFGS
-     solve (torch.profiler; the TR fleet's one call is counted, profiled
-     and timed at once, the auglag CG fleet's timed call is its counted
-     one: each takes several seconds).
+     memory, and the device's busy share of the TR fleet's first 5
+     iterations (its resumed leg's first call) and of one auglag BFGS
+     solve (torch.profiler; each fleet's timed call is its counted one:
+     each takes seconds).
  25. the MAP back end (multistart.py, polish.py, laplace.py,
      utils/checkpoint.py, pytree.py, implicit.py, diagnostics.py), on the
      bench fleet (4096 x 60 f32) unless said otherwise, held to the JAX
@@ -301,12 +307,13 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      E-BFMI printed beside JAX's; (c) `chees_sample` (no mass: the fleet
      adapts its diagonal), the same gates, mean accept within 0.05 of its
      0.75 target and one counted host read a round; step size and
-     trajectory length printed beside JAX's; (d) HMC's warmup and ChEES's
-     two warmup halves through `save_state` / `load_state` on the card
-     (every leaf bit for bit), then 100 draws, equal to the long runs'
-     first 100 bit for bit; for (b) and (c) seconds a call, draws/s,
-     gradient evaluations/s, host syncs, peak memory, and the device's
-     busy share over 20 profiled transitions from the warm state.
+     trajectory length printed beside JAX's; (d) a short plan (40 warmup
+     steps, 20 draws) of each, long and with HMC's warmup and ChEES's two
+     warmup halves through `save_state` / `load_state` on the card (every
+     leaf bit for bit): the draws and every state leaf bit for bit; for (b)
+     and (c) seconds a call, draws/s, gradient evaluations/s, host syncs,
+     peak memory, and the device's busy share over 20 profiled transitions
+     from (b)'s and (c)'s final states.
  27. NUTS and depth-sorted NUTS (sampling.py), the workflow's
      ``sampler="nuts"`` and ``depth_sort=True`` routes on the same
      posterior, f32, held to the JAX package's numbers
@@ -337,6 +344,40 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      (e) for (b) seconds a call, draws/s, gradient evaluations/s, host
      syncs, peak memory, and the busy share and device events a leaf over
      3 profiled draws from the warm state.
+ 28. The workflow's other two initializers and PSIS (pathfinder.py,
+     svgd.py, loo.py) on the same posterior, f32, held to the JAX
+     package's numbers (scripts/jax_pathfinder_reference.py, which writes
+     scripts/jax_pathfinder_reference.json): (a) the ``init="pathfinder"``
+     route, `pathfinder(model, key, zeros(100), n_draws=4096,
+     init_scale=1.0)` with its defaults (8 paths, a pool of 16384, history
+     8, 64 iterations, 16 ELBO draws): no NaN in the draws, every path's
+     ELBO finite and no NONFINITE_VALUE status (JAX has none), the median
+     path ELBO and khat inside the band JAX's runs under 10 keys span,
+     widened by half that band on each side, and the draws' per-coordinate
+     mean and sd no further from JAX's key mean (the largest distance over
+     the coordinates, in units of the sd) than 1.5 times the largest of
+     JAX's own leave-one-key-out distances; every synchronisation flagged
+     one of ``pathfinder.host_syncs`` and no BFGS launch; then the draws
+     and ``pf.mass()`` handed to `chees_sample` (150 warmup rounds, 50
+     draws): no NaN, mean accept within 0.05 of the 0.75 target; (b) the
+     ``init="svgd"`` route, `svgd_sample` with its defaults (500 steps) on
+     4096 particles (phase 20's numpy starts, x0 = 0 plus a standard
+     normal): no host read at all, the final bandwidth, the particles'
+     per-coordinate mean and sd and 8 particle rows each within twice the
+     largest spread between JAX's run and JAX's runs from six witnesses of
+     the starts moved by one ulp (at this size 500 steps amplify rounding
+     to ~1e-2 in the bandwidth, so one witness is one draw of it), and
+     250 steps + a checkpoint + 250 steps bit for bit equal to 500; (c)
+     PSIS-LOO and WAIC on sampler draws: phase 26 (a)'s MAP fleet (B1),
+     `chain_init_from_map(jitter=0.05)`, `hmc_sample` (100 warmup rounds,
+     16 leapfrog steps, one draw a chain: S = 4096), then `loo_psis` and
+     `waic` on the (4096, 500) pointwise Bernoulli log-likelihood: elpd,
+     se, p_loo, p_waic and every khat against the port's own float64 run
+     of the same matrix on the CPU (LOO_F32_RTOL, LOO_KHAT_ATOL), and
+     elpd_loo and elpd_waic no further from JAX's mean over 6 keys of the
+     same plan than twice JAX's key-to-key spread; B1 at that shape timed
+     again; (d) for (a) and (b) seconds a call, objective evaluations/s,
+     host syncs, peak memory and the busy share over one profiled call.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -368,7 +409,9 @@ fleet's shape (4096 x 100 f32, every lane active) in phase 26, its ``ms``
 by CUDA events over back-to-back launches; and a fifth,
 ``fused_bfgs_update_batched[nuts]``: its launches are phase 27 (a)'s
 fleet's, its max_abs_err, times and bound B1's at that shape measured
-again in phase 27. B3 with a traced objective has one record per full-width fleet of phases
+again in phase 27; and a sixth, ``fused_bfgs_update_batched[loo]``: phase
+28 (c)'s fleet's launches, and B1 at that shape measured again in phase
+28. B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -378,6 +421,8 @@ Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
 """
 
+import functools
+import hashlib
 import json
 import math
 import os
@@ -386,6 +431,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -398,6 +444,7 @@ TOL, MAX_ITERS = 1e-3, 3000
 # (1, after the counted run that warmed each engine, which leaves room for
 # phases 16-25 in the time limit on the slowest hosts).
 TURNS = 1
+CG_PROFILED_ITERS = 100  # phase 12's profiled CG call stops here (its median is 218)
 # The JAX package on this protocol (same seed and sizes, kernel="xla" on the
 # CPU): 4096/4096 converged, median 139 and max 225 iterations.
 JAX_MEDIAN_ITERS, JAX_MAX_ITERS = 139, 225
@@ -788,6 +835,123 @@ def build_phase(sources, started=None):
     return libs, generated_seconds
 
 
+# Processes of their own on the card beside the build (`start_helper`):
+# phase 16's float32 starts, and phase 9's plain runs made ahead (saved to a
+# file this process loads); neither launches a hand-written kernel or times
+# anything, and this process makes the other plain runs ahead meanwhile
+# (`prefetch_plain`). Two host-bound processes on one H100 each kept ~90 %
+# of their pace alone (a thread in this process instead halved both: the
+# interpreter's lock; scripts/torch_host_concurrency.py).
+HELPER_SCRIPT = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke
+import quasinewtonmethods_jl_tpu_torch as qt
+getattr(chip_smoke, sys.argv[2])(qt, torch.device("cuda", 0), *sys.argv[3:])
+"""
+
+
+def _off_core_zero():
+    cores = sorted(os.sched_getaffinity(0))
+    if len(cores) > 2:  # the core this process's own phases keep
+        os.sched_setaffinity(0, cores[1:])
+
+
+def start_helper(name, *args):
+    """Start this script's function ``name``(qt, the card, *args) in a
+    process of its own (see above); returns the handle `finish_helper`
+    waits on."""
+    out = tempfile.TemporaryFile(mode="w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", HELPER_SCRIPT, os.path.dirname(os.path.abspath(__file__)), name,
+         *args], stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+        preexec_fn=_off_core_zero)
+    return {"proc": proc, "out": out, "name": name}
+
+
+def finish_helper(handle):
+    """Wait for a helper process and show its summary lines; raises with
+    its output when a check there failed."""
+    rc = handle["proc"].wait()
+    handle["out"].seek(0)
+    output = handle["out"].read()
+    handle["out"].close()
+    check(rc == 0, f"{handle['name']} failed with exit code {rc}:\n{output[-20000:]}")
+    for line in output.splitlines():
+        if line.startswith("["):
+            log(line)
+
+
+def resident_plain_ahead(qt, device, path):
+    """Phase 9's plain runs made ahead (`resident_plain`, ``ahead``), saved
+    to ``path`` for `load_ahead`."""
+    t0 = time.perf_counter()
+    for entry in resident_parity_plan(qt, device):
+        resident_plain(qt, *entry[:-1], ahead=True)
+    torch.save(AHEAD, path)
+    log(f"[ahead] phase 9's {len(AHEAD)} plain runs made ahead in a process of their own in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def load_ahead(path):
+    """The plain runs `resident_plain_ahead` saved, kept as if made here."""
+    AHEAD.update(torch.load(path, weights_only=False))
+
+
+def prefetch_plain(qt, device, phase22, phase23, handles):
+    """B3's plain versions that phases 21-23 compare against, made on
+    the card ahead of them (`plain_reference`, ``ahead``), until the
+    background processes of ``handles`` have all ended: the hierarchical
+    fleet's float32 runs, phase 23's and 22's parity objectives, phase 22's
+    full-width fleets, then phase 21's parity and full-width fleets (phase
+    9's: `resident_plain_ahead`). Returns a summary."""
+    def done():
+        return all(h["proc"].poll() is not None for h in handles)
+
+    _, X, trace = phase23["fleets"][torch.float32]
+    work = [lambda: parity_ahead(qt, trace, X, TOL, chaotic=True)]
+    for cases in (phase23["cases"], phase22["cases"]):
+        work += [lambda c=c: parity_ahead(qt, c[1], c[2], c[3],
+                                          chaotic=c[4][0].startswith("hierarchical"))
+                 for c in cases]
+    fleets, traced = phase22["fleets"], phase22["traced"]
+    work += [lambda name=name: parity_ahead(qt, traced[name], *fleets[name][1:3])
+             for name in fleets]
+    work += [lambda c=c: parity_ahead(qt, *fixture_parity_fleet(*c[:3], device), c[3],
+                                      whole=c[4]) for c in fixture_parity_cases()]
+    work += [lambda f=f: parity_ahead(qt, *f) for f in fixture_fleets(device).values()]
+    made = 0
+    for fn in work:
+        if done():
+            break
+        fn()
+        made += 1
+    torch.cuda.synchronize()
+    return f"{made} of {len(work)} groups of plain runs made ahead ({len(AHEAD)} runs kept)"
+
+
+def parity_ahead(qt, objective, X, tol, chaotic=False, whole=True):
+    """`traced_parity`'s and `fixture_parity`'s plain runs on the card, made
+    ahead (see `plain_reference`): at each cap the plain run and, with
+    ``chaotic``, past cap 0 its one-ulp witnesses; with ``whole`` the whole
+    solve stacked with its one-ulp witnesses (not where ``walls`` times it
+    alone)."""
+    ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
+    ulps = ulp_starts(X)
+
+    def run(x0, cap):
+        return plain_reference(x0, ls, tol, cap, True, stall, objective, ahead=True)
+
+    for cap in SHORT_CAPS:
+        run(X, cap)
+        if chaotic and cap > 0:
+            for x0 in ulps.values():
+                run(x0, cap)
+    if whole:
+        stacked_runs(lambda x0: run(x0, MAX_ITERS), X, *ulps.values())
+
+
 def kernel_inputs(seed, n, batch, dtype, device, kinds=True):
     """Random SPD B, drawn on the card (at 1024 x 512 x 512 in f64 it is
     2 GB), and with ``kinds`` one of five lane kinds per lane (lane % 5):
@@ -879,7 +1043,8 @@ def solve_cg(qt, X, **kw):
         rosenbrock_value_and_grad,
     )
 
-    return qt.optimize_cg(rosenbrock_logdensity, X, tol=TOL, max_iterations=MAX_ITERS,
+    kw = {"max_iterations": MAX_ITERS, **kw}
+    return qt.optimize_cg(rosenbrock_logdensity, X, tol=TOL,
                           value_and_grad_fn=rosenbrock_value_and_grad, **kw)
 
 
@@ -1277,6 +1442,39 @@ def stacked_runs(run, *starts):
     return out
 
 
+# Plain runs made ahead on the card, while the kernels build (`prefetch_plain`):
+# key -> (objective, result kept in host memory, so that the device memory
+# the phases between report is their own); each is taken once.
+AHEAD = {}
+
+
+def moved(res, device):
+    """The fleet result ``res`` (as `lanes_of` takes it) on ``device``."""
+    return type(res)(*(None if v is None else moved(v, device) if isinstance(v, tuple)
+                       else v.to(device) for v in res))
+
+
+def plain_reference(x0s, ls, tol, cap, h0_scale, stall, objective=None, ahead=False):
+    """`optimize_batched_resident_reference` on these arguments (B3's plain
+    version). With ``ahead`` the run is kept for a later call on the same
+    arguments and starts (by value); without, such a kept run is returned
+    in its place, which is the run this call would make: the plain version
+    launches no hand-written kernel, and its rounding does not depend on
+    when, or in which process, it runs."""
+    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
+
+    # None (the split Rosenbrock) by name: phase 9's runs are made in another process
+    key = ("rosenbrock" if objective is None else id(objective), repr(ls), tol, cap, h0_scale,
+           stall, x0s.device.type, str(x0s.dtype),
+           tuple(x0s.shape), hashlib.sha1(x0s.detach().cpu().numpy().tobytes()).hexdigest())
+    if not ahead and key in AHEAD:
+        return moved(AHEAD.pop(key)[1], x0s.device)
+    res = optimize_batched_resident_reference(x0s, ls, tol, cap, h0_scale, stall, objective)
+    if ahead:  # the objective kept alive, so that its id stays its own
+        AHEAD[key] = (objective, moved(res, "cpu"))
+    return res
+
+
 def normwise_err(a, b):
     """(max |a - b|, that over max |b|) where both are finite; inf for both
     where one is not finite and the two differ (NaN matches NaN)."""
@@ -1465,35 +1663,67 @@ def state_err(a, b, lanes=None):
     return max(e[0] for e in errs), max(e[1] for e in errs)
 
 
+def resident_parity_plan(qt, device):
+    """Phase 9's B3-against-plain runs, in order: (X, ls, tol, cap,
+    h0_scale, label), the small fleets, then the main path's shape."""
+    plan = []
+    for n in RESIDENT_NS:
+        X = torch.tensor(np.random.default_rng(BENCH_SEED + n).standard_normal((64, n)),
+                         device=device)
+        for order in (2, 3):
+            for h0_scale in (True, False):
+                for cap in (*SHORT_CAPS, MAX_ITERS):
+                    plan.append((X, qt.BackTracking(order=order), 1e-8, cap, h0_scale,
+                                 f"f64 n={n} order={order} h0={int(h0_scale)} cap={cap}"))
+    X = torch.tensor(np.random.default_rng(BENCH_SEED).standard_normal((64, 6)), device=device)
+    plan.append((X, qt.BackTracking(), 1e-14, 5, True, "tol=1e-14 cap=5"))
+    X = torch.full((64, 6), 1e20, dtype=torch.float32, device=device)
+    plan.append((X, qt.BackTracking(), TOL, 5, True, "f32 overflow start cap=5"))
+    # the main path's shape and dtype: the phase-4 fleet in f32
+    X = bench_fleet(device)
+    for order in (2, 3):
+        for h0_scale in (True, False):
+            for cap in SHORT_CAPS:
+                plan.append((X, qt.BackTracking(order=order), TOL, cap, h0_scale,
+                             f"f32 {BATCH}x{N} order={order} h0={int(h0_scale)} cap={cap}"))
+    plan.append((X, qt.BackTracking(), TOL, MAX_ITERS, True, f"f32 {BATCH}x{N} cap={MAX_ITERS}"))
+    return plan
+
+
+def resident_plain(qt, X, ls, tol, cap, h0_scale, ahead=False):
+    """The plain runs of one entry of phase 9's plan (`plain_reference`,
+    ``ahead`` as there): at a short cap the plain run, past them the whole
+    solve and its witness from x0 + 1 ulp as one fleet; (plain, witness or
+    None)."""
+    def run(x0):
+        return plain_reference(x0, ls, tol, cap, h0_scale, qt.STALL_LIMIT_DEFAULT, ahead=ahead)
+
+    if cap in SHORT_CAPS:
+        return run(X), None
+    nudged = torch.nextafter(X, torch.full_like(X, float("inf")))
+    return tuple(stacked_runs(run, X, nudged))
+
+
 def resident_parity_phase(qt, device):
     from quasinewtonmethods_jl_tpu_torch.models import rosenbrock_logdensity
-    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
 
-    stall = qt.STALL_LIMIT_DEFAULT
     rows, failures = [], []
     groups = ("small", "main")  # the small fleets; the main path's shape (f32 bench fleet)
     # at short caps: max abs and max normwise error of B3, max normwise of the CPU witness
     exact = {g: [0.0, 0.0, 0.0] for g in groups}
     full_dx = 0.0
-    witnesses = ("B3", "plain from x0 + 1 ulp", "plain on the CPU")
-    # the main shape's whole solve takes no CPU witness: 4096 lanes of it on
-    # the CPU cost tens of seconds, and one witness fewer only lowers the limit
-    diverged = {"small": dict.fromkeys(witnesses, 0), "main": dict.fromkeys(witnesses[:2], 0)}
+    # the whole solves take no CPU witness: the main shape's 4096 lanes on the
+    # CPU cost tens of seconds, the small fleets' 28 solves ~30 s (where it
+    # ran, the CPU witness moved no more lanes than the one-ulp one: 22.8
+    # against 23.9 % on an H100), and one witness fewer only lowers the limit
+    diverged = {g: {"B3": 0, "plain from x0 + 1 ulp": 0} for g in groups}
     full_lanes = dict.fromkeys(groups, 0)
 
     def compare(X, ls, tol, cap, h0_scale, label):
         nonlocal full_dx
-
-        def plain_run(x0):
-            return optimize_batched_resident_reference(x0, ls, tol, cap, h0_scale, stall)
-
         kern = qt.optimize_batched_resident(rosenbrock_logdensity, X, ls=ls, tol=tol,
                                             max_iterations=cap, h0_scale=h0_scale, kernel="cuda")
-        if cap in SHORT_CAPS:
-            plain = plain_run(X)
-        else:  # the whole solve and its witness from x0 + 1 ulp, as one fleet
-            nudged = torch.nextafter(X, torch.full_like(X, float("inf")))
-            plain, nudged_run = stacked_runs(plain_run, X, nudged)
+        plain, nudged_run = resident_plain(qt, X, ls, tol, cap, h0_scale)
         same = counters_equal(kern, plain)
         err_abs, err_rel = state_err(kern, plain)
         statuses = bool(torch.equal(kern.status, plain.status))
@@ -1503,7 +1733,8 @@ def resident_parity_phase(qt, device):
             limit = EXACT_RTOL[X.dtype]
             worst = exact[group]
             if group == "main" and cap > 0:
-                witness = state_err(plain_run(X.cpu()), plain)[1]
+                witness = state_err(plain_reference(X.cpu(), ls, tol, cap, h0_scale,
+                                                    qt.STALL_LIMIT_DEFAULT), plain)[1]
                 worst[2] = max(worst[2], witness)
                 limit = max(limit, ROUNDING_FACTOR * witness)
             worst[0], worst[1] = max(worst[0], err_abs), max(worst[1], err_rel)
@@ -1517,37 +1748,19 @@ def resident_parity_phase(qt, device):
                 ok = ok and dx <= CONVERGED_DX
             full_lanes[group] += X.shape[0]
             runs = {"B3": kern, "plain from x0 + 1 ulp": nudged_run}
-            if "plain on the CPU" in diverged[group]:
-                runs["plain on the CPU"] = plain_run(X.cpu())
             for key, other in runs.items():
                 diverged[group][key] += int((~counters_equal(other, plain)).sum())
         if not ok:
             failures.append(label)
-        return kern, plain
+        return kern
 
-    for n in RESIDENT_NS:
-        X = torch.tensor(np.random.default_rng(BENCH_SEED + n).standard_normal((64, n)),
-                         device=device)
-        for order in (2, 3):
-            for h0_scale in (True, False):
-                for cap in (*SHORT_CAPS, MAX_ITERS):
-                    compare(X, qt.BackTracking(order=order), 1e-8, cap, h0_scale,
-                            f"f64 n={n} order={order} h0={int(h0_scale)} cap={cap}")
-    X = torch.tensor(np.random.default_rng(BENCH_SEED).standard_normal((64, 6)), device=device)
-    kern, _ = compare(X, qt.BackTracking(), 1e-14, 5, True, "tol=1e-14 cap=5")
-    check(bool((kern.status == qt.Status.MAX_ITERATIONS).all()), "tol 1e-14 run did not hit the cap")
-    X = torch.full((64, 6), 1e20, dtype=torch.float32, device=device)
-    kern, _ = compare(X, qt.BackTracking(), TOL, 5, True, "f32 overflow start cap=5")
+    kerns = {entry[-1]: compare(*entry) for entry in resident_parity_plan(qt, device)}
+    check(bool((kerns["tol=1e-14 cap=5"].status == qt.Status.MAX_ITERATIONS).all()),
+          "tol 1e-14 run did not hit the cap")
+    kern = kerns["f32 overflow start cap=5"]
     check(bool((kern.status == qt.Status.NONFINITE_VALUE).all()) and bool(torch.isnan(kern.fun).all()),
           "overflow start did not end NONFINITE_VALUE with fun NaN")
-    # the main path's shape and dtype: the phase-4 fleet in f32
-    X = bench_fleet(device)
-    for order in (2, 3):
-        for h0_scale in (True, False):
-            for cap in SHORT_CAPS:
-                compare(X, qt.BackTracking(order=order), TOL, cap, h0_scale,
-                        f"f32 {BATCH}x{N} order={order} h0={int(h0_scale)} cap={cap}")
-    compare(X, qt.BackTracking(), TOL, MAX_ITERS, True, f"f32 {BATCH}x{N} cap={MAX_ITERS}")
+    del kerns, kern
     for label, _, _, same, batch, err, statuses in rows:
         print(f"  B3 vs plain {label}: counters equal {same}/{batch}, statuses equal {statuses}, "
               f"max normwise d(x, grad, B) {err:.3e}", file=sys.stderr)
@@ -1563,8 +1776,7 @@ def resident_parity_phase(qt, device):
     for cap in (5, 10, 20, 40, 80):
         kern = qt.optimize_batched_resident(rosenbrock_logdensity, X, max_iterations=cap,
                                             h0_scale=False, kernel="cuda")
-        plain = optimize_batched_resident_reference(X, qt.BackTracking(), 1e-8, cap, False,
-                                                    qt.STALL_LIMIT_DEFAULT)
+        plain = plain_reference(X, qt.BackTracking(), 1e-8, cap, False, qt.STALL_LIMIT_DEFAULT)
         growth.append(f"{cap}: {float((kern.x - plain.x).abs().max()):.1e}")
 
     def summary(group, limit):
@@ -1904,13 +2116,17 @@ def cg_phase(qt, device, smi):
     check_fleet(qt, res, "CG", JAX_CG_MEDIAN_ITERS)
     check(c["bodies"] == 0, f"the CG path ran the BFGS fleet's loop: {c}")
 
-    fns = {"cg": lambda: solve_cg(qt, X), "cg fold_eval": lambda: solve_cg(qt, X, fold_eval=True)}
+    folded = {}
+    fns = {"cg": lambda: solve_cg(qt, X),
+           "cg fold_eval": lambda: folded.update(res=solve_cg(qt, X, fold_eval=True))}
     # a CG solve is host-bound and takes seconds; the counted run warmed the engine
     secs, peaks = alternate_samples(fns, TURNS, warmup=False)
     walls = {k: float(np.median(v)) for k, v in secs.items()}
-    qt.optimize_cg.loop_bodies = qt.optimize_cg.host_syncs = 0
-    prof = device_profile(fns["cg"])
-    bodies, syncs = qt.optimize_cg.loop_bodies, qt.optimize_cg.host_syncs
+    bodies, syncs = c["cg_bodies"], c["cg_syncs"]
+    # the busy share over a solve's first CG_PROFILED_ITERS iterations: a whole
+    # solve's ~4 x 10^5 device events take seconds to read
+    qt.optimize_cg.loop_bodies = 0
+    prof = device_profile(lambda: solve_cg(qt, X, max_iterations=CG_PROFILED_ITERS))
     wall_p, busy = prof[0], prof[1]
     log(f"[time] CG solves/s at {BATCH}x{N} f32 (median of {TURNS} solves, in turns, after the "
         f"counted run): "
@@ -1919,17 +2135,20 @@ def cg_phase(qt, device, smi):
         f"({walls['cg fold_eval']:.4f} s/solve, peak {peaks['cg fold_eval'] / 2**20:.1f} MiB), "
         f"{turn_gains(secs, 'cg', 'cg fold_eval')}; "
         f"{bodies} loop bodies and {syncs} host syncs per solve, "
-        f"{1e3 * walls['cg'] / max(bodies, 1):.3f} ms of wall per body; device busy share of one "
-        + ("solve not measured (no device events)" if busy is None else
-           f"solve {100 * busy / wall_p:.1f} %") + f" on {smi}")
-    log(profile_line(f"CG fleet {BATCH}x{N} f32", *prof, bodies))
+        f"{1e3 * walls['cg'] / max(bodies, 1):.3f} ms of wall per body; device busy share of a "
+        f"solve's first {CG_PROFILED_ITERS} iterations "
+        + ("not measured (no device events)" if busy is None else f"{100 * busy / wall_p:.1f} %")
+        + f" on {smi}")
+    log(profile_line(f"CG fleet {BATCH}x{N} f32, its first {CG_PROFILED_ITERS} iterations",
+                     *prof, qt.optimize_cg.loop_bodies))
     return {"solves_per_s": BATCH / walls["cg"], "busy_share": None if busy is None else busy / wall_p,
-            "n_fev": res.n_fev}
+            "n_fev": res.n_fev, "fold": folded["res"]}
 
 
-def wolfe_phase(qt, device, smi, cg_n_fev):
+def wolfe_phase(qt, device, smi, cg_n_fev, cg_fold):
     """BFGS with the Wolfe search through B1, and fold_eval for both
-    engines (see phase 13 above)."""
+    engines (see phase 13 above); ``cg_fold``: phase 12's CG solve with
+    fold_eval."""
     X = bench_fleet(device)
     runs = {}
     for label, kw in (("wolfe", dict(ls=qt.Wolfe())), ("wolfe fold", dict(ls=qt.Wolfe(), fold_eval=True)),
@@ -1948,7 +2167,6 @@ def wolfe_phase(qt, device, smi, cg_n_fev):
         check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
               f"{label}: launches {c}")
         check_fleet(qt, res, f"BFGS {label}", JAX_WOLFE_MEDIAN_ITERS if label == "wolfe" else None)
-    cg_fold = solve_cg(qt, X, fold_eval=True)
     check_fleet(qt, cg_fold, "CG fold_eval", None)
     fev = {"BFGS Wolfe": (runs["wolfe"].n_fev, runs["wolfe fold"].n_fev),
            "CG": (cg_n_fev, cg_fold.n_fev)}
@@ -2584,6 +2802,7 @@ def fixture_model(name, data, dtype, device):
                        ys=data["ys"], w_true=data["w_true"], dtype=dtype, device=device)
 
 
+@functools.lru_cache(maxsize=None)
 def fixture_parity_fleet(name, n, dtype, device, batch=OBJECTIVE_LANES):
     """A parity fleet of fixture ``name`` at width n, from seed
     BENCH_SEED + n: the full-width recipe at that width (the mixture's 8
@@ -2602,6 +2821,25 @@ def fixture_parity_fleet(name, n, dtype, device, batch=OBJECTIVE_LANES):
     return fixture_model(name, data, dtype, device), X
 
 
+@functools.lru_cache(maxsize=None)
+def fixture_fleets(device):
+    """Phase 21's full-width fleets: key -> (model, starts, tol), made once
+    (the plain runs made ahead on them are taken by the model's identity)."""
+    fleets = {}
+    for key, (name, dtype, tol, *_) in FIXTURE_FLEETS.items():
+        data = fixture_data(name)
+        fleets[key] = (fixture_model(name, data, dtype, device),
+                       torch.tensor(data["starts"], dtype=dtype, device=device), tol)
+    return fleets
+
+
+def fixture_parity_cases():
+    """Phase 21's parity fleets, in order: (name, n, dtype, tol, whole)."""
+    return [(name, n, dtype, FIXTURE_TOL[name][dtype], i < 2)
+            for name, (ns, dtypes) in FIXTURE_PARITY.items() for dtype in dtypes
+            for i, n in enumerate(ns)]
+
+
 def fixture_parity(qt, model, X, tol, label, whole=True):
     """B3's instantiation for ``model`` against its plain version on the
     fleet ``X`` (phase 9's method): over caps 0, 1 and 5 every counter equal
@@ -2617,19 +2855,17 @@ def fixture_parity(qt, model, X, tol, label, whole=True):
     x0 one ulp up, one ulp down, and the run on the CPU; taken only where
     some lane differs). Returns (summary, max abs error at the caps,
     failures)."""
-    from quasinewtonmethods_jl_tpu_torch.resident_solve import optimize_batched_resident_reference
-
     ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
     worst_abs = worst_rel = worst_cpu = 0.0
     failures, same_runs = [], 0
     for cap in SHORT_CAPS:
         kern = qt.optimize_batched_resident(model, X, ls=ls, tol=tol, max_iterations=cap,
                                             kernel="cuda")
-        plain = optimize_batched_resident_reference(X, ls, tol, cap, True, stall, model)
+        plain = plain_reference(X, ls, tol, cap, True, stall, model)
         err_abs, err_rel = state_err(kern, plain)
         limit = EXACT_RTOL[X.dtype]
         if cap > 0:
-            cpu = optimize_batched_resident_reference(X.cpu(), ls, tol, cap, True, stall, model)
+            cpu = plain_reference(X.cpu(), ls, tol, cap, True, stall, model)
             witness = state_err(cpu, plain)[1]
             worst_cpu = max(worst_cpu, witness)
             limit = max(limit, ROUNDING_FACTOR * witness)
@@ -2648,7 +2884,7 @@ def fixture_parity(qt, model, X, tol, label, whole=True):
                                         kernel="cuda")
 
     def plain_run(x0):
-        return optimize_batched_resident_reference(x0, ls, tol, MAX_ITERS, True, stall, model)
+        return plain_reference(x0, ls, tol, MAX_ITERS, True, stall, model)
 
     ulps = ulp_starts(X)  # the plain run and its two one-ulp witnesses as one fleet
     plain, *ulp_runs = stacked_runs(plain_run, X, *ulps.values())
@@ -2683,22 +2919,15 @@ def fixture_phase(qt, device, smi):
 
     t_phase = time.perf_counter()
     failures = []
-    for name, (ns, dtypes) in FIXTURE_PARITY.items():
-        for dtype in dtypes:
-            tol = FIXTURE_TOL[name][dtype]
-            for i, n in enumerate(ns):
-                model, X = fixture_parity_fleet(name, n, dtype, device)
-                summary, _, bad = fixture_parity(
-                    qt, model, X, tol, f"{name} {OBJECTIVE_LANES}x{n} "
-                    f"{str(dtype).replace('torch.', '')} tol {tol}", whole=i < 2)
-                print(f"  B3 vs plain {summary}", file=sys.stderr)
-                failures += bad
+    for name, n, dtype, tol, whole in fixture_parity_cases():
+        model, X = fixture_parity_fleet(name, n, dtype, device)
+        summary, _, bad = fixture_parity(
+            qt, model, X, tol, f"{name} {OBJECTIVE_LANES}x{n} "
+            f"{str(dtype).replace('torch.', '')} tol {tol}", whole=whole)
+        print(f"  B3 vs plain {summary}", file=sys.stderr)
+        failures += bad
 
-    fleets = {}
-    for key, (name, dtype, tol, *_) in FIXTURE_FLEETS.items():
-        data = fixture_data(name)
-        fleets[key] = (fixture_model(name, data, dtype, device),
-                       torch.tensor(data["starts"], dtype=dtype, device=device), tol)
+    fleets = fixture_fleets(device)
     main_summary, main_err = {}, {}
     for key, (model, X, tol) in fleets.items():
         main_summary[key], main_err[key], bad = fixture_parity(
@@ -3011,7 +3240,7 @@ def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic
     ls, stall = qt.BackTracking(), qt.STALL_LIMIT_DEFAULT
 
     def plain_run(x0, cap, objective=traced):
-        return optimize_batched_resident_reference(x0, ls, tol, cap, True, stall, objective)
+        return plain_reference(x0, ls, tol, cap, True, stall, objective)
 
     worst_abs, failures, same_runs, per_cap = 0.0, [], 0, []
     for cap in SHORT_CAPS:
@@ -3062,8 +3291,10 @@ def traced_parity(qt, traced, X, tol, label, cpu_traced, cpu_whole=True, chaotic
 
     if walls is None:  # the plain run and its two one-ulp witnesses as one fleet
         plain, *ulp_runs = stacked_runs(whole, X, *ulps.values())
-    else:  # the plain run alone, timed; its witnesses, where needed, as one fleet
-        walls["plain"] = time_calls(lambda: walls.update(run=whole(X)), (), calls=1)
+    else:  # the plain run alone, timed (never one made ahead); its witnesses, where needed,
+        walls["plain"] = time_calls(lambda: walls.update(  # as one fleet
+            run=optimize_batched_resident_reference(X, ls, tol, MAX_ITERS, True, stall, traced)),
+            (), calls=1)
         plain, ulp_runs = walls.pop("run"), None
     flips = int((kern.status != plain.status).sum())
     witness_flips = {}
@@ -3400,16 +3631,18 @@ def hierarchical_phase(qt, device, smi, objectives, build):
 
     # the full-width fleets against their plain version, then through the entry points, counted
     n = X.shape[1]
-    parity, plain_walls = {}, {}
+    # the float64 plain run's whole solve is timed alone (the kernels line's
+    # plain_ms); float32's, whose record is not kept, runs stacked with its
+    # one-ulp witnesses, which its other statuses need
+    parity, plain_walls = {}, {torch.float64: {}}
     for dtype, (_, f_X, f_trace) in fleets.items():
         label = f"hierarchical {HIER_BATCH}x{n} {str(dtype).replace('torch.', '')} tol {TOL}"
         cpu_obj, cpu_starts = hierarchical_objective(np.random.default_rng(BENCH_SEED), HIER_Q,
                                                      dtype, torch.device("cpu"), HIER_BATCH)
-        plain_walls[dtype] = {}
         summary, err, bad = traced_parity(
             qt, f_trace, f_X, TOL, label,
             qt.trace_objective(cpu_obj, None, torch.tensor(cpu_starts, dtype=dtype)),
-            cpu_whole=False, chaotic=True, walls=plain_walls[dtype])
+            cpu_whole=False, chaotic=True, walls=plain_walls.get(dtype))
         print(f"  B3 vs plain {summary} ({time.perf_counter() - t_phase:.1f} s into phase 23)",
               file=sys.stderr)
         check(not bad, f"B3 and its plain version differ on the hierarchical fleet: {bad}")
@@ -3699,18 +3932,21 @@ def engines_phase(qt, device, smi):
     def tr_call():
         return qt.optimize_tr(quad9, X, tol=AUG_TOL, max_cg=TR_N)
 
-    # host-bound at ~10 s a call: one call is counted, profiled and timed
-    # (its wall carries the profiler's cost)
-    counted = {}
-    prof = device_profile(lambda: counted.update(run=counted_run(qt, tr_call, "tr_syncs")))
-    res, c, flagged, wall = counted["run"]
+    # host-bound at ~10 s a call: one call is counted and timed
+    res, c, flagged, wall = counted_run(qt, tr_call, "tr_syncs")
     peak = torch.cuda.max_memory_allocated(device)
     rate = TR_BATCH / wall
-    busy = None if prof[1] is None else prof[1] / prof[0]
     gate = fleet_gate(qt, res, "TR", JAX_ENGINES["tr"], ("iterations", "n_hev"))
     # resumed from 5 iterations saved as numpy to a lifetime cap of 10: a
-    # lane the one-leg run ended by then ends the same, the others run on
-    part = qt.optimize_tr(quad9, X, tol=AUG_TOL, max_cg=TR_N, max_iterations=5)
+    # lane the one-leg run ended by then ends the same, the others run on;
+    # the 5-iteration call is the profiled one (a whole call's ~2.4 x 10^5
+    # device events take seconds to read)
+    parts = {}
+    reset_counters(qt)
+    prof = device_profile(lambda: parts.update(part=qt.optimize_tr(
+        quad9, X, tol=AUG_TOL, max_cg=TR_N, max_iterations=5)))
+    part, prof_bodies = parts["part"], read_counters(qt)["tr_cg_bodies"]
+    busy = None if prof[1] is None else prof[1] / prof[0]
     resumed = qt.optimize_tr_from_state(quad9, qt.tr_state_to_numpy(part.state), tol=AUG_TOL,
                                         max_cg=TR_N, max_iterations=TR_RESUME_CAP)
     ended = res.iterations <= TR_RESUME_CAP
@@ -3719,8 +3955,10 @@ def engines_phase(qt, device, smi):
                   | (resumed.iterations != torch.clamp_max(res.iterations, TR_RESUME_CAP))).sum())
     check(resumed.x.device.type == "cuda" and resumed.x.dtype == torch.float32 and differ == 0,
           f"TR: the numpy state resumed to another status or count on {differ} lanes")
-    # minimize on the negated function over the whole fleet, against the counted run
-    mini, ref = qt.minimize(lambda x: -quad9(x), X, method="tr", tol=AUG_TOL, max_cg=TR_N), res
+    # minimize on the negated function over the whole fleet for 5 iterations,
+    # against the profiled 5-iteration run (the whole solve took ~15 s more)
+    mini, ref = qt.minimize(lambda x: -quad9(x), X, method="tr", tol=AUG_TOL, max_cg=TR_N,
+                            max_iterations=5), part
     same = all(torch.equal(getattr(mini, f), getattr(ref, f))
                for f in ("status", "iterations", "n_fev", "n_hev"))
     flip_err = max(normwise_err(mini.x, ref.x)[1], normwise_err(-mini.fun, ref.fun)[1],
@@ -3731,15 +3969,16 @@ def engines_phase(qt, device, smi):
     log(f"[engines] optimize_tr {TR_BATCH}x{TR_N} f32 quadratic (condition 1e4), tol {AUG_TOL}, "
         f"max_cg {TR_N}: {gate}; {c['tr_bodies']} outer and {c['tr_cg_bodies']} Steihaug bodies, "
         f"{c['tr_syncs']} host syncs per solve (all {flagged} flagged counted), no kernel launched, "
-        f"peak {peak / 2**20:.1f} MiB; {rate:.1f} solves/s ({wall:.4f} s, the counted and "
-        "profiled call), device busy " + ("not measured (no device events)" if busy is None
-                                          else f"{100 * busy:.1f} %")
+        f"peak {peak / 2**20:.1f} MiB; {rate:.1f} solves/s ({wall:.4f} s, the counted call), "
+        f"device busy over a call's first 5 iterations (the resumed leg's first call) "
+        + ("not measured (no device events)" if busy is None else f"{100 * busy:.1f} %")
         + f" on {smi}; resumed from a 5-iteration state saved as numpy to {TR_RESUME_CAP} "
         f"iterations: statuses and counts as the one-leg run's on every lane ({int(ended.sum())} "
-        f"ended by then); minimize(method='tr') on the negated function over the {TR_BATCH} "
-        f"lanes: counters equal to the counted run's, normwise {flip_err:.1e} after the sign "
-        f"flip")
-    log(profile_line(f"TR fleet {TR_BATCH}x{TR_N} f32", *prof, c["tr_cg_bodies"]))
+        f"ended by then); minimize(method='tr', max_iterations=5) on the negated function over "
+        f"the {TR_BATCH} lanes: counters equal to the 5-iteration run's, normwise "
+        f"{flip_err:.1e} after the sign flip")
+    log(profile_line(f"TR fleet {TR_BATCH}x{TR_N} f32, its first 5 iterations", *prof,
+                     prof_bodies))
     del X, res, part, resumed, mini, ref
 
     # auglag, config 14: the CG fleet (no kernel), the BFGS fleet (B1), and
@@ -3762,12 +4001,10 @@ def engines_phase(qt, device, smi):
             out["launches"] = c["B1"]
         else:
             check(no_kernel_launched(c), f"{label}: a kernel launched: {c}")
-        # CG: host-bound at several s a call, the counted call is the one
-        # timed; BFGS: a second call
+        # host-bound at several s a call: the counted call is the one timed
         timed = "the counted call"
         busy_text = ""
         if engine == "bfgs":
-            wall, timed = fleet_time(lambda: solve_auglag(qt, X, engine), AUG_BATCH)[0], "a call"
             reset_counters(qt)
             prof = device_profile(lambda: solve_auglag(qt, X, engine))
             prof_bodies = engines(qt)["auglag"].inner_bodies
@@ -4083,7 +4320,9 @@ SAMPLING_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts
 # slower hosts (the time limit); the warmup and every chain stay
 SAMPLING_JITTER, SAMPLING_DRAWS, SAMPLING_WARMUP, HMC_LEAPFROG = 0.05, 500, 500, 16
 CHEES_TARGET = 0.75  # chees_sample's default target_accept
-RESUME_DRAWS = 100
+# (d)'s short plan, long and chunked: resuming (b)'s whole warmup costs ~20
+# s of the script's time limit and checks the same save, load and resume
+RESUME_WARMUP, RESUME_DRAWS = 40, 20
 MASS_DIAG_RTOL = 1e-2  # the handed-over mass's diagonal against JAX's
 ACCEPT_ATOL = 0.05
 MOMENT_Z = 5.0  # |mean - JAX's| within 5 combined MCSEs
@@ -4141,7 +4380,10 @@ def sampler_run(qt, engine, fn):
     """``fn()`` with the engine's counters at 0, the peak memory reset and
     torch's sync debug mode on: (result, wall s, host syncs, gradient
     evaluations, peak bytes). Every synchronisation flagged must be one of
-    the engine's counted reads, and no BFGS kernel may launch."""
+    the engine's counted reads (an engine of None counts none: nothing
+    may be flagged), and no BFGS kernel may launch."""
+    if engine is None:
+        engine = types.SimpleNamespace()
     engine.host_syncs = engine.gradient_evals = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4244,32 +4486,39 @@ def through_file(state, tmp, name):
     return loaded
 
 
-def sampling_resume(qt, model, x0s, mass, hmc, chees):
-    """Phase 26 (d): HMC's warmup and ChEES's two warmup halves through
-    checkpoints on the card, then RESUME_DRAWS draws each, against the
-    long runs' first draws; returns the summary and the warm states."""
+def sampling_resume(qt, model, x0s, mass):
+    """Phase 26 (d): HMC's and ChEES's short plans (RESUME_WARMUP warmup
+    steps, RESUME_DRAWS draws) long and chunked through checkpoints on the
+    card, on all chains: HMC's warmup whole, ChEES's in two halves; the
+    draws and every state leaf bit for bit. Returns the summary."""
+    half = RESUME_WARMUP // 2
+    hmc_kw = {"n_leapfrog": HMC_LEAPFROG}
+    hmc = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=RESUME_DRAWS,
+                        n_warmup=RESUME_WARMUP, **hmc_kw)
+    chees = qt.chees_sample(model, BENCH_SEED, x0s, n_samples=RESUME_DRAWS,
+                            n_warmup=RESUME_WARMUP)
     with tempfile.TemporaryDirectory() as tmp:
         warm = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=0,
-                             n_warmup=SAMPLING_WARMUP, n_leapfrog=HMC_LEAPFROG)
-        hmc_warm = through_file(warm.state, tmp, "hmc")
-        part = qt.hmc_sample_from_state(model, hmc_warm, mass, n_samples=RESUME_DRAWS,
-                                        n_leapfrog=HMC_LEAPFROG)
-        check(torch.equal(part.samples, hmc.samples[:RESUME_DRAWS]),
-              "resume: HMC's resumed draws differ from the long run's")
-        half = SAMPLING_WARMUP // 2
+                             n_warmup=RESUME_WARMUP, **hmc_kw)
+        part = qt.hmc_sample_from_state(model, through_file(warm.state, tmp, "hmc"), mass,
+                                        n_samples=RESUME_DRAWS, **hmc_kw)
         c1 = qt.chees_sample(model, BENCH_SEED, x0s, n_samples=0, n_warmup=half,
-                             total_warmup=SAMPLING_WARMUP)
+                             total_warmup=RESUME_WARMUP)
         c2 = qt.chees_sample_from_state(model, through_file(c1.state, tmp, "chees1"),
-                                        n_warmup=SAMPLING_WARMUP - half)
-        chees_warm = through_file(c2.state, tmp, "chees2")
-        c3 = qt.chees_sample_from_state(model, chees_warm, n_samples=RESUME_DRAWS)
-        check(torch.equal(c3.samples, chees.samples[:RESUME_DRAWS]),
-              "resume: ChEES's resumed draws differ from the long run's")
-    text = (f"resume on the card: HMC {SAMPLING_WARMUP} warmup steps, ChEES {half} + "
-            f"{SAMPLING_WARMUP - half} (total_warmup {SAMPLING_WARMUP}), each through "
-            f"save_state / load_state (every leaf bit for bit, the key on the CPU), then "
-            f"{RESUME_DRAWS} draws: equal to the long runs' first {RESUME_DRAWS} bit for bit")
-    return text, hmc_warm, chees_warm
+                                        n_warmup=RESUME_WARMUP - half)
+        c3 = qt.chees_sample_from_state(model, through_file(c2.state, tmp, "chees2"),
+                                        n_samples=RESUME_DRAWS)
+    for label, long, chunked in (("HMC", hmc, part), ("ChEES", chees, c3)):
+        check(torch.equal(long.samples, chunked.samples),
+              f"resume: {label}'s resumed draws differ from the long run's")
+        for field, a, b in zip(long.state._fields, long.state, chunked.state):
+            check((a is None) == (b is None) and (a is None or torch.equal(a, b.to(a.device))),
+                  f"resume: {label}'s state leaf {field} differs from the long run's")
+    return (f"resume on the card: hmc_sample and chees_sample ({RESUME_WARMUP} warmup steps, "
+            f"{RESUME_DRAWS} draws) against HMC's warmup and ChEES's {half} + "
+            f"{RESUME_WARMUP - half} (total_warmup {RESUME_WARMUP}), each through save_state / "
+            f"load_state (every leaf bit for bit, the key on the CPU), then {RESUME_DRAWS} draws, "
+            f"on all {x0s.shape[0]} chains: the draws and every state leaf bit for bit")
 
 
 def sampling_phase(qt, device, smi):
@@ -4340,9 +4589,9 @@ def sampling_phase(qt, device, smi):
         f"{rate_line(chains, SAMPLING_DRAWS, wall_c, syncs_c, grads_c, peak_c)} on {smi}")
 
     # (d) resume through checkpoints, and the profiled steady state
-    text, hmc_warm, chees_warm = sampling_resume(qt, model, x0s, mass, hmc, chees)
-    log(f"[sampling] {text}")
+    hmc_warm, chees_warm = hmc.state, chees.state  # warm: the profiled steady state's start
     del hmc, chees
+    log(f"[sampling] {sampling_resume(qt, model, x0s, mass)}")
     for label, engine, fn in (
             ("HMC", qt.hmc_sample, lambda: qt.hmc_sample_from_state(
                 model, hmc_warm, mass, n_samples=PROFILED_TRANSITIONS, n_leapfrog=HMC_LEAPFROG)),
@@ -4543,6 +4792,253 @@ def nuts_phase(qt, device, smi):
     return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
 
 
+# Phase 28, the workflow's other two initializers and PSIS: Pathfinder, SVGD,
+# and PSIS-LOO / WAIC on config 3's logistic posterior at full width (4096
+# draws, particles and chains, n = 100, float32). JAX's numbers come from
+# scripts/jax_pathfinder_reference.py (10 keys for (a), six one-ulp
+# witnesses for (b), 6 keys for (c): its docstring says why more than 3, 1
+# and 2).
+PATHFINDER_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                              "jax_pathfinder_reference.json")
+PF_DRAWS, PF_INIT_SCALE = 4096, 1.0
+PF_CHEES_WARMUP, PF_CHEES_DRAWS = 150, 50  # the ChEES handoff's short plan
+BAND_WIDEN = 0.5  # a JAX band widened by half its width on each side
+MOMENT_SPREAD = 1.5  # the draws' moments: JAX's leave-one-key-out distance, widened by half
+SVGD_WITNESS_FACTOR = 2.0
+LOO_SPREAD_FACTOR = 2.0
+# the card's float32 LOO / WAIC against the float64 oracle on the CPU: the
+# sums over 4096 draws and 500 observations in float32, and k-hat's fit on
+# float32 exceedances (PERF.md §6 has the measured differences)
+LOO_F32_RTOL, LOO_KHAT_ATOL = 1e-5, 1e-3
+
+
+def band_check(label, value, values):
+    """``value`` inside [min, max] of ``values`` widened by BAND_WIDEN of
+    its width on each side; returns the text of the check."""
+    lo, hi = min(values), max(values)
+    pad = BAND_WIDEN * (hi - lo)
+    check(lo - pad <= value <= hi + pad,
+          f"{label} {value:.4f} outside JAX's band [{lo:.4f}, {hi:.4f}] widened to "
+          f"[{lo - pad:.4f}, {hi + pad:.4f}]")
+    return f"{label} {value:.4f} (JAX [{lo:.4f}, {hi:.4f}] over {len(values)} keys)"
+
+
+def moment_distance(mean, sd, ref_means, ref_sds):
+    """Distances of one run's per-coordinate draw mean and sd from JAX's
+    key means: (max over coordinates of |mean - JAX mean| / JAX sd, max of
+    |log sd - JAX mean log sd|), and JAX's own largest leave-one-key-out
+    distances for each."""
+    ref_means, ref_sds = np.asarray(ref_means), np.asarray(ref_sds)
+    scale = ref_sds.mean(axis=0)
+
+    def dist(m, s, means, sds):
+        return (float(np.max(np.abs(m - means.mean(axis=0)) / scale)),
+                float(np.max(np.abs(np.log(s) - np.log(sds).mean(axis=0)))))
+
+    own = [dist(ref_means[k], ref_sds[k], np.delete(ref_means, k, 0), np.delete(ref_sds, k, 0))
+           for k in range(len(ref_means))]
+    return dist(mean, sd, ref_means, ref_sds), (max(d[0] for d in own), max(d[1] for d in own))
+
+
+def pathfinder_leg(qt, device, smi, ref, model):
+    """Phase 28 (a): the init="pathfinder" route and its ChEES handoff."""
+    runs = ref["runs"]
+    x0 = torch.zeros(LOGISTIC_N, dtype=torch.float32, device=device)
+
+    def call():
+        return qt.pathfinder(model, BENCH_SEED, x0, n_draws=PF_DRAWS, init_scale=PF_INIT_SCALE)
+
+    pf, wall, syncs, evals, peak = sampler_run(qt, qt.pathfinder, call)
+    check(bool(torch.isfinite(pf.draws).all()), "pathfinder: NaN or inf in the draws")
+    check(pf.draws.shape == (PF_DRAWS, LOGISTIC_N) and pf.pool.shape == (8 * 2048, LOGISTIC_N),
+          f"pathfinder: draws {tuple(pf.draws.shape)}, pool {tuple(pf.pool.shape)}")
+    status = pf.status.cpu().numpy()
+    elbo = pf.elbo.double().cpu().numpy()
+    jax_finite = all(all(r["elbo_finite"]) for r in runs)
+    jax_nonfinite = any(int(qt.Status.NONFINITE_VALUE) in r["status"] for r in runs)
+    check(not jax_finite or bool(np.isfinite(elbo).all()),
+          f"pathfinder: a path's ELBO is not finite where JAX's are: {elbo}")
+    check(jax_nonfinite or int(qt.Status.NONFINITE_VALUE) not in status,
+          f"pathfinder: a NONFINITE_VALUE status where JAX has none: {status}")
+    texts = [band_check("median path ELBO", float(np.median(elbo)),
+                        [r["median_elbo"] for r in runs]),
+             band_check("khat", float(pf.khat), [r["khat"] for r in runs])]
+    d = pf.draws.double()
+    (dm, ds), (own_m, own_s) = moment_distance(
+        d.mean(dim=0).cpu().numpy(), d.std(dim=0, correction=0).cpu().numpy(),
+        [r["mean"] for r in runs], [r["sd"] for r in runs])
+    check(dm <= MOMENT_SPREAD * own_m and ds <= MOMENT_SPREAD * own_s,
+          f"pathfinder: draws' moments {dm:.4f} sd / {ds:.4f} log-sd from JAX's key means, "
+          f"limits {MOMENT_SPREAD} x JAX's own {own_m:.4f} / {own_s:.4f}")
+    n_fev, n_gev = pf.n_fev.cpu().numpy(), pf.n_gev.cpu().numpy()
+    jr = runs[0]
+    log(f"[init] pathfinder(model, key, zeros({LOGISTIC_N}), n_draws={PF_DRAWS}, init_scale="
+        f"{PF_INIT_SCALE}) on config 3's logistic f32, 8 paths x 2048 (pool 16384), 64 "
+        f"iterations, 16 ELBO draws: {'; '.join(texts)}; draws' means {dm:.4f} sd and sds "
+        f"{ds:.4f} log-sd from JAX's key means (JAX's own leave-one-out {own_m:.4f} / "
+        f"{own_s:.4f}); statuses {status.tolist()} (JAX key {jr['key']}: {jr['status']}), "
+        f"iterations {pf.iterations.tolist()} (JAX {jr['iterations']}), best_iter "
+        f"{pf.best_iter.tolist()} (JAX {jr['best_iter']}), n_fev {n_fev.tolist()} (JAX "
+        f"{jr['n_fev']}), n_gev {n_gev.tolist()} (JAX {jr['n_gev']}); {wall:.2f} s a call (JAX "
+        f"on a CPU {jr['cpu_seconds']} s), {int(n_fev.sum()) / wall:.3e} objective evaluations/s "
+        f"({evals} fleet-wide calls), {syncs} host syncs (every flagged one counted), peak "
+        f"{peak / 2**20:.0f} MiB on {smi}")
+    mass = pf.mass()
+    chees, wall_c, syncs_c, grads_c, peak_c = sampler_run(
+        qt, qt.chees_sample, lambda: qt.chees_sample(model, BENCH_SEED, pf.draws, mass=mass,
+                                                     n_samples=PF_CHEES_DRAWS,
+                                                     n_warmup=PF_CHEES_WARMUP))
+    check(bool(torch.isfinite(chees.samples).all()), "pathfinder -> ChEES: NaN in the samples")
+    acc = float(chees.accept_rate.double().mean())
+    check(abs(acc - CHEES_TARGET) <= ACCEPT_ATOL,
+          f"pathfinder -> ChEES: mean accept {acc:.4f}, target {CHEES_TARGET}")
+    log(f"[init] the handoff: chees_sample(model, key, pf.draws, mass=pf.mass()) {PF_DRAWS} chains "
+        f"({PF_CHEES_WARMUP} warmup, {PF_CHEES_DRAWS} draws), the LowRankMass of the best path "
+        f"(rank {mass.Q.shape[1]}): mean accept {acc:.4f} (target {CHEES_TARGET}), step "
+        f"{float(chees.step_size):.4f}, trajectory length {float(chees.traj_length):.4f}; "
+        f"{rate_line(PF_DRAWS, PF_CHEES_DRAWS, wall_c, syncs_c, grads_c, peak_c)} on {smi}")
+    del chees, mass
+    qt.pathfinder.gradient_evals = 0
+    prof = device_profile(call)
+    log(profile_line(f"pathfinder 8 paths x n={LOGISTIC_N} f32, one call, per loop body", *prof,
+                     64))
+    return wall
+
+
+def svgd_leg(qt, device, smi, ref, model, starts):
+    """Phase 28 (b): the init="svgd" route, its witness gates and its
+    chunked resume."""
+    X0 = torch.tensor(starts, dtype=torch.float32, device=device)
+    res, wall, syncs, _e, peak = sampler_run(qt, None, lambda: qt.svgd_sample(model, X0))
+    check(syncs == 0, "svgd: a host read in its loop")
+    base, witnesses = ref["base"], ref["witnesses"].values()
+    p = res.particles.double()
+    port = {"bandwidth": np.asarray([float(res.bandwidth)]),
+            "mean": p.mean(dim=0).cpu().numpy(), "sd": p.std(dim=0, correction=0).cpu().numpy(),
+            "rows": p[::ref["plan"]["row_stride"]].cpu().numpy()}
+    texts = []
+    for name, mine in port.items():
+        jb = np.atleast_1d(np.asarray(base[name]))
+        err = float(np.max(np.abs(mine - jb)))
+        spread = max(float(np.max(np.abs(np.atleast_1d(np.asarray(w[name])) - jb)))
+                     for w in witnesses)
+        check(err <= SVGD_WITNESS_FACTOR * spread,
+              f"svgd: {name} {err:.3e} from JAX's, limit {SVGD_WITNESS_FACTOR} x JAX's one-ulp "
+              f"spread {spread:.3e}")
+        texts.append(f"{name} {err:.3e} (JAX's one-ulp spread {spread:.3e})")
+    check(bool(torch.isfinite(res.logp).all()), "svgd: a particle's log-density is not finite")
+    with tempfile.TemporaryDirectory() as tmp:
+        half = qt.svgd_sample(model, X0, n_steps=250)
+        rest = qt.svgd_sample_from_state(model, through_file(half.state, tmp, "svgd"),
+                                         n_steps=250)
+    for field, a, b in zip(qt.SVGDState._fields, rest.state, res.state):
+        check(torch.equal(a, b), f"svgd resume: state leaf {field} differs from the long run's")
+    check(torch.equal(rest.bandwidth, res.bandwidth), "svgd resume: the bandwidth differs")
+    log(f"[init] svgd_sample(model, {BATCH} particles) 500 steps f32 (x0 = 0 plus phase 20's "
+        f"numpy starts): bandwidth {float(res.bandwidth):.6f} (JAX {base['bandwidth']:.6f}); max "
+        f"abs differences from JAX's run: {', '.join(texts)}; 250 + save_state / load_state + "
+        f"250 steps equal to 500 bit for bit; {wall:.2f} s a call (JAX on a CPU "
+        f"{base['cpu_seconds']} s), {BATCH * 501 / wall:.3e} objective evaluations/s, {syncs} host "
+        f"syncs, peak {peak / 2**20:.0f} MiB on {smi}")
+    del half, rest
+    prof = device_profile(lambda: qt.svgd_sample(model, X0))
+    log(profile_line(f"svgd {BATCH} x n={LOGISTIC_N} f32, one call (500 steps), per step", *prof,
+                     500))
+    return wall
+
+
+def pointwise_loglik(X, y, draws):
+    """The (S, N) Bernoulli log-likelihood log p(y_i | w_s) of config 3."""
+    logits = draws @ X.T
+    return (y * torch.nn.functional.logsigmoid(logits)
+            + (1.0 - y) * torch.nn.functional.logsigmoid(-logits))
+
+
+def loo_leg(qt, device, smi, ref):
+    """Phase 28 (c): LOO and WAIC on HMC draws from the B1 MAP fleet.
+    Returns B1's [loo] record."""
+    plan = ref["plan"]
+    model, fleet, launches, (converged, med, itmax) = logistic_map_fleet(qt, device,
+                                                                         "LOO MAP fleet")
+    x0s, mass = qt.chain_init_from_map(fleet, jitter=plan["jitter"], key=BENCH_SEED)
+    del fleet
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
+    t0 = time.perf_counter()
+    hmc = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=plan["draws"],
+                        n_warmup=plan["warmup"], n_leapfrog=plan["leapfrog"])
+    torch.cuda.synchronize()
+    wall_h = time.perf_counter() - t0
+    check(bool(torch.isfinite(hmc.samples).all()), "LOO: NaN in the HMC draws")
+    ll = pointwise_loglik(model.X, model.y, hmc.samples.reshape(-1, LOGISTIC_N))
+    del hmc, x0s, mass
+    check(ll.shape == (BATCH, LOGISTIC_OBS) and ll.device.type == device.type,
+          f"LOO: pointwise log-likelihood {tuple(ll.shape)} on {ll.device}")
+    (lo, w), wall_l, syncs_l, _e, peak_l = sampler_run(qt, None,
+                                                        lambda: (qt.loo_psis(ll), qt.waic(ll)))
+    oracle_l, oracle_w = qt.loo_psis(ll.double().cpu()), qt.waic(ll.double().cpu())
+    rel = {}
+    for name, a, b in (("elpd_loo", lo.elpd, oracle_l.elpd), ("se_loo", lo.se, oracle_l.se),
+                       ("p_loo", lo.p_loo, oracle_l.p_loo), ("elpd_waic", w.elpd, oracle_w.elpd),
+                       ("se_waic", w.se, oracle_w.se), ("p_waic", w.p_waic, oracle_w.p_waic)):
+        rel[name] = abs(float(a) - float(b)) / abs(float(b))
+        check(rel[name] <= LOO_F32_RTOL, f"LOO: {name} {float(a):.6f} on the card, "
+                                         f"{float(b):.6f} in float64 on the CPU")
+    khat, khat64 = lo.khat.double().cpu(), oracle_l.khat
+    check(bool(torch.equal(torch.isfinite(khat), torch.isfinite(khat64))),
+          "LOO: a khat finite on one side only")
+    fin = torch.isfinite(khat64)
+    khat_err = float((khat[fin] - khat64[fin]).abs().max()) if bool(fin.any()) else 0.0
+    check(khat_err <= LOO_KHAT_ATOL, f"LOO: khat {khat_err:.3e} from the float64 oracle")
+    texts = []
+    for name, value in (("elpd_loo", float(lo.elpd)), ("elpd_waic", float(w.elpd))):
+        vals = [r[name] for r in ref["runs"]]
+        centre, spread = float(np.mean(vals)), max(vals) - min(vals)
+        check(abs(value - centre) <= LOO_SPREAD_FACTOR * spread,
+              f"LOO: {name} {value:.4f} is {abs(value - centre):.4f} from JAX's mean {centre:.4f}, "
+              f"limit {LOO_SPREAD_FACTOR} x JAX's key-to-key spread {spread:.4f}")
+        texts.append(f"{name} {value:.4f} (JAX {centre:.4f}, spread {spread:.4f} over "
+                     f"{len(vals)} keys)")
+    over = int((khat > 0.7).sum())
+    log(f"[init] LOO MAP fleet: optimize_batched on config 3's logistic {BATCH} starts f32 tol "
+        f"{LOGISTIC_TOL}: converged {converged}/{BATCH}, iterations median {med:g} max {itmax} "
+        f"(JAX median {ref['map']['median_iterations']:g}), B1 {launches} launches = loop "
+        f"bodies; chain_init_from_map(jitter={plan['jitter']}), hmc_sample {plan['warmup']} "
+        f"warmup + {plan['draws']} draw x {BATCH} chains ({plan['leapfrog']} leapfrog steps) in "
+        f"{wall_h:.2f} s; loo_psis + waic on the ({BATCH}, {LOGISTIC_OBS}) pointwise "
+        f"log-likelihood on the card in {wall_l:.4f} s ({syncs_l} host syncs, peak "
+        f"{peak_l / 2**20:.0f} MiB): {', '.join(texts)}; se {float(lo.se):.4f}, p_loo "
+        f"{float(lo.p_loo):.4f}, p_waic {float(w.p_waic):.4f}, khat max {float(khat.max()):.4f}, "
+        f"{over} over 0.7 (JAX {ref['runs'][0]['khat_over_07']}); against the float64 oracle "
+        f"on the CPU: max rel {max(rel.values()):.2e} (limit {LOO_F32_RTOL}), khat max abs "
+        f"{khat_err:.2e} (limit {LOO_KHAT_ATOL}); B1 at {BATCH}x{LOGISTIC_N} f32 against its "
+        f"plain version max abs err {err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {smi}")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
+
+def initializers_phase(qt, device, smi):
+    """The workflow's other two initializers and PSIS (see phase 28 above).
+    Returns B1's [loo] record."""
+    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
+
+    t_phase = time.perf_counter()
+    with open(PATHFINDER_REF) as fh:
+        ref = json.load(fh)
+    check(ref["pathfinder"]["plan"] == {"n_draws": PF_DRAWS, "init_scale": PF_INIT_SCALE,
+                                        "keys": len(ref["pathfinder"]["runs"])}
+          and ref["svgd"]["plan"]["particles"] == BATCH and ref["svgd"]["plan"]["n_steps"] == 500,
+          "initializers: scripts/jax_pathfinder_reference.json ran another plan")
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                  y=yd, dtype=torch.float32, device=device)
+    walls = [pathfinder_leg(qt, device, smi, ref["pathfinder"], model),
+             svgd_leg(qt, device, smi, ref["svgd"], model, starts)]
+    record = loo_leg(qt, device, smi, ref["loo"])
+    log(f"[init] phase 28 took {time.perf_counter() - t_phase:.1f} s (pathfinder {walls[0]:.2f} "
+        f"s, svgd {walls[1]:.2f} s a call) on {smi}")
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -4560,17 +5056,28 @@ def main():
         return out
 
     name, smi = timed("1", device_phase)
-    builds = [start_build()]  # the kernel library builds beside the traces and phase
-    try:  # 16's float32 starts, which launch no hand-written kernel and time nothing
+    # the kernel library builds beside the traces, phase 16's float32 starts
+    # and phase 9's plain runs (processes of their own) and the plain runs
+    # made ahead here, none of which launches a hand-written kernel or times
+    # anything
+    ahead_dir = tempfile.mkdtemp()
+    ahead_file = os.path.join(ahead_dir, "phase9.pt")
+    helpers = [start_helper("scalar_f32_starts"), start_helper("resident_plain_ahead", ahead_file)]
+    builds = [start_build()]
+    try:
         phase22 = timed("22 trace", traced_objectives, qt, device)
         phase23 = timed("23 trace", hierarchical_objectives, qt, device)
         sources = phase22["sources"] + phase23["sources"]
         builds.append(start_build(sources))
-        timed("16 starts", scalar_f32_starts, qt, device)
+        log(f"[ahead] {timed('ahead', prefetch_plain, qt, device, phase22, phase23, helpers + builds)}")
+        for label, handle in zip(("16 starts", "9 ahead"), helpers):
+            timed(label, finish_helper, handle)
+        load_ahead(ahead_file)
         libs, build_s = timed("2", build_phase, sources, builds)
     finally:
-        for handle in builds:
+        for handle in helpers + builds:
             stop_build(handle)
+        shutil.rmtree(ahead_dir, ignore_errors=True)
     split = len(phase22["sources"])
     max_abs_err = timed("3", kernel_phase, device)
     reset_counters(qt)
@@ -4583,7 +5090,7 @@ def main():
     resident, b3_bounds = timed("10", resident_path_phase, qt, device)
     times = timed("11", blocked_and_resident_timing_phase, qt, device, smi, b3_bounds)
     cg = timed("12", cg_phase, qt, device, smi)
-    timed("13", wolfe_phase, qt, device, smi, cg["n_fev"])
+    timed("13", wolfe_phase, qt, device, smi, cg["n_fev"], cg["fold"])
     timed("14", compacted_phase, qt, device, smi)
     timed("15", repair_phase, qt)
     timed("16", scalar_phase, qt, device)
@@ -4600,8 +5107,10 @@ def main():
     multistart = timed("25", map_backend_phase, qt, device, smi)
     sampling_rec = timed("26", sampling_phase, qt, device, smi)
     nuts_rec = timed("27", nuts_phase, qt, device, smi)
+    loo_rec = timed("28", initializers_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
-        f"{time.perf_counter() - t_start:.1f} s in all on {smi}")
+        f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
+        f"taken: {len(AHEAD)}")
 
     def record(name, source, replaces, launches, err, ms):
         kernel_ms, plain_ms, bound_ms, bound_by, library_ms = ms
@@ -4619,6 +5128,7 @@ def main():
         record("fused_bfgs_update_batched[sampling]", KERNEL_SOURCE, KERNEL_REPLACES,
                *sampling_rec),
         record("fused_bfgs_update_batched[nuts]", KERNEL_SOURCE, KERNEL_REPLACES, *nuts_rec),
+        record("fused_bfgs_update_batched[loo]", KERNEL_SOURCE, KERNEL_REPLACES, *loo_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

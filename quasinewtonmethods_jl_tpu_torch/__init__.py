@@ -27,7 +27,10 @@ Laplace evidence (`laplace_evidence`), implicit gradients through a solve
 `pytree_names`) and chain diagnostics (`diagnostics.py`), and the
 samplers the MAP fleet hands over to (`chain_init_from_map`, `hmc_sample`,
 `chees_sample`, `nuts_sample` and their `*_from_state`,
-`nuts_sample_depth_sorted`, `LowRankMass`); ROADMAP.md lists
+`nuts_sample_depth_sorted`, `LowRankMass`), the workflow's other
+initializers, Pathfinder (`pathfinder`, `psis_smooth`) and SVGD
+(`svgd_sample`, `svgd_sample_from_state`), and PSIS-LOO / WAIC model
+comparison (`loo_psis`, `waic`, `loo_compare`); ROADMAP.md lists
 what is still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
@@ -65,6 +68,7 @@ from .laplace import laplace_evidence
 from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
 from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
 from .least_squares import LeastSquaresResult, least_squares, least_squares_from_state
+from .loo import LOOResult, WAICResult, loo_compare, loo_psis, waic
 from .minimize import minimize
 from .models import LogisticRegressionMAP
 from .multistart import MultistartResult, optimize_multistart
@@ -72,6 +76,7 @@ from .ops.bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
 from .ops.linesearch import BackTracking, LineSearchResult, backtracking_linesearch
 from .ops.wolfe import Wolfe, WolfeResult, wolfe_linesearch
 from .parallel.batch import optimize_batched, optimize_lbfgs_batched
+from .pathfinder import PathfinderResult, pathfinder, psis_smooth
 from .polish import PolishResult, polish_newton
 from .pytree import (
     least_squares_pytree,
@@ -110,6 +115,7 @@ from .solve import (
     optimize,
     optimize_from_state,
 )
+from .svgd import SVGDResult, SVGDState, svgd_sample, svgd_sample_from_state
 from .transforms import TransformedModel, transform_objective
 from .trust_region import TRResult, optimize_tr, optimize_tr_from_state
 from .state import (
@@ -272,5 +278,17 @@ __all__ = [
     "NUTSState",
     "NUTSResult",
     "DepthSortInfo",
+    "pathfinder",
+    "PathfinderResult",
+    "psis_smooth",
+    "svgd_sample",
+    "svgd_sample_from_state",
+    "SVGDResult",
+    "SVGDState",
+    "loo_psis",
+    "loo_compare",
+    "waic",
+    "LOOResult",
+    "WAICResult",
     "__version__",
 ]

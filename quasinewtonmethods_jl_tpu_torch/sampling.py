@@ -169,6 +169,8 @@ _NUTS_STREAM = 3
 _NUTS_MOMENTUM, _NUTS_DOUBLING, _NUTS_LEAF = 0, 1, 2
 # the depth-sorted driver's sub-fleet keys
 _SUBFLEET_STREAM = 4
+# Pathfinder's streams (pathfinder.py): this word first, then the kind of draw
+_PATHFINDER_STREAM = 5
 
 
 def _as_key(key, engine=None) -> torch.Tensor:

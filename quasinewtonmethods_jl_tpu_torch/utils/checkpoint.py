@@ -10,13 +10,12 @@ matching class, and the ``*_from_state`` entry points resume from it.
 
 The port covers the five solver states it has (`BFGSState`, `LBFGSState`,
 `CGState`, `LMState`, `TRState`) and the sampler states `HMCState`,
-`ChEESState` and `NUTSState`. A sampler state's ``key`` is written as the uint32 (2,)
+`ChEESState`, `NUTSState` and `SVGDState`. A sampler state's ``key`` is written as the uint32 (2,)
 array of its two words with empty ``__key_fields__``, which JAX's
 `load_state` reads as a raw key; a JAX file's typed ``threefry2x32`` key
 (named in ``__key_fields__``) or raw key loads as those two words. A key
 of another impl, or a key in any other field, raises a TypeError, and so
-do the sampler states not ported yet (tempering, SVGD, ensemble,
-MCLMC).
+do the sampler states not ported yet (tempering, ensemble, MCLMC).
 """
 
 from __future__ import annotations
@@ -40,6 +39,7 @@ from ..state import (
     tr_state_from_numpy,
 )
 from ..sampling import ChEESState, HMCState, NUTSState
+from ..svgd import SVGDState
 from .device import as_device_state
 
 __all__ = ["save_state", "load_state"]
@@ -57,13 +57,14 @@ def _sampler_state_from_numpy(state, device):
 
 _STATE_CLASSES = {"BFGSState": BFGSState, "LBFGSState": LBFGSState, "CGState": CGState,
                   "LMState": LMState, "TRState": TRState, "HMCState": HMCState,
-                  "ChEESState": ChEESState, "NUTSState": NUTSState}
+                  "ChEESState": ChEESState, "NUTSState": NUTSState, "SVGDState": SVGDState}
 _FROM_NUMPY = {BFGSState: bfgs_state_from_numpy, LBFGSState: lbfgs_state_from_numpy,
                CGState: cg_state_from_numpy, LMState: lm_state_from_numpy,
                TRState: tr_state_from_numpy, HMCState: _sampler_state_from_numpy,
-               ChEESState: _sampler_state_from_numpy, NUTSState: _sampler_state_from_numpy}
+               ChEESState: _sampler_state_from_numpy, NUTSState: _sampler_state_from_numpy,
+               SVGDState: _sampler_state_from_numpy}
 # the JAX package's sampler states (its checkpoint.py:28-43) not ported yet
-_SAMPLER_STATES = ("PTState", "SVGDState", "EnsembleState", "MCLMCState")
+_SAMPLER_STATES = ("PTState", "EnsembleState", "MCLMCState")
 # the key impl the port reads from a JAX file's typed keys
 _KEY_IMPL = "threefry2x32"
 
@@ -77,7 +78,7 @@ def _npz_path(path) -> str:
 
 def _not_ported(cls_name: str) -> TypeError:
     return TypeError(f"{cls_name} is a sampler state, which the PyTorch port does not hold "
-                     "yet (tempering, SVGD, ensemble and MCLMC are not yet ported)")
+                     "yet (tempering, ensemble and MCLMC are not yet ported)")
 
 
 def save_state(path: Union[str, os.PathLike], state) -> None:

@@ -55,7 +55,10 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.utils.checkpoint, "
         "quasinewtonmethods_jl_tpu_torch.diagnostics, "
         "quasinewtonmethods_jl_tpu_torch.pytree, "
-        "quasinewtonmethods_jl_tpu_torch.sampling; "
+        "quasinewtonmethods_jl_tpu_torch.sampling, "
+        "quasinewtonmethods_jl_tpu_torch.pathfinder, "
+        "quasinewtonmethods_jl_tpu_torch.svgd, "
+        "quasinewtonmethods_jl_tpu_torch.loo; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
@@ -66,15 +69,13 @@ def test_port_imports_no_jax():
 # evidence by sampling, the sampling workflow and what follows them
 # (ROADMAP.md A)
 NOT_YET_PORTED = {
-    "AISResult", "BridgeResult", "EnsembleResult", "EnsembleState", "LOOResult",
+    "AISResult", "BridgeResult", "EnsembleResult", "EnsembleState",
     "MCLMCResult", "MCLMCState", "MapThenSampleResult", "PTResult",
-    "PTState", "PathfinderResult", "PytreeSampleResult", "SVGDResult", "SVGDState", "WAICResult",
+    "PTState", "PytreeSampleResult",
     "ais_evidence", "bridge_evidence", "ensemble_autocorr_time", "ensemble_sample",
-    "ensemble_sample_from_state", "geometric_ladder", "loo_compare", "loo_psis",
+    "ensemble_sample_from_state", "geometric_ladder",
     "map_then_sample", "map_then_sample_pytree", "mclmc_sample", "mclmc_sample_from_state",
-    "pathfinder",
-    "psis_smooth", "pt_sample", "pt_sample_from_state", "svgd_sample", "svgd_sample_from_state",
-    "waic",
+    "pt_sample", "pt_sample_from_state",
 }
 
 
@@ -227,6 +228,47 @@ def test_the_map_back_end_places_numpy_input_on_the_card(monkeypatch, entry):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor"):
         MAP_ENTRY_POINTS[entry](np.ones((2, 3)))
+
+
+# the workflow's initializers given numpy starts (pathfinder.py, svgd.py)
+INITIALIZER_ENTRY_POINTS = {
+    "pathfinder": lambda a: qt.pathfinder(lambda x: -torch.sum(x * x), 5, a, n_draws=4,
+                                          max_iters=2, elbo_draws=2),
+    "svgd_sample": lambda a: qt.svgd_sample(lambda x: -torch.sum(x * x), a, n_steps=2),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(INITIALIZER_ENTRY_POINTS))
+def test_the_initializers_place_numpy_input_on_the_card(monkeypatch, entry):
+    """Numpy starts go to the card in float32 (without one, the entry
+    points' error), and Pathfinder's key stays on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass a CPU torch.Tensor"):
+        INITIALIZER_ENTRY_POINTS[entry](np.ones((2, 3)))
+    seen, keys = [], []
+    real = torch.as_tensor
+
+    def spy(data, *args, **kwargs):
+        seen.append(str(kwargs.get("device")))
+        kwargs.pop("device", None)
+        return real(data, *args, **kwargs)
+
+    pf_module = qt.pathfinder.__globals__
+    real_noise = pf_module["_pathfinder_elbo_noise"]
+
+    def noise_spy(key, *args):
+        keys.append(key)
+        return real_noise(key, *args)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch, "as_tensor", spy)
+    monkeypatch.setitem(pf_module, "_pathfinder_elbo_noise", noise_spy)
+    res = INITIALIZER_ENTRY_POINTS[entry](np.ones((2, 3)))
+    assert seen[0] == "cuda"
+    assert res[0].dtype == torch.float32
+    if entry == "pathfinder":
+        assert keys and all(k.device.type == "cpu" and k.dtype == torch.int64 for k in keys)
+        np.testing.assert_array_equal(keys[0].numpy(), [0, 5])
 
 
 @pytest.fixture(scope="module")
