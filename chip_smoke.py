@@ -323,7 +323,7 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      120 s and the script's limit): (a)
      phase 26 (a)'s MAP fleet and gates (`logistic_map_fleet`), then
      `chain_init_from_map(jitter=0.05)`; B1 at that shape timed again;
-     (b) `nuts_sample(n_samples=0, n_warmup=250, total_warmup=250)` on all
+     (b) `nuts_sample(n_samples=0, n_warmup=150, total_warmup=150)` on all
      4096 chains with no mass (the fleet adapts its diagonal, max_depth
      8), its state through `save_state` / `load_state` (every leaf bit for
      bit), then `nuts_sample_from_state(n_samples=50)`: phase 26's moment
@@ -378,6 +378,49 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      same plan than twice JAX's key-to-key spread; B1 at that shape timed
      again; (d) for (a) and (b) seconds a call, objective evaluations/s,
      host syncs, peak memory and the busy share over one profiled call.
+ 29. The other three samplers (mclmc.py, ensemble.py, tempering.py), the
+     workflow's ``sampler="mclmc"`` / ``"ensemble"`` / ``"pt"`` routes on
+     the same posterior, f32, held to the JAX package's numbers
+     (scripts/jax_tempering_reference.py, which writes
+     scripts/jax_tempering_reference.json; 512 chains for MCLMC and PT on
+     the same plans, the ensemble and the mixture at full width under 10
+     keys): (a) phase 26 (a)'s MAP fleet and gates (`logistic_map_fleet`,
+     B1 once per loop body), `chain_init_from_map(jitter=0.05)`, whose
+     dense B is the mass the workflow hands over; B1 at that shape timed
+     again; (b) `mclmc_sample` on all 4096 chains with that mass (200
+     warmup steps, 200 draws): no NaN, no host read in its loop (sync
+     debug mode), 2 fleet-wide gradients a step plus the first call's 1,
+     divergences 0 where JAX has 0, step size and L within 10 % of JAX's,
+     energy_var within [0.5, 2] x its 5e-4 target, per coordinate |mean
+     - JAX's| <= 5 combined MCSEs and the sd within [0.9, 1.1] of JAX's;
+     (c) `ensemble_sample` on 4096 walkers from the jittered starts (300
+     warmup steps, 200 draws) with ``partner="gather"``, then
+     ``"shift"``: no NaN, no autograd pass (torch.autograd.grad and
+     backward counted), 2 half-fleet value sweeps a step plus the start,
+     no host read, the mean acceptance inside the band of JAX's 10 keys
+     widened by half that band, and the draws' per-coordinate mean and sd
+     no further from JAX's key mean than 1.5 times the largest of JAX's
+     own leave-one-key-out distances; `ensemble_autocorr_time` over the
+     first 512 walkers printed beside JAX's; (d) `pt_sample(model, key,
+     x0s, mass=B)` with its defaults (8 temperatures from
+     `geometric_ladder(8, 0.05)`, 16 leapfrog steps; 80 warmup rounds,
+     80 draws) on all 4096 chains, 32768 replicas: no NaN, no host read,
+     17 fleet-wide gradients a round, (b)'s moment gates on the cold row,
+     per-temperature acceptance within 0.05 of JAX's, step sizes within
+     10 %, every pair's swap rate within 0.05; (e) the bimodal mixture of
+     tests/test_tempering.py:63-92 (modes at ±4 in n = 2, weights 0.75 /
+     0.25, sigma 1) on 4096 chains started in the heavy mode, 6
+     temperatures, beta_min 0.05, 8 leapfrog steps, 100 warmup rounds and
+     150 draws (the test's 300 and 400 cut for the phase's 45 s): the cold row's mode weights within 0.05 of [0.75, 0.25]
+     and the light mode's inside the band of JAX's 10 keys widened by
+     half, every swap rate above 0.2, more round trips than chains; (f) a
+     short plan of each sampler whole and through `save_state` /
+     `load_state` on the card (MCLMC through its announced warmup plan,
+     the ensemble through its warmup -> sampling transition, PT
+     mid-warmup): the draws and every state leaf bit for bit; (g) for
+     (b)-(d) seconds a call, draws/s, gradient or value evaluations/s,
+     host syncs, peak memory, and the busy share over a few profiled
+     steps from each warm state.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -411,7 +454,8 @@ by CUDA events over back-to-back launches; and a fifth,
 fleet's, its max_abs_err, times and bound B1's at that shape measured
 again in phase 27; and a sixth, ``fused_bfgs_update_batched[loo]``: phase
 28 (c)'s fleet's launches, and B1 at that shape measured again in phase
-28. B3 with a traced objective has one record per full-width fleet of phases
+28; and a seventh, ``fused_bfgs_update_batched[pt]``: phase 29 (a)'s
+fleet's launches, and B1 at that shape measured again in phase 29. B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -4350,41 +4394,48 @@ def moment_gates(qt, label, res, ref, accept="accept_rate"):
     ``accept_prob``). Returns its mean acceptance and summary."""
     check(bool(torch.isfinite(res.samples).all()), f"{label}: NaN or inf in the samples")
     mean, sd, mcse, rhat = chain_moments(qt, res.samples)
-    ref_mean, ref_sd, ref_mcse = (torch.tensor(ref[k], dtype=torch.float64, device=mean.device)
-                                  for k in ("mean", "sd", "mcse"))
-    z = ((mean - ref_mean).abs() / torch.sqrt(mcse ** 2 + ref_mcse ** 2)).max()
-    ratio = sd / ref_sd
     limit = RHAT_LIMIT if ref["rhat_max"] < RHAT_LIMIT else ref["rhat_max"] + RHAT_MARGIN
     check(rhat < limit, f"{label}: max split R-hat {rhat:.4f} (limit {limit:.4f}; JAX "
                         f"{ref['rhat_max']:.4f})")
-    check(float(z) <= MOMENT_Z, f"{label}: a posterior mean is {float(z):.2f} combined MCSEs "
-                                f"from JAX's (limit {MOMENT_Z})")
-    check(SD_RATIO[0] <= float(ratio.min()) and float(ratio.max()) <= SD_RATIO[1],
-          f"{label}: posterior sd ratio to JAX's in [{float(ratio.min()):.3f}, "
-          f"{float(ratio.max()):.3f}] (limits {SD_RATIO})")
+    moments = mcse_gates(label, mean, sd, mcse, ref)
     bfmi = qt.energy_bfmi_device(res.energies.double())
     acc = float(getattr(res, accept).double().mean())
     divs = int(res.divergences.sum())
     return acc, (f"max split R-hat {rhat:.4f} (limit {limit:.4f}, JAX {ref['rhat_max']:.4f}), "
-                 f"means within "
-                 f"{float(z):.2f} combined MCSEs of JAX's (max), sd ratio to JAX's "
-                 f"[{float(ratio.min()):.3f}, {float(ratio.max()):.3f}], median MCSE "
-                 f"{float(mcse.median()):.2e} (JAX {float(ref_mcse.median()):.2e}); mean accept "
-                 f"{acc:.4f} (JAX {ref['accept_mean']:.4f}); divergences {divs} (JAX "
-                 f"{ref['divergences']} over {ref['chains']} chains); E-BFMI median "
+                 f"{moments}; mean accept {acc:.4f} (JAX {ref['accept_mean']:.4f}); divergences "
+                 f"{divs} (JAX {ref['divergences']} over {ref['chains']} chains); E-BFMI median "
                  f"{float(bfmi.median()):.3f} min {float(bfmi.min()):.3f} (JAX "
                  f"{ref['ebfmi_median']:.3f} / {ref['ebfmi_min']:.3f})")
+
+
+def mcse_gates(label, mean, sd, mcse, ref):
+    """Per coordinate |mean - JAX's| within MOMENT_Z combined MCSEs and the
+    sd within SD_RATIO of JAX's; returns the summary."""
+    ref_mean, ref_sd, ref_mcse = (torch.tensor(ref[k], dtype=torch.float64, device=mean.device)
+                                  for k in ("mean", "sd", "mcse"))
+    z = float(((mean - ref_mean).abs() / torch.sqrt(mcse ** 2 + ref_mcse ** 2)).max())
+    ratio = sd / ref_sd
+    lo, hi = float(ratio.min()), float(ratio.max())
+    check(z <= MOMENT_Z, f"{label}: a posterior mean is {z:.2f} combined MCSEs from JAX's "
+                         f"(limit {MOMENT_Z})")
+    check(SD_RATIO[0] <= lo and hi <= SD_RATIO[1],
+          f"{label}: posterior sd ratio to JAX's in [{lo:.3f}, {hi:.3f}] (limits {SD_RATIO})")
+    return (f"means within {z:.2f} combined MCSEs of JAX's (max), sd ratio to JAX's [{lo:.3f}, "
+            f"{hi:.3f}], median MCSE {float(mcse.median()):.2e} (JAX "
+            f"{float(ref_mcse.median()):.2e} over {ref['chains']} chains)")
 
 
 def sampler_run(qt, engine, fn):
     """``fn()`` with the engine's counters at 0, the peak memory reset and
     torch's sync debug mode on: (result, wall s, host syncs, gradient
-    evaluations, peak bytes). Every synchronisation flagged must be one of
+    evaluations or, for a gradient-free engine, value sweeps, peak bytes). Every synchronisation flagged must be one of
     the engine's counted reads (an engine of None counts none: nothing
     may be flagged), and no BFGS kernel may launch."""
     if engine is None:
         engine = types.SimpleNamespace()
     engine.host_syncs = engine.gradient_evals = 0
+    if hasattr(engine, "value_evals"):  # a gradient-free engine counts its value sweeps
+        engine.value_evals = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters(qt)
@@ -4402,7 +4453,8 @@ def sampler_run(qt, engine, fn):
     check(flagged == engine.host_syncs, f"{flagged} synchronisations flagged, "
                                         f"{engine.host_syncs} counted")
     check(no_kernel_launched(read_counters(qt)), "a BFGS kernel launched inside a sampler")
-    return res, wall, engine.host_syncs, engine.gradient_evals, torch.cuda.max_memory_allocated()
+    evals = getattr(engine, "value_evals", engine.gradient_evals)
+    return res, wall, engine.host_syncs, evals, torch.cuda.max_memory_allocated()
 
 
 def rate_line(chains, draws, wall, syncs, grads, peak):
@@ -4615,9 +4667,10 @@ NUTS_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
 # cut for the phase's 120 s and the script's time limit, in this order:
 # (c)'s and (e)'s draws, then (b)'s, then the warmup (JAX's default 500;
 # 500 warmup rounds and 250, 50, 100 and 10 draws took 166.7 s on one
-# H100, and 500 with 100, 20, 20 and 5 left the whole script at 887.7 s);
-# every chain, the dimension, each check and gate stay
-NUTS_WARMUP, NUTS_DRAWS, NUTS_MAX_DEPTH = 250, 50, 8
+# H100, and 500 with 100, 20, 20 and 5 left the whole script at 887.7 s;
+# 250 rounds took 40.9 s of a whole script of 710.1 s with phase 29, so
+# 150); every chain, the dimension, each check and gate stay
+NUTS_WARMUP, NUTS_DRAWS, NUTS_MAX_DEPTH = 150, 50, 8
 NUTS_DEFAULT_SORT_DRAWS, NUTS_FORCED_DRAWS, NUTS_FORCED_GROUPS = 10, 10, 4
 NUTS_SORTED_RESUME_DRAWS = 5
 NUTS_SHORT_WARMUP, NUTS_SHORT_DRAWS = 20, 10  # (d)'s plan, chunked at 10 + 10
@@ -5039,6 +5092,285 @@ def initializers_phase(qt, device, smi):
     return record
 
 
+# Phase 29, the other three samplers: MCLMC, the affine-invariant ensemble and
+# replica-exchange HMC, the workflow's sampler="mclmc" / "ensemble" / "pt"
+# routes on config 3's logistic posterior at full width (4096 chains, n =
+# 100, float32), and replica exchange on the bimodal mixture it exists for.
+# JAX's numbers come from scripts/jax_tempering_reference.py (512 chains for
+# MCLMC and PT on the same plans; the ensemble and the mixture at full width
+# under 10 keys: its docstring says why more than 3).
+TEMPERING_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                             "jax_tempering_reference.json")
+MCLMC_WARMUP, MCLMC_DRAWS, MCLMC_TARGET = 200, 200, 5e-4
+ENSEMBLE_WARMUP, ENSEMBLE_DRAWS = 300, 200
+PT_WARMUP, PT_DRAWS, PT_TEMPS = 80, 80, 8
+BIMODAL_TEMPS, BIMODAL_BETA_MIN, BIMODAL_LEAPFROG = 6, 0.05, 8
+BIMODAL_WARMUP, BIMODAL_DRAWS = 100, 150
+ENERGY_VAR_BAND = (0.5, 2.0)  # energy_var over desired_energy_var
+STEP_RTOL = 0.1  # step size and L against JAX's
+MODE_ATOL = 0.05  # the mixture's mode weights against [0.75, 0.25]
+# the autocorrelation time's host FFTs over this many walkers (all 4096: ~12 s)
+TAU_WALKERS = 512
+SAMPLERS_PROFILED = {"mclmc": 20, "ensemble": 20, "pt": 3}  # steps or rounds profiled
+# (f)'s short plans, long and through a checkpoint: (warmup, draws)
+SAMPLERS_RESUME = {"mclmc": (20, 10), "ensemble": (20, 10), "pt": (6, 4)}
+
+
+def within(label, value, ref, rtol):
+    check(abs(value - ref) <= rtol * abs(ref), f"{label} {value:.4f} not within "
+                                               f"{100 * rtol:.0f} % of JAX's {ref:.4f}")
+    return f"{label} {value:.4f} (JAX {ref:.4f})"
+
+
+def mclmc_leg(qt, smi, ref, model, x0s, mass):
+    """Phase 29 (b): the sampler="mclmc" route."""
+    chains, steps = x0s.shape[0], MCLMC_WARMUP + MCLMC_DRAWS
+    res, wall, syncs, grads, peak = sampler_run(qt, qt.mclmc_sample, lambda: qt.mclmc_sample(
+        model, BENCH_SEED, x0s, mass, n_samples=MCLMC_DRAWS, n_warmup=MCLMC_WARMUP))
+    check(bool(torch.isfinite(res.samples).all()), "mclmc: NaN or inf in the samples")
+    check(syncs == 0, f"mclmc: {syncs} host reads in its loop")
+    check(grads == 2 * steps + 1, f"mclmc: {grads} fleet-wide gradients for {steps} steps")
+    divs = int(res.divergences.sum())
+    check(ref["divergences"] > 0 or divs == 0, f"mclmc: {divs} divergences, JAX none")
+    ev = float(res.energy_var)
+    check(ENERGY_VAR_BAND[0] * MCLMC_TARGET <= ev <= ENERGY_VAR_BAND[1] * MCLMC_TARGET,
+          f"mclmc: energy_var {ev:.3e} outside {ENERGY_VAR_BAND} x {MCLMC_TARGET}")
+    texts = [within("step size", float(res.step_size), ref["step_size"], STEP_RTOL),
+             within("L", float(res.L), ref["L"], STEP_RTOL)]
+    mean, sd, mcse, _rhat = chain_moments(qt, res.samples)
+    summary = mcse_gates("mclmc", mean, sd, mcse, ref)
+    log(f"[samplers] mclmc_sample {chains} chains x n={LOGISTIC_N} f32, {MCLMC_WARMUP} warmup + "
+        f"{MCLMC_DRAWS} draws, the handed-over dense B (its diagonal): {summary}; "
+        f"{', '.join(texts)}; energy_var {ev:.3e} (target {MCLMC_TARGET}, JAX "
+        f"{ref['energy_var']:.3e}); divergences {divs} (JAX {ref['divergences']}); "
+        f"{rate_line(chains, MCLMC_DRAWS, wall, syncs, grads, peak)} on {smi}")
+    return res.state, wall
+
+
+def ensemble_leg(qt, smi, ref, model, x0s, partner):
+    """Phase 29 (c): the sampler="ensemble" route with one partner rule."""
+    walkers, steps = x0s.shape[0], ENSEMBLE_WARMUP + ENSEMBLE_DRAWS
+    autograd = []
+    real_grad, real_backward = torch.autograd.grad, torch.autograd.backward
+
+    def spy(real):
+        def wrapped(*args, **kwargs):
+            autograd.append(real)
+            return real(*args, **kwargs)
+        return wrapped
+
+    torch.autograd.grad, torch.autograd.backward = spy(real_grad), spy(real_backward)
+    try:
+        res, wall, syncs, evals, peak = sampler_run(
+            qt, qt.ensemble_sample, lambda: qt.ensemble_sample(
+                model, BENCH_SEED, x0s, n_samples=ENSEMBLE_DRAWS, n_warmup=ENSEMBLE_WARMUP,
+                partner=partner))
+    finally:
+        torch.autograd.grad, torch.autograd.backward = real_grad, real_backward
+    label = f"ensemble[{partner}]"
+    check(bool(torch.isfinite(res.samples).all()), f"{label}: NaN or inf in the samples")
+    check(not autograd and res.samples.grad_fn is None and res.state.f.grad_fn is None,
+          f"{label}: a gradient was evaluated ({len(autograd)} autograd passes)")
+    check(evals == 2 * steps + 1, f"{label}: {evals} value sweeps for {steps} steps")
+    check(syncs == 0, f"{label}: {syncs} host reads in its loop")
+    runs = ref[partner]
+    acc = float(res.accept_rate.double().mean())
+    texts = [band_check("mean accept", acc, [r["accept_mean"] for r in runs])]
+    d = res.samples.double().reshape(-1, LOGISTIC_N)
+    (dm, ds), (own_m, own_s) = moment_distance(
+        d.mean(dim=0).cpu().numpy(), d.std(dim=0, correction=0).cpu().numpy(),
+        [r["mean"] for r in runs], [r["sd"] for r in runs])
+    check(dm <= MOMENT_SPREAD * own_m and ds <= MOMENT_SPREAD * own_s,
+          f"{label}: draws' moments {dm:.4f} sd / {ds:.4f} log-sd from JAX's key means, limits "
+          f"{MOMENT_SPREAD} x JAX's own {own_m:.4f} / {own_s:.4f}")
+    tau, _rel = qt.ensemble_autocorr_time(res.samples[:, :TAU_WALKERS])
+    log(f"[samplers] ensemble_sample(partner={partner!r}) {walkers} walkers x n={LOGISTIC_N} "
+        f"f32 from the jittered MAP starts, {ENSEMBLE_WARMUP} warmup + {ENSEMBLE_DRAWS} draws: "
+        f"{texts[0]}; draws' means {dm:.4f} sd and sds {ds:.4f} log-sd from JAX's key means "
+        f"(JAX's own leave-one-out {own_m:.4f} / {own_s:.4f}); autocorrelation time over the "
+        f"first {TAU_WALKERS} walkers median "
+        f"{float(np.median(tau)):.2f} max {float(np.max(tau)):.2f} (JAX "
+        f"{runs[0]['tau_median']:.2f} / {runs[0]['tau_max']:.2f}); no autograd pass; "
+        f"{wall:.2f} s a call, {walkers * ENSEMBLE_DRAWS / wall:.0f} draws/s, "
+        f"{walkers / 2 * evals / wall:.3e} walker evaluations/s ({evals} half-fleet sweeps), "
+        f"{syncs} host syncs, peak {peak / 2**20:.0f} MiB on {smi}")
+    return res.state, wall
+
+
+def pt_leg(qt, smi, ref, model, x0s, mass):
+    """Phase 29 (d): the sampler="pt" route, the defaults on every chain."""
+    chains = x0s.shape[0]
+    res, wall, syncs, grads, peak = sampler_run(qt, qt.pt_sample, lambda: qt.pt_sample(
+        model, BENCH_SEED, x0s, mass, n_samples=PT_DRAWS, n_warmup=PT_WARMUP))
+    rounds = PT_WARMUP + PT_DRAWS
+    check(bool(torch.isfinite(res.samples).all()) and bool(torch.isfinite(res.final_x).all()),
+          "pt: NaN or inf in the replicas")
+    check(syncs == 0, f"pt: {syncs} host reads in its loop")
+    check(res.state.x.shape == (PT_TEMPS, chains, LOGISTIC_N) and grads == 17 * rounds,
+          f"pt: replicas {tuple(res.state.x.shape)}, {grads} fleet-wide gradients")
+    mean, sd, mcse, _rhat = chain_moments(qt, res.samples)
+    summary = mcse_gates("pt cold row", mean, sd, mcse, ref)
+    acc = res.accept_rate.double().cpu().numpy()
+    step = res.step_size.double().cpu().numpy()
+    swap = res.swap_rate.double().cpu().numpy()
+    acc_err = float(np.max(np.abs(acc - np.asarray(ref["accept_rate"]))))
+    step_err = float(np.max(np.abs(step / np.asarray(ref["step_size"]) - 1.0)))
+    swap_err = float(np.max(np.abs(swap - np.asarray(ref["swap_rate"]))))
+    check(acc_err <= ACCEPT_ATOL, f"pt: per-temperature accept {acc} against JAX's "
+                                  f"{ref['accept_rate']}")
+    check(step_err <= STEP_RTOL, f"pt: per-temperature step size {step} against JAX's "
+                                 f"{ref['step_size']}")
+    check(swap_err <= ACCEPT_ATOL, f"pt: swap rates {swap} against JAX's {ref['swap_rate']}")
+    log(f"[samplers] pt_sample {PT_TEMPS} temperatures x {chains} chains ({PT_TEMPS * chains} "
+        f"replicas) x n={LOGISTIC_N} f32, {PT_WARMUP} warmup + {PT_DRAWS} draws, 16 leapfrog "
+        f"steps, the handed-over dense B: cold row {summary}; accept per temperature "
+        f"{np.round(acc, 4).tolist()} (max {acc_err:.4f} from JAX's), step sizes max "
+        f"{100 * step_err:.1f} % from JAX's, swap rates {np.round(swap, 4).tolist()} (max "
+        f"{swap_err:.4f} from JAX's), round trips {int(res.round_trips.sum())} (JAX "
+        f"{ref['round_trips']} over {ref['chains']} chains), divergences "
+        f"{int(res.divergences.sum())} (JAX {ref['divergences']}); "
+        f"{rate_line(PT_TEMPS * chains, PT_DRAWS, wall, syncs, grads, peak)} (replicas) on {smi}")
+    return res.state, wall
+
+
+def bimodal_leg(qt, device, smi, runs):
+    """Phase 29 (e): the bimodal mixture replica exchange exists for."""
+    from quasinewtonmethods_jl_tpu_torch.models import GaussianMixture
+
+    mix = GaussianMixture(means=[[4.0, 4.0], [-4.0, -4.0]], weights=[0.75, 0.25], sigmas=1.0,
+                          dtype=torch.float32, device=device)
+    noise = np.random.default_rng(BENCH_SEED + 2).standard_normal((BATCH, 2))
+    starts = torch.tensor(np.asarray([4.0, 4.0]) + 0.1 * noise, dtype=torch.float32,
+                          device=device)
+    res, wall, syncs, grads, peak = sampler_run(qt, qt.pt_sample, lambda: qt.pt_sample(
+        mix.logdensity, BENCH_SEED, starts, n_temps=BIMODAL_TEMPS, beta_min=BIMODAL_BETA_MIN,
+        n_samples=BIMODAL_DRAWS, n_warmup=BIMODAL_WARMUP, n_leapfrog=BIMODAL_LEAPFROG))
+    check(syncs == 0 and bool(torch.isfinite(res.samples).all()),
+          f"bimodal: {syncs} host reads, or NaN in the samples")
+    w = mix.mode_weights(res.samples).double().cpu().numpy()
+    check(float(np.max(np.abs(w - np.asarray([0.75, 0.25])))) <= MODE_ATOL,
+          f"bimodal: cold mode weights {w} not within {MODE_ATOL} of [0.75, 0.25]")
+    band = band_check("light-mode weight", float(w[1]), [r["mode_weights"][1] for r in runs])
+    swap = res.swap_rate.double().cpu().numpy()
+    trips = int(res.round_trips.sum())
+    check(bool(np.all(swap > 0.2)), f"bimodal: a swap rate at or below 0.2: {swap}")
+    check(trips > BATCH, f"bimodal: {trips} round trips over {BATCH} chains")
+    jax_trips = [r["round_trips"] for r in runs]
+    log(f"[samplers] bimodal mixture (modes ±4 in n = 2, weights 0.75 / 0.25) pt_sample "
+        f"{BIMODAL_TEMPS} temperatures beta_min {BIMODAL_BETA_MIN} x {BATCH} chains from the "
+        f"heavy mode, {BIMODAL_WARMUP} warmup + {BIMODAL_DRAWS} draws, {BIMODAL_LEAPFROG} "
+        f"leapfrog steps: cold mode weights {np.round(w, 4).tolist()}, {band}; swap rates "
+        f"{np.round(swap, 4).tolist()} (JAX min {min(min(r['swap_rate']) for r in runs):.4f}), "
+        f"round trips {trips} (JAX {min(jax_trips)}-{max(jax_trips)}); {wall:.2f} s a call, "
+        f"{grads} fleet-wide gradients, peak {peak / 2**20:.0f} MiB on {smi}")
+
+
+def samplers_resume(qt, model, x0s, mass):
+    """Phase 29 (f): each sampler's short plan whole and through
+    `save_state` / `load_state` on the card (MCLMC through its announced
+    warmup plan, the ensemble through its warmup -> sampling transition,
+    PT mid-warmup); the draws and every state leaf bit for bit."""
+    def runs(tmp):
+        w, d = SAMPLERS_RESUME["mclmc"]
+        yield ("mclmc", qt.mclmc_sample(model, BENCH_SEED, x0s, mass, n_samples=d, n_warmup=w),
+               qt.mclmc_sample_from_state(model, through_file(qt.mclmc_sample(
+                   model, BENCH_SEED, x0s, mass, n_samples=0, n_warmup=w // 2,
+                   total_warmup=w).state, tmp, "mclmc"), mass, n_samples=d,
+                   n_warmup=w - w // 2))
+        w, d = SAMPLERS_RESUME["ensemble"]
+        yield ("ensemble", qt.ensemble_sample(model, BENCH_SEED, x0s, n_samples=d, n_warmup=w),
+               qt.ensemble_sample_from_state(model, through_file(qt.ensemble_sample(
+                   model, BENCH_SEED, x0s, n_samples=0, n_warmup=w).state, tmp, "ensemble"),
+                   n_samples=d))
+        w, d = SAMPLERS_RESUME["pt"]
+        yield ("pt", qt.pt_sample(model, BENCH_SEED, x0s, mass, n_samples=d, n_warmup=w),
+               qt.pt_sample_from_state(model, through_file(qt.pt_sample(
+                   model, BENCH_SEED, x0s, mass, n_samples=0, n_warmup=w // 2).state, tmp,
+                   "pt"), mass, n_samples=d, n_warmup=w - w // 2))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, long, chunked in runs(tmp):
+            check(torch.equal(long.samples, chunked.samples),
+                  f"resume: {label}'s resumed draws differ from the long run's")
+            for field, a, b in zip(long.state._fields, long.state, chunked.state):
+                check(torch.equal(a, b.to(a.device)),
+                      f"resume: {label}'s state leaf {field} differs from the long run's")
+    plans = ", ".join(f"{k} {w} + {d}" for k, (w, d) in SAMPLERS_RESUME.items())
+    return (f"resume on the card (warmup + draws: {plans}), each long and through save_state / "
+            f"load_state (MCLMC at half its announced warmup, the ensemble at the end of its "
+            f"warmup, PT mid-warmup) on all {x0s.shape[0]} chains: the draws and every state "
+            f"leaf bit for bit")
+
+
+def samplers_phase(qt, device, smi):
+    """The other three samplers (see phase 29 above). Returns B1's [pt]
+    record: (launches, max abs error, (ms, plain ms, bound ms, bound kind,
+    library ms))."""
+    t_phase = time.perf_counter()
+    with open(TEMPERING_REF) as fh:
+        ref = json.load(fh)
+    check(ref["plan"] == {"chains": 512, "keys": 10, "tau_walkers": TAU_WALKERS,
+                          "mclmc": [MCLMC_WARMUP, MCLMC_DRAWS],
+                          "ensemble": [ENSEMBLE_WARMUP, ENSEMBLE_DRAWS],
+                          "pt": [PT_WARMUP, PT_DRAWS],
+                          "bimodal": [BIMODAL_TEMPS, BIMODAL_BETA_MIN, BIMODAL_LEAPFROG,
+                                      BIMODAL_WARMUP, BIMODAL_DRAWS]},
+          "samplers: scripts/jax_tempering_reference.json ran another plan")
+    # (a) the MAP fleet through B1, and the handoff
+    model, fleet, launches, (converged, med, itmax) = logistic_map_fleet(
+        qt, device, "samplers MAP fleet")
+    x0s, mass = qt.chain_init_from_map(fleet, jitter=SAMPLING_JITTER, key=BENCH_SEED)
+    del fleet
+    check(int(torch.linalg.cholesky_ex(mass)[1]) == 0 and mass.shape == (LOGISTIC_N, LOGISTIC_N),
+          "samplers handoff: the dense B is not positive definite")
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
+    log(f"[samplers] MAP fleet: optimize_batched on config 3's logistic {BATCH} starts f32 tol "
+        f"{LOGISTIC_TOL}: converged {converged}/{BATCH}, iterations median {med:g} max {itmax} "
+        f"(JAX median {ref['map']['median_iterations']:g}), B1 {launches} launches = loop "
+        f"bodies; chain_init_from_map(jitter={SAMPLING_JITTER}): the dense B; B1 at "
+        f"{BATCH}x{LOGISTIC_N} f32 against its plain version max abs err {err:.3e}, "
+        f"{b1_ms:.4f} ms a launch (CUDA events), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} "
+        f"ms ({bound_by}) on {smi}")
+    # (b)-(d) the three routes, (e) the mixture, (f) resume
+    walls, legs = {}, [f"map {time.perf_counter() - t_phase:.1f}"]
+
+    def leg(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        legs.append(f"{label} {time.perf_counter() - t0:.1f}")
+        return out
+
+    mclmc_state, walls["mclmc"] = leg("mclmc", mclmc_leg, qt, smi, ref["mclmc"], model, x0s,
+                                      mass)
+    for partner in ("gather", "shift"):
+        ens_state, walls[f"ensemble[{partner}]"] = leg(
+            f"ensemble[{partner}]", ensemble_leg, qt, smi, ref["ensemble"], model, x0s, partner)
+    pt_state, walls["pt"] = leg("pt", pt_leg, qt, smi, ref["pt"], model, x0s, mass)
+    leg("bimodal", bimodal_leg, qt, device, smi, ref["bimodal"])
+    log(f"[samplers] {leg('resume', samplers_resume, qt, model, x0s, mass)}")
+    t_prof = time.perf_counter()
+    # (g) the busy share over a few steps from each warm state
+    for label, engine, steps, fn, evals in (
+            ("mclmc", qt.mclmc_sample, SAMPLERS_PROFILED["mclmc"],
+             lambda: qt.mclmc_sample_from_state(model, mclmc_state, mass,
+                                                n_samples=SAMPLERS_PROFILED["mclmc"]), "gradient"),
+            ("ensemble[shift]", qt.ensemble_sample, SAMPLERS_PROFILED["ensemble"],
+             lambda: qt.ensemble_sample_from_state(model, ens_state,
+                                                   n_samples=SAMPLERS_PROFILED["ensemble"],
+                                                   partner="shift"), "value"),
+            ("pt", qt.pt_sample, SAMPLERS_PROFILED["pt"],
+             lambda: qt.pt_sample_from_state(model, pt_state, mass,
+                                             n_samples=SAMPLERS_PROFILED["pt"]), "gradient")):
+        prof = device_profile(fn)
+        log(profile_line(f"{label} {x0s.shape[0]}x{LOGISTIC_N} f32, {steps} steps from the warm "
+                         f"state ({evals} sweeps)", *prof, steps))
+    legs.append(f"profiles {time.perf_counter() - t_prof:.1f}")
+    log(f"[samplers] phase 29 took {time.perf_counter() - t_phase:.1f} s ({', '.join(legs)} s; "
+        f"mclmc {walls['mclmc']:.2f}, ensemble {walls['ensemble[gather]']:.2f} / "
+        f"{walls['ensemble[shift]']:.2f}, pt {walls['pt']:.2f} s a call) on {smi}")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -5108,6 +5440,7 @@ def main():
     sampling_rec = timed("26", sampling_phase, qt, device, smi)
     nuts_rec = timed("27", nuts_phase, qt, device, smi)
     loo_rec = timed("28", initializers_phase, qt, device, smi)
+    pt_rec = timed("29", samplers_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
         f"taken: {len(AHEAD)}")
@@ -5129,6 +5462,7 @@ def main():
                *sampling_rec),
         record("fused_bfgs_update_batched[nuts]", KERNEL_SOURCE, KERNEL_REPLACES, *nuts_rec),
         record("fused_bfgs_update_batched[loo]", KERNEL_SOURCE, KERNEL_REPLACES, *loo_rec),
+        record("fused_bfgs_update_batched[pt]", KERNEL_SOURCE, KERNEL_REPLACES, *pt_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

@@ -29,9 +29,13 @@ samplers the MAP fleet hands over to (`chain_init_from_map`, `hmc_sample`,
 `chees_sample`, `nuts_sample` and their `*_from_state`,
 `nuts_sample_depth_sorted`, `LowRankMass`), the workflow's other
 initializers, Pathfinder (`pathfinder`, `psis_smooth`) and SVGD
-(`svgd_sample`, `svgd_sample_from_state`), and PSIS-LOO / WAIC model
-comparison (`loo_psis`, `waic`, `loo_compare`); ROADMAP.md lists
-what is still to port. Entry points run on the CUDA card unless given a CPU
+(`svgd_sample`, `svgd_sample_from_state`), PSIS-LOO / WAIC model
+comparison (`loo_psis`, `waic`, `loo_compare`), and the other three
+samplers: MCLMC (`mclmc_sample`, `mclmc_sample_from_state`), the
+affine-invariant ensemble (`ensemble_sample`, `ensemble_sample_from_state`,
+`ensemble_autocorr_time`) and replica-exchange HMC (`pt_sample`,
+`pt_sample_from_state`, `geometric_ladder`); ROADMAP.md lists what is
+still to port. Entry points run on the CUDA card unless given a CPU
 tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
@@ -46,6 +50,13 @@ from .batched_solve import (
 )
 from .cg_solve import CGResult, optimize_cg, optimize_cg_from_state
 from .constrained import AugLagResult, optimize_auglag
+from .ensemble import (
+    EnsembleResult,
+    EnsembleState,
+    ensemble_autocorr_time,
+    ensemble_sample,
+    ensemble_sample_from_state,
+)
 from .diagnostics import (
     ChainDiagnostics,
     PosteriorSummary,
@@ -68,6 +79,7 @@ from .laplace import laplace_evidence
 from .lbfgs_batched_solve import optimize_lbfgs_batched_fused_from_state
 from .lbfgs_solve import LBFGSResult, optimize_lbfgs, optimize_lbfgs_from_state
 from .least_squares import LeastSquaresResult, least_squares, least_squares_from_state
+from .mclmc import MCLMCResult, MCLMCState, mclmc_sample, mclmc_sample_from_state
 from .loo import LOOResult, WAICResult, loo_compare, loo_psis, waic
 from .minimize import minimize
 from .models import LogisticRegressionMAP
@@ -116,6 +128,7 @@ from .solve import (
     optimize_from_state,
 )
 from .svgd import SVGDResult, SVGDState, svgd_sample, svgd_sample_from_state
+from .tempering import PTResult, PTState, geometric_ladder, pt_sample, pt_sample_from_state
 from .transforms import TransformedModel, transform_objective
 from .trust_region import TRResult, optimize_tr, optimize_tr_from_state
 from .state import (
@@ -290,5 +303,19 @@ __all__ = [
     "waic",
     "LOOResult",
     "WAICResult",
+    "mclmc_sample",
+    "mclmc_sample_from_state",
+    "MCLMCResult",
+    "MCLMCState",
+    "ensemble_sample",
+    "ensemble_sample_from_state",
+    "ensemble_autocorr_time",
+    "EnsembleResult",
+    "EnsembleState",
+    "pt_sample",
+    "pt_sample_from_state",
+    "geometric_ladder",
+    "PTResult",
+    "PTState",
     "__version__",
 ]

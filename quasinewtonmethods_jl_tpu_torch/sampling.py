@@ -134,24 +134,20 @@ class HMCResult(NamedTuple):
     state: HMCState
 
 
-# JAX's samplers that the port does not hold yet (get_sampler's registry)
-_NOT_PORTED_SAMPLERS = ("ensemble", "mclmc", "pt")
-
-
 def get_sampler(name: str):
     """Resolve a sampler by name — one registry for every dispatch site.
-    The JAX package's other samplers raise NotImplementedError until they
-    are ported."""
+    ``"pt"``, ``"ensemble"`` and ``"mclmc"`` import their modules when
+    resolved (tempering imports this module)."""
     samplers = {"chees": chees_sample, "hmc": hmc_sample, "nuts": nuts_sample}
-    if name in _NOT_PORTED_SAMPLERS:
-        raise NotImplementedError(
-            f"sampler {name!r} is not yet ported to the PyTorch port; "
-            f"ported: {sorted(samplers)}"
-        )
+    lazy = {"ensemble": "ensemble", "mclmc": "mclmc", "pt": "tempering"}
+    if name in lazy:
+        import importlib
+
+        module = importlib.import_module(f".{lazy[name]}", __package__)
+        return getattr(module, f"{name}_sample")
     if name not in samplers:
         raise ValueError(
-            f"unknown sampler {name!r}; use one of "
-            f"{sorted((*samplers, *_NOT_PORTED_SAMPLERS))}"
+            f"unknown sampler {name!r}; use one of {sorted((*samplers, *lazy))}"
         )
     return samplers[name]
 
@@ -171,6 +167,11 @@ _NUTS_MOMENTUM, _NUTS_DOUBLING, _NUTS_LEAF = 0, 1, 2
 _SUBFLEET_STREAM = 4
 # Pathfinder's streams (pathfinder.py): this word first, then the kind of draw
 _PATHFINDER_STREAM = 5
+# MCLMC's (mclmc.py), the ensemble's (ensemble.py) and replica exchange's
+# (tempering.py) streams, each word first
+_MCLMC_STREAM = 6
+_ENSEMBLE_STREAM = 7
+_PT_STREAM = 8
 
 
 def _as_key(key, engine=None) -> torch.Tensor:

@@ -9,13 +9,13 @@ crosses between the packages in both directions. `load_state` restores the
 matching class, and the ``*_from_state`` entry points resume from it.
 
 The port covers the five solver states it has (`BFGSState`, `LBFGSState`,
-`CGState`, `LMState`, `TRState`) and the sampler states `HMCState`,
-`ChEESState`, `NUTSState` and `SVGDState`. A sampler state's ``key`` is written as the uint32 (2,)
-array of its two words with empty ``__key_fields__``, which JAX's
-`load_state` reads as a raw key; a JAX file's typed ``threefry2x32`` key
-(named in ``__key_fields__``) or raw key loads as those two words. A key
-of another impl, or a key in any other field, raises a TypeError, and so
-do the sampler states not ported yet (tempering, ensemble, MCLMC).
+`CGState`, `LMState`, `TRState`) and every sampler state of the JAX
+package: `HMCState`, `ChEESState`, `NUTSState`, `SVGDState`, `MCLMCState`,
+`EnsembleState` and `PTState`. A sampler state's ``key`` is written as the
+uint32 (2,) array of its two words with empty ``__key_fields__``, which
+JAX's `load_state` reads as a raw key; a JAX file's typed ``threefry2x32``
+key (named in ``__key_fields__``) or raw key loads as those two words. A
+key of another impl, or a key in any other field, raises a TypeError.
 """
 
 from __future__ import annotations
@@ -38,8 +38,11 @@ from ..state import (
     lm_state_from_numpy,
     tr_state_from_numpy,
 )
+from ..ensemble import EnsembleState
+from ..mclmc import MCLMCState
 from ..sampling import ChEESState, HMCState, NUTSState
 from ..svgd import SVGDState
+from ..tempering import PTState
 from .device import as_device_state
 
 __all__ = ["save_state", "load_state"]
@@ -55,16 +58,13 @@ def _sampler_state_from_numpy(state, device):
         for field, leaf in zip(state._fields, state)))
 
 
-_STATE_CLASSES = {"BFGSState": BFGSState, "LBFGSState": LBFGSState, "CGState": CGState,
-                  "LMState": LMState, "TRState": TRState, "HMCState": HMCState,
-                  "ChEESState": ChEESState, "NUTSState": NUTSState, "SVGDState": SVGDState}
-_FROM_NUMPY = {BFGSState: bfgs_state_from_numpy, LBFGSState: lbfgs_state_from_numpy,
-               CGState: cg_state_from_numpy, LMState: lm_state_from_numpy,
-               TRState: tr_state_from_numpy, HMCState: _sampler_state_from_numpy,
-               ChEESState: _sampler_state_from_numpy, NUTSState: _sampler_state_from_numpy,
-               SVGDState: _sampler_state_from_numpy}
-# the JAX package's sampler states (its checkpoint.py:28-43) not ported yet
-_SAMPLER_STATES = ("PTState", "EnsembleState", "MCLMCState")
+_SOLVER_FROM_NUMPY = {BFGSState: bfgs_state_from_numpy, LBFGSState: lbfgs_state_from_numpy,
+                      CGState: cg_state_from_numpy, LMState: lm_state_from_numpy,
+                      TRState: tr_state_from_numpy}
+_SAMPLER_STATES = (HMCState, ChEESState, NUTSState, SVGDState, MCLMCState, EnsembleState,
+                   PTState)
+_FROM_NUMPY = {**_SOLVER_FROM_NUMPY, **{cls: _sampler_state_from_numpy for cls in _SAMPLER_STATES}}
+_STATE_CLASSES = {cls.__name__: cls for cls in _FROM_NUMPY}
 # the key impl the port reads from a JAX file's typed keys
 _KEY_IMPL = "threefry2x32"
 
@@ -76,20 +76,13 @@ def _npz_path(path) -> str:
     return path if path.endswith(".npz") else path + ".npz"
 
 
-def _not_ported(cls_name: str) -> TypeError:
-    return TypeError(f"{cls_name} is a sampler state, which the PyTorch port does not hold "
-                     "yet (tempering, ensemble and MCLMC are not yet ported)")
-
-
 def save_state(path: Union[str, os.PathLike], state) -> None:
     """Write a solver or sampler state NamedTuple to ``path`` (.npz,
     appended if missing), every leaf copied to the host, the class name
     beside the fields so that `load_state` can check (or infer) the
     type."""
     cls = type(state).__name__
-    if cls in _SAMPLER_STATES:
-        raise _not_ported(cls)
-    if cls not in _STATE_CLASSES:
+    if _STATE_CLASSES.get(cls) is not type(state):
         raise TypeError(f"expected a solver or sampler state NamedTuple, got {cls}")
     # a None field is omitted; load_state restores it from the default. A
     # sampler's key is its two words, a raw JAX key
@@ -122,8 +115,6 @@ def load_state(
         saved_cls = str(z["__class__"])
         if cls is not None and cls.__name__ != saved_cls:
             raise TypeError(f"checkpoint holds {saved_cls}, expected {cls.__name__}")
-        if saved_cls in _SAMPLER_STATES:
-            raise _not_ported(saved_cls)
         key_fields = z["__key_fields__"].tolist() if "__key_fields__" in z else []
         key_impls = z["__key_impls__"].tolist() if "__key_impls__" in z else []
         klass = _STATE_CLASSES[saved_cls]

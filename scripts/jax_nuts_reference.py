@@ -15,7 +15,7 @@ CPU, as `scripts/jax_sampling_reference.py` builds them:
   * the workflow's depth-sort route on 512 of the chains (4096 take too
     long on a CPU; the chip's gates carry the difference in chain counts
     through the MCSEs): `nuts_sample(model, key, x0s[:512], n_samples=0,
-    n_warmup=250, total_warmup=250)` with no mass (the fleet adapts its
+    n_warmup=150, total_warmup=150)` with no mass (the fleet adapts its
     diagonal, max_depth 8; the warmup of chip_smoke.py's phase 27, which
     cut JAX's default 500 for its time limit), then `nuts_sample_from_state(model, warm,
     n_samples=250)`: per coordinate the pooled mean, sd and MCSE = sd /
@@ -53,7 +53,7 @@ from quasinewtonmethods_jl_tpu.models import LogisticRegressionMAP  # noqa: E402
 
 SEED = 20260816
 N, N_OBS, BATCH, PRIOR_SCALE, TOL = 100, 500, 4096, 10.0, 3e-3
-JITTER, CHAINS, WARMUP, DRAWS, MAX_DEPTH = 0.05, 512, 250, 250, 8
+JITTER, CHAINS, WARMUP, DRAWS, MAX_DEPTH = 0.05, 512, 150, 250, 8
 DEFAULT_SORT_DRAWS, FORCED_DRAWS, FORCED_GROUPS = 50, 100, 4
 OUT = os.path.join(ROOT, "scripts", "jax_nuts_reference.json")
 

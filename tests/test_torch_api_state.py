@@ -58,24 +58,21 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.sampling, "
         "quasinewtonmethods_jl_tpu_torch.pathfinder, "
         "quasinewtonmethods_jl_tpu_torch.svgd, "
-        "quasinewtonmethods_jl_tpu_torch.loo; "
+        "quasinewtonmethods_jl_tpu_torch.loo, "
+        "quasinewtonmethods_jl_tpu_torch.mclmc, "
+        "quasinewtonmethods_jl_tpu_torch.ensemble, "
+        "quasinewtonmethods_jl_tpu_torch.tempering; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
-# the JAX package's names the port does not have yet: the other samplers,
-# evidence by sampling, the sampling workflow and what follows them
-# (ROADMAP.md A)
+# the JAX package's names the port does not have yet: evidence by sampling
+# and the sampling workflow (ROADMAP.md A)
 NOT_YET_PORTED = {
-    "AISResult", "BridgeResult", "EnsembleResult", "EnsembleState",
-    "MCLMCResult", "MCLMCState", "MapThenSampleResult", "PTResult",
-    "PTState", "PytreeSampleResult",
-    "ais_evidence", "bridge_evidence", "ensemble_autocorr_time", "ensemble_sample",
-    "ensemble_sample_from_state", "geometric_ladder",
-    "map_then_sample", "map_then_sample_pytree", "mclmc_sample", "mclmc_sample_from_state",
-    "pt_sample", "pt_sample_from_state",
+    "AISResult", "BridgeResult", "MapThenSampleResult", "PytreeSampleResult",
+    "ais_evidence", "bridge_evidence", "map_then_sample", "map_then_sample_pytree",
 }
 
 
@@ -85,19 +82,21 @@ def test_version_and_exported_names_match_jax():
     assert all(hasattr(qt, name) for name in qt.__all__)
 
 
-# the JAX package's samplers that get_sampler names as not yet ported
-@pytest.mark.parametrize("name", ["ensemble", "mclmc", "pt"])
-def test_get_sampler_names_what_is_not_yet_ported(name):
-    with pytest.raises(NotImplementedError, match=f"sampler '{name}' is not yet ported"):
-        qt.sampling.get_sampler(name)
-    assert qj.sampling.get_sampler(name) is not None
-
-
-# the samplers ported since get_sampler first named them as not yet ported
-@pytest.mark.parametrize("name", ["nuts"])
+# the samplers ported since get_sampler first named them as not yet ported:
+# the port's resolves to its entry point, JAX's to a lazy wrapper of its
+# own, so the two are compared by what they run
+@pytest.mark.parametrize("name", ["ensemble", "mclmc", "nuts", "pt"])
 def test_get_sampler_resolves_what_was_ported(name):
     assert qt.sampling.get_sampler(name) is getattr(qt, f"{name}_sample")
-    assert qj.sampling.get_sampler(name) is getattr(qj, f"{name}_sample")
+    x0 = np.random.default_rng(1).standard_normal((8, 2))
+    kw = {"n_samples": 3, "n_warmup": 2}
+    port = qt.sampling.get_sampler(name)(lambda x: -0.5 * torch.sum(x * x), 4,
+                                         torch.tensor(x0), **kw)
+    ref = qj.sampling.get_sampler(name)(lambda x: -0.5 * jnp.sum(x * x),
+                                        jax.random.PRNGKey(4), jnp.asarray(x0), **kw)
+    assert type(port).__name__ == type(ref).__name__
+    assert tuple(port.samples.shape) == np.shape(ref.samples) == (3, 8, 2)
+    assert port.samples.dtype == torch.float64 and ref.samples.dtype == jnp.float64
 
 
 @pytest.mark.parametrize("n", [6, 7])

@@ -341,6 +341,9 @@ def test_get_sampler_resolves_and_keeps_jax_error_text():
     assert sampling.get_sampler("hmc") is qt.hmc_sample
     assert sampling.get_sampler("chees") is qt.chees_sample
     assert sampling.get_sampler("nuts") is qt.nuts_sample
+    assert sampling.get_sampler("mclmc") is qt.mclmc_sample
+    assert sampling.get_sampler("ensemble") is qt.ensemble_sample
+    assert sampling.get_sampler("pt") is qt.pt_sample
     with pytest.raises(ValueError) as port_err:
         sampling.get_sampler("gibbs")
     with pytest.raises(ValueError) as jax_err:
@@ -355,6 +358,13 @@ SAMPLER_ENTRY_POINTS = {
                                               n_warmup=0),
     "nuts_sample": lambda a: qt.nuts_sample(lambda x: -torch.sum(x * x), 0, a, n_samples=1,
                                             n_warmup=0),
+    "mclmc_sample": lambda a: qt.mclmc_sample(lambda x: -torch.sum(x * x), 0, a, n_samples=1,
+                                              n_warmup=0),
+    "ensemble_sample": lambda a: qt.ensemble_sample(lambda x: -torch.sum(x * x), 0,
+                                                    np.concatenate([a, a]), n_samples=1,
+                                                    n_warmup=0),
+    "pt_sample": lambda a: qt.pt_sample(lambda x: -torch.sum(x * x), 0, a, n_temps=2,
+                                        n_samples=1, n_warmup=0, n_leapfrog=2),
 }
 
 

@@ -246,6 +246,10 @@ def test_a_port_saved_state_resumes_in_jax(tmp_path):
 
 
 def test_other_key_impls_and_unported_sampler_states_raise(tmp_path):
+    """A key of another impl raises; the tempering, ensemble and MCLMC
+    states, refused until they were ported, now cross from JAX to the port
+    and back (their runs and resumes: tests/test_torch_mclmc.py,
+    test_torch_ensemble.py, test_torch_tempering.py)."""
     r = qt.hmc_sample(port_logd, 3, torch.tensor(x0()), n_samples=0, n_warmup=2)
     checkpoint.save_state(tmp_path / "s", r.state)
     with np.load(tmp_path / "s.npz") as z:
@@ -255,13 +259,23 @@ def test_other_key_impls_and_unported_sampler_states_raise(tmp_path):
     np.savez(tmp_path / "rbg.npz", **arrays)
     with pytest.raises(TypeError, match="rbg PRNG key.*only threefry2x32"):
         checkpoint.load_state(tmp_path / "rbg.npz", device="cpu")
-    from quasinewtonmethods_jl_tpu.tempering import PTState
-
-    jax_checkpoint.save_state(tmp_path / "pt", PTState(*(jnp.zeros(())
-                                                         for _ in PTState._fields)))
-    with pytest.raises(TypeError, match="PTState is a sampler state.*not yet ported"):
-        checkpoint.load_state(tmp_path / "pt", device="cpu")
-    for name in ("PTState", "EnsembleState", "MCLMCState"):
-        like = type(name, (tuple,), {})()
-        with pytest.raises(TypeError, match=f"{name} is a sampler state.*not yet ported"):
-            checkpoint.save_state(tmp_path / "x", like)
+    Xj = jnp.asarray(x0()[:8])
+    key = jax.random.key(3)
+    runs = {
+        "PTState": qj.pt_sample(jax_logd, key, Xj, n_temps=2, n_samples=0, n_warmup=2,
+                                n_leapfrog=2),
+        "EnsembleState": qj.ensemble_sample(jax_logd, key, Xj, n_samples=0, n_warmup=2),
+        "MCLMCState": qj.mclmc_sample(jax_logd, key, Xj, n_samples=0, n_warmup=2),
+    }
+    for name, res in runs.items():
+        jax_checkpoint.save_state(tmp_path / name, res.state)
+        st = checkpoint.load_state(tmp_path / name, device="cpu")
+        assert type(st).__name__ == name and type(st) is getattr(qt, name)
+        np.testing.assert_array_equal(st.key.numpy(), np.asarray(jax.random.key_data(key)))
+        np.testing.assert_array_equal(st.x.numpy(), np.asarray(res.state.x))
+        checkpoint.save_state(tmp_path / f"p_{name}", st)
+        back = jax_checkpoint.load_state(tmp_path / f"p_{name}")
+        for field in st._fields:
+            if field != "key":
+                np.testing.assert_array_equal(np.asarray(getattr(back, field)),
+                                              np.asarray(getattr(res.state, field)), err_msg=field)
