@@ -16,8 +16,10 @@ hand-written kernel, the minimization front door: `least_squares`,
 and the MAP back end: `optimize_multistart` (B1), `polish_newton`,
 `laplace_evidence`, checkpoints (`save_state` / `load_state`),
 `optimize_batched_pytree` (B1), `optimize_implicit` and the chain
-diagnostics, and the samplers the MAP fleet hands over to: HMC, ChEES,
-NUTS and depth-sorted NUTS.
+diagnostics, the samplers the MAP fleet hands over to: HMC, ChEES,
+NUTS and depth-sorted NUTS, the workflow's other initializers and
+samplers, and evidence by sampling (AIS, adaptive tempered SMC, bridge
+sampling).
 
 Phases (one summary line each on stdout, or a few; any failed check raises):
   1. device: name, CUDA version, ``nvidia-smi`` name and power limit;
@@ -370,7 +372,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      250 steps + a checkpoint + 250 steps bit for bit equal to 500; (c)
      PSIS-LOO and WAIC on sampler draws: phase 26 (a)'s MAP fleet (B1),
      `chain_init_from_map(jitter=0.05)`, `hmc_sample` (100 warmup rounds,
-     16 leapfrog steps, one draw a chain: S = 4096), then `loo_psis` and
+     16 leapfrog steps, 16 draws a chain, the first for LOO: S = 4096,
+     all 16 for phase 30), then `loo_psis` and
      `waic` on the (4096, 500) pointwise Bernoulli log-likelihood: elpd,
      se, p_loo, p_waic and every khat against the port's own float64 run
      of the same matrix on the CPU (LOO_F32_RTOL, LOO_KHAT_ATOL), and
@@ -421,6 +424,32 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      (b)-(d) seconds a call, draws/s, gradient or value evaluations/s,
      host syncs, peak memory, and the busy share over a few profiled
      steps from each warm state.
+ 30. Evidence by sampling (ais.py, bridge.py), the workflow's
+     ``compute_evidence="ais"`` / ``"bridge"`` legs on the same posterior,
+     f32, held to the JAX package's numbers
+     (scripts/jax_evidence_reference.py, which writes
+     scripts/jax_evidence_reference.json: the same data, fleet and plans
+     under 6 keys): (a) phase 28 (c) hands over its B1 MAP fleet and its
+     HMC run's 16 draws a chain (the first is LOO's draw), so this phase
+     adds no fleet and no sampler run; (b) `ais_evidence` from the fleet
+     result itself (the best converged lane's mode, the converged lanes'
+     mean B) with 4096 particles, 64 rungs, 8 leapfrog steps, step 0.2,
+     on the linear ladder and then with ``schedule="adaptive",
+     resample=True`` (64 the cap): logZ, ess and the step finite, logZ no
+     further from JAX's key mean than twice JAX's key-to-key spread (at
+     least 0.01), the mean acceptance over the rungs run within 0.05 of
+     JAX's and the step within 10 %, the adaptive run's rungs and resamples
+     inside JAX's range widened by half of it (at least 1), one counted
+     read for the fleet and, adaptive, one a rung, 9 fleet-wide gradients
+     a rung and no BFGS launch; (c) `bridge_evidence` on the 65536 draws
+     with the fleet's Gaussian as proposal (65536 proposal draws): logZ and
+     re2 finite, logZ against JAX's keys as (b)'s, two logdensity sweeps,
+     one read every 8 fixed-point bodies, and the bridge within JAX's gap
+     between its bridge and AIS means plus twice both spreads of (b)'s
+     linear-ladder logZ; `laplace_evidence` with the exact Hessian at the
+     same mode printed beside them; (d) seconds a call, particle
+     gradients/s, host syncs, peak memory, and the busy share over 4
+     profiled rungs of each anneal and over the bridge.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -5009,20 +5038,23 @@ def pointwise_loglik(X, y, draws):
 
 def loo_leg(qt, device, smi, ref):
     """Phase 28 (c): LOO and WAIC on HMC draws from the B1 MAP fleet.
-    Returns B1's [loo] record."""
+    Returns B1's [loo] record and what phase 30 takes over: (model, the MAP
+    fleet, the HMC run's EVIDENCE_DRAWS draws)."""
     plan = ref["plan"]
     model, fleet, launches, (converged, med, itmax) = logistic_map_fleet(qt, device,
                                                                          "LOO MAP fleet")
     x0s, mass = qt.chain_init_from_map(fleet, jitter=plan["jitter"], key=BENCH_SEED)
-    del fleet
     err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
     t0 = time.perf_counter()
-    hmc = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=plan["draws"],
+    # a draw's noise depends on (key, phase, step) only, so the first of
+    # EVIDENCE_DRAWS draws is the draw of JAX's LOO plan of plan["draws"]
+    hmc = qt.hmc_sample(model, BENCH_SEED, x0s, mass, n_samples=EVIDENCE_DRAWS,
                         n_warmup=plan["warmup"], n_leapfrog=plan["leapfrog"])
     torch.cuda.synchronize()
     wall_h = time.perf_counter() - t0
     check(bool(torch.isfinite(hmc.samples).all()), "LOO: NaN in the HMC draws")
-    ll = pointwise_loglik(model.X, model.y, hmc.samples.reshape(-1, LOGISTIC_N))
+    draws = hmc.samples
+    ll = pointwise_loglik(model.X, model.y, draws[:plan["draws"]].reshape(-1, LOGISTIC_N))
     del hmc, x0s, mass
     check(ll.shape == (BATCH, LOGISTIC_OBS) and ll.device.type == device.type,
           f"LOO: pointwise log-likelihood {tuple(ll.shape)} on {ll.device}")
@@ -5056,8 +5088,9 @@ def loo_leg(qt, device, smi, ref):
         f"{LOGISTIC_TOL}: converged {converged}/{BATCH}, iterations median {med:g} max {itmax} "
         f"(JAX median {ref['map']['median_iterations']:g}), B1 {launches} launches = loop "
         f"bodies; chain_init_from_map(jitter={plan['jitter']}), hmc_sample {plan['warmup']} "
-        f"warmup + {plan['draws']} draw x {BATCH} chains ({plan['leapfrog']} leapfrog steps) in "
-        f"{wall_h:.2f} s; loo_psis + waic on the ({BATCH}, {LOGISTIC_OBS}) pointwise "
+        f"warmup + {EVIDENCE_DRAWS} draws x {BATCH} chains ({plan['leapfrog']} leapfrog steps; "
+        f"the first draw for LOO, all {EVIDENCE_DRAWS} for phase 30) in {wall_h:.2f} s; "
+        f"loo_psis + waic on the ({BATCH}, {LOGISTIC_OBS}) pointwise "
         f"log-likelihood on the card in {wall_l:.4f} s ({syncs_l} host syncs, peak "
         f"{peak_l / 2**20:.0f} MiB): {', '.join(texts)}; se {float(lo.se):.4f}, p_loo "
         f"{float(lo.p_loo):.4f}, p_waic {float(w.p_waic):.4f}, khat max {float(khat.max()):.4f}, "
@@ -5066,12 +5099,12 @@ def loo_leg(qt, device, smi, ref):
         f"{khat_err:.2e} (limit {LOO_KHAT_ATOL}); B1 at {BATCH}x{LOGISTIC_N} f32 against its "
         f"plain version max abs err {err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain "
         f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}) on {smi}")
-    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+    return (launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)), (model, fleet, draws)
 
 
 def initializers_phase(qt, device, smi):
     """The workflow's other two initializers and PSIS (see phase 28 above).
-    Returns B1's [loo] record."""
+    Returns B1's [loo] record and (c)'s handoff to phase 30."""
     from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
 
     t_phase = time.perf_counter()
@@ -5086,10 +5119,10 @@ def initializers_phase(qt, device, smi):
                                   y=yd, dtype=torch.float32, device=device)
     walls = [pathfinder_leg(qt, device, smi, ref["pathfinder"], model),
              svgd_leg(qt, device, smi, ref["svgd"], model, starts)]
-    record = loo_leg(qt, device, smi, ref["loo"])
+    record, handoff = loo_leg(qt, device, smi, ref["loo"])
     log(f"[init] phase 28 took {time.perf_counter() - t_phase:.1f} s (pathfinder {walls[0]:.2f} "
         f"s, svgd {walls[1]:.2f} s a call) on {smi}")
-    return record
+    return record, handoff
 
 
 # Phase 29, the other three samplers: MCLMC, the affine-invariant ensemble and
@@ -5371,6 +5404,196 @@ def samplers_phase(qt, device, smi):
     return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
 
 
+# Phase 30, evidence by sampling: annealed importance sampling with adaptive
+# tempered SMC and bridge sampling, the workflow's compute_evidence="ais" /
+# "bridge" legs, on config 3's logistic posterior at full width (n = 100,
+# float32) from phase 28 (c)'s B1 MAP fleet and HMC draws. JAX's numbers come
+# from scripts/jax_evidence_reference.py (the same data, fleet and plans
+# under 6 keys).
+EVIDENCE_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                            "jax_evidence_reference.json")
+EVIDENCE_DRAWS = 16  # phase 28 (c)'s HMC draws a chain: 16 x 4096 = 65536 for the bridge
+AIS_PARTICLES, AIS_RUNGS, AIS_LEAPFROG, AIS_STEP = 4096, 64, 8, 0.2
+EVIDENCE_SPREAD = 2.0  # a logZ within 2 x JAX's key-to-key spread of JAX's mean
+# the least spread a gate uses: a logZ near -130 in float32 is summed from
+# 4096 weights, ~1e-3 of rounding, so JAX's keys cannot certify closer
+EVIDENCE_SPREAD_FLOOR = 0.01
+AIS_ACCEPT_ATOL, AIS_STEP_RTOL = 0.05, 0.1
+AIS_PROFILED_RUNGS = 4  # the busy share's short anneals
+
+
+def spread_gate(label, value, values):
+    """``value`` within EVIDENCE_SPREAD x the spread of JAX's ``values``
+    (at least EVIDENCE_SPREAD_FLOOR) of their mean; returns the text."""
+    centre, spread = float(np.mean(values)), max(values) - min(values)
+    limit = EVIDENCE_SPREAD * max(spread, EVIDENCE_SPREAD_FLOOR)
+    check(math.isfinite(value) and abs(value - centre) <= limit,
+          f"evidence: {label} {value:.4f} is {abs(value - centre):.4f} from JAX's mean "
+          f"{centre:.4f}, limit {limit:.4f} ({EVIDENCE_SPREAD} x JAX's spread {spread:.4f} over "
+          f"{len(values)} keys, floor {EVIDENCE_SPREAD_FLOOR})")
+    return f"{label} {value:.4f} (JAX {centre:.4f}, spread {spread:.4f})"
+
+
+def count_band(label, value, values):
+    """An integer count inside JAX's range over its keys, widened by half
+    that range on each side and by at least 1 (a count of a handful of
+    rungs moves by one between keys)."""
+    lo, hi = min(values), max(values)
+    pad = max(BAND_WIDEN * (hi - lo), 1)
+    check(lo - pad <= value <= hi + pad,
+          f"evidence: {label} {value} outside JAX's [{lo}, {hi}] widened to "
+          f"[{lo - pad}, {hi + pad}]")
+    return f"{label} {value} (JAX {lo}-{hi})"
+
+
+def bridge_reads(n_iter, max_iter=200):
+    """`bridge_evidence`'s reads of its stop test: before bodies 0, 8, 16,
+    ... up to the first after the n_iter - 1 bodies that moved r."""
+    from quasinewtonmethods_jl_tpu_torch.bridge import _READ_INTERVAL
+
+    reads = 0
+    for body in range(0, max_iter - 1, _READ_INTERVAL):
+        reads += 1
+        if body >= n_iter - 1:
+            break
+    return reads
+
+
+def ais_gates(label, res, runs, plan_rungs):
+    """Finite results, logZ against JAX's keys, the mean acceptance over the
+    rungs run within AIS_ACCEPT_ATOL of JAX's mean, and the adapted step
+    within AIS_STEP_RTOL of it on the fixed ladder; the adaptive anneal's
+    step, adapted over its 11-17 rungs, moves ±7 % between JAX's keys, so
+    it is held to their band widened by half (`band_check`). Returns the
+    texts."""
+    rungs = int(res.n_rungs)
+    for name in ("logZ", "ess", "step_size"):
+        check(math.isfinite(float(getattr(res, name))), f"evidence: {label} {name} not finite")
+    acc = float(res.accept_rate[:rungs].double().mean())
+    step = float(res.step_size)
+    acc_ref = float(np.mean([r["accept_mean"] for r in runs]))
+    check(abs(acc - acc_ref) <= AIS_ACCEPT_ATOL,
+          f"evidence: {label} mean acceptance {acc:.4f}, JAX's {acc_ref:.4f}")
+    steps = [r["step_size"] for r in runs]
+    if rungs == plan_rungs and all(r["n_rungs"] == plan_rungs for r in runs):
+        step_text = within(f"{label} step", step, float(np.mean(steps)), AIS_STEP_RTOL)
+    else:
+        step_text = band_check(f"{label} step", step, steps)
+    return [spread_gate("logZ", float(res.logZ), [r["logZ"] for r in runs]),
+            f"ess {float(res.ess):.1f} of {AIS_PARTICLES} (JAX "
+            f"{min(r['ess'] for r in runs):.1f}-{max(r['ess'] for r in runs):.1f})",
+            f"mean accept {acc:.4f} (JAX {acc_ref:.4f})", step_text,
+            f"rungs {rungs} of {plan_rungs}, resamples {int(res.n_resamples)}"]
+
+
+def evidence_phase(qt, device, smi, handoff):
+    """Evidence by sampling (see phase 30 above) on phase 28 (c)'s handoff:
+    (model, its B1 MAP fleet, its HMC draws)."""
+    t_phase = time.perf_counter()
+    with open(EVIDENCE_REF) as fh:
+        ref = json.load(fh)
+    with open(PATHFINDER_REF) as fh:
+        loo_plan = json.load(fh)["loo"]["plan"]
+    check(ref["plan"] == {"particles": AIS_PARTICLES, "rungs": AIS_RUNGS,
+                          "leapfrog": AIS_LEAPFROG, "step_size": AIS_STEP,
+                          "keys": len(ref["runs"]),
+                          "hmc": {"jitter": loo_plan["jitter"], "warmup": loo_plan["warmup"],
+                                  "leapfrog": loo_plan["leapfrog"], "draws": EVIDENCE_DRAWS}},
+          "evidence: scripts/jax_evidence_reference.json ran another plan")
+    model, fleet, draws = handoff
+    check(tuple(draws.shape) == (EVIDENCE_DRAWS, BATCH, LOGISTIC_N),
+          f"evidence: phase 28 handed over draws of shape {tuple(draws.shape)}")
+    runs = ref["runs"]
+    common = {"n_particles": AIS_PARTICLES, "n_steps": AIS_RUNGS, "n_leapfrog": AIS_LEAPFROG,
+              "step_size": AIS_STEP}
+    lines = {}
+
+    # (b) AIS from the fleet result itself: the linear ladder, then adaptive
+    # tempered SMC with resampling
+    for label, kw in (("ais", {}), ("adaptive", {"schedule": "adaptive", "resample": True})):
+        res, wall, syncs, grads, peak = sampler_run(qt, qt.ais_evidence, lambda: qt.ais_evidence(
+            model, BENCH_SEED, fleet, **common, **kw))
+        rungs = int(res.n_rungs)
+        # the fleet's any-converged test, and the adaptive anneal's b < 1
+        reads = 1 + (rungs - 1 + (rungs < AIS_RUNGS) if kw else 0)
+        check(syncs == reads and grads == rungs * (AIS_LEAPFROG + 1),
+              f"evidence: {label} {syncs} host reads (expected {reads}), {grads} fleet-wide "
+              f"gradients over {rungs} rungs")
+        texts = ais_gates(label, res, [r[label] for r in runs], AIS_RUNGS)
+        if kw:
+            texts.append(count_band("n_rungs", rungs, [r[label]["n_rungs"] for r in runs]))
+            texts.append(count_band("n_resamples", int(res.n_resamples),
+                                    [r[label]["n_resamples"] for r in runs]))
+        lines[label] = (res, texts, f"{wall:.2f} s a call, {AIS_PARTICLES * grads / wall:.3e} "
+                                    f"particle gradients/s ({grads} fleet-wide, "
+                                    f"{grads / wall:.0f} a second), {syncs} host syncs, peak "
+                                    f"{peak / 2**20:.0f} MiB")
+
+    # (c) the bridge on the handed-over draws against the same base
+    br, wall_b, syncs_b, evals_b, peak_b = sampler_run(
+        qt, qt.bridge_evidence, lambda: qt.bridge_evidence(model, BENCH_SEED, draws, fleet))
+    n_iter = int(br.n_iter)
+    check(evals_b == 2 and syncs_b == 1 + bridge_reads(n_iter),
+          f"evidence: bridge {evals_b} logdensity sweeps, {syncs_b} host reads (expected "
+          f"{1 + bridge_reads(n_iter)})")
+    check(math.isfinite(float(br.logZ)) and math.isfinite(float(br.re2)),
+          f"evidence: bridge logZ {float(br.logZ)} re2 {float(br.re2)}")
+    bridge_text = spread_gate("logZ", float(br.logZ), [r["bridge"]["logZ"] for r in runs])
+    # the bridge against AIS: JAX's own gap between their means, widened by
+    # twice both spreads
+    jb = [r["bridge"]["logZ"] for r in runs]
+    ja = [r["ais"]["logZ"] for r in runs]
+    gap_ref = abs(float(np.mean(jb)) - float(np.mean(ja)))
+    gap_tol = gap_ref + EVIDENCE_SPREAD * (max(max(jb) - min(jb), EVIDENCE_SPREAD_FLOOR)
+                                           + max(max(ja) - min(ja), EVIDENCE_SPREAD_FLOOR))
+    gap = abs(float(br.logZ) - float(lines["ais"][0].logZ))
+    check(gap <= gap_tol, f"evidence: bridge {float(br.logZ):.4f} and AIS "
+                          f"{float(lines['ais'][0].logZ):.4f} differ by {gap:.4f}, limit "
+                          f"{gap_tol:.4f} (JAX's gap {gap_ref:.4f} + {EVIDENCE_SPREAD} x both "
+                          f"spreads)")
+    # Laplace with the exact Hessian at the same mode (the best converged lane)
+    ok = fleet.status == qt.Status.CONVERGED
+    best = torch.argmax(torch.where(ok, fleet.fun, torch.full_like(fleet.fun, -math.inf)))
+    mode = types.SimpleNamespace(x=fleet.x[best], fun=fleet.fun[best], state=None)
+    laplace = float(qt.laplace_evidence(mode, obj=model))
+
+    # (d) the busy share over a few rungs and over the bridge, from the same
+    # base as an explicit pair (no read of the fleet)
+    base = (mode.x, qt.chain_init_from_map(fleet)[1])
+    short = {**common, "n_steps": AIS_PROFILED_RUNGS}
+    profiles = []
+    for label, fn, shape, bodies in (
+            ("ais", lambda: qt.ais_evidence(model, BENCH_SEED, base, **short),
+             AIS_PARTICLES, AIS_PROFILED_RUNGS),
+            ("adaptive", lambda: qt.ais_evidence(model, BENCH_SEED, base, schedule="adaptive",
+                                                 resample=True, **short),
+             AIS_PARTICLES, AIS_PROFILED_RUNGS),
+            ("bridge", lambda: qt.bridge_evidence(model, BENCH_SEED, draws, base),
+             BATCH * EVIDENCE_DRAWS, n_iter)):
+        unit = "fixed-point iterations" if label == "bridge" else "rungs"
+        profiles.append(profile_line(f"evidence {label} {shape}x{LOGISTIC_N} f32, {bodies} "
+                                     f"{unit}", *device_profile(fn), bodies))
+    for label in ("ais", "adaptive"):
+        res, texts, rate = lines[label]
+        plan = "the linear ladder" if label == "ais" else "schedule='adaptive', resample=True"
+        log(f"[evidence] ais_evidence from the MAP fleet ({AIS_PARTICLES} particles x n="
+            f"{LOGISTIC_N} f32, {AIS_RUNGS} rungs{' (the cap)' if label != 'ais' else ''}, "
+            f"{AIS_LEAPFROG} leapfrog steps, step {AIS_STEP}, {plan}): {', '.join(texts)}; "
+            f"{rate} on {smi}")
+    log(f"[evidence] bridge_evidence on phase 28's {EVIDENCE_DRAWS} x {BATCH} HMC draws, the "
+        f"MAP fleet's Gaussian as proposal ({BATCH * EVIDENCE_DRAWS} proposal draws): "
+        f"{bridge_text}, n_iter {n_iter} (JAX {min(r['bridge']['n_iter'] for r in runs)}-"
+        f"{max(r['bridge']['n_iter'] for r in runs)}), delta {float(br.delta):.3e}, re2 "
+        f"{float(br.re2):.4f} (JAX {float(np.mean([r['bridge']['re2'] for r in runs])):.4f}); "
+        f"bridge - AIS {float(br.logZ) - float(lines['ais'][0].logZ):+.4f} (limit {gap_tol:.4f}); "
+        f"laplace_evidence at the same mode (exact Hessian) {laplace:.4f} (JAX "
+        f"{ref['laplace']:.4f}); {wall_b:.3f} s a call, {syncs_b} host syncs, peak "
+        f"{peak_b / 2**20:.0f} MiB on {smi}")
+    for line in profiles:
+        log(line)
+    log(f"[evidence] phase 30 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -5439,8 +5662,10 @@ def main():
     multistart = timed("25", map_backend_phase, qt, device, smi)
     sampling_rec = timed("26", sampling_phase, qt, device, smi)
     nuts_rec = timed("27", nuts_phase, qt, device, smi)
-    loo_rec = timed("28", initializers_phase, qt, device, smi)
+    loo_rec, evidence_handoff = timed("28", initializers_phase, qt, device, smi)
     pt_rec = timed("29", samplers_phase, qt, device, smi)
+    timed("30", evidence_phase, qt, device, smi, evidence_handoff)
+    del evidence_handoff
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
         f"taken: {len(AHEAD)}")

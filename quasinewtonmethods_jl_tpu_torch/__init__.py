@@ -30,7 +30,9 @@ samplers the MAP fleet hands over to (`chain_init_from_map`, `hmc_sample`,
 `nuts_sample_depth_sorted`, `LowRankMass`), the workflow's other
 initializers, Pathfinder (`pathfinder`, `psis_smooth`) and SVGD
 (`svgd_sample`, `svgd_sample_from_state`), PSIS-LOO / WAIC model
-comparison (`loo_psis`, `waic`, `loo_compare`), and the other three
+comparison (`loo_psis`, `waic`, `loo_compare`), evidence by sampling:
+annealed importance sampling with adaptive tempered SMC (`ais_evidence`)
+and bridge sampling (`bridge_evidence`), and the other three
 samplers: MCLMC (`mclmc_sample`, `mclmc_sample_from_state`), the
 affine-invariant ensemble (`ensemble_sample`, `ensemble_sample_from_state`,
 `ensemble_autocorr_time`) and replica-exchange HMC (`pt_sample`,
@@ -42,7 +44,9 @@ The package imports torch and numpy, never jax.
 """
 
 from . import transforms
+from .ais import AISResult, ais_evidence
 from .api import ProbabilityModel, as_logdensity, as_value_and_grad, as_value_fn
+from .bridge import BridgeResult, bridge_evidence
 from .batched_solve import (
     optimize_batched_compacted,
     optimize_batched_fused,
@@ -249,6 +253,10 @@ __all__ = [
     "PolishResult",
     "polish_newton",
     "laplace_evidence",
+    "AISResult",
+    "ais_evidence",
+    "BridgeResult",
+    "bridge_evidence",
     "ImplicitOptions",
     "optimize_implicit",
     "optimize_pytree",

@@ -1,7 +1,7 @@
 """Numerics: line searches, the Broyden-family and L-BFGS updates, and the
 hand-written CUDA kernels."""
 
-from .bfgs import bfgs_update, dfp_update, initial_inv_hessian, sr1_update
+from .bfgs import bfgs_update, bfgs_update_reference, dfp_update, initial_inv_hessian, sr1_update
 from .lbfgs import lbfgs_direction, lbfgs_push
 from .lbfgs_compact import lbfgs_direction_compact
 from .linesearch import BackTracking, LineSearchResult, backtracking_linesearch
@@ -9,6 +9,7 @@ from .wolfe import Wolfe, WolfeResult, wolfe_linesearch
 
 __all__ = [
     "bfgs_update",
+    "bfgs_update_reference",
     "dfp_update",
     "sr1_update",
     "initial_inv_hessian",

@@ -20,6 +20,7 @@ import torch
 __all__ = [
     "initial_inv_hessian",
     "bfgs_update",
+    "bfgs_update_reference",
     "dfp_update",
     "sr1_update",
     "SR1_SKIP_TOL",
@@ -73,6 +74,20 @@ def bfgs_update(
     B_new = B + c1 * torch.outer(s, s) - torch.outer(Bys, s) - torch.outer(s, Bys)
     d = B_new @ grad_new
     m = torch.dot(d, grad_new)
+    return B_new, d, m
+
+
+def bfgs_update_reference(B, s, grad_new, grad_old):
+    """Loop-free but deliberately naive formulation for testing: the same
+    quantities as `bfgs_update` through the textbook Sherman–Morrison form
+    B ← V B Vᵀ + ρ ssᵀ with V = I − ρ syᵀ, ρ = 1/sᵀy, an independently
+    derived expression the two are cross-checked against."""
+    y = grad_old - grad_new
+    rho = 1.0 / (s @ y)
+    V = torch.eye(B.shape[0], dtype=B.dtype, device=B.device) - rho * torch.outer(s, y)
+    B_new = V @ B @ V.T + rho * torch.outer(s, s)
+    d = B_new @ grad_new
+    m = d @ grad_new
     return B_new, d, m
 
 

@@ -172,6 +172,9 @@ _PATHFINDER_STREAM = 5
 _MCLMC_STREAM = 6
 _ENSEMBLE_STREAM = 7
 _PT_STREAM = 8
+# annealed importance sampling's (ais.py) and bridge sampling's (bridge.py)
+_AIS_STREAM = 9
+_BRIDGE_STREAM = 10
 
 
 def _as_key(key, engine=None) -> torch.Tensor:

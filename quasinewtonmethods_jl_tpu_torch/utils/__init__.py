@@ -1,4 +1,4 @@
-"""Utilities: NaN-aware scalars and precision constants."""
+"""Utilities: NaN-aware scalars, precision constants and checkpoints."""
 
 from .scalars import (
     finite_halving_limit,
@@ -10,8 +10,20 @@ from .scalars import (
 
 __all__ = [
     "finite_halving_limit",
+    "load_state",
     "nanmax",
     "nanmin",
+    "save_state",
     "significand_bits",
     "sqrt_tolerance",
 ]
+
+
+def __getattr__(name):
+    # checkpoint.py imports every state class, and the solver modules import
+    # this package for its scalars: it loads when its names are first asked for
+    if name in ("load_state", "save_state"):
+        from . import checkpoint
+
+        return getattr(checkpoint, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,6 +6,7 @@ lossless (exact values and dtypes), and a JAX fleet's state carried into
 the port must give the same next update (1e-10 in f64: summation order).
 """
 
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -61,18 +62,19 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.loo, "
         "quasinewtonmethods_jl_tpu_torch.mclmc, "
         "quasinewtonmethods_jl_tpu_torch.ensemble, "
-        "quasinewtonmethods_jl_tpu_torch.tempering; "
+        "quasinewtonmethods_jl_tpu_torch.tempering, "
+        "quasinewtonmethods_jl_tpu_torch.ais, "
+        "quasinewtonmethods_jl_tpu_torch.bridge; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
-# the JAX package's names the port does not have yet: evidence by sampling
-# and the sampling workflow (ROADMAP.md A)
+# the JAX package's names the port does not have yet: the sampling
+# workflow (ROADMAP.md A)
 NOT_YET_PORTED = {
-    "AISResult", "BridgeResult", "MapThenSampleResult", "PytreeSampleResult",
-    "ais_evidence", "bridge_evidence", "map_then_sample", "map_then_sample_pytree",
+    "MapThenSampleResult", "PytreeSampleResult", "map_then_sample", "map_then_sample_pytree",
 }
 
 
@@ -80,6 +82,29 @@ def test_version_and_exported_names_match_jax():
     assert qt.__version__ == qj.__version__
     assert set(qj.__all__) - set(qt.__all__) == NOT_YET_PORTED
     assert all(hasattr(qt, name) for name in qt.__all__)
+
+
+# each subpackage's names the port does not have yet: the profiling helpers
+# and the device-mesh entry points (ROADMAP.md)
+SUBPACKAGE_NOT_YET_PORTED = {
+    "utils": {"trace", "summarize_trace", "solve_stats", "practically_converged"},
+    "ops": set(),
+    "models": set(),
+    "parallel": {
+        "least_squares_sharded", "make_mesh", "optimize_auglag_sharded",
+        "optimize_batched_sharded", "optimize_cg_model_sharded", "optimize_cg_sharded",
+        "optimize_lbfgs_sharded", "optimize_tr_model_sharded", "optimize_tr_sharded",
+        "psum_dot", "sample_sharded",
+    },
+}
+
+
+@pytest.mark.parametrize("sub", sorted(SUBPACKAGE_NOT_YET_PORTED))
+def test_subpackage_exported_names_match_jax(sub):
+    mine = importlib.import_module(f"quasinewtonmethods_jl_tpu_torch.{sub}")
+    theirs = importlib.import_module(f"quasinewtonmethods_jl_tpu.{sub}")
+    assert set(theirs.__all__) - set(mine.__all__) == SUBPACKAGE_NOT_YET_PORTED[sub]
+    assert all(hasattr(mine, name) for name in mine.__all__)
 
 
 # the samplers ported since get_sampler first named them as not yet ported:

@@ -16,12 +16,13 @@ import pytest
 import torch
 
 from quasinewtonmethods_jl_tpu.ops.bfgs import bfgs_update as jax_bfgs_update
+from quasinewtonmethods_jl_tpu.ops.bfgs import bfgs_update_reference as jax_bfgs_update_reference
 from quasinewtonmethods_jl_tpu.ops.bfgs import h0_gamma as jax_h0_gamma
 from quasinewtonmethods_jl_tpu.ops.pallas.bfgs_kernel import (
     fused_bfgs_update_batched as jax_fused_kernel,
     fused_bfgs_update_reference as jax_fused_reference,
 )
-from quasinewtonmethods_jl_tpu_torch.ops.bfgs import bfgs_update, h0_gamma
+from quasinewtonmethods_jl_tpu_torch.ops.bfgs import bfgs_update, bfgs_update_reference, h0_gamma
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.bfgs_kernel import (
     fused_bfgs_update_batched,
     fused_bfgs_update_reference,
@@ -124,6 +125,19 @@ def test_single_lane_update_fresh_scaling(rng):
         ref = jax_bfgs_update(*(jnp.asarray(a[0]) for a in (B, s, g, gold)), fresh=jnp.asarray(fresh))
         for mine, theirs in zip(port, ref):
             np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), atol=ATOL, rtol=0)
+
+
+def test_textbook_form_matches_jax_and_the_update(rng):
+    """`bfgs_update_reference` (V B Vᵀ + ρ ssᵀ) against JAX's and against
+    the port's rank-2 `bfgs_update`, lane by lane in f64."""
+    B, s, g, gold, _, _ = make_inputs(rng, 9, 12)
+    for b in range(B.shape[0]):
+        port = bfgs_update_reference(*(torch.tensor(a[b]) for a in (B, s, g, gold)))
+        ref = jax_bfgs_update_reference(*(jnp.asarray(a[b]) for a in (B, s, g, gold)))
+        fast = bfgs_update(*(torch.tensor(a[b]) for a in (B, s, g, gold)))
+        for mine, theirs, other in zip(port, ref, fast):
+            np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), atol=ATOL, rtol=1e-12)
+            np.testing.assert_allclose(mine.numpy(), other.numpy(), atol=ATOL, rtol=1e-12)
 
 
 def test_h0_gamma_matches_jax():
