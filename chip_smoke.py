@@ -307,10 +307,10 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      per coordinate |mean - JAX's| <= 5 combined MCSEs (sd / sqrt(ESS),
      `ess_device`) and the sd within [0.9, 1.1] of JAX's; divergences and
      E-BFMI printed beside JAX's; (c) `chees_sample` (no mass: the fleet
-     adapts its diagonal), the same gates, mean accept within 0.05 of its
-     0.75 target and one counted host read a round; step size and
-     trajectory length printed beside JAX's; (d) a short plan (40 warmup
-     steps, 20 draws) of each, long and with HMC's warmup and ChEES's two
+     adapts its diagonal; 500 warmup rounds and 250 draws), the same
+     gates, mean accept within 0.05 of its 0.75 target and one counted host
+     read a round; step size and trajectory length printed beside JAX's;
+     (d) a short plan (20 warmup steps, 10 draws) of each, long and with HMC's warmup and ChEES's two
      warmup halves through `save_state` / `load_state` on the card (every
      leaf bit for bit): the draws and every state leaf bit for bit; for (b)
      and (c) seconds a call, draws/s, gradient evaluations/s, host syncs,
@@ -450,6 +450,29 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      same mode printed beside them; (d) seconds a call, particle
      gradients/s, host syncs, peak memory, and the busy share over 4
      profiled rungs of each anneal and over the bridge.
+ 31. The one-call pipeline (workflow.py, utils/profiling.py) on the same
+     posterior, f32: (a) `map_then_sample` at full width from the 4096
+     starts (``map_engine="bfgs"``, map_tol 3e-3, ``sampler="hmc"`` with
+     phase 28 (c)'s plan, 100 warmup steps and 16 draws of 16 leapfrog
+     steps, ``compute_evidence="bridge"``) inside `utils.trace`, the
+     pipeline's own reads and its engines' checked against sync debug
+     mode: every MAP lane converged, the median iteration count within 10
+     % of JAX's own `map_then_sample` on the CPU
+     (scripts/jax_workflow_reference.py: its "auto" runs vmap off the TPU;
+     the port's runs the fused engine, B1 once a loop body), every split
+     R-hat finite (the largest printed beside JAX's), the bridge's logZ
+     within phase 30's limit of phase 30's JAX estimates, the glue's
+     counted reads (`map_then_sample.host_syncs`) equal to the one its
+     code makes here (the fleet's statuses), HMC reading nothing; B1 at
+     the fleet's shape against its plain version (record
+     ``fused_bfgs_update_batched[workflow]``); the trace's top rows by
+     `utils.summarize_trace` printed, never gated (torch.profiler once
+     recorded no B1 launch late in the script); (b)
+     `map_then_sample_pytree` on the same model over a dict of two blocks
+     from an (n,) center (jittered starts drawn on the card), 20 warmup
+     steps and 4 draws: the leaves (draws, chains, *leaf.shape), the
+     tree's x_map the unravel of ``flat.x_map``, the numpy moments of
+     fewer than 8 draws, two glue reads.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -484,7 +507,10 @@ fleet's, its max_abs_err, times and bound B1's at that shape measured
 again in phase 27; and a sixth, ``fused_bfgs_update_batched[loo]``: phase
 28 (c)'s fleet's launches, and B1 at that shape measured again in phase
 28; and a seventh, ``fused_bfgs_update_batched[pt]``: phase 29 (a)'s
-fleet's launches, and B1 at that shape measured again in phase 29. B3 with a traced objective has one record per full-width fleet of phases
+fleet's launches, and B1 at that shape measured again in phase 29; and an
+eighth, ``fused_bfgs_update_batched[workflow]``: phase 31 (a)'s MAP
+fleet's launches inside `map_then_sample`, and B1 at that shape measured
+again in phase 31. B3 with a traced objective has one record per full-width fleet of phases
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
@@ -4392,10 +4418,14 @@ SAMPLING_REF = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts
 # 500 draws, not JAX's default 1000: the whole script's wall on the
 # slower hosts (the time limit); the warmup and every chain stay
 SAMPLING_JITTER, SAMPLING_DRAWS, SAMPLING_WARMUP, HMC_LEAPFROG = 0.05, 500, 500, 16
+# ChEES's draws, cut from 500 for phase 31 (its gates are MCSE-scaled; at 500
+# draws its R-hat was 1.0023 against the limit 1.01)
+CHEES_DRAWS = 250
 CHEES_TARGET = 0.75  # chees_sample's default target_accept
 # (d)'s short plan, long and chunked: resuming (b)'s whole warmup costs ~20
 # s of the script's time limit and checks the same save, load and resume
-RESUME_WARMUP, RESUME_DRAWS = 40, 20
+# (40 and 20 until phase 31 came)
+RESUME_WARMUP, RESUME_DRAWS = 20, 10
 MASS_DIAG_RTOL = 1e-2  # the handed-over mass's diagonal against JAX's
 ACCEPT_ATOL = 0.05
 MOMENT_Z = 5.0  # |mean - JAX's| within 5 combined MCSEs
@@ -4654,20 +4684,20 @@ def sampling_phase(qt, device, smi):
     # (c) ChEES, the workflow's route: no mass, the fleet adapts its diagonal
     chees, wall_c, syncs_c, grads_c, peak_c = sampler_run(
         qt, qt.chees_sample, lambda: qt.chees_sample(model, BENCH_SEED, x0s,
-                                                     n_samples=SAMPLING_DRAWS,
+                                                     n_samples=CHEES_DRAWS,
                                                      n_warmup=SAMPLING_WARMUP))
-    rounds = SAMPLING_WARMUP + SAMPLING_DRAWS
+    rounds = SAMPLING_WARMUP + CHEES_DRAWS
     check(syncs_c == rounds, f"ChEES: {syncs_c} host reads for {rounds} rounds")
     acc_c, summary_c = moment_gates(qt, "ChEES", chees, ref["chees"])
     check(abs(acc_c - CHEES_TARGET) <= ACCEPT_ATOL,
           f"ChEES: mean accept {acc_c:.4f}, target {CHEES_TARGET}")
     log(f"[sampling] chees_sample {chains} chains x n={LOGISTIC_N} f32, {SAMPLING_WARMUP} warmup "
-        f"+ {SAMPLING_DRAWS} draws, diagonal mass adapted by the fleet: {summary_c}; step size "
+        f"+ {CHEES_DRAWS} draws, diagonal mass adapted by the fleet: {summary_c}; step size "
         f"{float(chees.step_size):.4f}, trajectory length {float(chees.traj_length):.4f} (JAX "
         f"on {ref['chees']['chains']} chains: {ref['chees']['step_size']:.4f} / "
         f"{ref['chees']['traj_length']:.4f}, fleet-size dependent, not gated), "
         f"{grads_c / rounds:.1f} leapfrog gradients a round; "
-        f"{rate_line(chains, SAMPLING_DRAWS, wall_c, syncs_c, grads_c, peak_c)} on {smi}")
+        f"{rate_line(chains, CHEES_DRAWS, wall_c, syncs_c, grads_c, peak_c)} on {smi}")
 
     # (d) resume through checkpoints, and the profiled steady state
     hmc_warm, chees_warm = hmc.state, chees.state  # warm: the profiled steady state's start
@@ -5594,6 +5624,174 @@ def evidence_phase(qt, device, smi, handoff):
     log(f"[evidence] phase 30 took {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+# Phase 31, the one-call pipeline: map_then_sample at full width on config
+# 3's logistic posterior (4096 chains, n = 100, float32), its MAP fleet
+# through B1, HMC on phase 28 (c)'s plan from the fleet's dense B, the device
+# diagnostics and the bridge, inside utils.trace; then map_then_sample_pytree.
+# JAX's numbers: scripts/jax_workflow_reference.py (its map_then_sample on
+# the same data and starts in float32 on the CPU, ~35 s).
+JAX_WORKFLOW = {"converged": 4096, "median_iterations": 11.0, "max_iterations": 13,
+                "rhat_max": 1.2853347063064575, "bridge_logZ": -131.64190673828125}
+WORKFLOW_GLUE_READS = 1  # map_then_sample's own: the fleet's statuses
+PYTREE_BLOCKS = {"bias": (4, 5), "weights": (LOGISTIC_N - 20,)}  # dict keys in JAX's order
+PYTREE_WARMUP, PYTREE_DRAWS, PYTREE_LEAPFROG = 20, 4, 4
+WORKFLOW_TRACE_TOP = 6
+
+
+def workflow_engines(qt):
+    """The pipeline and the engines phase 31 drives, each counting its own
+    host reads."""
+    return {"glue": qt.map_then_sample, "fleet": qt.optimize_batched_fused,
+            "hmc": qt.hmc_sample, "bridge": qt.bridge_evidence}
+
+
+def workflow_run(qt, fn):
+    """``fn()`` with every counter at 0 and torch's sync debug mode on:
+    (result, wall s, each engine's counted reads, synchronisations flagged,
+    the kernel counters, peak bytes)."""
+    for engine in workflow_engines(qt).values():
+        engine.host_syncs = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(qt)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = {name: engine.host_syncs for name, engine in workflow_engines(qt).items()}
+    flagged = sum("synchroniz" in str(w.message) for w in caught)
+    check(flagged == sum(reads.values()),
+          f"workflow: {flagged} synchronisations flagged, {reads} counted")
+    return res, wall, reads, flagged, read_counters(qt), torch.cuda.max_memory_allocated()
+
+
+def workflow_pytree_leg(qt, device, smi, model):
+    """Phase 31 (b): map_then_sample_pytree over a dict of two blocks."""
+    sizes = [math.prod(shape) for shape in PYTREE_BLOCKS.values()]
+
+    def logd(tree):
+        return model.logdensity(torch.cat([tree[k].reshape(-1) for k in PYTREE_BLOCKS]))
+
+    tree0 = {k: torch.zeros(shape, dtype=torch.float32, device=device)
+             for k, shape in PYTREE_BLOCKS.items()}
+    out, wall, reads, flagged, c, _peak = workflow_run(qt, lambda: qt.map_then_sample_pytree(
+        logd, BENCH_SEED + 31, tree0, n_chains=BATCH, map_tol=LOGISTIC_TOL, sampler="hmc",
+        n_warmup=PYTREE_WARMUP, n_samples=PYTREE_DRAWS, n_leapfrog=PYTREE_LEAPFROG))
+    flat = out.flat
+    for k, shape in PYTREE_BLOCKS.items():
+        want = (PYTREE_DRAWS, BATCH, *shape)
+        check(tuple(out.samples[k].shape) == want and out.samples[k].device.type == "cuda",
+              f"workflow pytree: leaf {k} {tuple(out.samples[k].shape)} on "
+              f"{out.samples[k].device}, expected {want} on the card")
+    pieces = torch.split(flat.x_map, sizes)
+    check(all(torch.equal(out.x_map[k], piece.reshape(shape))
+              for (k, shape), piece in zip(PYTREE_BLOCKS.items(), pieces)),
+          "workflow pytree: x_map is not the unravel of flat.x_map")
+    check(torch.equal(out.samples["weights"], flat.samples[..., sizes[0]:]),
+          "workflow pytree: the draws are not the unravel of flat.samples")
+    check(len(out.names) == LOGISTIC_N and out.names[0] == "bias[0,0]",
+          f"workflow pytree: names {out.names[:2]}... ({len(out.names)})")
+    check(bool(torch.isfinite(flat.samples).all()), "workflow pytree: NaN in the draws")
+    converged = int((flat.map_result.status == qt.Status.CONVERGED).sum())
+    check(converged == BATCH and c["B1"] == c["bodies"] > 0,
+          f"workflow pytree: {converged}/{BATCH} converged, counters {c}")
+    diag = flat.diagnostics
+    check(isinstance(diag.rhat, np.ndarray) and np.isnan(diag.rhat).all()
+          and np.isfinite(diag.mean).all(),
+          "workflow pytree: fewer than 8 draws must give numpy moments and NaN R-hat")
+    check(reads["glue"] == 2, f"workflow pytree: {reads['glue']} glue reads, expected 2 (the "
+                              f"statuses and the draws)")
+    return (f"[workflow] (b) map_then_sample_pytree over {{{', '.join(f'{k}: {v}' for k, v in PYTREE_BLOCKS.items())}}} "
+            f"from an (n,) center, {BATCH} chains, {PYTREE_WARMUP} warmup + {PYTREE_DRAWS} draws "
+            f"({PYTREE_LEAPFROG} leapfrog steps): leaves {[tuple(out.samples[k].shape) for k in PYTREE_BLOCKS]}, "
+            f"x_map the unravel of flat.x_map, {converged}/{BATCH} converged, B1 {c['B1']} "
+            f"launches, numpy moments below 8 draws; {wall:.2f} s, reads {reads} ({flagged} "
+            f"flagged) on {smi}")
+
+
+def workflow_phase(qt, device, smi):
+    """The one-call pipeline (see phase 31 above). Returns B1's [workflow]
+    record: (launches, max abs error, (ms, plain ms, bound ms, bound kind,
+    library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.models import LogisticRegressionMAP
+
+    t_phase = time.perf_counter()
+    with open(EVIDENCE_REF) as fh:
+        ref = json.load(fh)
+    plan = ref["plan"]["hmc"]
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                  y=yd, dtype=torch.float32, device=device)
+    x0s = torch.tensor(starts, dtype=torch.float32, device=device)
+
+    # (a) the whole pipeline under utils.trace
+    with tempfile.TemporaryDirectory() as log_dir:
+        t0 = time.perf_counter()
+        with qt.utils.trace(log_dir):
+            out, wall, reads, flagged, c, peak = workflow_run(qt, lambda: qt.map_then_sample(
+                model, BENCH_SEED, x0s, map_engine="bfgs", map_tol=LOGISTIC_TOL, sampler="hmc",
+                jitter=plan["jitter"], n_warmup=plan["warmup"], n_samples=plan["draws"],
+                n_leapfrog=plan["leapfrog"], compute_evidence="bridge"))
+        trace_s = time.perf_counter() - t0 - wall  # starting, stopping and writing the trace
+        t0 = time.perf_counter()
+        rows = qt.utils.summarize_trace(log_dir, top=WORKFLOW_TRACE_TOP)
+        summarize_s = time.perf_counter() - t0
+        trace_bytes = sum(os.path.getsize(os.path.join(d, f))
+                          for d, _, files in os.walk(log_dir) for f in files)
+    fleet = out.map_result
+    converged, med, itmax, gmax = fleet_line(qt, fleet)
+    check(converged == BATCH and gmax < LOGISTIC_TOL,
+          f"workflow: {converged}/{BATCH} MAP lanes converged, max|grad| {gmax}")
+    jax_med = JAX_WORKFLOW["median_iterations"]
+    check(abs(med - jax_med) <= 0.1 * jax_med,
+          f"workflow: MAP median {med} not within 10% of JAX's {jax_med}")
+    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+          f"workflow: B1 not launched once per MAP loop body: {c}")
+    check(reads["glue"] == WORKFLOW_GLUE_READS and reads["hmc"] == 0,
+          f"workflow: reads {reads}, expected {WORKFLOW_GLUE_READS} of the glue and none of HMC")
+    samples = out.samples
+    check(tuple(samples.shape) == (plan["draws"], BATCH, LOGISTIC_N)
+          and samples.device.type == "cuda" and samples.dtype == torch.float32
+          and bool(torch.isfinite(samples).all()),
+          f"workflow: draws {tuple(samples.shape)} {samples.dtype} on {samples.device}")
+    rhat = out.diagnostics.rhat
+    check(isinstance(rhat, torch.Tensor) and rhat.device.type == "cuda"
+          and bool(torch.isfinite(rhat).all()), "workflow: a split R-hat is not finite")
+    rhat_max = float(rhat.max())
+    check(isinstance(out.evidence_extra, qt.BridgeResult), "workflow: no bridge result")
+    bridge_text = spread_gate("logZ", float(out.log_evidence),
+                              [r["bridge"]["logZ"] for r in ref["runs"]])
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device)
+    top = "; ".join(f"{name[:50]} {secs:.4f} s x{count}" for name, secs, count in rows)
+    log(f"[workflow] (a) map_then_sample on config 3's logistic (n={LOGISTIC_N}, {LOGISTIC_OBS} "
+        f"observations) from {BATCH} starts f32: MAP through optimize_batched (map_tol "
+        f"{LOGISTIC_TOL}) converged {converged}/{BATCH}, iterations median {med:g} max {itmax} "
+        f"(JAX's map_then_sample {jax_med:g} / {JAX_WORKFLOW['max_iterations']}), B1 {c['B1']} "
+        f"launches = loop bodies; hmc_sample {plan['warmup']} warmup + {plan['draws']} draws "
+        f"({plan['leapfrog']} leapfrog steps) from the dense B, device diagnostics: max split "
+        f"R-hat {rhat_max:.4f} (JAX's run {JAX_WORKFLOW['rhat_max']:.4f}, {plan['draws']} "
+        f"draws); bridge {bridge_text}, n_iter {int(out.evidence_extra.n_iter)}, re2 "
+        f"{float(out.evidence_extra.re2):.4f} (JAX's run {JAX_WORKFLOW['bridge_logZ']:.4f}); "
+        f"{wall:.2f} s under utils.trace, reads {reads} ({flagged} flagged, glue "
+        f"{reads['glue']} as its code predicts), peak {peak / 2**20:.0f} MiB; the trace "
+        f"{trace_bytes / 2**20:.1f} MiB gzipped, started, stopped and written in {trace_s:.1f} s, "
+        f"summarized in {summarize_s:.1f} s, top by "
+        f"time: {top}; B1 at {BATCH}x{LOGISTIC_N} f32 against its plain version max abs err "
+        f"{err:.3e}, {b1_ms:.4f} ms a launch (CUDA events), plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}), B1 at {100 * bound_ms / b1_ms:.1f} % of it on {smi}")
+    launches = c["B1"]
+    del out, fleet, samples
+    log(workflow_pytree_leg(qt, device, smi, model))
+    log(f"[workflow] phase 31 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -5666,6 +5864,7 @@ def main():
     pt_rec = timed("29", samplers_phase, qt, device, smi)
     timed("30", evidence_phase, qt, device, smi, evidence_handoff)
     del evidence_handoff
+    workflow_rec = timed("31", workflow_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
         f"taken: {len(AHEAD)}")
@@ -5688,6 +5887,8 @@ def main():
         record("fused_bfgs_update_batched[nuts]", KERNEL_SOURCE, KERNEL_REPLACES, *nuts_rec),
         record("fused_bfgs_update_batched[loo]", KERNEL_SOURCE, KERNEL_REPLACES, *loo_rec),
         record("fused_bfgs_update_batched[pt]", KERNEL_SOURCE, KERNEL_REPLACES, *pt_rec),
+        record("fused_bfgs_update_batched[workflow]", KERNEL_SOURCE, KERNEL_REPLACES,
+               *workflow_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

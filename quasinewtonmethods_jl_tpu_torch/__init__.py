@@ -36,9 +36,11 @@ and bridge sampling (`bridge_evidence`), and the other three
 samplers: MCLMC (`mclmc_sample`, `mclmc_sample_from_state`), the
 affine-invariant ensemble (`ensemble_sample`, `ensemble_sample_from_state`,
 `ensemble_autocorr_time`) and replica-exchange HMC (`pt_sample`,
-`pt_sample_from_state`, `geometric_ladder`); ROADMAP.md lists what is
-still to port. Entry points run on the CUDA card unless given a CPU
-tensor (`utils.device.as_device_tensor`).
+`pt_sample_from_state`, `geometric_ladder`), and the one-call pipeline
+that composes them (`map_then_sample`, `map_then_sample_pytree`) with the
+profiling helpers (`utils.trace`, `utils.summarize_trace`); ROADMAP.md
+lists what is still to port (the device mesh). Entry points run on the
+CUDA card unless given a CPU tensor (`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
 """
@@ -102,7 +104,9 @@ from .pytree import (
     optimize_cg_pytree,
     optimize_lbfgs_pytree,
     optimize_pytree,
+    map_then_sample_pytree,
     optimize_tr_pytree,
+    PytreeSampleResult,
     pytree_names,
 )
 from .resident_solve import optimize_batched_resident, resident_feasible, trace_objective
@@ -135,6 +139,7 @@ from .svgd import SVGDResult, SVGDState, svgd_sample, svgd_sample_from_state
 from .tempering import PTResult, PTState, geometric_ladder, pt_sample, pt_sample_from_state
 from .transforms import TransformedModel, transform_objective
 from .trust_region import TRResult, optimize_tr, optimize_tr_from_state
+from .workflow import MapThenSampleResult, map_then_sample
 from .state import (
     BFGSState,
     CGState,
@@ -325,5 +330,9 @@ __all__ = [
     "geometric_ladder",
     "PTResult",
     "PTState",
+    "map_then_sample",
+    "MapThenSampleResult",
+    "map_then_sample_pytree",
+    "PytreeSampleResult",
     "__version__",
 ]

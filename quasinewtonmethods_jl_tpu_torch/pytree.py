@@ -14,7 +14,9 @@ dict's keys sorted where torch keeps insertion order, and JAX drops
 does and skips ``None``, so that the flat vector, `pytree_names` and every
 solve equal JAX's. Leaves of several dtypes are promoted to one for the
 flat vector and cast back one by one on the way out, as JAX does.
-`map_then_sample_pytree` waits for the sampling workflow.
+`map_then_sample_pytree` unravels the workflow's (draws, chains, size)
+draws by one reshape a leaf (JAX's ``vmap(vmap(unravel))``): the ravel is
+a concatenation in JAX's leaf order.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from .parallel.batch import optimize_batched
 from .solve import MAX_ITERATIONS_DEFAULT, optimize
 from .trust_region import optimize_tr
 from .utils.device import as_device_tensor
+from .workflow import map_then_sample
 
 __all__ = [
     "optimize_pytree",
@@ -48,6 +51,8 @@ __all__ = [
     "optimize_auglag_pytree",
     "minimize_pytree",
     "pytree_names",
+    "map_then_sample_pytree",
+    "PytreeSampleResult",
 ]
 
 _FLOATING = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
@@ -270,6 +275,50 @@ def pytree_names(tree):
             for idx in np.ndindex(*shape):
                 names.append(f"{base}[{','.join(map(str, idx))}]")
     return names
+
+
+class PytreeSampleResult(tuple):
+    """(samples, x_map, names, flat) — see `map_then_sample_pytree`."""
+
+    __slots__ = ()
+
+    def __new__(cls, samples, x_map, names, flat):
+        return tuple.__new__(cls, (samples, x_map, names, flat))
+
+    @property
+    def samples(self):
+        return self[0]
+
+    @property
+    def x_map(self):
+        return self[1]
+
+    @property
+    def names(self):
+        return self[2]
+
+    @property
+    def flat(self):
+        return self[3]
+
+
+def map_then_sample_pytree(obj, key, x0_tree, **kwargs):
+    """The one-call MAP→posterior pipeline over structured parameters:
+    ``obj`` is a log-density of the pytree, and the draws come back with
+    its structure.
+
+    Runs `map_then_sample` on the raveled coordinates and unravels the
+    outputs: ``result.samples`` is a pytree whose leaves are
+    (draws, chains, *leaf.shape); ``result.x_map`` has ``x0_tree``'s
+    structure; ``result.names`` labels the flat coordinates (hand them to
+    `posterior_summary(result.flat.samples).table(names=...)`);
+    ``result.flat`` is the whole flat `MapThenSampleResult`. Every
+    `map_then_sample` kwarg passes through; a ``transform=`` acts on the
+    flat coordinates."""
+    flat0, unravel, flat_obj = _flatten_problem(obj, x0_tree)
+    out = map_then_sample(flat_obj, key, flat0, **kwargs)
+    return PytreeSampleResult(unravel(out.samples), unravel(out.x_map),
+                              tuple(pytree_names(x0_tree)), out)
 
 
 def _key_name(key) -> str:

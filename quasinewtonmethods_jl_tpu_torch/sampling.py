@@ -175,6 +175,8 @@ _PT_STREAM = 8
 # annealed importance sampling's (ais.py) and bridge sampling's (bridge.py)
 _AIS_STREAM = 9
 _BRIDGE_STREAM = 10
+# the one-call workflow's sub-keys and its own draws (workflow.py)
+_WORKFLOW_STREAM = 11
 
 
 def _as_key(key, engine=None) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Utilities: NaN-aware scalars, precision constants and checkpoints."""
+"""Utilities: NaN-aware scalars, precision constants, checkpoints and
+profiling."""
 
+from .profiling import practically_converged, solve_stats, summarize_trace, trace
 from .scalars import (
     finite_halving_limit,
     nanmax,
@@ -13,9 +15,13 @@ __all__ = [
     "load_state",
     "nanmax",
     "nanmin",
+    "practically_converged",
     "save_state",
     "significand_bits",
+    "solve_stats",
     "sqrt_tolerance",
+    "summarize_trace",
+    "trace",
 ]
 
 

@@ -64,18 +64,17 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.ensemble, "
         "quasinewtonmethods_jl_tpu_torch.tempering, "
         "quasinewtonmethods_jl_tpu_torch.ais, "
-        "quasinewtonmethods_jl_tpu_torch.bridge; "
+        "quasinewtonmethods_jl_tpu_torch.bridge, "
+        "quasinewtonmethods_jl_tpu_torch.workflow, "
+        "quasinewtonmethods_jl_tpu_torch.utils.profiling; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120, cwd=root)
 
 
-# the JAX package's names the port does not have yet: the sampling
-# workflow (ROADMAP.md A)
-NOT_YET_PORTED = {
-    "MapThenSampleResult", "PytreeSampleResult", "map_then_sample", "map_then_sample_pytree",
-}
+# the JAX package's names the port does not have yet (ROADMAP.md A): none
+NOT_YET_PORTED = set()
 
 
 def test_version_and_exported_names_match_jax():
@@ -84,10 +83,10 @@ def test_version_and_exported_names_match_jax():
     assert all(hasattr(qt, name) for name in qt.__all__)
 
 
-# each subpackage's names the port does not have yet: the profiling helpers
-# and the device-mesh entry points (ROADMAP.md)
+# each subpackage's names the port does not have yet: the device-mesh entry
+# points (ROADMAP.md A.5)
 SUBPACKAGE_NOT_YET_PORTED = {
-    "utils": {"trace", "summarize_trace", "solve_stats", "practically_converged"},
+    "utils": set(),
     "ops": set(),
     "models": set(),
     "parallel": {

@@ -1,8 +1,10 @@
-"""The statistical tests of tests/test_ensemble.py (:35-68, :144-163 and
-:209-231; the workflow and mesh cases wait for the workflow and for
-multi-device) on the port's ensemble sampler (ensemble.py) with its own
-noise, at JAX's thresholds, f64 on the CPU. The parity with JAX's draws
-injected is tests/test_torch_ensemble.py.
+"""The statistical tests of tests/test_ensemble.py (:35-68, :144-185 and
+:209-231; the mesh cases wait for multi-device) on the port's ensemble
+sampler (ensemble.py) with its own noise, at JAX's thresholds, f64 on the
+CPU, the workflow's sampler="ensemble" route among them (its refusal of
+the low-rank mass is tests/test_torch_workflow_routes.py's, against
+JAX's message). The parity with JAX's draws injected is
+tests/test_torch_ensemble.py.
 """
 
 import numpy as np
@@ -67,3 +69,15 @@ def test_ensemble_autocorr_time():
     assert not rel_s.all()
     with pytest.raises(ValueError, match="draws"):
         qt.ensemble_autocorr_time(np.zeros((4, 8, 2)))
+
+
+def test_pipeline_ensemble_sampler():
+    """tests/test_ensemble.py:166-178: the MAP-initialized walker ball, no
+    mass handoff (affine invariance is the metric)."""
+    _jf, logd, mu, cov = corr_gaussian()
+    out = qt.map_then_sample(logd, 6, torch.zeros(3, dtype=torch.float64), n_chains=64,
+                             sampler="ensemble", n_samples=2500, n_warmup=400, jitter=0.3)
+    np.testing.assert_allclose(out.x_map.numpy(), mu, atol=1e-6)
+    draws = out.samples.reshape(-1, 3).numpy()
+    np.testing.assert_allclose(draws.mean(0), mu, atol=0.1)
+    np.testing.assert_allclose(np.cov(draws.T), cov, atol=0.3 * np.abs(cov).max())

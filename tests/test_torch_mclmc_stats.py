@@ -1,8 +1,8 @@
-"""The statistical tests of tests/test_mclmc.py (:50-126, :182-194 and
-:292-316; the workflow and mesh cases wait for the workflow and for
-multi-device) run on the port's MCLMC sampler (mclmc.py) with its own
-noise, at JAX's thresholds, f64 on the CPU. The parity with JAX's draws
-injected is tests/test_torch_mclmc.py.
+"""The statistical tests of tests/test_mclmc.py (:50-126, :182-216 and
+:292-316; the mesh cases wait for multi-device) run on the port's MCLMC
+sampler (mclmc.py) with its own noise, at JAX's thresholds, f64 on the
+CPU, the workflow's sampler="mclmc" route among them. The parity with
+JAX's draws injected is tests/test_torch_mclmc.py.
 """
 
 import numpy as np
@@ -102,3 +102,16 @@ def test_out_of_support_start_enters():
     entered_at = np.sqrt((s ** 2).sum(-1)) < 2.0
     ever_in = np.maximum.accumulate(entered_at, axis=0)
     assert not np.any(ever_in[:-1] & ~entered_at[1:])
+
+
+def test_pipeline_and_registry():
+    """tests/test_mclmc.py:197-216: map_then_sample(sampler='mclmc') hands
+    the MAP mass's diagonal to the sampler, and the registry resolves the
+    name."""
+    assert qt.sampling.get_sampler("mclmc") is qt.mclmc_sample
+    out = qt.map_then_sample(lambda x: -0.5 * torch.sum((x - 1.0) ** 2), 7,
+                             torch.zeros(4, dtype=torch.float64), n_chains=32, n_samples=400,
+                             n_warmup=200, sampler="mclmc")
+    assert tuple(out.samples.shape) == (400, 32, 4)
+    np.testing.assert_allclose(out.samples.reshape(-1, 4).numpy().mean(0), 1.0, atol=0.1)
+    assert int(out.sampler_result.divergences.sum()) == 0

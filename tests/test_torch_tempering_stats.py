@@ -1,8 +1,9 @@
-"""The statistical tests of tests/test_tempering.py (:22-92, :213-229,
-:279-304, :347-384 and :426-449; the workflow and mesh cases wait for the workflow
-and for multi-device) on the port's replica-exchange HMC (tempering.py)
-with its own noise, at JAX's thresholds, f64 on the CPU. The parity with
-JAX's draws injected is tests/test_torch_tempering.py.
+"""The statistical tests of tests/test_tempering.py (:22-92, :213-249,
+:279-304, :325-384 and :426-449; the mesh cases wait for multi-device) on
+the port's replica-exchange HMC (tempering.py) with its own noise, at
+JAX's thresholds, f64 on the CPU, the workflow's sampler="pt" route among
+them. The parity with JAX's draws injected is
+tests/test_torch_tempering.py.
 """
 
 import numpy as np
@@ -132,3 +133,31 @@ def test_gaussian_mixture_fixture():
     w = mix.mode_weights(torch.tensor([[2.1, 0.0], [-1.9, 0.1], [2.0, 0.2]],
                                       dtype=torch.float64)).numpy()
     np.testing.assert_allclose(w, [2 / 3, 1 / 3], atol=1e-12)
+
+
+def test_map_then_sample_pt():
+    """tests/test_tempering.py:232-249: the MAP fleet's curvature becomes
+    the ladder's shared mass."""
+    w = torch.tensor([1.0, 4.0, 0.25], dtype=torch.float64)
+    out = qt.map_then_sample(lambda x: -0.5 * torch.sum(x * x * w), 11,
+                             torch.full((3,), 2.0, dtype=torch.float64), n_chains=16,
+                             sampler="pt", n_samples=200, n_warmup=150, n_temps=3, beta_min=0.2,
+                             n_leapfrog=8)
+    assert tuple(out.samples.shape) == (200, 16, 3)
+    assert np.nanmax(out.diagnostics.rhat.numpy()) < 1.1
+    np.testing.assert_allclose(out.samples.reshape(-1, 3).numpy().var(axis=0), [1.0, 0.25, 4.0],
+                               rtol=0.3)
+    assert tuple(out.sampler_result.swap_rate.shape) == (2,)
+
+
+def test_map_then_sample_pt_with_transform():
+    """tests/test_tempering.py:325-345: Gamma(3, 2) on x > 0 sampled by
+    replica exchange in z, reported on the constrained scale."""
+    out = qt.map_then_sample(lambda x: 2.0 * torch.log(x[0]) - 2.0 * x[0], 30,
+                             torch.ones(1, dtype=torch.float64), n_chains=16, sampler="pt",
+                             transform=qt.transforms.Positive(1), n_samples=300, n_warmup=200,
+                             n_temps=3, beta_min=0.2, n_leapfrog=8)
+    draws = out.samples_constrained.reshape(-1).numpy()
+    assert np.all(draws > 0)
+    np.testing.assert_allclose(draws.mean(), 1.5, atol=0.25)
+    np.testing.assert_allclose(draws.var(), 0.75, atol=0.35)
