@@ -314,7 +314,7 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      warmup halves through `save_state` / `load_state` on the card (every
      leaf bit for bit): the draws and every state leaf bit for bit; for (b)
      and (c) seconds a call, draws/s, gradient evaluations/s, host syncs,
-     peak memory, and the device's busy share over 20 profiled transitions
+     peak memory, and the device's busy share over 10 profiled transitions
      from (b)'s and (c)'s final states.
  27. NUTS and depth-sorted NUTS (sampling.py), the workflow's
      ``sampler="nuts"`` and ``depth_sort=True`` routes on the same
@@ -473,6 +473,35 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      steps and 4 draws: the leaves (draws, chains, *leaf.shape), the
      tree's x_map the unravel of ``flat.x_map``, the numpy moments of
      fewer than 8 draws, two glue reads.
+ 32. The device mesh (parallel/mesh.py, parallel/distributed.py on
+     torch.distributed), f32: (a) one rank over NCCL on cuda:0 (a
+     FileStore group of world size 1), every collective run through NCCL:
+     `optimize_batched_sharded` on the phase-4 fleet (B1 once a loop body;
+     statuses, iterations and x equal to the unsharded engine's on the
+     card), `optimize_lbfgs_sharded` and `optimize_cg_model_sharded` on one
+     n = 1,048,576 solve of the geometric quadratic of JAX's
+     test_optimize_cg_model_sharded_matches_unsharded, widened (tol 1e-3;
+     held to the unsharded two-loop L-BFGS within 2 iterations and to the
+     unsharded CG within 15 %), `map_then_sample(mesh=)` on config 3's
+     posterior from the 4096 starts (MAP through B1, median within 10 % of
+     JAX's 11, ``sampler="hmc"`` 10 + 10 steps) and `sample_sharded`
+     ChEES from its handoff, 50 warmup rounds and 20 draws, equal to the
+     unsharded `chees_sample` on the card (phase 26 gates the full-length
+     run); B1 at 4096 x 60 against its plain version (record
+     ``fused_bfgs_update_batched[mesh]``, CUDA events around calls queued
+     behind a held stream, so that they time the kernels, not the
+     dispatch); (b) two ranks on
+     the one card over gloo (NCCL refuses two ranks on one GPU), processes
+     of their own that load the library this one built: the same legs,
+     gathered and held to (a): the fleet lane for lane, L-BFGS within 2
+     iterations and CG within 15 % on the same optimum, the pipeline's MAP
+     statuses equal and its median within 10 % of JAX's, ChEES from (a)'s
+     starts with its step size (relative) and mean acceptance within
+     1e-3 of (a)'s (the logistic's GEMM and the per-chain sums run at
+     2048 rows on each rank, which the card sums in another order than
+     at 4096; the distance a one-ulp change of the data makes is printed
+     beside) and its acceptance within phase 26's 0.05 of the target; B1
+     once a loop body on each rank, both ranks the same whole result.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -796,6 +825,9 @@ DIAG_DRAWS, DIAG_CHAINS, DIAG_PHI = 1000, 64, 0.9
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_F64_FLOPS = 34e12
+# the H100 SXM's top SM clock (1980 MHz), sizing `torch.cuda._sleep`: at a
+# lower clock the sleep lasts longer, which only holds the stream longer
+GPU_SLEEP_CYCLES_PER_S = 1.98e9
 
 
 def log(msg):
@@ -1213,9 +1245,21 @@ def parity_phase(qt, device):
         f"counters equal, max|dx| {dx:.3e}")
 
 
-def time_calls(fn, args, calls=20):
-    """ms per call over ``calls`` back-to-back calls, by CUDA events."""
+def time_calls(fn, args, calls=20, queued=False):
+    """ms per call over ``calls`` back-to-back calls, by CUDA events. With
+    ``queued`` the stream is first held busy (``torch.cuda._sleep``, twice
+    the host's time to issue the calls) so that the calls queue behind it
+    and the events time the device's work alone, not the host's dispatch
+    where a call's host time exceeds its kernel's."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        host_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * host_s * GPU_SLEEP_CYCLES_PER_S))
     start.record()
     for _ in range(calls):
         fn(*args)
@@ -1984,16 +2028,16 @@ def alternate_samples(fns, rounds, warmup=True):
     return secs, peak
 
 
-def per_call_ms(fns, args, rounds=4, calls=10, warmup=True):
+def per_call_ms(fns, args, rounds=4, calls=10, warmup=True, queued=False):
     """Median ms per call of each of ``fns`` on ``args``, by CUDA events,
     in turns after a warm-up call each (none with ``warmup=False``, for
-    callables the caller has just run)."""
+    callables the caller has just run); ``queued``: see `time_calls`."""
     for fn in fns.values() if warmup else ():
         time_calls(fn, args, calls=1)
     ms = {k: [] for k in fns}
     for r in range(rounds):
         for k in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            ms[k].append(time_calls(fns[k], args, calls=calls))
+            ms[k].append(time_calls(fns[k], args, calls=calls, queued=queued))
     return {k: float(np.median(v)) for k, v in ms.items()}
 
 
@@ -4433,7 +4477,8 @@ SD_RATIO = (0.9, 1.1)
 # max split R-hat; where JAX's own reference run exceeds it, JAX's value
 # + 0.01 (its HMC: 1.0204 over 512 chains)
 RHAT_LIMIT, RHAT_MARGIN = 1.01, 0.01
-PROFILED_TRANSITIONS = 20
+# the busy share's steady-state window (20 until phase 32 was added)
+PROFILED_TRANSITIONS = 10
 
 
 def chain_moments(qt, samples):
@@ -4549,9 +4594,10 @@ def logistic_map_fleet(qt, device, label):
     return model, fleet, c["B1"], (converged, med, itmax)
 
 
-def sampling_b1(qt, device):
-    """B1 at the sampling fleet's shape (4096 x 100 f32, every lane active
-    and not fresh) against its plain version: (max abs err, ms per launch,
+def sampling_b1(qt, device, n=LOGISTIC_N, queued=False):
+    """B1 at the sampling fleet's shape (4096 x ``n`` f32, n = 100 by
+    default; every lane active and not fresh) against its plain version:
+    (max abs err, ms per launch,
     plain ms per call, (bound ms, bound kind)). Both times by CUDA events
     over back-to-back calls (median of 3 x 20, in turns): at this shape a
     launch's device time (~0.12 ms) exceeds the wrapper's host time, and
@@ -4561,21 +4607,18 @@ def sampling_b1(qt, device):
         fused_bfgs_update_reference,
     )
 
-    args, _ = kernel_inputs(BENCH_SEED + LOGISTIC_N, LOGISTIC_N, BATCH, torch.float32, device,
-                            kinds=False)
+    args, _ = kernel_inputs(BENCH_SEED + n, n, BATCH, torch.float32, device, kinds=False)
     kern = fused_bfgs_update_batched(*(a.clone() for a in args))
     plain = fused_bfgs_update_reference(*(a.clone() for a in args))
     err = 0.0
     for name, a, b in zip(("B", "d", "m"), kern[:3], plain[:3]):
         rel = float((a - b).abs().max() / b.abs().max())
-        check(rel <= KERNEL_RTOL[torch.float32], f"B1 at {BATCH}x{LOGISTIC_N}: {name} rel err "
-                                                 f"{rel:.3e}")
+        check(rel <= KERNEL_RTOL[torch.float32], f"B1 at {BATCH}x{n}: {name} rel err {rel:.3e}")
         err = max(err, float((a - b).abs().max()))
     lanes_reset = int(plain[3].sum())
     ms = per_call_ms({"cuda": fused_bfgs_update_batched, "plain": fused_bfgs_update_reference},
-                     args, rounds=3, calls=20)
-    return (err, ms["cuda"], ms["plain"],
-            b1_bound(BATCH, LOGISTIC_N, 4, BATCH, lanes_reset))
+                     args, rounds=3, calls=20, queued=queued)
+    return (err, ms["cuda"], ms["plain"], b1_bound(BATCH, n, 4, BATCH, lanes_reset))
 
 
 def through_file(state, tmp, name):
@@ -5174,7 +5217,8 @@ STEP_RTOL = 0.1  # step size and L against JAX's
 MODE_ATOL = 0.05  # the mixture's mode weights against [0.75, 0.25]
 # the autocorrelation time's host FFTs over this many walkers (all 4096: ~12 s)
 TAU_WALKERS = 512
-SAMPLERS_PROFILED = {"mclmc": 20, "ensemble": 20, "pt": 3}  # steps or rounds profiled
+# steps or rounds profiled (mclmc and ensemble 20 until phase 32 was added)
+SAMPLERS_PROFILED = {"mclmc": 10, "ensemble": 10, "pt": 3}
 # (f)'s short plans, long and through a checkpoint: (warmup, draws)
 SAMPLERS_RESUME = {"mclmc": (20, 10), "ensemble": (20, 10), "pt": (6, 4)}
 
@@ -5791,6 +5835,362 @@ def workflow_phase(qt, device, smi):
     log(f"[workflow] phase 31 took {time.perf_counter() - t_phase:.1f} s on {smi}")
     return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
 
+# Phase 32, the device mesh: parallel/mesh.py on torch.distributed. (a) runs
+# in this process as one rank over NCCL; (b) as two ranks over gloo in
+# processes of their own on the same card (NCCL refuses two ranks on one
+# GPU: "Duplicate GPU detected"), which load the kernel library this
+# process built and write their gathered results to files held to (a).
+MESH_N = 1 << 20  # the parameter-sharded solves' n
+MESH_TOL = 1e-3  # their certificate, the f32 throughput mode's
+MESH_CHEES = (50, 20)  # sample_sharded ChEES: warmup rounds, draws
+MESH_PIPE_HMC = (10, 10, 4)  # the pipeline's HMC: warmup, draws, leapfrog steps
+MESH_RANKS = 2  # (b)'s ranks
+MESH_RANK_TIMEOUT = 400  # seconds (b) may take before its ranks are stopped
+MESH_X_ATOL = 1e-6  # a fleet's x against the same lanes run elsewhere: f32 rounding
+# (b)'s ChEES against (a)'s: each rank's GEMM and per-chain sums run at 2048
+# rows, which the card sums in another order than at 4096; after 70
+# adaptive rounds that moved the step size 1.5e-4 (relative) and the mean
+# acceptance 5.8e-5, the same in two calls (a one-ulp change of the data
+# moves them 4.2e-6 / 2.5e-5; on the CPU, one summation order, sharded =
+# unsharded to 1e-13 over 700 rounds, tests/test_torch_mesh_sampling.py)
+MESH_CHEES_TOL = 1e-3
+
+
+def mesh_quadratic(device):
+    """The geometric quadratic of JAX's
+    test_optimize_cg_model_sharded_matches_unsharded, widened to n =
+    MESH_N: -1/2 sum d x², d = geomspace(1, 100, n), f32, and its start
+    (N(0, 1), the bench seed)."""
+    d = torch.tensor(np.geomspace(1.0, 100.0, MESH_N), dtype=torch.float32, device=device)
+    x0 = torch.tensor(np.random.default_rng(BENCH_SEED).standard_normal(MESH_N),
+                      dtype=torch.float32, device=device)
+
+    def logd(x):
+        return -0.5 * torch.sum(d * x * x)
+
+    return logd, x0
+
+
+def mesh_leg(qt, fn):
+    """``fn()`` with every counter at 0: (result, wall s, counters)."""
+    torch.cuda.synchronize()
+    reset_counters(qt)
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counters(qt)
+
+
+def mesh_legs(qt, device, data, model, chees_x0s=None):
+    """Phase 32's legs on the ranks' meshes ``data`` ({'data': k}) and
+    ``model`` ({'model': k}): {leg: (result, wall s, counters)} and the
+    inputs (the logistic model, ChEES's starts, the quadratic and its
+    start, the fleet's starts). ChEES starts from the pipeline's handoff,
+    or from ``chees_x0s`` where given ((b): (a)'s, so that both runs start
+    alike)."""
+    from quasinewtonmethods_jl_tpu_torch import parallel as P
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        LogisticRegressionMAP,
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+
+    X = bench_fleet(device)
+    logd, x0 = mesh_quadratic(device)
+    Xd, yd, starts = logistic_data(np.random.default_rng(BENCH_SEED))
+    logistic = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR, X=Xd,
+                                     y=yd, dtype=torch.float32, device=device)
+    starts = torch.tensor(starts, dtype=torch.float32, device=device)
+    warm, draws, leapfrog = MESH_PIPE_HMC
+    legs = {
+        "fleet": mesh_leg(qt, lambda: P.optimize_batched_sharded(
+            rosenbrock_logdensity, X, data, tol=TOL, max_iterations=MAX_ITERS,
+            value_and_grad_fn=rosenbrock_value_and_grad)),
+        "lbfgs": mesh_leg(qt, lambda: P.optimize_lbfgs_sharded(logd, x0, model, tol=MESH_TOL)),
+        "cg": mesh_leg(qt, lambda: P.optimize_cg_model_sharded(logd, x0, model, tol=MESH_TOL)),
+        "pipeline": mesh_leg(qt, lambda: qt.map_then_sample(
+            logistic, BENCH_SEED, starts, mesh=data, map_engine="bfgs", map_tol=LOGISTIC_TOL,
+            sampler="hmc", n_warmup=warm, n_samples=draws, n_leapfrog=leapfrog)),
+    }
+    x0s = chees_x0s
+    if x0s is None:
+        x0s, _ = qt.chain_init_from_map(legs["pipeline"][0].map_result, jitter=SAMPLING_JITTER,
+                                        key=BENCH_SEED)
+    warm, draws = MESH_CHEES
+    legs["chees"] = mesh_leg(qt, lambda: P.sample_sharded(
+        logistic, BENCH_SEED, x0s, data, sampler="chees", n_warmup=warm, n_samples=draws))
+    return legs, (logistic, x0s, logd, x0, X)
+
+
+def mesh_summary(legs):
+    """The legs' results as host arrays: what (b) hands back and (a) is
+    held to."""
+    fleet, lbfgs, cg, pipe, chees = (legs[k][0] for k in ("fleet", "lbfgs", "cg", "pipeline",
+                                                          "chees"))
+    host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+
+    def solve(r):
+        return {"status": int(r.status), "iterations": int(r.iterations), "x": host(r.x),
+                "gmax": float(r.grad.abs().max())}
+
+    return {
+        "fleet": {"status": host(fleet.status), "iterations": host(fleet.iterations),
+                  "x": host(fleet.x)},
+        "lbfgs": solve(lbfgs), "cg": solve(cg),
+        "pipeline": {"status": host(pipe.map_result.status),
+                     "iterations": host(pipe.map_result.iterations),
+                     "samples": host(pipe.samples)},
+        "chees": {"step_size": float(chees.step_size), "accept": host(chees.accept_rate),
+                  "samples": host(chees.samples)},
+        "walls": {k: v[1] for k, v in legs.items()},
+        "counters": {k: v[2] for k, v in legs.items()},
+    }
+
+
+def mesh_b1_counted(label, c):
+    check(c["B1"] == c["bodies"] > 0 and c["B2a"] == c["B2b"] == c["B3"] == 0,
+          f"mesh {label}: B1 not launched once per loop body: {c}")
+
+
+def mesh_rank(qt, device, rank, store, path, chees_path):
+    """Phase 32 (b): one of MESH_RANKS ranks over gloo on this card, ChEES
+    from the starts saved at ``chees_path``; the legs' gathered results go
+    to ``path``."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels._build import load_library
+    from quasinewtonmethods_jl_tpu_torch.parallel import distributed, make_mesh
+
+    lib = load_library()
+    check(lib.build_seconds == 0.0, f"mesh rank {rank}: the kernel library was built again")
+    distributed.initialize(store, MESH_RANKS, int(rank), backend="gloo")
+    try:
+        t0 = time.perf_counter()
+        legs, _ = mesh_legs(qt, device, make_mesh({"data": MESH_RANKS}),
+                            make_mesh({"model": MESH_RANKS}),
+                            torch.load(chees_path, map_location=device))
+        for leg in ("fleet", "pipeline"):
+            mesh_b1_counted(f"(b) rank {rank} {leg}", legs[leg][2])
+        torch.save(mesh_summary(legs), path)
+        log(f"[mesh] (b) rank {rank} of {MESH_RANKS} over gloo on {device} "
+            f"({torch.cuda.get_device_name(device)}), the library {lib.path.name} loaded: legs "
+            f"in {time.perf_counter() - t0:.1f} s, "
+            + ", ".join(f"{k} {v[1]:.2f} s" for k, v in legs.items())
+            + f"; B1 {legs['fleet'][2]['B1']} + {legs['pipeline'][2]['B1']} launches")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_ranks(qt, chees_x0s):
+    """Phase 32 (b): start the ranks, wait for them (stopping them all if
+    one fails or they overrun MESH_RANK_TIMEOUT) and read their results."""
+    tmp = tempfile.mkdtemp()
+    paths = [os.path.join(tmp, f"rank{r}.pt") for r in range(MESH_RANKS)]
+    chees_path = os.path.join(tmp, "chees_x0s.pt")
+    torch.save(chees_x0s.cpu(), chees_path)
+    handles = [start_helper("mesh_rank", str(r), f"file://{tmp}/store", paths[r], chees_path)
+               for r in range(MESH_RANKS)]
+    try:
+        deadline = time.perf_counter() + MESH_RANK_TIMEOUT
+        while any(h["proc"].poll() is None for h in handles):
+            failed = [h for h in handles if h["proc"].poll() not in (None, 0)]
+            if failed or time.perf_counter() > deadline:
+                break
+            time.sleep(0.2)
+        for h in handles:
+            if h["proc"].poll() is None:
+                os.killpg(h["proc"].pid, 9)
+        # a rank that failed first, then those stopped for it
+        for h in sorted(handles, key=lambda h: h["proc"].returncode == -9):
+            finish_helper(h)
+        return [torch.load(p, weights_only=False) for p in paths]
+    finally:
+        for h in handles:
+            stop_build(h)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_same_solve(qt, label, a, b, iter_slack):
+    """A parameter-sharded solve ``a`` against ``b``: both certified, the
+    iterations within ``iter_slack`` of b's, the same optimum."""
+    check(a["status"] == b["status"] == int(qt.Status.CONVERGED) and a["gmax"] < MESH_TOL,
+          f"mesh {label}: statuses {a['status']} / {b['status']}, max|grad| {a['gmax']}")
+    check(abs(a["iterations"] - b["iterations"]) <= iter_slack,
+          f"mesh {label}: {a['iterations']} iterations against {b['iterations']}")
+    dx = float(np.abs(a["x"] - b["x"]).max())
+    check(dx <= 2 * MESH_TOL, f"mesh {label}: optima {dx:.3e} apart")
+    return dx
+
+
+def mesh_chees_apart(a, b):
+    """How far ChEES run ``a`` is from ``b``: (step size relative, the
+    mean acceptance, the largest draw difference)."""
+    return (abs(a["step_size"] - b["step_size"]) / b["step_size"],
+            abs(float(a["accept"].mean()) - float(b["accept"].mean())),
+            float(np.abs(a["samples"] - b["samples"]).max()))
+
+
+def mesh_chees_run(res):
+    return {"step_size": float(res.step_size), "accept": res.accept_rate.cpu().numpy(),
+            "samples": res.samples.cpu().numpy()}
+
+
+def mesh_phase(qt, device, smi):
+    """The device mesh (see phase 32 above). Returns B1's [mesh] record:
+    (launches, max abs error, (ms, plain ms, bound ms, bound kind, library
+    ms))."""
+    from quasinewtonmethods_jl_tpu_torch.models import (
+        LogisticRegressionMAP,
+        rosenbrock_logdensity,
+        rosenbrock_value_and_grad,
+    )
+    from quasinewtonmethods_jl_tpu_torch.parallel import distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    # (a) one rank over NCCL
+    tmp = tempfile.mkdtemp()
+    distributed.initialize(f"file://{tmp}/store", 1, 0)
+    try:
+        check(torch.distributed.get_backend() == "nccl", "mesh (a): not on NCCL")
+        data, model = make_mesh({"data": 1}), make_mesh({"model": 1})
+        legs, (logistic, x0s, logd, x0, X) = mesh_legs(qt, device, data, model)
+    finally:
+        torch.distributed.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    a = mesh_summary(legs)
+    fleet_c, pipe_c = legs["fleet"][2], legs["pipeline"][2]
+    mesh_b1_counted("(a) fleet", fleet_c)
+    mesh_b1_counted("(a) pipeline", pipe_c)
+    check(no_kernel_launched(legs["chees"][2]) and no_kernel_launched(legs["lbfgs"][2])
+          and no_kernel_launched(legs["cg"][2]), "mesh (a): a kernel launched in a torch-op leg")
+    launches = fleet_c["B1"]
+    pipe = legs["pipeline"][0]
+    del legs
+
+    # the unsharded runs on the card, the same inputs
+    walls_un = {}
+    t0 = time.perf_counter()
+    un = qt.optimize_batched_fused(rosenbrock_logdensity, X, tol=TOL, max_iterations=MAX_ITERS,
+                                   value_and_grad_fn=rosenbrock_value_and_grad)
+    torch.cuda.synchronize()
+    walls_un["fleet"] = time.perf_counter() - t0
+    check(bool((un.status == qt.Status.CONVERGED).all()), "mesh (a): the unsharded fleet failed")
+    check(np.array_equal(a["fleet"]["status"], un.status.cpu().numpy())
+          and np.array_equal(a["fleet"]["iterations"], un.iterations.cpu().numpy()),
+          "mesh (a): sharded fleet's statuses or iterations differ from the unsharded engine's")
+    dx_fleet = float(np.abs(a["fleet"]["x"] - un.x.cpu().numpy()).max())
+    check(dx_fleet <= MESH_X_ATOL, f"mesh (a): fleet x {dx_fleet:.2e} from the unsharded run")
+    t0 = time.perf_counter()
+    un_lbfgs = qt.optimize_lbfgs(logd, x0, tol=MESH_TOL, direction_method="two_loop")
+    torch.cuda.synchronize()
+    walls_un["lbfgs"] = time.perf_counter() - t0
+    un_cg = qt.optimize_cg(logd, x0, tol=MESH_TOL)
+    torch.cuda.synchronize()
+    walls_un["cg"] = time.perf_counter() - t0 - walls_un["lbfgs"]
+    plain = {k: {"status": int(r.status), "iterations": int(r.iterations),
+                 "x": r.x.cpu().numpy(), "gmax": float(r.grad.abs().max())}
+             for k, r in (("lbfgs", un_lbfgs), ("cg", un_cg))}
+    dx_lbfgs = mesh_same_solve(qt, "(a) L-BFGS", a["lbfgs"], plain["lbfgs"], 2)
+    dx_cg = mesh_same_solve(qt, "(a) CG", a["cg"], plain["cg"], 0.15 * plain["cg"]["iterations"])
+    converged, med, itmax, gmax = fleet_line(qt, pipe.map_result)
+    jax_med = JAX_WORKFLOW["median_iterations"]
+    check(converged == BATCH and gmax < LOGISTIC_TOL and abs(med - jax_med) <= 0.1 * jax_med,
+          f"mesh (a) pipeline: {converged}/{BATCH} converged, median {med} (JAX {jax_med})")
+    check(bool(torch.isfinite(pipe.samples).all()) and tuple(pipe.samples.shape)
+          == (MESH_PIPE_HMC[1], BATCH, LOGISTIC_N), "mesh (a) pipeline: draws")
+    warm, draws = MESH_CHEES
+    t0 = time.perf_counter()
+    un_chees = mesh_chees_run(qt.chees_sample(logistic, BENCH_SEED, x0s, n_warmup=warm,
+                                              n_samples=draws))
+    walls_un["chees"] = time.perf_counter() - t0
+    d_chees = mesh_chees_apart(a["chees"], un_chees)
+    acc = float(a["chees"]["accept"].mean())
+    check(d_chees == (0.0, 0.0, 0.0) and abs(acc - CHEES_TARGET) <= ACCEPT_ATOL,
+          f"mesh (a): ChEES {d_chees} from the unsharded run, mean accept {acc:.4f}")
+    # a one-ulp witness: the same run on the model whose data X moved one
+    # float32 ulp, so that every gradient rounds otherwise, as (b)'s GEMM
+    # over 2048 chains may: the distance rounding alone makes over 70
+    # adaptive rounds
+    Xd, yd, _ = logistic_data(np.random.default_rng(BENCH_SEED))
+    Xw = np.nextafter(Xd.astype(np.float32), np.float32(np.inf))
+    witness_model = LogisticRegressionMAP(LOGISTIC_N, LOGISTIC_OBS, prior_scale=LOGISTIC_PRIOR,
+                                          X=Xw, y=yd, dtype=torch.float32, device=device)
+    witness = mesh_chees_apart(mesh_chees_run(qt.chees_sample(
+        witness_model, BENCH_SEED, x0s, n_warmup=warm, n_samples=draws)), un_chees)
+    del witness_model
+    chees_x0s = x0s
+    del un, un_lbfgs, un_cg, pipe, logistic, logd, x0, X
+    # queued: at 4096 x 60 a launch's host time exceeds its kernel's, so
+    # back-to-back calls alone would time the dispatch (0.05-0.10 ms)
+    err, b1_ms, plain_ms, (bound_ms, bound_by) = sampling_b1(qt, device, n=N, queued=True)
+    w = a["walls"]
+    log(f"[mesh] (a) one rank over NCCL on {device}: optimize_batched_sharded on the phase-4 "
+        f"fleet {BATCH}x{N} f32 {w['fleet']:.2f} s (unsharded {walls_un['fleet']:.2f} s), "
+        f"statuses and iterations equal to the unsharded engine's, x within {dx_fleet:.1e}, B1 "
+        f"{launches} launches = loop bodies; optimize_lbfgs_sharded n={MESH_N} f32 tol "
+        f"{MESH_TOL}: {a['lbfgs']['iterations']} iterations (unsharded two-loop "
+        f"{plain['lbfgs']['iterations']}), optima {dx_lbfgs:.1e} apart, {w['lbfgs']:.2f} s "
+        f"(unsharded {walls_un['lbfgs']:.2f} s); optimize_cg_model_sharded: "
+        f"{a['cg']['iterations']} iterations (unsharded {plain['cg']['iterations']}), optima "
+        f"{dx_cg:.1e} apart, {w['cg']:.2f} s (unsharded {walls_un['cg']:.2f} s); "
+        f"map_then_sample(mesh=) on config 3 from {BATCH} starts: {converged}/{BATCH} "
+        f"converged, median {med:g} max {itmax} (JAX {jax_med:g}), B1 {pipe_c['B1']} launches "
+        f"= loop bodies, HMC {MESH_PIPE_HMC[0]} + {MESH_PIPE_HMC[1]}, {w['pipeline']:.2f} s; "
+        f"sample_sharded ChEES {warm} + {draws} from its handoff: step size "
+        f"{a['chees']['step_size']:.4f}, mean accept {acc:.4f}, equal to the unsharded run bit "
+        f"for bit, {w['chees']:.2f} s (unsharded {walls_un['chees']:.2f} s); the run on the "
+        f"data moved one ulp: step rel {witness[0]:.1e}, mean accept {witness[1]:.1e}, draws "
+        f"{witness[2]:.1e} apart; B1 at {BATCH}x{N} f32 against its plain version max abs err "
+        f"{err:.3e}, {b1_ms:.4f} ms a launch (CUDA events behind a held stream), plain "
+        f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), B1 at "
+        f"{100 * bound_ms / b1_ms:.1f} % of it on {smi}")
+
+    # (b) two ranks over gloo on the one card, held to (a)
+    t0 = time.perf_counter()
+    ranks = mesh_ranks(qt, chees_x0s)
+    del chees_x0s
+    rank_s = time.perf_counter() - t0
+    for r, other in enumerate(ranks[1:], 1):
+        for leg in ("fleet", "lbfgs", "cg", "pipeline", "chees"):
+            for key, value in other[leg].items():
+                check(np.array_equal(value, ranks[0][leg][key]),
+                      f"mesh (b): rank {r}'s {leg} {key} differs from rank 0's")
+    b = ranks[0]
+    check(np.array_equal(b["fleet"]["status"], a["fleet"]["status"])
+          and np.array_equal(b["fleet"]["iterations"], a["fleet"]["iterations"]),
+          "mesh (b): the fleet's statuses or iterations differ from (a)'s lane for lane")
+    dx_b = float(np.abs(b["fleet"]["x"] - a["fleet"]["x"]).max())
+    check(dx_b <= MESH_X_ATOL, f"mesh (b): fleet x {dx_b:.2e} from (a)'s")
+    dx_lb = mesh_same_solve(qt, "(b) L-BFGS", b["lbfgs"], a["lbfgs"], 2)
+    dx_cgb = mesh_same_solve(qt, "(b) CG", b["cg"], a["cg"], 0.15 * a["cg"]["iterations"])
+    # the logistic's gradient is a GEMM over each rank's chains, which
+    # cuBLAS may round otherwise at 2048 rows than at 4096: the pipeline's
+    # lanes are held to the gates (a)'s are, ChEES to MESH_CHEES_TOL
+    iters_b = b["pipeline"]["iterations"]
+    med_b = float(np.median(iters_b))
+    check(np.array_equal(b["pipeline"]["status"], a["pipeline"]["status"])
+          and abs(med_b - jax_med) <= 0.1 * jax_med,
+          f"mesh (b): the pipeline's MAP statuses differ from (a)'s or its median {med_b} is "
+          f"not within 10% of JAX's {jax_med}")
+    lanes_apart = int((iters_b != a["pipeline"]["iterations"]).sum())
+    d_pipe = float(np.abs(b["pipeline"]["samples"] - a["pipeline"]["samples"]).max())
+    d_chees_b = mesh_chees_apart(b["chees"], a["chees"])
+    acc_b = float(b["chees"]["accept"].mean())
+    check(d_chees_b[0] <= MESH_CHEES_TOL and d_chees_b[1] <= MESH_CHEES_TOL
+          and abs(acc_b - CHEES_TARGET) <= ACCEPT_ATOL and np.isfinite(b["chees"]["samples"]).all(),
+          f"mesh (b): ChEES step rel {d_chees_b[0]:.2e}, mean accept {d_chees_b[1]:.2e} from "
+          f"(a)'s (limit {MESH_CHEES_TOL}; the one-ulp witness {witness[0]:.2e} / "
+          f"{witness[1]:.2e}), mean accept {acc_b:.4f} (target {CHEES_TARGET})")
+    wb = b["walls"]
+    log(f"[mesh] (b) {MESH_RANKS} ranks over gloo on the one card, {rank_s:.1f} s with their "
+        f"start: the fleet lane for lane (x within {dx_b:.1e}, {wb['fleet']:.2f} s), L-BFGS "
+        f"{b['lbfgs']['iterations']} iterations (optima {dx_lb:.1e} apart, {wb['lbfgs']:.2f} s), "
+        f"CG {b['cg']['iterations']} ({dx_cgb:.1e}, {wb['cg']:.2f} s), the pipeline's MAP "
+        f"statuses equal, median {med_b:g}, {lanes_apart} lanes' iterations apart from (a)'s, "
+        f"draws within {d_pipe:.1e} ({wb['pipeline']:.2f} s), ChEES from (a)'s starts: step "
+        f"rel {d_chees_b[0]:.1e}, mean accept {d_chees_b[1]:.1e}, draws {d_chees_b[2]:.1e} "
+        f"from (a)'s ({wb['chees']:.2f} s); both ranks the same whole result")
+    log(f"[mesh] phase 32 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
+
 
 def main():
     if not torch.cuda.is_available():
@@ -5865,6 +6265,7 @@ def main():
     timed("30", evidence_phase, qt, device, smi, evidence_handoff)
     del evidence_handoff
     workflow_rec = timed("31", workflow_phase, qt, device, smi)
+    mesh_rec = timed("32", mesh_phase, qt, device, smi)
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
         f"taken: {len(AHEAD)}")
@@ -5889,6 +6290,7 @@ def main():
         record("fused_bfgs_update_batched[pt]", KERNEL_SOURCE, KERNEL_REPLACES, *pt_rec),
         record("fused_bfgs_update_batched[workflow]", KERNEL_SOURCE, KERNEL_REPLACES,
                *workflow_rec),
+        record("fused_bfgs_update_batched[mesh]", KERNEL_SOURCE, KERNEL_REPLACES, *mesh_rec),
         record("blocked_matvec", BLOCKED_SOURCE, MATVEC_REPLACES, large["B2a"],
                blocked_err["B2a"], times["B2a"]),
         record("blocked_update", BLOCKED_SOURCE, UPDATE_REPLACES, large["B2b"],

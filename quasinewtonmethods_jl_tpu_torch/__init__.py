@@ -38,9 +38,11 @@ affine-invariant ensemble (`ensemble_sample`, `ensemble_sample_from_state`,
 `ensemble_autocorr_time`) and replica-exchange HMC (`pt_sample`,
 `pt_sample_from_state`, `geometric_ladder`), and the one-call pipeline
 that composes them (`map_then_sample`, `map_then_sample_pytree`) with the
-profiling helpers (`utils.trace`, `utils.summarize_trace`); ROADMAP.md
-lists what is still to port (the device mesh). Entry points run on the
-CUDA card unless given a CPU tensor (`utils.device.as_device_tensor`).
+profiling helpers (`utils.trace`, `utils.summarize_trace`), and the
+device mesh over ``torch.distributed`` (`parallel.make_mesh`, the
+``*_sharded`` fleets and single solves, `parallel.distributed`). Entry
+points run on the CUDA card unless given a CPU tensor
+(`utils.device.as_device_tensor`).
 
 The package imports torch and numpy, never jax.
 """

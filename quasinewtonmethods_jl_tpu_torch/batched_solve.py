@@ -67,6 +67,7 @@ from .ops.wolfe import Wolfe, _accepts, _shrinks, _wolfe_consts, wolfe_propose
 from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, OptimizeResult
 from .state import BFGSState, Status
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import coord_amax
 from .utils.scalars import finite_halving_limit, nanmax, nanmin, sqrt_tolerance
 
 __all__ = [
@@ -123,7 +124,7 @@ def _classify(status, was_active, f0, g, fprev, stall, tol, stall_limit):
     code = torch.full_like(status, _RUNNING)
     if stall_limit:
         code = torch.where(stall >= stall_limit, _LINESEARCH_FAILURE, code)
-    code = torch.where(g.abs().amax(dim=1) < tol, _CONVERGED, code)
+    code = torch.where(coord_amax(g.abs()) < tol, _CONVERGED, code)
     code = torch.where(~torch.isfinite(f0), _NONFINITE_VALUE, code)
     status_pre = torch.where(was_active, code, status)
     return stall, status_pre, (status_pre == _RUNNING) & was_active

@@ -55,6 +55,7 @@ from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT
 from .state import CGState, Status
 from .trust_region import _resolve_precondition
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import coord_local, coord_sum, fleet_amax, fleet_any
 
 __all__ = ["CGResult", "CGState", "optimize_cg", "optimize_cg_from_state"]
 
@@ -113,32 +114,32 @@ def _cg_beta(method: str, g, G_old, D, restart_nu: float, P=None):
     x̃-space products: gradient products gain a P, d·g and d·y are
     invariant, and ‖d̃‖ = √(d·d/P)."""
     if P is None:
-        gg = (g * g).sum(1)
-        gg_old = (G_old * G_old).sum(1)
-        gdotgold = (g * G_old).sum(1)
+        gg = coord_sum(g * g)
+        gg_old = coord_sum(G_old * G_old)
+        gdotgold = coord_sum(g * G_old)
     else:
-        gg = (g * P * g).sum(1)
-        gg_old = (G_old * P * G_old).sum(1)
-        gdotgold = (g * P * G_old).sum(1)
+        gg = coord_sum(g * P * g)
+        gg_old = coord_sum(G_old * P * G_old)
+        gdotgold = coord_sum(g * P * G_old)
     if method == "fr":
         beta = gg / gg_old
     elif method == "pr":
         beta = torch.clamp((gg - gdotgold) / gg_old, min=0.0)  # jnp.maximum(0, ·)
     elif method == "dy":
         y = G_old - g
-        beta = gg / (D * y).sum(1)
+        beta = gg / coord_sum(D * y)
     elif method == "hz":
         y = G_old - g
-        dy = (D * y).sum(1)
-        dg = (D * g).sum(1)
+        dy = coord_sum(D * y)
+        dg = coord_sum(D * g)
         if P is None:
-            yy = (y * y).sum(1)
-            yg = (y * g).sum(1)
-            dnorm = torch.sqrt((D * D).sum(1))
+            yy = coord_sum(y * y)
+            yg = coord_sum(y * g)
+            dnorm = torch.sqrt(coord_sum(D * D))
         else:
-            yy = (y * P * y).sum(1)
-            yg = (y * P * g).sum(1)
-            dnorm = torch.sqrt((D * D / P).sum(1))
+            yy = coord_sum(y * P * y)
+            yg = coord_sum(y * P * g)
+            dnorm = torch.sqrt(coord_sum(D * D / P))
         beta = (2.0 * dg * yy / dy - yg) / dy
         eta_k = -1.0 / (dnorm * torch.clamp(torch.sqrt(gg_old), max=0.01))
         beta = torch.maximum(beta, eta_k)
@@ -187,14 +188,14 @@ def _cg_body(c: _CGCarry, vag_b, f_b, method, ls, tol, stall_limit, restart_nu, 
         # jacobi: re-estimated at the current iterate; the probes are keyed
         # by the fleet's largest lifetime iteration count (not the leg's k),
         # so a chunked resume replays an uninterrupted run's probes
-        P = _jacobi_precond_cg(hvp_b, c.X, c.iterations.amax(), precond_probes)
+        P = _jacobi_precond_cg(hvp_b, c.X, fleet_amax(c.iterations), precond_probes)
         Pg = P * g
         probe_gev = precond_probes
     beta, powell, gg = _cg_beta(method, g, c.G_old, c.D, restart_nu, P)
     fresh = c.m_prev == 0.0  # never stepped (init, or a resume of one)
     # d = Pg + β d_prev; gg is g̃·g̃ = (Pg)·g, the reset direction's slope
     d = Pg + beta[:, None] * c.D
-    m = (d * g).sum(1)
+    m = coord_sum(d * g)
     # in-band steepest reset: non-ascent (NaN compares False, so tested
     # explicitly), first iteration, lost conjugacy
     reset = (~torch.isfinite(m)) | (m <= 0.0) | fresh | powell
@@ -215,7 +216,7 @@ def _cg_body(c: _CGCarry, vag_b, f_b, method, ls, tol, stall_limit, restart_nu, 
 
         def phi_vag(alpha):
             fv, gv = vag_b(c.X + alpha[:, None] * d_ls)
-            return fv, (gv * d_ls).sum(1), gv
+            return fv, coord_sum(gv * d_ls), gv
 
         alpha, ls_fev, _it, ls_failed, f_acc, G_acc, reads = _batched_wolfe(
             phi_vag, f0, m_ls, active, ls, dtype, with_grad=fold
@@ -276,7 +277,7 @@ def _cg_loop_batched(vag_b, f_b, carry0: _CGCarry, method: str, ls, tol,
         # first test comes after TERMINATION_CHECK_INTERVAL bodies
         if c.k and c.k % TERMINATION_CHECK_INTERVAL == 0:
             optimize_cg.host_syncs += 1  # the termination read
-            if not bool((c.status == _RUNNING).any()):
+            if not bool(fleet_any(c.status == _RUNNING)):
                 break
         c = _cg_body(c, vag_b, f_b, method, ls, tol, stall_limit, restart_nu, fold,
                      precond_mode, precond_P, hvp_b, precond_probes)
@@ -363,7 +364,7 @@ def _cg_precond_pieces(vag, precond_mode, precond_diag, X: torch.Tensor):
         def hvp_one(x, v):
             return torch.func.jvp(grad_one, (x,), (v,))[1]
 
-        hvp_b = torch.func.vmap(hvp_one)
+        hvp_b = coord_local(torch.func.vmap(hvp_one), n_args=2)
     elif precond_mode == "fixed":
         diag = precond_diag.to(dtype=X.dtype, device=X.device).broadcast_to(X.shape)
         P = 1.0 / diag
@@ -379,8 +380,10 @@ def _run_cg(obj, carry0, method, ls, tol, max_iterations, value_and_grad_fn, sta
         raise ValueError(f"precond_probes must be >= 1, got {precond_probes}")
     precond_mode, precond_diag = _resolve_precondition(precondition, carry0.X.shape[-1])
     vag = as_value_and_grad(obj, value_and_grad_fn)
-    vag_b = torch.func.vmap(vag)
-    f_b = torch.func.vmap(as_value_fn(obj, value_and_grad_fn))
+    # under a model-sharded call each takes this rank's columns and the
+    # objective sees the gathered vector
+    vag_b = coord_local(torch.func.vmap(vag))
+    f_b = coord_local(torch.func.vmap(as_value_fn(obj, value_and_grad_fn)))
     hvp_b, P = _cg_precond_pieces(vag, precond_mode, precond_diag, carry0.X)
     with torch.no_grad():
         if seed_fold and isinstance(ls, Wolfe) and fold_eval:

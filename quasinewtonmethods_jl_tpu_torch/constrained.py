@@ -81,6 +81,7 @@ from .solve import MAX_ITERATIONS_DEFAULT, STALL_LIMIT_DEFAULT, optimize
 from .state import Status
 from .trust_region import _init_tr_state, _tr_body, _tr_loop, optimize_tr
 from .utils.device import as_device_tensor
+from .utils.placement import fleet_any
 
 __all__ = ["AugLagResult", "optimize_auglag"]
 
@@ -178,9 +179,9 @@ class _Counted:
 
 
 def _read_any(mask: torch.Tensor) -> bool:
-    """``any(mask)`` on the host: one counted read."""
+    """``any(mask)`` over the whole fleet, on the host: one counted read."""
     optimize_auglag.host_syncs += 1
-    return bool(mask.any())
+    return bool(fleet_any(mask))
 
 
 def _run_engine(engine, F, x, F_vag, tol, max_iterations, ls, history, cg_method):

@@ -39,6 +39,7 @@ import torch
 from .api import as_value_fn
 from .sampling import _ENSEMBLE_STREAM, _as_key, _counter, _full, _generator, _read_counters
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import fleet, fleet_count, own_span
 
 # the word that parts the host's shift-offset draw from the device's draws
 _SHIFT_OFFSET = 1
@@ -101,18 +102,23 @@ def _finite_or_neg_inf(f):
     return torch.where(torch.isfinite(f), f, torch.full_like(f, -math.inf))
 
 
-def _half_step(f_b, x_upd, f_upd, x_other, noise, a, partner):
-    """Stretch-move update of one half-ensemble against the other.
+def _half_step(f_b, x_upd, f_upd, x_other, noise, a, partner, rows):
+    """Stretch-move update of walkers ``rows`` (a slice of the half) of one
+    half-ensemble against the whole other half ``x_other``; ``noise`` is
+    the half's draw.
 
     y = x_j + z (x_i - x_j), z ~ g(z) ∝ 1/√z on [1/a, a] (inverse-CDF:
     z = ((a-1)u + 1)²/a), accepted with log-prob (n-1)·log z + f(y) - f(x).
     """
     _w2, n = x_upd.shape
+    if _w2 == 0:  # a rank whose walkers all lie in the other half
+        return x_upd, f_upd, torch.zeros((0,), dtype=torch.bool, device=x_upd.device)
     pick, u, u_acc = noise
+    u, u_acc = u[rows], u_acc[rows]
     if partner == "gather":
-        xj = torch.index_select(x_other, 0, pick)
+        xj = torch.index_select(x_other, 0, pick[rows])
     else:  # 'shift'
-        xj = torch.roll(x_other, pick, dims=0)
+        xj = torch.roll(x_other, pick, dims=0)[rows]
     a_ = _full(a, x_upd.dtype, x_upd.device)
     z = ((a_ - 1.0) * u + 1.0) ** 2 / a_
     y = xj + z[:, None] * (x_upd - xj)
@@ -129,14 +135,23 @@ def _half_step(f_b, x_upd, f_upd, x_other, noise, a, partner):
 def _full_step(f_b, x, f, key, phase, step, a, partner):
     """One red-black sweep: update half A against B, then B against the
     updated A (the sequential scheme that keeps detailed balance with
-    whole-half vectorization)."""
-    w2 = x.shape[0] // 2
+    whole-half vectorization). ``x``, ``f`` are this rank's walkers, a
+    contiguous span of the whole ensemble (all of it unsharded); each half
+    is updated against the whole other half."""
+    xs, fs = fleet(x), fleet(f)
+    w2 = xs.shape[0] // 2
+    lo, hi = own_span(x.shape[0])
+    rows_a = slice(min(lo, w2), min(hi, w2))  # this rank's walkers in half A
+    rows_b = slice(max(lo, w2) - w2, max(hi, w2) - w2)  # and in half B
     dtype, device = x.dtype, x.device
-    xA, fA, xB, fB = x[:w2], f[:w2], x[w2:], f[w2:]
+    xA, fA = xs[:w2][rows_a], fs[:w2][rows_a]
     noise = _ensemble_half_noise(key, phase, step, 0, w2, partner, dtype, device)
-    xA, fA, accA = _half_step(f_b, xA, fA, xB, noise, a, partner)
+    xA, fA, accA = _half_step(f_b, xA, fA, xs[w2:], noise, a, partner, rows_a)
+    # half B moves against the updated half A, the whole of it
+    xs_A = fleet(torch.cat([xA, xs[w2:][rows_b]]))[:w2] if x.shape[0] < xs.shape[0] else xA
+    xB, fB = xs[w2:][rows_b], fs[w2:][rows_b]
     noise = _ensemble_half_noise(key, phase, step, 1, w2, partner, dtype, device)
-    xB, fB, accB = _half_step(f_b, xB, fB, xA, noise, a, partner)
+    xB, fB, accB = _half_step(f_b, xB, fB, xs_A, noise, a, partner, rows_b)
     ensemble_sample.value_evals += 2
     return torch.cat([xA, xB]), torch.cat([fA, fB]), torch.cat([accA, accB])
 
@@ -193,7 +208,7 @@ def _validate(x0s, a, partner, n_samples, n_warmup, mass):
         )
     if x0s.ndim != 2:
         raise ValueError(f"x0s must be (walkers, n), got shape {tuple(x0s.shape)}")
-    w = x0s.shape[0]
+    w = fleet_count(x0s.shape[0])
     if w < 4 or w % 2 != 0:
         raise ValueError(
             f"need an even walker count >= 4 (red-black halves), got {w}; "

@@ -15,9 +15,10 @@ A failed line search ends the loop before the next evaluation, as JAX's
 loop condition does; the search's own last read says so. The host reads
 the device once per iteration plus once per line-search round, and a
 resume once more for its lifetime ``k``; every read is counted in
-``optimize_lbfgs.host_syncs``. The JAX ``dot=`` /
-``max_abs=`` hooks serve the sharded path (parallel/mesh.py), not ported
-yet, and are left out.
+``optimize_lbfgs.host_syncs``. `_lbfgs_loop`'s ``dot=`` / ``max_abs=``
+hooks take every contraction over n and the convergence test's max|g|, so
+the 'model'-sharded path (`parallel.mesh.optimize_lbfgs_sharded`) runs
+this loop unmodified on parameter shards.
 """
 
 from __future__ import annotations
@@ -73,22 +74,24 @@ def _direction_fn(direction_method: str):
     return _DIRECTIONS[direction_method]
 
 
-def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn):
+def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn, dot):
     """Push the pair of the previous accepted step (a never-stepped state's
     zero step has sᵀy = 0 and is skipped), take the direction, reset on
     non-ascent, search and step (JAX `advance`, :124-170). Returns the new
     state and whether the search failed (a Python bool, from its last
     read)."""
-    S, Y, rho, hist, gamma = lbfgs_push(s.S, s.Y, s.rho, s.hist, s.gamma, s.step, s.grad_old - g)
+    S, Y, rho, hist, gamma = lbfgs_push(s.S, s.Y, s.rho, s.hist, s.gamma, s.step, s.grad_old - g,
+                                        dot=dot)
     d, m = direction_fn(S, Y, rho, hist, gamma, g)
     # indefinite direction: clear the history and restart from steepest
     # ascent (the dense driver's B = I reset, reference :272-280)
     reset = m <= 0.0
     d = torch.where(reset, g, d)
-    m = torch.where(reset, torch.dot(g, g), m)
+    m = torch.where(reset, dot(g, g), m)
     hist = torch.where(reset, torch.zeros_like(hist), hist)
     gamma = torch.where(reset, torch.ones_like(gamma), gamma)
-    alpha, ls_failed, ls_fev, ls_gev, reads, failed = _run_linesearch(ls, f, vag, s.x, d, f0, m)
+    alpha, ls_failed, ls_fev, ls_gev, reads, failed = _run_linesearch(ls, f, vag, s.x, d, f0, m,
+                                                                      dot)
     optimize_lbfgs.host_syncs += reads
     # explicit mask: 0 * a NaN direction would destroy x
     step = torch.where(ls_failed, torch.zeros_like(d), alpha * d)
@@ -114,22 +117,34 @@ def _advance(s: LBFGSState, f0, g, stall, vag, f, ls, direction_fn):
 
 def _lbfgs_loop(vag, f, state: LBFGSState, ls, tol, max_iterations: int,
                 direction_method: str = "compact", stall_limit: int = STALL_LIMIT_DEFAULT,
-                fresh_start: bool = False) -> LBFGSState:
+                fresh_start: bool = False, dot: Callable = torch.dot,
+                max_abs: Optional[Callable] = None) -> LBFGSState:
     """Iterate while RUNNING and the lifetime ``k`` < ``max_iterations``
-    (JAX `_lbfgs_loop`); ``fresh_start`` knows k == 0 without a read."""
+    (JAX `_lbfgs_loop`); ``fresh_start`` knows k == 0 without a read.
+
+    ``dot`` and ``max_abs`` are injectable contraction and reduction hooks
+    (``torch.dot`` and max|g| by default): the sharded path substitutes a
+    local op plus an all-reduce, so the whole loop runs unmodified on
+    parameter shards. ``direction_method`` 'two_loop' is the one whose
+    dots take the hook; the compact form's matmuls do not."""
     direction_fn = _direction_fn(direction_method)
+    if direction_method == "two_loop":
+        two_loop = direction_fn
+
+        def direction_fn(S, Y, rho, hist, gamma, g):
+            return two_loop(S, Y, rho, hist, gamma, g, dot=dot)
     s = state
     tol = torch.full((), tol, dtype=s.x.dtype, device=s.x.device)
     k = 0 if fresh_start else _host_read(optimize_lbfgs, s.k)[0]
     while k < max_iterations:
         f0, g = vag(s.x)
-        status_pre, stall = _classify_scalar(f0, g, s.fun, s.stall, tol, stall_limit)
+        status_pre, stall = _classify_scalar(f0, g, s.fun, s.stall, tol, stall_limit, max_abs)
         (pre,) = _host_read(optimize_lbfgs, status_pre)
         if pre != _RUNNING:  # finish: record the evaluation that ended it
             s = s._replace(grad=g, fun=f0, status=status_pre, n_fev=s.n_fev + 1,
                            n_gev=s.n_gev + 1, stall=stall)
             break
-        s, failed = _advance(s, f0, g, stall, vag, f, ls, direction_fn)
+        s, failed = _advance(s, f0, g, stall, vag, f, ls, direction_fn, dot)
         k += 1
         if failed:  # LINESEARCH_FAILURE: JAX's loop condition stops here
             break

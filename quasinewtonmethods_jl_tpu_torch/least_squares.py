@@ -48,6 +48,7 @@ from .api import _pin_matmul_precision
 from .batched_solve import TERMINATION_CHECK_INTERVAL
 from .state import LMState, Status
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import coord_amax
 
 __all__ = [
     "LMState",
@@ -185,9 +186,9 @@ def _kkt_criticality(x, g, bounds):
     projected-gradient residual max|x − clip(x − g, lo, hi)|, zero exactly
     at KKT points of the box."""
     if bounds is None:
-        return torch.amax(torch.abs(g), dim=-1)
+        return coord_amax(torch.abs(g))
     lo, hi = bounds
-    return torch.amax(torch.abs(x - torch.clamp(x - g, lo, hi)), dim=-1)
+    return coord_amax(torch.abs(x - torch.clamp(x - g, lo, hi)))
 
 
 def _damped_step(JTJ, g, lam, diag_floor: float, free=None):

@@ -53,6 +53,7 @@ from .sampling import (
     _read_counters,
 )
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import fleet, fleet_count, own_rows
 
 __all__ = ["MCLMCResult", "MCLMCState", "mclmc_sample", "mclmc_sample_from_state"]
 
@@ -197,7 +198,9 @@ def _mclmc_core(obj, state: MCLMCState, mass, n_samples, n_warmup, desired_energ
     def step(x, f, g, u, eps, s, L, phase, i):
         """One McLachlan step, the bounce guard and the partial refresh:
         (x, f, g, u, dE, bad, outside)."""
-        fresh, refresh = _mclmc_step_noise(state.key, phase, i, chains, n, dtype, device)
+        # the whole fleet's draw, this rank's rows of it (all of it unsharded)
+        fresh, refresh = (own_rows(t) for t in _mclmc_step_noise(
+            state.key, phase, i, fleet_count(chains), n, dtype, device))
         u1, dk1 = _mom_update(b1 * eps, u, s * g)
         x1 = x + (0.5 * eps) * (s * u1)
         _f1, g1 = vag(x1)
@@ -227,7 +230,7 @@ def _mclmc_core(obj, state: MCLMCState, mass, n_samples, n_warmup, desired_energ
     # first-ever call: cached (f, g) and the initial velocities
     if i_warm0 == 0 and i_samp0 == 0:
         f, g = vag(state.x)
-        u = _unit(_mclmc_init_noise(state.key, chains, n, dtype, device))
+        u = _unit(own_rows(_mclmc_init_noise(state.key, fleet_count(chains), n, dtype, device)))
     else:
         f, g, u = state.f, state.g, state.u
     x, log_eps, var_ema, varE_ema = state.x, state.log_eps, state.var_ema, state.varE_ema
@@ -240,13 +243,13 @@ def _mclmc_core(obj, state: MCLMCState, mass, n_samples, n_warmup, desired_energ
         x, f, g, u, dE, bad, outside = step(x, f, g, u, torch.exp(log_eps), s, L, 0, i)
         # bounced chains feed a penalty of 100x the target, chains still
         # outside the support exactly the target
-        vE = torch.mean(torch.where(bad, 1e2 * target * n,
-                                    torch.where(outside, target * n, dE * dE))) / n
+        vE = torch.mean(fleet(torch.where(bad, 1e2 * target * n,
+                                          torch.where(outside, target * n, dE * dE)))) / n
         varE_ema = 0.8 * varE_ema + 0.2 * vE
         # ΔE ~ eps³: a damped Newton step on log eps, clipped to ±0.25
         move = (torch.log(target) - torch.log(varE_ema + 1e-30)) / 6.0
         log_eps = log_eps + torch.clamp(0.5 * move, -0.25, 0.25)
-        var_now = torch.clamp_min(torch.var(x, dim=0, correction=0), 1e-10)
+        var_now = torch.clamp_min(torch.var(fleet(x), dim=0, correction=0), 1e-10)
         var_ema = torch.where(i < mass_freeze, 0.9 * var_ema + 0.1 * var_now, var_ema)
     eps_final = torch.exp(log_eps)
     s_final, L_final = precond(var_ema)
@@ -266,13 +269,14 @@ def _mclmc_core(obj, state: MCLMCState, mass, n_samples, n_warmup, desired_energ
         n_warmup_total=state.n_warmup_total, mass_freeze=mass_freeze,
     )
     n_draws = max(n_samples, 1)
+    dEs_all = fleet(dEs, 1)
     return MCLMCResult(
         samples=samples,
         step_size=eps_final,
         L=L_final,
         mass_diag=s_final * s_final,
         energy_changes=dEs,
-        energy_var=torch.sum(dEs * dEs) / (n_draws * chains * n),
+        energy_var=torch.sum(dEs_all * dEs_all) / (n_draws * dEs_all.shape[1] * n),
         divergences=torch.sum(bads, dim=0, dtype=torch.int32),
         final_x=x,
         state=out_state,

@@ -14,7 +14,9 @@ with every product kept below 2**63 and masked to 32 bits. The same
 arguments give the same probe on the CPU and on the card, with no generator
 state and no host read (k may be a device scalar), and a chunked resume
 replays the probes of an uninterrupted run, which is what the JAX
-``fold_in`` key was for. `_abs_diag_from_probes` is the estimate from given
+``fold_in`` key was for. A rank of a model-sharded solve hashes its
+coordinates' global indices, so its probe is its slice of the unsharded
+one, and the guard's floor is the largest estimate over all shards. `_abs_diag_from_probes` is the estimate from given
 probes, so a test can feed it JAX's.
 
 The guard, as in JAX: a coordinate below the lane's relative floor
@@ -27,6 +29,8 @@ this reference behaviour (ROADMAP.md C1).
 from __future__ import annotations
 
 import torch
+
+from ..utils.placement import coord_amax, coord_offset
 
 __all__ = ["hutchinson_abs_diag"]
 
@@ -48,13 +52,15 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
-def _rademacher(seed: int, k, probe: int, n: int, dtype, device) -> torch.Tensor:
+def _rademacher(seed: int, k, probe: int, n: int, dtype, device, offset: int = 0) -> torch.Tensor:
     """(n,) probe of ±1: coordinate i is the top bit of the hash of
-    (seed, k, probe, i). ``k`` is an int or a 0-d integer tensor."""
+    (seed, k, probe, offset + i), ``offset`` the global index of the first
+    coordinate (a model-sharded rank's shard). ``k`` is an int or a 0-d
+    integer tensor."""
     if isinstance(k, torch.Tensor):
         k = k.to(device=device, dtype=torch.int64)
     key = _mix32(_mix32(_mix32(seed & _MASK32) ^ (k & _MASK32)) ^ probe)
-    h = _mix32(key ^ torch.arange(n, dtype=torch.int64, device=device))
+    h = _mix32(key ^ torch.arange(offset, offset + n, dtype=torch.int64, device=device))
     return (1 - 2 * ((h >> 31) & 1)).to(dtype)
 
 
@@ -66,7 +72,7 @@ def _abs_diag_from_probes(hvp_fleet, x: torch.Tensor, probes) -> torch.Tensor:
         v = v.to(dtype=x.dtype, device=x.device).expand_as(x)
         est = est + v * hvp_fleet(x, v)
     d_abs = torch.abs(est) / len(probes)
-    rel = 1e-6 * torch.amax(d_abs, dim=-1, keepdim=True)
+    rel = 1e-6 * coord_amax(d_abs)[..., None]
     return torch.where(d_abs > rel, d_abs, torch.where(rel > 0, rel, torch.ones_like(d_abs)))
 
 
@@ -77,5 +83,6 @@ def hutchinson_abs_diag(hvp_fleet, x: torch.Tensor, k, probes: int, seed: int) -
     lifetime iteration count (an int or a device scalar) keying the probes
     with ``seed``; ``probes`` the number of probes."""
     n = x.shape[-1]
-    vs = [_rademacher(seed, k, j, n, x.dtype, x.device) for j in range(probes)]
+    vs = [_rademacher(seed, k, j, n, x.dtype, x.device, coord_offset(n))
+          for j in range(probes)]
     return _abs_diag_from_probes(hvp_fleet, x, vs)

@@ -10,13 +10,14 @@ direction d ≈ B⁻¹∇, and m_dir = dᵀ∇ > 0 certifies ascent.
 The ring shifts on push (slot hist-1 is always the newest pair) and every
 branch is a ``torch.where`` over 0-d tensors, so nothing is read on the
 host; the recursion's ``lax.fori_loop`` over m is a Python loop over the
-static m. The JAX ``dot=`` hook serves the sharded path (parallel/mesh.py),
-which is not ported yet, and is left out.
+static m. Every contraction over n goes through the injectable ``dot``
+(``torch.dot`` by default): under a 'model'-sharded parameter axis it is a
+local partial dot plus an all-reduce (`parallel.mesh.psum_dot`).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 
@@ -31,6 +32,7 @@ def lbfgs_push(
     gamma: torch.Tensor,  # () H0 scaling
     step: torch.Tensor,  # (n,) accepted step s_k = alpha*d
     y: torch.Tensor,  # (n,) grad_old - grad_new
+    dot: Callable = torch.dot,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Push a curvature pair into the ring if it has positive curvature.
 
@@ -38,8 +40,8 @@ def lbfgs_push(
     the implicit inverse Hessian). A full ring drops its oldest pair.
     gamma becomes sᵀy/yᵀy of an accepted pair (Barzilai–Borwein H0)."""
     mh = S.shape[0]
-    sty = torch.dot(step, y)
-    yty = torch.dot(y, y)
+    sty = dot(step, y)
+    yty = dot(y, y)
     accept = sty > 0.0
     # a full ring drops slot 0 and appends; else the pair goes to slot hist
     shift = accept & (hist >= mh)
@@ -64,9 +66,11 @@ def lbfgs_direction(
     hist: torch.Tensor,
     gamma: torch.Tensor,
     g: torch.Tensor,  # (n,) current gradient
+    dot: Callable = torch.dot,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Two-loop recursion: d ≈ B⁻¹g (ascent direction) and m_dir = dᵀg.
-    Slots at or above ``hist`` take no part (their coefficients are 0)."""
+    Slots at or above ``hist`` take no part (their coefficients are 0);
+    ``dot`` is the contraction over n (see the module docstring)."""
     mh = S.shape[0]
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     q = g
@@ -76,8 +80,7 @@ def lbfgs_direction(
         # a one-element index tensor: indexing with a 0-d device tensor
         # would read it on the host
         i = torch.clamp(hist - 1 - j, min=0).reshape(1).to(torch.int64)
-        a = torch.where(valid, rho.index_select(0, i)[0] * torch.dot(S.index_select(0, i)[0], q),
-                        zero)
+        a = torch.where(valid, rho.index_select(0, i)[0] * dot(S.index_select(0, i)[0], q), zero)
         q = q - a * Y.index_select(0, i)[0]
         alphas.append(a)
     # slot i's coefficient came from round hist-1-i (slots >= hist unused)
@@ -86,6 +89,6 @@ def lbfgs_direction(
     q = q * gamma
     for i in range(mh):
         valid = i < hist
-        b = torch.where(valid, rho[i] * torch.dot(Y[i], q), zero)
+        b = torch.where(valid, rho[i] * dot(Y[i], q), zero)
         q = q + torch.where(valid, alphas[i] - b, zero) * S[i]
-    return q, torch.dot(q, g)
+    return q, dot(q, g)

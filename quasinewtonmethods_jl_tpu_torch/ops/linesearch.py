@@ -171,18 +171,23 @@ def _backtracking(phi, f0, m, ls: BackTracking):
     ), reads, failed
 
 
-def run_linesearch(ls, f, vag, x, d, f0, m):
+def run_linesearch(ls, f, vag, x, d, f0, m, dot=None):
     """Run the configured line search from ``x`` along ``d``.
 
     Returns ``(alpha, failed, extra_fev, extra_gev)``. BackTracking trials
     are value-only (``f``), so ``extra_gev`` is 0; Wolfe trials evaluate
     value and gradient (``vag``: the curvature test needs the slope gradᵀd)
     and count toward both counters. Any other ``ls`` raises TypeError.
+
+    ``dot`` (``torch.dot`` by default) takes the Wolfe trial slope: on a
+    'model'-sharded vector it must be the all-reduced dot
+    (`parallel.mesh.psum_dot`), or each rank sees its own partial slope,
+    their searches take different turns and the collectives deadlock.
     """
-    return _run_linesearch(ls, f, vag, x, d, f0, m)[:4]
+    return _run_linesearch(ls, f, vag, x, d, f0, m, dot)[:4]
 
 
-def _run_linesearch(ls, f, vag, x, d, f0, m):
+def _run_linesearch(ls, f, vag, x, d, f0, m, dot=None):
     """`run_linesearch` and, last, the number of host reads it made and
     whether the search failed, as a Python bool from its last read."""
     from .wolfe import Wolfe, _wolfe
@@ -191,7 +196,7 @@ def _run_linesearch(ls, f, vag, x, d, f0, m):
 
         def phi_vag(alpha):
             fv, gv = vag(x + alpha * d)
-            return fv, torch.dot(gv, d)
+            return fv, (dot or torch.dot)(gv, d)
 
         wr, reads, failed = _wolfe(phi_vag, f0, m, ls)
         return wr.alpha, wr.failed, wr.n_fev, wr.n_fev, reads, failed

@@ -69,6 +69,7 @@ from .api import ProbabilityModel, _pin_matmul_precision, as_value_and_grad, as_
 from .ops.lbfgs_compact import lbfgs_diag_inv_hessian, lbfgs_lowrank_inv_hessian
 from .state import Status
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import fleet, fleet_any, fleet_count, own_rows
 
 __all__ = [
     "get_sampler",
@@ -597,7 +598,9 @@ def _hmc_core(obj, state: HMCState, mass, n_samples, n_warmup, n_leapfrog, targe
         return x, p, f_new
 
     def hmc_step(x, f, eps, phase, step):
-        z, u = _step_noise(state.key, phase, step, chains, n, dtype, device)
+        # the whole fleet's draw, this rank's rows of it (all of it unsharded)
+        z, u = (own_rows(t) for t in _step_noise(state.key, phase, step, fleet_count(chains), n,
+                                                 dtype, device))
         p = _momentum(z, mass_b, chol_u)
         x_new, p_new, f_new = leapfrog(x, p, eps[:, None])
         return _metropolis(x, f, p, x_new, p_new, f_new, u, mass_b)
@@ -807,6 +810,25 @@ def _lowrank_metric(var_ema, lr_Q, lr_sig):
     return LowRankMass(gamma=_lowrank_gamma(lr_sig, n), Q=lr_Q, sig=lr_sig, d=var_ema)
 
 
+def _fleet_mass_step(adapt_mass, x, var_ema, lr_Q, lr_sig):
+    """One round of the fleet metric's EMA from the whole fleet's (chains,
+    n) positions ``x``: the across-chain covariance ('dense'; PD, as it
+    mixes the PD carry with a ridged PSD sample covariance), the low-rank
+    subspace step ('lowrank') or the across-chain variance (diag).
+    Returns (var_ema, lr_Q, lr_sig)."""
+    chains, n = x.shape
+    if adapt_mass == "dense":
+        xc = x - torch.mean(x, dim=0, keepdim=True)
+        cov_now = xc.T @ xc / (chains - 1)
+        cov_now = cov_now + 1e-8 * torch.eye(n, dtype=x.dtype, device=x.device) * (
+            1.0 + torch.trace(cov_now) / n)
+        return 0.9 * var_ema + 0.1 * cov_now, lr_Q, lr_sig
+    if adapt_mass == "lowrank":
+        lr_Q, lr_sig, var_ema = _lowrank_mass_step(x, var_ema, lr_Q, lr_sig, True, chains)
+        return var_ema, lr_Q, lr_sig
+    return 0.9 * var_ema + 0.1 * torch.clamp_min(_fleet_var(x), 1e-10), lr_Q, lr_sig
+
+
 def _fleet_var(x):
     """Across-chain variance (ddof 0), as ``jnp.var(x, axis=0)``."""
     xc = x - torch.mean(x, dim=0, keepdim=True)
@@ -848,7 +870,7 @@ def _lowrank_mass_init(mass_rank, n, chains, dtype, device=None):
     """Identity metric at rank r: first-r coordinate basis, unit
     eigenvalues. r is capped so Qᵀ·C·Q stays an honest eigenproblem
     (r < chains) and r <= n."""
-    r = max(1, min(mass_rank, n, chains - 1))
+    r = max(1, min(mass_rank, n, fleet_count(chains) - 1))
     return (torch.eye(n, r, dtype=dtype, device=device),
             torch.ones((r,), dtype=dtype, device=device))
 
@@ -913,7 +935,8 @@ def _chees_core(obj, state: ChEESState, mass, n_samples, n_warmup, target_accept
         eps = torch.exp(log_eps)
         t_jit = u * 2.0 * torch.exp(log_T)
         n_steps = _trip_count(t_jit / eps, max_leapfrog)
-        z, u_mh = _step_noise(state.key, phase, step, chains, n, dtype, device)
+        z, u_mh = (own_rows(t) for t in _step_noise(state.key, phase, step, fleet_count(chains),
+                                                    n, dtype, device))
         p = _momentum(z, mass_d, chol_d)
         x_new, p_new, f_new = leapfrog_dyn(x, p, eps, mass_d, n_steps)
         x_out, f_out, _acc, a_prob, energy, div = _metropolis(
@@ -921,13 +944,14 @@ def _chees_core(obj, state: ChEESState, mass, n_samples, n_warmup, target_accept
         # ChEES gradient with respect to log T (chain rule through
         # t = u * 2T): Delta_c * <x'_c - mean(x'), M⁻¹ p'_c>, weighted by
         # the acceptance probability over the fleet
-        w = x_new - torch.mean(x_new, dim=0, keepdim=True)
-        v = x - torch.mean(x, dim=0, keepdim=True)
+        # (the fleet's averages over all chains, sharded or not)
+        w = x_new - torch.mean(fleet(x_new), dim=0, keepdim=True)
+        v = x - torch.mean(fleet(x), dim=0, keepdim=True)
         delta = torch.sum(w * w, dim=1) - torch.sum(v * v, dim=1)
         dxdt = _apply_mass(mass_d, p_new)
         per_chain = delta * torch.sum(w * dxdt, dim=1)
-        wsum = torch.clamp_min(torch.sum(a_prob), 1e-6)
-        g_chees = torch.sum(a_prob * per_chain) / wsum * t_jit
+        wsum = torch.clamp_min(torch.sum(fleet(a_prob)), 1e-6)
+        g_chees = torch.sum(fleet(a_prob * per_chain)) / wsum * t_jit
         g_chees = torch.where(torch.isfinite(g_chees), g_chees, torch.zeros_like(g_chees))
         return x_out, f_out, a_prob, g_chees, energy, div
 
@@ -961,7 +985,7 @@ def _chees_core(obj, state: ChEESState, mass, n_samples, n_warmup, target_accept
 
         # dual averaging on the fleet-mean acceptance
         log_eps, log_eps_bar, h_bar, tda = _da_update(
-            h_bar, log_eps_bar, tda, target_accept - torch.mean(a_prob), state.mu)
+            h_bar, log_eps_bar, tda, target_accept - torch.mean(fleet(a_prob)), state.mu)
 
         # Adam ascent on log T with the ChEES gradient
         tad = tad + 1.0
@@ -978,16 +1002,8 @@ def _chees_core(obj, state: ChEESState, mass, n_samples, n_warmup, target_accept
         # carry (eye init) with a PSD sample covariance + tiny ridge.
         if not adapting:
             continue
-        if adapt_mass == "dense":
-            xc = x - torch.mean(x, dim=0, keepdim=True)
-            cov_now = xc.T @ xc / (chains - 1)
-            cov_now = cov_now + 1e-8 * torch.eye(n, dtype=dtype, device=device) * (
-                1.0 + torch.trace(cov_now) / n)
-            var_ema = 0.9 * var_ema + 0.1 * cov_now
-        elif adapt_mass == "lowrank":
-            lr_Q, lr_sig, var_ema = _lowrank_mass_step(x, var_ema, lr_Q, lr_sig, True, chains)
-        elif adapt_mass:
-            var_ema = 0.9 * var_ema + 0.1 * torch.clamp_min(_fleet_var(x), 1e-10)
+        if adapt_mass:
+            var_ema, lr_Q, lr_sig = _fleet_mass_step(adapt_mass, fleet(x), var_ema, lr_Q, lr_sig)
 
     if adapt_mass == "lowrank":
         mass_final = _lowrank_metric(var_ema, lr_Q, lr_sig)
@@ -1037,7 +1053,7 @@ def _chees_adapt_mass(adapt_mass, mass, chains):
     variance EMA), 'dense' (full across-chain covariance EMA, for n up to
     a few hundred) or 'lowrank' (rank-r across-chain covariance tracked by
     per-round subspace iteration)."""
-    if not adapt_mass or mass is not None or chains < _MASS_ADAPT_MIN_CHAINS:
+    if not adapt_mass or mass is not None or fleet_count(chains) < _MASS_ADAPT_MIN_CHAINS:
         return False
     if adapt_mass is True:
         return "diag"
@@ -1298,10 +1314,10 @@ def _warm_depth_windows(total: int):
 
 
 def _any(flags) -> bool:
-    """Whether any flag is set: one read of the device, counted in
-    ``nuts_sample.host_syncs``."""
+    """Whether any flag is set over the whole fleet: one read of the
+    device, counted in ``nuts_sample.host_syncs``."""
     nuts_sample.host_syncs += 1
-    return bool(flags.any())
+    return bool(fleet_any(flags))
 
 
 def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, target_accept,
@@ -1375,7 +1391,8 @@ def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, targ
             # progressive multinomial: take the new leaf w.p. w/W (u < NaN
             # is False where both weights are -inf)
             lw_new = torch.logaddexp(lw, lw_leaf)
-            u = _nuts_leaf_noise(key, phase, step, j, i, chains, dtype, device)
+            u = own_rows(_nuts_leaf_noise(key, phase, step, j, i, fleet_count(chains), dtype,
+                                          device))
             take = ok & (u < torch.exp(lw_leaf - lw_new))
             xp = torch.where(take[:, None], x2, xp)
             fp = torch.where(take, f2, fp)
@@ -1413,7 +1430,8 @@ def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, targ
         Hamiltonian (for E-BFMI) and the per-chain divergence flag.
         ``chol_d``: the dense mass's factor where it is fixed, None for the
         adapting dense EMA (factored per draw)."""
-        z = _nuts_momentum_noise(key, phase, step, chains, n, dtype, device)
+        z = own_rows(_nuts_momentum_noise(key, phase, step, fleet_count(chains), n, dtype,
+                                          device))
         p0 = _momentum(z, mass_d, chol_d)
         h0 = f - _kinetic(p0, mass_d)
         x_l, p_l, g_l = x_r, p_r, g_r = x, p0, g
@@ -1428,7 +1446,8 @@ def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, targ
             # no chain is done before the first doubling
             if j > 0 and not _any(~done):
                 break
-            d, u = _nuts_doubling_noise(key, phase, step, j, chains, dtype, device)
+            d, u = (own_rows(t) for t in _nuts_doubling_noise(key, phase, step, j,
+                                                              fleet_count(chains), dtype, device))
             fwd = (d > 0)[:, None]
             (x_e, p_e, g_e, st_lw, st_xp, st_fp, st_gp, st_turn, st_div, st_sa,
              st_na) = build_subtree(torch.where(fwd, x_r, x_l), torch.where(fwd, p_r, p_l),
@@ -1496,20 +1515,10 @@ def _nuts_core(obj, state: NUTSState, mass, n_samples, n_warmup, max_depth, targ
             h_bar, log_eps_bar, t_da, target_accept - alpha, state.mu)
         if not adapting:
             continue
-        if adapt_mass == "dense":
-            # full across-chain covariance EMA; PD: mixes the PD carry
-            # with a ridged PSD sample covariance
-            xc = x - torch.mean(x, dim=0, keepdim=True)
-            cov_now = xc.T @ xc / (chains - 1)
-            cov_now = cov_now + 1e-8 * torch.eye(n, dtype=dtype, device=device) * (
-                1.0 + torch.trace(cov_now) / n)
-            var_ema = 0.9 * var_ema + 0.1 * cov_now
-        elif adapt_mass == "lowrank":
-            lr_Q, lr_sig, var_ema = _lowrank_mass_step(x, var_ema, lr_Q, lr_sig, True, chains)
-        elif adapt_mass:
-            # chees_sample's fleet estimator: across-chain variance EMA,
-            # frozen at warmup/2 so eps re-adapts to the final metric
-            var_ema = 0.9 * var_ema + 0.1 * torch.clamp_min(_fleet_var(x), 1e-10)
+        # chees_sample's fleet estimator, frozen at warmup/2 so eps
+        # re-adapts to the final metric
+        if adapt_mass:
+            var_ema, lr_Q, lr_sig = _fleet_mass_step(adapt_mass, fleet(x), var_ema, lr_Q, lr_sig)
 
     eps_final = torch.exp(log_eps_bar)
     if adapt_mass == "lowrank":

@@ -78,17 +78,19 @@ class OptimizeResult(NamedTuple):
         return self.status == Status.CONVERGED
 
 
-def _classify_scalar(f1, g1, prev_fun, prev_stall, tol, stall_limit):
+def _classify_scalar(f1, g1, prev_fun, prev_stall, tol, stall_limit, max_abs=None):
     """(status, stall) of the evaluation (f1, g1) at the current iterate,
     the scalar drivers' status test. Non-finite precedes convergence
     (:255 / :257), which precedes the stall exit; a NaN ``prev_fun`` (no
-    earlier value) counts as an improvement."""
+    earlier value) counts as an improvement. ``max_abs`` takes max|g1| (a
+    max over ranks on a sharded vector)."""
     improved = torch.isnan(prev_fun) | (f1 > prev_fun)
     stall = torch.where(improved, torch.zeros_like(prev_stall), prev_stall + 1)
     status = torch.full_like(prev_stall, _RUNNING)
     if stall_limit:
         status = torch.where(stall >= stall_limit, int(Status.LINESEARCH_FAILURE), status)
-    status = torch.where(g1.abs().amax() < tol, int(Status.CONVERGED), status)
+    gmax = g1.abs().amax() if max_abs is None else max_abs(g1)
+    status = torch.where(gmax < tol, int(Status.CONVERGED), status)
     status = torch.where(~torch.isfinite(f1), int(Status.NONFINITE_VALUE), status)
     return status, stall
 

@@ -60,6 +60,7 @@ from .sampling import (
     _read_counters,
 )
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import fleet, fleet_count, own_rows
 
 __all__ = ["PTState", "PTResult", "pt_sample", "pt_sample_from_state", "geometric_ladder"]
 
@@ -255,7 +256,9 @@ def _pt_core(obj, state: PTState, mass, n_samples, n_warmup, n_leapfrog, swap_ev
     pair_on_parity = [(torch.arange(max(K - 1, 0), device=device) % 2) == parity
                       for parity in (0, 1)]
     zrow = torch.zeros((1, C), dtype=torch.bool, device=device)
-    att_c = _full(C, dtype, device)
+    # the chains of the whole fleet (all of them on every rank's ladder)
+    C_all = fleet_count(C)
+    att_c = _full(C_all, dtype, device)
 
     def swap_move(x, f, tag, trips, betas, sweep, u):
         """Even–odd exchange sweep over adjacent temperature pairs: pair
@@ -284,8 +287,8 @@ def _pt_core(obj, state: PTState, mass, n_samples, n_warmup, n_leapfrog, swap_ev
         trips = trips + (tag[0] == 2).to(torch.int32)
         tag[0] = 1
         tag[K - 1] = 2
-        pair_acc = torch.sum(torch.where(pair_on[:, None], a_prob, torch.zeros_like(a_prob)),
-                             dim=1)
+        a_all = fleet(a_prob, 1)
+        pair_acc = torch.sum(torch.where(pair_on[:, None], a_all, torch.zeros_like(a_all)), dim=1)
         pair_att = torch.where(pair_on, att_c, torch.zeros_like(att_c))
         return x, f, tag, trips, pair_acc, pair_att
 
@@ -293,7 +296,10 @@ def _pt_core(obj, state: PTState, mass, n_samples, n_warmup, n_leapfrog, swap_ev
         """One HMC move on every replica and, on schedule, an exchange
         sweep. ``i`` is the global round index: the cadence and the sweep
         parity derive from it, so chunked runs replay exactly."""
-        z, u_hmc, u_swap = _pt_round_noise(state.key, phase, i, K, C, n, dtype, device)
+        # the whole fleet's draw, this rank's chains of it (all unsharded)
+        z, u_hmc, u_swap = _pt_round_noise(state.key, phase, i, K, C_all, n, dtype, device)
+        z = own_rows(z.reshape(K, C_all, n), 1).reshape(K * C, n)
+        u_hmc, u_swap = own_rows(u_hmc, 1), own_rows(u_swap, 1)
         x, f, a_prob, e_cold, div_cold = hmc_move(x, f, eps, betas, m, z, u_hmc)
         if K > 1 and i % swap_every == 0:
             x, f, tag, trips, pair_acc, pair_att = swap_move(x, f, tag, trips, betas,
@@ -318,13 +324,13 @@ def _pt_core(obj, state: PTState, mass, n_samples, n_warmup, n_leapfrog, swap_ev
         x, f, tag, trips, a_prob, swap_acc, swap_att, swap_ema, _e, _d = round_(
             x, f, tag, trips, torch.exp(log_eps), betas, var_ema, 0, i, swap_acc, swap_att,
             swap_ema)
-        if adapt_mass and C >= _MASS_ADAPT_MIN_CHAINS:
+        if adapt_mass and C_all >= _MASS_ADAPT_MIN_CHAINS:
             # per-rung across-chain variance EMA, floored against collapse
-            v = torch.clamp_min(torch.var(x, dim=1, correction=0), 1e-10)
+            v = torch.clamp_min(torch.var(fleet(x, 1), dim=1, correction=0), 1e-10)
             var_ema = (1.0 - _MASS_EMA) * var_ema + _MASS_EMA * v
         if adapt_ladder and K > 2 and i % swap_every == 0:
             betas = _ladder_adapt(betas, swap_ema, i // swap_every)
-        acc_err = target_accept - torch.mean(a_prob, dim=1)  # (K,)
+        acc_err = target_accept - torch.mean(fleet(a_prob, 1), dim=1)  # (K,)
         log_eps, log_eps_bar, h_bar, t_da = _da_update(h_bar, log_eps_bar, t_da, acc_err,
                                                        state.mu)
     eps_final = torch.exp(log_eps_bar)
@@ -339,7 +345,7 @@ def _pt_core(obj, state: PTState, mass, n_samples, n_warmup, n_leapfrog, swap_ev
             x, f, tag, trips, eps_final, betas, var_ema, 1, i_samp0 + j, swap_acc, swap_att,
             swap_ema)
         samples[j], a_probs[j], energies[j], divs[j] = x[0], a_prob, e, dv
-    accept_rate = (torch.mean(a_probs, dim=(0, 2)) if n_samples > 0
+    accept_rate = (torch.mean(fleet(a_probs, 2), dim=(0, 2)) if n_samples > 0
                    else torch.zeros((K,), dtype=dtype, device=device))
 
     out_state = PTState(

@@ -48,6 +48,14 @@ from .least_squares import _check_bounds, _kkt_criticality
 from .ops.hutchinson import hutchinson_abs_diag
 from .state import Status, TRState
 from .utils.device import as_device_state, as_device_tensor
+from .utils.placement import (
+    coord_all,
+    coord_count,
+    coord_local,
+    coord_sum,
+    fleet_amax,
+    fleet_any,
+)
 
 __all__ = [
     "TRState",
@@ -106,11 +114,14 @@ def _make_fleet_fns(obj, value_and_grad_fn):
     def hvp_one(x, v):
         return torch.func.jvp(grad_min_one, (x,), (v,))[1]
 
-    return torch.func.vmap(vag_min_one), torch.func.vmap(hvp_one)
+    # under a model-sharded call each takes this rank's columns and the
+    # objective sees the gathered vector
+    return (coord_local(torch.func.vmap(vag_min_one)),
+            coord_local(torch.func.vmap(hvp_one), n_args=2))
 
 
 def _norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+    return torch.sqrt(coord_sum(v * v))
 
 
 def _steihaug_cg(hvp_fleet, x, g, delta, active, max_cg: int, cg_tol: float, free=None,
@@ -135,13 +146,13 @@ def _steihaug_cg(hvp_fleet, x, g, delta, active, max_cg: int, cg_tol: float, fre
             return r
 
         def wdot(a, b):
-            return torch.sum(a * b, dim=-1)
+            return coord_sum(a * b)
     else:
         def apply_minv(r):
             return r / Mdiag
 
         def wdot(a, b):
-            return torch.sum(Mdiag * a * b, dim=-1)
+            return coord_sum(Mdiag * a * b)
 
     gnorm = _norm(g)
     # Eisenstat–Walker forcing: loose early, sharp near the solution
@@ -151,7 +162,7 @@ def _steihaug_cg(hvp_fleet, x, g, delta, active, max_cg: int, cg_tol: float, fre
     p = torch.zeros_like(x)
     r = g
     z = apply_minv(r)
-    rz = torch.sum(r * z, dim=-1)
+    rz = coord_sum(r * z)
     d = -z
     # lanes already within tolerance at p = 0 never enter CG
     cg_act = active & (_norm(r) > r_stop)
@@ -159,11 +170,12 @@ def _steihaug_cg(hvp_fleet, x, g, delta, active, max_cg: int, cg_tol: float, fre
     for i in range(max_cg):
         if i % TERMINATION_CHECK_INTERVAL == 0:
             optimize_tr.host_syncs += 1
-            if not bool(cg_act.any()):
+            if not bool(fleet_any(cg_act)):
                 break
-        j = j + cg_act.any()
+        # the inner loop runs while any lane of the whole fleet is in it
+        j = j + fleet_any(cg_act)
         Hd = hvp_fleet(x, d)
-        dHd = torch.sum(d * Hd, dim=-1)
+        dHd = coord_sum(d * Hd)
         pp = wdot(p, p)
 
         neg_curv = dHd <= 0.0
@@ -184,7 +196,7 @@ def _steihaug_cg(hvp_fleet, x, g, delta, active, max_cg: int, cg_tol: float, fre
         p = torch.where(to_boundary[:, None], p_bnd, torch.where(step_in[:, None], p_int, p))
         r = torch.where(step_in[:, None], r + alpha[:, None] * Hd, r)
         z = apply_minv(r)
-        rz_new = torch.where(step_in, torch.sum(r * z, dim=-1), rz)
+        rz_new = torch.where(step_in, coord_sum(r * z), rz)
 
         small = _norm(r) <= r_stop
         cg_act = cg_act & ~to_boundary & ~small
@@ -202,7 +214,7 @@ def _jacobi_diag(hvp_fleet, x, k, probes: int):
     """Hutchinson |diag H| of the minimization objective at x, guarded
     positive (ops/hutchinson.py), keyed by the fleet's largest lifetime
     iteration count so a chunked resume replays the probes."""
-    return hutchinson_abs_diag(hvp_fleet, x, k.amax(), probes, _HUTCHINSON_SEED)
+    return hutchinson_abs_diag(hvp_fleet, x, fleet_amax(k), probes, _HUTCHINSON_SEED)
 
 
 def _tr_body(vag_fleet, hvp_fleet, bounds, tol, max_iterations, max_cg, cg_tol, delta_max,
@@ -235,12 +247,12 @@ def _tr_body(vag_fleet, hvp_fleet, bounds, tol, max_iterations, max_cg, cg_tol, 
         p = x_t - s.x
         Hp = hvp_fleet(s.x, p)
     # predicted decrease of the quadratic model, >= 0 for every Steihaug exit
-    pred = -(torch.sum(s.g * p, dim=-1) + 0.5 * torch.sum(p * Hp, dim=-1))
+    pred = -(coord_sum(s.g * p) + 0.5 * coord_sum(p * Hp))
     extra_hev = 1
-    pnorm = _norm(p) if Mdiag is None else torch.sqrt(torch.sum(Mdiag * p * p, dim=-1))
+    pnorm = _norm(p) if Mdiag is None else torch.sqrt(coord_sum(Mdiag * p * p))
 
     f_t, g_t = vag_fleet(x_t)
-    trial_ok = torch.isfinite(f_t) & torch.isfinite(g_t).all(dim=-1)
+    trial_ok = torch.isfinite(f_t) & coord_all(torch.isfinite(g_t))
     rho = (s.fun - f_t) / torch.clamp_min(pred, tiny)
 
     accept = active & trial_ok & (pred > 0.0) & (rho > eta_accept)
@@ -289,7 +301,7 @@ def _tr_body(vag_fleet, hvp_fleet, bounds, tol, max_iterations, max_cg, cg_tol, 
 def _init_tr_state(vag_fleet, X0, delta0: float) -> TRState:
     B = X0.shape[0]
     f0, g0 = vag_fleet(X0)
-    bad = ~(torch.isfinite(f0) & torch.isfinite(g0).all(dim=-1))
+    bad = ~(torch.isfinite(f0) & coord_all(torch.isfinite(g0)))
     zi = torch.zeros(B, dtype=torch.int32, device=X0.device)
     return TRState(
         x=X0,
@@ -310,7 +322,7 @@ def _tr_loop(body, s: TRState, max_iterations: int) -> TRState:
     for i in range(max_iterations):
         if i % TERMINATION_CHECK_INTERVAL == 0:
             optimize_tr.host_syncs += 1
-            if not bool((s.status == _RUNNING).any()):
+            if not bool(fleet_any(s.status == _RUNNING)):
                 break
         s = body(s)
         optimize_tr.loop_bodies += 1
@@ -370,7 +382,7 @@ def _run(obj, state_or_x0, bounds, precondition, value_and_grad_fn, *, tol, max_
     X = state_or_x0.x if resume else state_or_x0
     n = X.shape[-1]
     if max_cg is None:
-        max_cg = min(n, 64)
+        max_cg = min(coord_count(n), 64)
     if max_cg < 1:
         raise ValueError(f"max_cg must be >= 1, got {max_cg}")
     precond_mode, precond_diag = _resolve_precondition(precondition, n)

@@ -32,8 +32,14 @@ statuses (one read for the failure check and the masks), Pathfinder's and
 SVGD's any-finite tests and Pathfinder's best path (``pf.mass()``), and
 the draws for the numpy moments below 8 draws. Each is counted in
 ``map_then_sample.host_syncs``; the engines it calls count their own.
-``mesh=`` (chains sharded over devices) waits for the port's
-multi-device module (ROADMAP.md A.5) and raises NotImplementedError.
+
+``mesh=``: the chains are cut over ``mesh_axis`` of a `parallel.make_mesh`
+mesh, every rank calling with the same arguments. The MAP fleet, polish
+and the sampler run on each rank's chains (`parallel.mesh`'s data-parallel
+path: B1 on the BFGS route) and are gathered; the glue between them (the
+statuses, the handoff's fleet averages, the fallback), Pathfinder and SVGD,
+the diagnostics over all chains and the evidence run on the gathered,
+global values, the same on every rank. The result is the unsharded run's.
 """
 
 from __future__ import annotations
@@ -221,8 +227,10 @@ def map_then_sample(
     ``svgd_kwargs``). Both take an (n,) center and refuse
     ``polish_steps`` and ``compute_evidence``.
 
-    ``mesh`` / ``mesh_axis`` (chains sharded over devices) are not ported
-    yet and raise NotImplementedError.
+    ``mesh`` / ``mesh_axis``: the chains cut over ``mesh_axis`` of a
+    `parallel.make_mesh` mesh (see the module docstring); every rank
+    calls with the same arguments and gets the whole result.
+    ``depth_sort`` is single-device and refuses a mesh.
     """
     if init not in ("map", "pathfinder", "svgd"):
         raise ValueError(
@@ -261,16 +269,17 @@ def map_then_sample(
     k_init, k_jit, k_sample = (_workflow_key(key, i) for i in range(3))
     if x0.ndim not in (1, 2):
         raise ValueError(f"x0 must be (n,) or (chains, n), got {tuple(x0.shape)}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "map_then_sample(mesh=...) shards the chains over devices, which waits for the "
-            "port's multi-device module (ROADMAP.md A.5); drop mesh="
-        )
+    if mesh is not None and x0.is_cuda:
+        x0 = x0.to(mesh.device)
     if x0.ndim == 2:
         x0s, n_chains = x0, x0.shape[0]
     elif init != "pathfinder":  # Pathfinder jitters its own starts
         x0s = x0[None, :] + init_scale * _start_noise(k_init, (n_chains, x0.shape[0]),
                                                       x0.dtype, x0.device)
+    if mesh is not None:
+        from .parallel.mesh import _divides
+
+        _divides(n_chains, mesh, mesh_axis, "n_chains")
 
     if init == "pathfinder":
         if x0.ndim != 1:
@@ -338,7 +347,7 @@ def map_then_sample(
     else:
         fleet, pol, chains, mass, x_map = _map_stage(
             obj, x0s, x0.dtype, map_engine, map_tol, map_kwargs, value_and_grad_fn,
-            polish_steps, jitter, k_jit, mass_form,
+            polish_steps, jitter, k_jit, mass_form, _Lanes(mesh, mesh_axis),
         )
 
     kw = dict(n_samples=n_samples, n_warmup=n_warmup, value_and_grad_fn=value_and_grad_fn)
@@ -359,6 +368,11 @@ def map_then_sample(
                 f"{sampler!r}); ChEES/HMC trajectories are fleet-shared "
                 "— there is no per-chain tree depth to sort on"
             )
+        if mesh is not None:
+            raise ValueError(
+                "depth_sort=True is single-chip (the sort is a host-side "
+                "permutation of the fleet state); drop mesh= or depth_sort"
+            )
         from .sampling import nuts_sample, nuts_sample_depth_sorted
 
         ds_keys = ("groups", "probe_draws", "min_persistence", "min_depth_spread")
@@ -371,6 +385,10 @@ def map_then_sample(
             kw.pop(k, None)
         res, ds_info = nuts_sample_depth_sorted(obj, warm.state, n_total, **ds_kw, **kw)
         kw["n_samples"] = n_total  # the diagnostics gate below reads it
+    elif mesh is not None:
+        from .parallel.mesh import sample_sharded
+
+        res = sample_sharded(obj, k_sample, chains, mesh, mesh_axis, sampler=sampler, **kw)
     else:
         res = sample_fn(obj, k_sample, chains, **kw)
 
@@ -439,10 +457,27 @@ def map_then_sample(
 map_then_sample.host_syncs = 0
 
 
+class _Lanes(NamedTuple):
+    """How the pipeline's per-chain stages run: on this process's fleet, or
+    on each rank's chains of ``mesh`` (cut over ``axis``) and gathered."""
+
+    mesh: object
+    axis: str
+
+    def __call__(self, fn, lanes):
+        """fn(lanes): ``lanes`` the starts or a fleet result."""
+        if self.mesh is None:
+            return fn(lanes)
+        from .parallel.mesh import _fleet_call
+
+        return _fleet_call(fn, lanes, self.mesh, self.mesh.axis(self.axis))
+
+
 def _map_stage(obj, x0s, dtype, map_engine, map_tol, map_kwargs, value_and_grad_fn,
-               polish_steps, jitter, k_jit, mass_form):
+               polish_steps, jitter, k_jit, mass_form, on_lanes):
     """Stages 1-2 of the pipeline (MAP fleet -> polish -> handoff); split
-    out so the other initializers can swap them wholesale."""
+    out so the other initializers can swap them wholesale. ``on_lanes``
+    runs the per-chain stages (`_Lanes`)."""
     if map_tol is None:
         # the repo's precision contract: f32 is throughput mode, tol >= ~1e-3
         map_tol = 1e-3 if dtype == torch.float32 else 1e-6
@@ -451,9 +486,9 @@ def _map_stage(obj, x0s, dtype, map_engine, map_tol, map_kwargs, value_and_grad_
     if map_engine == "lbfgs":
         from .parallel.batch import optimize_lbfgs_batched
 
-        fleet = optimize_lbfgs_batched(obj, x0s, **mk)
+        fleet = on_lanes(lambda x: optimize_lbfgs_batched(obj, x, **mk), x0s)
     elif map_engine == "bfgs":
-        fleet = optimize_batched(obj, x0s, **mk)
+        fleet = on_lanes(lambda x: optimize_batched(obj, x, **mk), x0s)
     elif map_engine == "lm":
         # the MAP as nonlinear least squares; `obj` must agree with
         # -1/2*sum(rho(r^2)) up to a constant (the pipeline cannot check it)
@@ -471,7 +506,13 @@ def _map_stage(obj, x0s, dtype, map_engine, map_tol, map_kwargs, value_and_grad_
                 "map_engine='lm' needs map_kwargs={'residual_fn': ...}"
                 " (plus optional 'data', 'bounds', 'loss', ...)"
             )
-        fleet = least_squares(residual_fn, x0s, **lm_kw)
+        if on_lanes.mesh is None:
+            fleet = least_squares(residual_fn, x0s, **lm_kw)
+        else:  # per-lane data and bounds are cut with their lanes
+            from .parallel.mesh import least_squares_sharded
+
+            fleet = least_squares_sharded(residual_fn, x0s, on_lanes.mesh, on_lanes.axis,
+                                          **lm_kw)
         # least_squares minimizes 1/2*|r|^2; the pipeline maximizes: fun,
         # last_value and grad flip together (JTJ and the state keep LM's
         # own orientation, so the state resumes unchanged)
@@ -481,12 +522,12 @@ def _map_stage(obj, x0s, dtype, map_engine, map_tol, map_kwargs, value_and_grad_
         # Hessian at the best mode (below)
         from .trust_region import optimize_tr
 
-        fleet = optimize_tr(obj, x0s, **mk)
+        fleet = on_lanes(lambda x: optimize_tr(obj, x, **mk), x0s)
     elif map_engine == "cg":
         # matrix-free like 'tr': it shares the exact-Hessian handoff
         from .cg_solve import optimize_cg
 
-        fleet = optimize_cg(obj, x0s, **mk)
+        fleet = on_lanes(lambda x: optimize_cg(obj, x, **mk), x0s)
     else:
         raise ValueError(
             f"unknown map_engine {map_engine!r}; use 'bfgs', 'lbfgs',"
@@ -507,7 +548,8 @@ def _map_stage(obj, x0s, dtype, map_engine, map_tol, map_kwargs, value_and_grad_
     if polish_steps > 0:
         from .polish import polish_newton
 
-        pol = polish_newton(obj, fleet, steps=polish_steps, value_and_grad_fn=value_and_grad_fn)
+        pol = on_lanes(lambda fl: polish_newton(obj, fl, steps=polish_steps,
+                                                value_and_grad_fn=value_and_grad_fn), fleet)
         # the polished modes feed the handoff; the curvature state stays
         fleet = fleet._replace(x=pol.x.to(fleet.x.dtype), fun=pol.fun.to(fleet.fun.dtype))
 

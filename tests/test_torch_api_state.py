@@ -66,7 +66,10 @@ def test_port_imports_no_jax():
         "quasinewtonmethods_jl_tpu_torch.ais, "
         "quasinewtonmethods_jl_tpu_torch.bridge, "
         "quasinewtonmethods_jl_tpu_torch.workflow, "
-        "quasinewtonmethods_jl_tpu_torch.utils.profiling; "
+        "quasinewtonmethods_jl_tpu_torch.utils.profiling, "
+        "quasinewtonmethods_jl_tpu_torch.utils.placement, "
+        "quasinewtonmethods_jl_tpu_torch.parallel.mesh, "
+        "quasinewtonmethods_jl_tpu_torch.parallel.distributed; "
         "assert 'jax' not in sys.modules, 'jax imported'"
     )
     root = Path(__file__).resolve().parents[1]
@@ -83,18 +86,13 @@ def test_version_and_exported_names_match_jax():
     assert all(hasattr(qt, name) for name in qt.__all__)
 
 
-# each subpackage's names the port does not have yet: the device-mesh entry
-# points (ROADMAP.md A.5)
+# each subpackage's names the port does not have yet: none since the device
+# mesh (parallel/mesh.py)
 SUBPACKAGE_NOT_YET_PORTED = {
     "utils": set(),
     "ops": set(),
     "models": set(),
-    "parallel": {
-        "least_squares_sharded", "make_mesh", "optimize_auglag_sharded",
-        "optimize_batched_sharded", "optimize_cg_model_sharded", "optimize_cg_sharded",
-        "optimize_lbfgs_sharded", "optimize_tr_model_sharded", "optimize_tr_sharded",
-        "psum_dot", "sample_sharded",
-    },
+    "parallel": set(),
 }
 
 
@@ -104,6 +102,13 @@ def test_subpackage_exported_names_match_jax(sub):
     theirs = importlib.import_module(f"quasinewtonmethods_jl_tpu.{sub}")
     assert set(theirs.__all__) - set(mine.__all__) == SUBPACKAGE_NOT_YET_PORTED[sub]
     assert all(hasattr(mine, name) for name in mine.__all__)
+
+
+@pytest.mark.parametrize("sub", ["parallel", "parallel.distributed"])
+def test_mesh_names_equal_jax(sub):
+    mine = importlib.import_module(f"quasinewtonmethods_jl_tpu_torch.{sub}")
+    theirs = importlib.import_module(f"quasinewtonmethods_jl_tpu.{sub}")
+    assert mine.__all__ == theirs.__all__
 
 
 # the samplers ported since get_sampler first named them as not yet ported:

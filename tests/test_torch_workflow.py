@@ -466,8 +466,26 @@ def test_refusals_match_jax(monkeypatch, name):
 
 
 def test_mesh_waits_for_the_multi_device_module():
-    with pytest.raises(NotImplementedError, match="A.5"):
-        qt.map_then_sample(_port_sq, 0, torch.zeros(3), mesh=object())
+    """The device mesh is ported (parallel/mesh.py; 4 ranks in
+    tests/test_torch_mesh_sampling.py): on a one-device mesh the pipeline
+    runs and gives the unsharded run, and depth_sort=True with a mesh
+    raises JAX's message."""
+    mesh = qt.parallel.make_mesh({"data": 1})
+    kw = dict(n_chains=8, n_samples=10, n_warmup=10)
+    x0 = torch.zeros(3, dtype=torch.float64)
+    sharded = qt.map_then_sample(_port_sq, 0, x0, mesh=mesh, **kw)
+    plain = qt.map_then_sample(_port_sq, 0, x0, **kw)
+    torch.testing.assert_close(sharded.samples, plain.samples, rtol=0, atol=0)
+    torch.testing.assert_close(sharded.map_result.x, plain.map_result.x, rtol=0, atol=0)
+    errors = []
+    for package, obj, key, start, m in (
+            (qt, _port_sq, 0, x0, mesh),
+            (qj, _jax_sq, jax.random.PRNGKey(0), jnp.zeros(3), qj.parallel.make_mesh({"data": 1}))):
+        with pytest.raises(ValueError) as info:
+            package.map_then_sample(obj, key, start, n_chains=8, sampler="nuts", n_samples=4,
+                                    n_warmup=4, depth_sort=True, mesh=m)
+        errors.append(str(info.value))
+    assert "depth_sort=True is single-chip" in errors[0] and errors[0] == errors[1]
 
 
 def test_numpy_x0_goes_to_the_card_and_integers_promote(monkeypatch):
