@@ -33,8 +33,8 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      one makes ahead the plain versions phases 22 and 23 compare against
      (none of them launches a hand-written kernel or times anything;
      `prefetch_plain` stops once the four processes have ended); this
-     phase waits for them: the run's order is 1, the traces and the runs
-     ahead, 2, then 3-28;
+     phase waits for them: the run's order is 1, the traces (phases 22,
+     23 and 33) and the runs ahead, 2, then 3-33;
   3. B1 against its plain version: f32 and f64, n in {2, 7, 33, 60, 61, 65,
      128} and the largest n that fits (237 f32, 167 f64), every lane kind
      (active, frozen, fresh, forced reset, NaN);
@@ -159,8 +159,9 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      lane (mixture, Poisson), else the converged count not below the JAX
      package's by more than chance (a one-sided Fisher exact test at 1 %),
      and the median within 10 % of the JAX package's
-     (scripts/jax_fixture_reference.py); ms per solve of B3, the fleet
-     engine and the plain version in turns, B3's share of its bound and
+     (scripts/jax_fixture_reference.py); ms per solve of B3 (in turns),
+     the fleet engine (its counted B1 run, timed in place of a second
+     call) and the plain version, B3's share of its bound and
      launch shape, and every B3 instantiation's registers per thread;
  22. B3 on traced objectives (ops/kernels/objective_trace.py,
      objective_codegen.py): every objective of the phase traced, generated
@@ -188,8 +189,9 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      (scripts/jax_traced_reference.py); trace and codegen ms per call, ms
      per solve of B3 on the trace, of the entry point on the function
      itself (its first call, which traces, and a second, which takes the
-     kept trace), of the hand-written instantiation (fleets 1, 2, 4), the
-     fleet engine and the plain version in turns, B3 traced's share of its
+     kept trace), of the hand-written instantiation (fleets 1, 2, 4) in
+     turns, of the fleet engine (its counted B1 run, timed in place of a
+     second call) and the plain version, B3 traced's share of its
      bound (what the function needs, as its hand-written twin counts it)
      and launch shape.
  23. B3 on the hierarchical model (transforms.py, models/hierarchical.py,
@@ -502,6 +504,34 @@ Phases (one summary line each on stdout, or a few; any failed check raises):
      at 4096; the distance a one-ulp change of the data makes is printed
      beside) and its acceptance within phase 26's 0.05 of the target; B1
      once a loop body on each rank, both ranks the same whole result.
+ 33. B3 on the trace's comparisons, elementwise functions, means and
+     norms and per-lane linear algebra (objective_trace.py,
+     objective_codegen.py, csrc/resident_linalg.cuh): comparisons and
+     masks, sqrt, abs, softplus, sin, clamp, maximum and minimum, mean and
+     2-norms, and per lane the Cholesky factorization, triangular solves,
+     logdet / slogdet and solve; traced and generated beside phases 22's
+     and 23's, built with them in the background. B3 against its plain
+     version (the fleet engine with the plain update on the user's
+     functions, under `in_band_linalg` where they factorize) as phase 22
+     holds it, on 64-lane fleets of one objective per group (f64, most also
+     f32), the two GP forms at m = 8 and two lanes of two warps (n = 70),
+     one that factorizes an SPD matrix and one whose LU pivots on nearly
+     every column of a non-symmetric m = 16 matrix; then the slice at full width, data and starts from
+     numpy seed 20260816 (`ops_data`): pseudo-Huber regression through
+     ``mean`` on config 3's widths (4096 x 100, 500 observations, f32, tol
+     3e-3), a softplus-link Poisson GLM on the same widths, a bounded
+     log-density on the bench fleet's 4096 x 60 f32 starts (``lt``,
+     ``abs``, ``maximum``, ``clamp``, ``sin``, ``vector_norm``, tol 1e-3),
+     and Gaussian-process hyperparameter MAP on 32 points, 4096 x 3 f64
+     (tol 1e-6) in its Cholesky and its logdet + solve forms: each against
+     its plain version (caps and whole solves; the plain whole solve timed
+     alone), then through `optimize_batched_resident` (one launch, no host
+     synchronisation), held to PERF.md's gate against the JAX package's
+     counts (scripts/jax_traced_ops_reference.py: converged counts by a
+     one-sided Fisher test at 1 % where JAX fails lanes in band, medians
+     within 10 %); ms per solve of B3 (median of 2) and of the plain
+     version, the bound (the traced graph's operations), the share, the
+     scratch per lane and the launch shape.
 Then a [timing] line (seconds per phase, the card's name and power limit),
 one JSON line of kernel records and, last, the JSON result line. Each
 record's ``bound_ms`` is the least time the card could take for the
@@ -543,7 +573,11 @@ again in phase 31. B3 with a traced objective has one record per full-width flee
 22 and 23 (``resident_bfgs_solve[traced:rosenbrock]``, ``[traced:logistic]``,
 ``[traced:dense_quadratic]``, ``[traced:mixture]``,
 ``[traced:hierarchical]``), its source the generator that writes the
-objective into csrc/resident_solve.cuh's kernel.
+objective into csrc/resident_solve.cuh's kernel; and one per full-width
+fleet of phase 33 (``resident_bfgs_solve[ops:robust]``,
+``[ops:softplus_poisson]``, ``[ops:bounded]``, ``[ops:gp_cholesky]``,
+``[ops:gp_logdet]``), the GP records' source csrc/resident_linalg.cuh,
+whose factorizations and solves their generated objectives call.
 
 Run from anywhere: ``python3 chip_smoke.py``. Needs one CUDA card and nvcc;
 exits non-zero without a card, and without the package beside it.
@@ -591,6 +625,8 @@ RESIDENT_REPLACES = "quasinewtonmethods_jl_tpu/resident_solve.py:465"
 # B3 with a traced objective: the kernel of csrc/resident_solve.cuh around
 # the objective this generator writes
 TRACED_SOURCE = "quasinewtonmethods_jl_tpu_torch/ops/kernels/objective_codegen.py"
+# the per-lane factorizations and solves the generated objective calls (phase 33)
+LINALG_SOURCE = "quasinewtonmethods_jl_tpu_torch/csrc/resident_linalg.cuh"
 # The JAX package on the phase-4 fleet (kernel="xla" on the CPU):
 # `optimize_cg` with its defaults 4096/4096 converged, median 218 and max 457
 # iterations (fold_eval: median 218, max 587); `optimize_batched_fused` with
@@ -1030,13 +1066,14 @@ def load_ahead(path):
     AHEAD.update(torch.load(path, weights_only=False))
 
 
-def prefetch_plain(qt, device, phase22, phase23, handles):
-    """B3's plain versions that phases 21-23 compare against, made on
+def prefetch_plain(qt, device, phase22, phase23, phase33, handles):
+    """B3's plain versions that phases 21-23 and 33 compare against, made on
     the card ahead of them (`plain_reference`, ``ahead``), until the
     background processes of ``handles`` have all ended: the hierarchical
     fleet's float32 runs, phase 23's and 22's parity objectives, phase 22's
-    full-width fleets, then phase 21's parity and full-width fleets (phase
-    9's: `resident_plain_ahead`). Returns a summary."""
+    full-width fleets, phase 21's parity and full-width fleets (phase
+    9's: `resident_plain_ahead`), then phase 33's parity objectives and its
+    fleets' caps. Returns a summary."""
     def done():
         return all(h["proc"].poll() is not None for h in handles)
 
@@ -1052,6 +1089,10 @@ def prefetch_plain(qt, device, phase22, phase23, handles):
     work += [lambda c=c: parity_ahead(qt, *fixture_parity_fleet(*c[:3], device), c[3],
                                       whole=c[4]) for c in fixture_parity_cases()]
     work += [lambda f=f: parity_ahead(qt, *f) for f in fixture_fleets(device).values()]
+    work += [lambda c=c: parity_ahead(qt, c[1], c[2], c[3]) for c in phase33["cases"]]
+    work += [lambda name=name: parity_ahead(qt, phase33["traced"][name],
+                                            *phase33["fleets"][name][1:3], whole=False)
+             for name in phase33["fleets"]]
     made = 0
     for fn in work:
         if done():
@@ -3087,12 +3128,14 @@ def fixture_phase(qt, device, smi):
     # the slice's main path: the five full-width fleets through B3 and B1, counted
     torch.cuda.synchronize()
     reset_counters(qt)
-    resident, fleet, lines = {}, {}, []
+    resident, fleet, lines, b1_ms = {}, {}, [], {}
     for key, (model, X, tol) in fleets.items():
         res, flagged, wall = resident_run(qt, model, X, tol)
         check(flagged == 0, f"{key}: {flagged} host synchronisations inside the resident solve")
         resident[key] = (res, wall)
-        fleet[key] = qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS)
+        # the counted B1 run is the one timed (CUDA events around the call)
+        b1_ms[key] = time_calls(lambda: fleet.update({key: qt.optimize_batched(
+            model, X, tol=tol, max_iterations=MAX_ITERS)}), (), calls=1)
     c = read_counters(qt)
     launches = dict(counted_kernels()["B3"].objective_launches)
     check(launches == {**dict.fromkeys(launches, 0), "funnel": 1, "mixture": 1, "poisson": 2,
@@ -3134,13 +3177,11 @@ def fixture_phase(qt, device, smi):
             "B3": lambda: qt.optimize_batched_resident(model, X, tol=tol,
                                                        max_iterations=MAX_ITERS),
         }, (), rounds=2, calls=1)
-        # the fleet engine takes seconds a solve and has just run on this fleet: one call
+        # the fleet engine takes seconds a solve: B1's counted run, and one plain call
         ms.update(per_call_ms({
-            "B1": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
-                                              kernel="cuda"),
             "plain": lambda: qt.optimize_batched(model, X, tol=tol, max_iterations=MAX_ITERS,
                                                  kernel="torch"),
-        }, (), rounds=1, calls=1, warmup=False))
+        }, (), rounds=1, calls=1, warmup=False), B1=b1_ms[key])
         b = b3_bound(resident[key][0], X.shape[1], itemsize, True, model)
         timings.append(
             f"{key} {BATCH}x{X.shape[1]}: B3 {ms['B3']:.4f} ms ({1e3 * BATCH / ms['B3']:.1f} "
@@ -3650,14 +3691,16 @@ def traced_phase(qt, device, smi, objectives, build):
           f"quadratic in float32: feasible at n, n + 1 = {feasible}")
     torch.cuda.synchronize()
     reset_counters(qt)
-    resident, fleet, lines, launched = {}, {}, [], {}
+    resident, fleet, lines, launched, b1_ms = {}, {}, [], {}, {}
     for name, (obj, X, tol, *_) in fleets.items():
         before = counted_kernels()["B3"].objective_launches["traced"]
         res, flagged, wall = resident_run(qt, obj, X, tol)
         launched[name] = counted_kernels()["B3"].objective_launches["traced"] - before
         check(flagged == 0, f"{name}: {flagged} host synchronisations inside the resident solve")
         resident[name] = res
-        fleet[name] = qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS)
+        # the counted B1 run is the one timed (CUDA events around the call)
+        b1_ms[name] = time_calls(lambda: fleet.update({name: qt.optimize_batched(
+            obj, X, tol=tol, max_iterations=MAX_ITERS)}), (), calls=1)
     c = read_counters(qt)
     launches = dict(counted_kernels()["B3"].objective_launches)
     check(launches == {**dict.fromkeys(launches, 0), "traced": 4} and c["B3"] == 4
@@ -3694,13 +3737,11 @@ def traced_phase(qt, device, smi, objectives, build):
                 hand, X, tol=tol, max_iterations=MAX_ITERS)
         first = first_call_ms(qt, fns["B3 on the function"])
         ms = per_call_ms(fns, (), rounds=2, calls=1)
-        # the fleet engine takes seconds a solve and has just run on this fleet: one call
+        # the fleet engine takes seconds a solve: B1's counted run, and one plain call
         ms.update(per_call_ms({
-            "B1": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
-                                              kernel="cuda"),
             "plain": lambda: qt.optimize_batched(obj, X, tol=tol, max_iterations=MAX_ITERS,
                                                  kernel="torch"),
-        }, (), rounds=1, calls=1, warmup=False))
+        }, (), rounds=1, calls=1, warmup=False), B1=b1_ms[name])
         n = X.shape[1]
         b = b3_bound(resident[name], n, 4, True, ops=needs)
         graph = b3_bound(resident[name], n, 4, True,
@@ -6192,6 +6233,408 @@ def mesh_phase(qt, device, smi):
     return launches, err, (b1_ms, plain_ms, bound_ms, bound_by, None)
 
 
+# Phase 33: B3 on the trace's newer ops (ops/kernels/objective_trace.py,
+# objective_codegen.py and csrc/resident_linalg.cuh): comparisons and masks, sqrt, abs,
+# softplus, sin, clamp and maximum, mean and vector norms, and per lane the Cholesky
+# factorization, triangular solves, logdet / slogdet and solve. The full-width fleets,
+# each drawn with numpy from a fresh generator seeded BENCH_SEED (`ops_data`), at most
+# 3000 iterations: pseudo-Huber regression -m·mean(sqrt(1 + r²) - 1) - |w|²/(2·10²) with
+# r = y - X w on BASELINE config 3's widths (n = 100, 500 observations, X = N(0, 1)/10,
+# y = X w_true + 0.5·t3 noise, 4096 N(0, 1) starts, float32, tol 3e-3); a Poisson GLM
+# with a softplus link on the same widths (y ~ Poisson(softplus(X w_true))); a bounded
+# log-density on the bench fleet's 4096 x 60 float32 starts (tol 1e-3), per entry -d·(z
+# - c)²/2 with z = clamp(x, -4, 4) and curvatures d from 10^-0.5 to 10, less x² - 16
+# beyond the support test x² < 16, plus 0.2·sin z - 0.1·|x - 6| - max(x - 5, 0), less |x
+# - c2|/2 (the 2-norm); and Gaussian-process hyperparameter MAP (log amplitude, log
+# lengthscale, log noise under N(0, 1) priors) on GP_M = 32 points in the plane,
+# float64, tol 1e-6, 4096 N(0, 1) starts, in its Cholesky form (cholesky,
+# solve_triangular, the log of L's diagonal) and its logdet + solve form (LU:
+# _linalg_slogdet, _linalg_solve_ex). m = 32 fits one lane in float64
+# (`resident_feasible`: 23864 scratch values in the Cholesky form, 19580 in the logdet
+# form, of the 29056 a block holds), uncut. The JAX package on the same data (`python
+# scripts/jax_traced_ops_reference.py`, its fleet engine on the CPU): (converged,
+# median, max) robust (4094, 11, 15; 2 LINESEARCH_FAILURE), softplus Poisson (4096, 11,
+# 16), bounded (4021, 28, 49; 75 LINESEARCH_FAILURE on float32's floor), GP Cholesky
+# (4059, 14, 29) and logdet (4055, 14, 29), the rest LINESEARCH_FAILURE on float64's
+# floor near the modes.
+OPS_BATCH = 4096
+GP_M, GP_JITTER = 32, 1e-6
+BOUNDED_CURVATURES = np.logspace(-0.5, 1.0, N)  # the bounded fleet's, condition ~32
+OPS_FLEETS = {  # fleet: (dtype, tol, JAX converged, median, max)
+    "robust": (torch.float32, LOGISTIC_TOL, 4094, 11.0, 15),
+    "softplus poisson": (torch.float32, LOGISTIC_TOL, 4096, 11.0, 16),
+    "bounded": (torch.float32, TOL, 4021, 28.0, 49),
+    "gp cholesky": (torch.float64, 1e-6, 4059, 14.0, 29),
+    "gp logdet": (torch.float64, 1e-6, 4055, 14.0, 29),
+}
+# The parity objectives (OBJECTIVE_LANES lanes, seed BENCH_SEED + n as in phase
+# 22): one per group of ops (the twins of tests/test_torch_resident_ops.py's),
+# the two GP forms at m = 8, and two lanes of two warps (n = 70): one factorizes,
+# solves and takes a slogdet of an SPD matrix, the other takes LU's slogdet and
+# solve of a non-symmetric m = 16 matrix whose partial pivoting swaps rows on
+# every column but the last (`pivoting_matrix`). (kind, n, dtypes)
+OPS_PARITY = (
+    ("comparisons and masks", 60, (torch.float64, torch.float32)),
+    ("elementwise functions", 60, (torch.float64, torch.float32)),
+    ("mean and norms", 100, (torch.float64,)),
+    ("gp cholesky", 3, (torch.float64, torch.float32)),
+    ("gp lu", 3, (torch.float64,)),
+    ("linalg across two warps", 70, (torch.float64,)),
+    ("lu pivoting across two warps", 70, (torch.float64,)),
+)
+
+
+def gp_points(rng, m):
+    """GP data: m points uniform on [-3, 3]², their squared distances, and
+    targets sin(p0)·cos(p1) + 0.1·N(0, 1)."""
+    P = rng.uniform(-3.0, 3.0, (m, 2))
+    y = np.sin(P[:, 0]) * np.cos(P[:, 1]) + 0.1 * rng.standard_normal(m)
+    return ((P[:, None, :] - P[None, :, :]) ** 2).sum(-1), y
+
+
+def pivoting_matrix(rng, m):
+    """A non-symmetric m x m matrix whose LU with partial pivoting swaps rows
+    on every column but the last: a diagonal from 3 to 5 plus 0.3·N(0, 1)/√m
+    off it, its rows shifted down by one, so that column j's largest entry
+    lies one row below the diagonal."""
+    M = np.diag(np.linspace(3.0, 5.0, m)) + 0.3 * rng.standard_normal((m, m)) / np.sqrt(m)
+    return np.roll(M, 1, axis=0)
+
+
+def ops_data(name):
+    """Phase 33's fleet ``name``: its data and its starts, float64 numpy,
+    from a fresh generator seeded BENCH_SEED, in the order
+    scripts/jax_traced_ops_reference.py takes them."""
+    rng = np.random.default_rng(BENCH_SEED)
+    if name in ("robust", "softplus poisson"):
+        X = rng.standard_normal((LOGISTIC_OBS, LOGISTIC_N)) / np.sqrt(LOGISTIC_N)
+        z = X @ rng.standard_normal(LOGISTIC_N)
+        y = (z + 0.5 * rng.standard_t(3, LOGISTIC_OBS) if name == "robust"
+             else rng.poisson(np.logaddexp(0.0, z)).astype(np.float64))
+        return {"X": X, "y": y, "starts": rng.standard_normal((OPS_BATCH, LOGISTIC_N))}
+    if name == "bounded":
+        starts = rng.standard_normal((BATCH, N))  # the bench fleet's
+        return {"c": 0.5 * rng.standard_normal(N), "c2": rng.standard_normal(N),
+                "starts": starts}
+    d2, y = gp_points(rng, GP_M)
+    return {"d2": d2, "y": y, "starts": rng.standard_normal((OPS_BATCH, 3))}
+
+
+def gp_objective(d2, y, form, t):
+    """The GP's log marginal likelihood plus N(0, 1) log priors on (log
+    amplitude, log lengthscale, log noise): in its Cholesky form, or with
+    logdet (``form`` "logdet") or slogdet ("lu") and solve."""
+    m = y.shape[0]
+    eye = t(np.eye(m))
+
+    def K(th):
+        return (torch.exp(th[0]) * torch.exp(-0.5 * d2 * torch.exp(-2.0 * th[1]))
+                + (torch.exp(th[2]) + GP_JITTER) * eye)
+
+    if form == "cholesky":
+        def gp(th):
+            L = torch.linalg.cholesky(K(th))
+            a = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+            return (-0.5 * torch.sum(a * a) - torch.sum(torch.log(torch.diagonal(L)))
+                    - 0.5 * torch.sum(th * th))
+    else:
+        def gp(th):
+            Kt = K(th)
+            logdet = torch.logdet(Kt) if form == "logdet" else torch.linalg.slogdet(Kt)[1]
+            return -0.5 * y @ torch.linalg.solve(Kt, y) - 0.5 * logdet - 0.5 * torch.sum(th * th)
+    return gp
+
+
+def ops_objective(name, data, dtype, device):
+    """The torch log-density of phase 33's fleet ``name`` on ``data``, its
+    tensors on ``device`` in ``dtype``."""
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    if name.startswith("gp"):
+        return gp_objective(t(data["d2"]), t(data["y"]), name.split()[1], t)
+    if name == "bounded":
+        c, c2, d = t(data["c"]), t(data["c2"]), t(BOUNDED_CURVATURES)
+
+        def bounded(x):
+            z = torch.clamp(x, -4.0, 4.0)
+            r2 = x * x
+            q = -0.5 * d * (z - c) ** 2
+            body = torch.where(r2 < 16.0, q, q - (r2 - 16.0))
+            return (torch.sum(body) + 0.2 * torch.sum(torch.sin(z))
+                    - 0.1 * torch.sum(torch.abs(x - 6.0))
+                    - torch.sum(torch.maximum(x - 5.0, torch.zeros_like(x)))
+                    - 0.5 * torch.linalg.vector_norm(x - c2))
+        return bounded
+    X, y = t(data["X"]), t(data["y"])
+    m, p2 = X.shape[0], LOGISTIC_PRIOR ** 2
+    if name == "robust":
+        def robust(w):
+            r = y - X @ w
+            return -m * torch.mean(torch.sqrt(1.0 + r * r) - 1.0) - 0.5 * torch.sum(w * w) / p2
+        return robust
+
+    def poisson(w):
+        rate = torch.nn.functional.softplus(X @ w)
+        return torch.sum(y * torch.log(rate) - rate) - 0.5 * torch.sum(w * w) / p2
+    return poisson
+
+
+def ops_case(kind, n, dtype, device):
+    """(objective, None, numpy starts) of phase 33's parity case ``kind`` at
+    width n, its data drawn with numpy from seed BENCH_SEED + n."""
+    rng = np.random.default_rng(BENCH_SEED + n)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    scale = 1.0
+    if kind == "comparisons and masks":
+        c = t(0.5 * rng.standard_normal(n))
+
+        def obj(x):
+            r = x - c
+            inside = ((x * x < 4.0) & torch.logical_not(x >= 3.0) & (x < c + 3.0)
+                      & (x >= c - 3.0))
+            far = torch.logical_or(x <= -5.0, x > 5.0) & (x != 6.0) & (x != c + 7.0)
+            v = torch.where(inside, -r * r, -r * r - (x * x - 4.0))
+            r2 = torch.sum(x * x)
+            return torch.sum(v.masked_fill(far, -30.0)) + torch.where(r2 < 50.0 * n, 0.0, -r2)
+        scale = 1.5
+    elif kind == "elementwise functions":
+        c = t(0.5 * rng.standard_normal(n))
+
+        def obj(x):
+            M = (torch.clamp(x, -4.0, 4.0) - c).reshape(n // 3, 3).transpose(0, 1)
+            s = torch.nn.functional.softplus(x) + torch.nn.functional.softplus(
+                x - c, beta=2.0, threshold=10.0)
+            return (-torch.sum(torch.sqrt(1.0 + M * M)) + 0.1 * torch.sum(torch.sin(x))
+                    - 0.3 * torch.sum(torch.abs(x - 5.0)) - 0.05 * torch.sum(s)
+                    - torch.sum(torch.maximum(x - 3.0, torch.zeros_like(x)))
+                    - torch.sum(torch.minimum(x + 3.0, torch.zeros_like(x)) ** 2)
+                    - 0.1 * torch.sum(x * x))
+    elif kind == "mean and norms":  # pseudo-Huber regression, 5n observations
+        A = rng.standard_normal((5 * n, n)) / np.sqrt(n)
+        y = t(A @ rng.standard_normal(n) + 0.3 * rng.standard_t(3, 5 * n))
+        A = t(A)
+
+        def obj(w):
+            r = y - A @ w
+            return (-5 * n * torch.mean(torch.sqrt(1.0 + r * r) - 1.0)
+                    - 0.05 * torch.linalg.vector_norm(w - 0.1) ** 2
+                    - torch.sum(torch.mean(w.reshape(-1, 2), dim=1) ** 2))
+    elif kind.startswith("gp"):
+        d2, y = gp_points(rng, 8)
+        obj = gp_objective(t(d2), t(y), kind.split()[1], t)
+        scale = 0.5
+    elif kind == "linalg across two warps":
+        m = 6
+        B, y = rng.standard_normal((m, m)), t(rng.standard_normal(m))
+        K0 = t(B @ B.T / m)
+
+        def obj(x):
+            K = K0 + torch.diag(torch.exp(x[:m])) + 0.1 * torch.outer(x[m:2 * m], x[m:2 * m])
+            L = torch.linalg.cholesky(K)
+            a = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+            _, logdet = torch.linalg.slogdet(K)
+            return (-0.5 * torch.sum(a * a) - torch.sum(torch.log(torch.diagonal(L)))
+                    - 0.5 * torch.sum(x * x) - 0.01 * logdet
+                    + 0.01 * (y @ torch.linalg.solve(K, y)))
+        scale = 0.3
+    elif kind == "lu pivoting across two warps":
+        m = 16
+        A0, y = t(pivoting_matrix(rng, m)), t(rng.standard_normal(m))
+
+        def matrix(x):
+            return A0 + torch.diag(x[:m]) + 0.1 * torch.outer(x[m:2 * m], x[2 * m:3 * m])
+
+        def obj(x):
+            K = matrix(x)
+            return (-0.5 * torch.sum(x * x) - torch.linalg.slogdet(K)[1]
+                    + 2.0 * (y @ torch.linalg.solve(K, y)))
+        obj.matrix = matrix  # for the test that its pivoting swaps rows
+        scale = 0.3
+    else:
+        raise AssertionError(kind)
+    return obj, None, scale * rng.standard_normal((OBJECTIVE_LANES, n))
+
+
+def ops_fleets(device):
+    """Phase 33's full-width fleets: {name: (objective, starts, tol)}."""
+    out = {}
+    for name, (dtype, tol, *_) in OPS_FLEETS.items():
+        data = ops_data(name)
+        out[name] = (ops_objective(name, data, dtype, device),
+                     torch.tensor(data["starts"], dtype=dtype, device=device), tol)
+    return out
+
+
+def ops_objectives(qt, device):
+    """Phase 33's objectives, traced: the parity cases (label, trace, X,
+    tol, its recipe), the full-width fleets (`ops_fleets`) and their traces;
+    "sources": every trace's generated CUDA."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_codegen import generate
+
+    cases = []
+    for kind, n, dtypes in OPS_PARITY:
+        for dtype in dtypes:
+            obj, _, starts = ops_case(kind, n, dtype, device)
+            X = torch.tensor(starts, dtype=dtype, device=device)
+            cases.append((f"{kind} {OBJECTIVE_LANES}x{n} {str(dtype).replace('torch.', '')}",
+                          qt.trace_objective(obj, None, X), X,
+                          TOL if dtype == torch.float32 else 1e-6, (kind, n, dtype)))
+    fleets = ops_fleets(device)
+    traced = {name: qt.trace_objective(obj, None, X) for name, (obj, X, _) in fleets.items()}
+    everything = [c[1] for c in cases] + list(traced.values())
+    return {"cases": cases, "fleets": fleets, "traced": traced,
+            "sources": [generate(t) for t in everything]}
+
+
+def ops_needs(name, n, itemsize):
+    """`objective_ops` of phase 33's fleet ``name``: what the function needs
+    per value and gradient (the tolerance test n among it) and per trial (x +
+    αd 2n among it), and its data bytes, as phase 22 counts its fleets. Not
+    the traced graph's count: the logdet form's graph factorizes K once for
+    slogdet and once for solve, and its gradient once more for each solve.
+    Pseudo-Huber (m observations): Xw 2mn, per observation y - Xw, r², 1 +
+    r², the root, - 1 and the sum, 4 scalars; the gradient r/s and its
+    scale per observation and Xᵀu 2mn; the prior w², its sum, w/p² and the
+    gradient's sum per entry. Softplus Poisson: Xw 2mn, per observation the
+    softplus (exp, log1p), its log, y·log, - rate and the sum; the gradient
+    y/rate - 1, the sigmoid and their product per observation, Xᵀu 2mn; the
+    prior as above. Bounded: per entry 22 for the value (the clamp, x², z -
+    c, its square, the products by d and -0.5, the support test, r² - 16,
+    the difference, the select and the sum; sin and its sum; x - 6, |.| and
+    the sum; x - 5, the max and the sum; x - c2, its square and the sum)
+    and 8 scalars; the gradient per entry 19 (-d(z - c) 2, the clamp's mask
+    and select, the support branch's -2x 2, 0.2 cos z 2, 0.1 sgn(x - 6) 2,
+    the max's step, (x - c2)/|x - c2|/2 2, the five sums, the tolerance
+    test) and 2 scalars. The GP on m points: K per entry d2·s, exp and ·amp
+    (3m²), the noise on its diagonal (m), 5 scalars; the Cholesky form
+    factorizes K (m³/3), solves L a = y (m²) and sums a·a and log diag L
+    (4m); its gradient solves Lᵀα = a (m²), inverts K from L (2m³/3), forms
+    G = ααᵀ - K⁻¹ (2m²), P = G∘K_se (m²), the amplitude's Σ P (m²), the
+    lengthscale's Σ P∘(d2·s) (2m²), the noise's trace of G (m) and 5
+    scalars. The logdet form factorizes K by LU (2m³/3), sums the log of U's
+    diagonal (2m), solves K α = y (2m², the two substitutions) and takes
+    y·α (2m); its gradient inverts K from the factors (4m³/3) and forms G,
+    P and the three sums as above. Both: the prior 2n, its gradient 2n,
+    2 scalars."""
+    if name in ("robust", "softplus poisson"):
+        m = LOGISTIC_OBS
+        per_obs = 8 if name == "robust" else 10
+        return (4 * m * n + per_obs * m + 5 * n + 4, 2 * m * n + 6 * m + 4 * n + 4,
+                (m * n + m) * itemsize)
+    if name == "bounded":
+        return 41 * n + 10, 24 * n + 8, 3 * n * itemsize
+    m = GP_M
+    factor, inverse, solve = ((m ** 3 / 3, 2 * m ** 3 / 3, m * m) if name == "gp cholesky"
+                              else (2 * m ** 3 / 3, 4 * m ** 3 / 3, 2 * m * m))
+    trial = factor + 3 * m * m + solve + 5 * m + 4 * n + 7
+    return trial + inverse + 7 * m * m + m + n + 5, trial, (m * m + m) * itemsize
+
+
+def ops_phase(qt, device, smi, objectives, build):
+    """B3 on the trace's newer ops (see phase 33 above):
+    ``objectives`` from `ops_objectives`, ``build`` their build's report.
+    Returns each full-width fleet's record: (launches, max abs error, (ms,
+    plain ms, bound ms, bound kind, library ms))."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import (
+        resident_feasible,
+        resident_occupancy,
+    )
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    cases, fleets, traced = objectives["cases"], objectives["fleets"], objectives["traced"]
+    libs, cold = build
+    log(f"[ops] {len(cases) + len(fleets)} objectives traced and generated, built beside the "
+        f"kernel library in {cold:.1f} s; {ptxas_report(libs)}")
+
+    # B3 against its plain version on every parity objective
+    failures = []
+    for label, trace, X, tol, (kind, n, dtype) in cases:
+        cpu_traced = qt.trace_objective(ops_case(kind, n, dtype, cpu)[0], None, X.cpu())
+        summary, _, bad = traced_parity(qt, trace, X, tol, label, cpu_traced)
+        print(f"  B3 vs plain {summary}", file=sys.stderr)
+        failures += bad
+    log(f"[ops] B3 vs plain on {len(cases)} objectives of {OBJECTIVE_LANES} lanes (rows on "
+        f"stderr): {len(cases) - len({f.split(' cap=')[0] for f in failures})}/{len(cases)} pass "
+        f"({time.perf_counter() - t_phase:.1f} s into phase 33)")
+    check(not failures, f"B3 and its plain version differ on phase 33's objectives: {failures}")
+
+    # the slice's main path: each full-width fleet against its plain version (the
+    # plain whole solve timed alone), then through the entry point, counted
+    records, lines, timings = {}, [], []
+    cpu_fleets = ops_fleets(cpu)
+    for name, (obj, X, tol) in fleets.items():
+        trace, dtype = traced[name], X.dtype
+        label = f"{name} {X.shape[0]}x{X.shape[1]} {str(dtype).replace('torch.', '')} tol {tol}"
+        cpu_obj, cpu_X, _ = cpu_fleets[name]
+        walls, t_fleet = {}, time.perf_counter()
+        # the GP is chaotic at m = 32: rounding alone (the CPU's run, a start one
+        # ulp away) changes lanes' counters within five iterations, as phase 23's
+        # model does, so its caps are held to the witnesses by phase 23's rule
+        summary, err, bad = traced_parity(qt, trace, X, tol, label,
+                                          qt.trace_objective(cpu_obj, None, cpu_X),
+                                          cpu_whole=False, chaotic=name.startswith("gp"),
+                                          walls=walls)
+        print(f"  B3 vs plain {summary}", file=sys.stderr)
+        check(not bad, f"B3 and its plain version differ on {label}: {bad}")
+        torch.cuda.synchronize()
+        reset_counters(qt)
+        res, flagged, _ = resident_run(qt, obj, X, tol)
+        c = read_counters(qt)
+        launched = counted_kernels()["B3"].objective_launches["traced"]
+        check(flagged == 0, f"{name}: {flagged} host synchronisations inside the resident solve")
+        check(launched == 1 and c["B3"] == 1 and c["B1"] == c["B2a"] == c["B2b"] == 0,
+              f"{name}: launches {dict(counted_kernels()['B3'].objective_launches)}, {c}")
+        jax_conv, jax_med, jax_max = OPS_FLEETS[name][2:]
+        conv, med, itmax, gmax = fleet_line(qt, res)
+        ok = res.status == qt.Status.CONVERGED
+        gmax = float(res.grad[ok].abs().max()) if bool(ok.any()) else 0.0
+        ends = int(((res.status == qt.Status.CONVERGED)
+                    | (res.status == qt.Status.LINESEARCH_FAILURE)).sum())
+        p = fewer_converged_p(conv, jax_conv, X.shape[0])
+        lines.append(f"{name} {X.shape[0]}x{X.shape[1]} through B3: converged {conv}/"
+                     f"{X.shape[0]} (JAX {jax_conv}, one-sided Fisher p {p:.3g}), iterations "
+                     f"median {med:g} max {itmax} (JAX {jax_med} / {jax_max}), max|grad| of the "
+                     f"converged {gmax:.3e}")
+        check(ends == X.shape[0] and gmax < tol and bool(torch.isfinite(res.x).all()),
+              f"{name}: statuses {torch.bincount(res.status.long().cpu()).tolist()}, max|grad| "
+              f"{gmax}")
+        check(conv == X.shape[0] if jax_conv == X.shape[0] else p >= 0.01,
+              f"{name}: {conv} converged against JAX's {jax_conv} (p {p:.3g})")
+        check(abs(med - jax_med) <= 0.1 * jax_med,
+              f"{name}: median {med} not within 10% of JAX's {jax_med}")
+        ms = per_call_ms({"B3": lambda: qt.optimize_batched_resident(
+            trace, X, tol=tol, max_iterations=MAX_ITERS)}, (), rounds=2, calls=1)["B3"]
+        n, itemsize = X.shape[1], X.element_size()
+        needs = ops_needs(name, n, itemsize)
+        b = b3_bound(res, n, itemsize, True, ops=needs)
+        graph = b3_bound(res, n, itemsize, True,
+                         ops=(trace.ops_vag + n, trace.ops_value + 2 * n, trace.const_bytes))
+        occ = resident_occupancy(n, itemsize, trace)
+        feasible = resident_feasible(n, itemsize, trace)
+        timings.append(
+            f"{name} {X.shape[0]}x{n}: B3 {ms:.4f} ms ({1e3 * X.shape[0] / ms:.1f} solves/s), "
+            f"plain version {walls['plain']:.1f} ms; bound {b[0]:.4f} ms ({b[1]}; the function "
+            f"needs {needs[0]:.0f} operations per value and gradient, {needs[1]:.0f} per "
+            f"trial, {needs[2]} data bytes), at {100 * b[0] / ms:.2f} % (its graph counts "
+            f"{trace.ops_vag} and {trace.ops_value}, {trace.const_bytes} constant bytes, which "
+            f"would give {graph[0]:.4f} ms); {trace.extra_values} scratch values per lane "
+            f"(feasible {feasible}); launch {shape_line(occ)}; "
+            f"{time.perf_counter() - t_fleet:.1f} s in all")
+        records[f"ops:{name.replace(' ', '_')}"] = (launched, err,
+                                                     (ms, walls["plain"], *b, None))
+    log(f"[ops] full-width fleets on {device}: one launch of B3 each, no host synchronisation; "
+        + "; ".join(lines))
+    log(f"[time] phase 33 per solve (CUDA events; B3 the median of 2, the plain version one "
+        f"call): " + "; ".join(timings) + f" on {smi}; phase 33 took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False; this run needs a CUDA card")
@@ -6220,9 +6663,12 @@ def main():
     try:
         phase22 = timed("22 trace", traced_objectives, qt, device)
         phase23 = timed("23 trace", hierarchical_objectives, qt, device)
-        sources = phase22["sources"] + phase23["sources"]
+        phase33 = timed("33 trace", ops_objectives, qt, device)
+        sources = phase22["sources"] + phase23["sources"] + phase33["sources"]
         builds.append(start_build(sources))
-        log(f"[ahead] {timed('ahead', prefetch_plain, qt, device, phase22, phase23, helpers + builds)}")
+        ahead = timed("ahead", prefetch_plain, qt, device, phase22, phase23, phase33,
+                      helpers + builds)
+        log(f"[ahead] {ahead}")
         for label, handle in zip(("16 starts", "9 ahead"), helpers):
             timed(label, finish_helper, handle)
         load_ahead(ahead_file)
@@ -6232,6 +6678,7 @@ def main():
             stop_build(handle)
         shutil.rmtree(ahead_dir, ignore_errors=True)
     split = len(phase22["sources"])
+    split33 = split + len(phase23["sources"])
     max_abs_err = timed("3", kernel_phase, device)
     reset_counters(qt)
     launches, _ = timed("4", main_path_phase, qt, device)
@@ -6255,7 +6702,7 @@ def main():
     objectives.update(timed("21", fixture_phase, qt, device, smi))
     traced = timed("22", traced_phase, qt, device, smi, phase22, (libs[:split], build_s))
     traced.update(timed("23", hierarchical_phase, qt, device, smi, phase23,
-                        (libs[split:], build_s)))
+                        (libs[split:split33], build_s)))
     auglag = timed("24", engines_phase, qt, device, smi)
     multistart = timed("25", map_backend_phase, qt, device, smi)
     sampling_rec = timed("26", sampling_phase, qt, device, smi)
@@ -6266,6 +6713,7 @@ def main():
     del evidence_handoff
     workflow_rec = timed("31", workflow_phase, qt, device, smi)
     mesh_rec = timed("32", mesh_phase, qt, device, smi)
+    ops_rec = timed("33", ops_phase, qt, device, smi, phase33, (libs[split33:], build_s))
     log(f"[timing] seconds per phase: {', '.join(stamps)}; "
         f"{time.perf_counter() - t_start:.1f} s in all on {smi}; plain runs made ahead and not "
         f"taken: {len(AHEAD)}")
@@ -6304,6 +6752,10 @@ def main():
     ] + [
         record(f"resident_bfgs_solve[{kind}]", TRACED_SOURCE, RESIDENT_REPLACES, launches, err, ms)
         for kind, (launches, err, ms) in traced.items()
+    ] + [
+        record(f"resident_bfgs_solve[{kind}]", LINALG_SOURCE if kind.startswith("ops:gp")
+               else TRACED_SOURCE, RESIDENT_REPLACES, launches, err, ms)
+        for kind, (launches, err, ms) in ops_rec.items()
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count(),

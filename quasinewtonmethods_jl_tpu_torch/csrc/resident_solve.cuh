@@ -73,6 +73,7 @@
 
 #pragma once
 
+#include "resident_linalg.cuh"
 #include "resident_objectives.cuh"
 
 namespace {

@@ -36,7 +36,8 @@ _PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("bfgs_update.cu", "bfgs_blocked.cu", "resident_solve.cu")
-HEADERS = ("bfgs_common.cuh", "resident_objectives.cuh", "resident_solve.cuh")
+HEADERS = ("bfgs_common.cuh", "resident_linalg.cuh", "resident_objectives.cuh",
+           "resident_solve.cuh")
 # No --use_fast_math / -ftz: the kernels' NaN and inf semantics are part of
 # their contract. -Xptxas -v reports registers, shared memory and spills.
 NVCC_FLAGS = (

@@ -37,7 +37,20 @@ plain version (`objective_trace.evaluate` and, on the card, the fleet
 engine with the plain update). Elementwise functions take torch's CUDA
 formulas: a division by a literal is a product by its reciprocal, the
 log-sigmoid's backward needs no buffer, sigmoid is 1/(1 + exp(-x)), the
-backwards of tanh and sigmoid g·(1 - y·y) and g·(1 - y)·y.
+backwards of tanh and sigmoid g·(1 - y·y) and g·(1 - y)·y, sgn (0 < x) -
+(x < 0) (0 at 0 and at NaN), softplus x where x·beta passes its threshold
+and else log1p(exp(x·beta)) / beta, maximum, minimum and clamp let a NaN
+through (CUDA's fmax does not), a comparison or a logical op 1 or 0; a
+mean is the sum times 1/count (torch's MeanOps) and a 2-norm the square
+root of the sum of squares. A factorization or solve of one lane's m x m
+matrix copies its input into the lane's scratch (the factor's slot, or a
+work copy, and the right-hand sides into the output) and calls the lane
+group's device functions of csrc/resident_linalg.cuh: right-looking
+Cholesky, substitution one right-hand side per thread, LU with partial
+pivoting (the pivot a warp argmax, ties to the first row); a failed
+factorization gives NaN. The functions that need more than an expression
+are written into a unit only where its graphs use them, so that the text
+of a graph of the earlier ops stays what it was.
 
 The text depends only on the graph, the shapes and the dtype: constant
 values and index tables are inputs, so two models of the same shape share
@@ -50,7 +63,7 @@ import math
 
 import torch
 
-from .objective_trace import Graph, Op, Ref, TracedObjective, _contiguous_strides
+from .objective_trace import Graph, Op, Ref, TracedObjective, _columns, _contiguous_strides
 
 __all__ = ["generate", "lane_warps"]
 
@@ -166,7 +179,31 @@ def _ew_expr(op: Op, x: list) -> str:
         return f"{x[0]} * (Real(1) - {x[1]} * {x[1]})"
     if name == "sigmoid_backward":
         return f"{x[0]} * (Real(1) - {x[1]}) * {x[1]}"
+    if name in _COMPARE:
+        return f"{x[0]} {_COMPARE[name]} {x[1]} ? Real(1) : Real(0)"
+    if name in ("and", "or"):
+        both = "&&" if name == "and" else "||"
+        return f"({x[0]} != Real(0) {both} {x[1]} != Real(0)) ? Real(1) : Real(0)"
+    if name == "not":
+        return f"{x[0]} == Real(0) ? Real(1) : Real(0)"
+    if name == "abs":
+        return f"fabs({x[0]})"
+    if name == "sgn":
+        return f"Real((Real(0) < {x[0]}) - ({x[0]} < Real(0)))"
+    if name in ("sqrt", "sin", "cos"):
+        return f"{name}({x[0]})"
+    if name == "softplus":
+        return f"traced_softplus({x[0]}, {_lit(p[0])}, {_lit(p[1])})"
+    if name == "softplus_backward":
+        return f"traced_softplus_backward({x[0]}, {x[1]}, {_lit(p[0])}, {_lit(p[1])})"
+    if name in ("maximum", "minimum"):
+        return f"traced_{name}({x[0]}, {x[1]})"
+    if name == "clamp":
+        return f"traced_clamp({x[0]}, {_lit(p[0])}, {_lit(p[1])})"
     raise AssertionError(name)
+
+
+_COMPARE = {"gt": ">", "lt": "<", "le": "<=", "ge": ">=", "eq": "==", "ne": "!="}
 
 
 class _Emitter:
@@ -183,13 +220,14 @@ class _Emitter:
         self.emit(f"for (int {var} = threadIdx.x; {var} < {count}; {var} += {self.threads}) "
                   f"{{ {body}}}")
 
-    def lane_sum(self, out: Ref, count: int, decl: str, term: str):
-        """out[0] = Σ_i term(i) over i < count: strided partials, a lane sum."""
+    def lane_sum(self, out: Ref, count: int, decl: str, term: str, finish: str = "{}"):
+        """out[0] = finish(Σ_i term(i)) over i < count: strided partials, a
+        lane sum."""
         self.emit("{")
         self.emit("  Real acc[1] = {Real(0)};")
         self.loop(count, f"{decl}acc[0] += {term}; ")
         self.emit("  grp.sum(acc);")
-        self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = acc[0];")
+        self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = {finish.format('acc[0]')};")
         self.emit("}")
 
     def op(self, op: Op):
@@ -203,8 +241,15 @@ class _Emitter:
             else:
                 body = f"{decl}s[{out.offset} + i] = {_ew_expr(op, x)}; "
             self.loop(out.numel, body)
-        elif op.kind in ("sum", "lse"):
+        elif op.kind in ("sum", "lse", "mean", "norm"):
             self.reduce(op)
+        elif op.kind == "tril":
+            decl, oc = _coords(out.shape)
+            keep = "<=" if op.name == "tril" else ">="
+            self.loop(out.numel, f"{decl}s[{out.offset} + i] = {oc[1]} - {oc[0]} {keep} "
+                                 f"{op.params[0]} ? {_load(op.args[0], oc)} : Real(0); ")
+        elif op.kind in ("chol", "trsm", "slogdet", "solve"):
+            self.linalg(op)
         elif op.kind == "mv":  # M v, or M V: one output element per thread
             M, v = op.args
             k = M.shape[1]
@@ -267,17 +312,57 @@ class _Emitter:
             raise AssertionError(op.kind)
         self.emit("grp.sync();")
 
+    def linalg(self, op: Op):
+        """A factorization or solve of one m x m matrix per lane: its input
+        copied into its slots (the factor's or the work copy's, and the
+        right-hand sides into the output), a barrier, then the lane group's
+        device function (csrc/resident_linalg.cuh), which ends on one."""
+        out, A = op.out, op.args[0]
+        m = A.shape[0]
+        if op.kind == "chol":  # the lower triangle, factorized in place
+            self.loop(m * m, f"const int i0 = i / {m}; const int i1 = i % {m}; "
+                             f"s[{out.offset} + i] = i1 <= i0 ? {_load(A, ['i0', 'i1'])} : "
+                             "Real(0); ")
+            self.emit("grp.sync();")
+            self.emit(f"qnm::lane_cholesky(grp, {m}, s + {out.offset});")
+            return
+        if op.kind in ("slogdet", "solve"):
+            work = op.params[0]
+            self.loop(m * m, f"const int i0 = i / {m}; const int i1 = i % {m}; "
+                             f"s[{work} + i] = {_load(A, ['i0', 'i1'])}; ")
+        B = op.args[1] if op.kind != "slogdet" else None
+        if B is not None:  # the right-hand sides, solved in place
+            decl, oc = _coords(B.shape)
+            self.loop(B.numel, f"{decl}s[{out.offset} + i] = {_load(B, oc)}; ")
+        self.emit("grp.sync();")
+        if op.kind == "slogdet":
+            self.emit(f"qnm::lane_slogdet(grp, {m}, s + {work}, s + {out.offset});")
+        elif op.kind == "solve":
+            self.emit(f"qnm::lane_solve(grp, {m}, {_columns(out)}, s + {work}, s + {out.offset});")
+        else:
+            upper, unit = op.params
+            base = "s" if A.kind == "lane" else f"c{A.index}"
+            self.emit(f"qnm::lane_trsm<{str(upper).lower()}, {str(unit).lower()}>(grp, {m}, "
+                      f"{_columns(out)}, {base} + {A.offset}, {A.strides[0]}, {A.strides[1]}, "
+                      f"s + {out.offset});")
+
     def reduce(self, op: Op):
         out, (src,), (dims,) = op.out, op.args, op.params
         lse = op.kind == "lse"
-        if not dims:  # a reduction of a scalar over no dim is the scalar
-            self.loop(1, f"s[{out.offset}] = {_load(src, [])}; ")
+        if not dims:  # a reduction of a scalar over no dim is the scalar (a norm its |.|)
+            value = _load(src, [])
+            self.loop(1, f"s[{out.offset}] = {f'fabs({value})' if op.kind == 'norm' else value}; ")
             return
+        # the mean's 1 / count and the 2-norm's square root (torch's MeanOps and
+        # NormTwoOps), on the sum of the terms or of their squares
+        count = math.prod(src.shape[d] for d in dims)
+        finish = {"mean": f"{{}} * (Real(1) / Real({count}))", "norm": "sqrt({})"}.get(
+            op.kind, "{}")
         if len(dims) == len(src.shape):  # to one value
             decl, ic = _coords(src.shape)
-            term = _load(src, ic)
+            term = _square(op, _load(src, ic))
             if not lse:
-                self.lane_sum(out, src.numel, decl, term)
+                self.lane_sum(out, src.numel, decl, term, finish)
                 return
             # torch.logsumexp: the max (NaN wins), an infinite max shifts by 0
             self.emit("{")
@@ -295,11 +380,11 @@ class _Emitter:
         (red,) = dims
         keep = 1 - red
         coords = ["i", "r"] if red == 1 else ["r", "i"]
-        term = _load(src, coords)
+        term = _square(op, _load(src, coords))
         count = src.shape[red]
         if not lse:
             self.loop(out.numel, f"Real acc = Real(0); for (int r = 0; r < {count}; ++r) "
-                                 f"acc += {term}; s[{out.offset} + i] = acc; ")
+                                 f"acc += {term}; s[{out.offset} + i] = {finish.format('acc')}; ")
             return
         assert src.shape[keep] == out.numel
         self.loop(out.numel,
@@ -308,6 +393,11 @@ class _Emitter:
                   f"const Real shift = isinf(top) ? Real(0) : top; Real acc = Real(0); "
                   f"for (int r = 0; r < {count}; ++r) acc += qnm::exp_of({term} - shift); "
                   f"s[{out.offset} + i] = qnm::log_of(acc) + shift; ")
+
+
+def _square(op: Op, term: str) -> str:
+    """A reduction's term: a 2-norm sums the squares of its elements."""
+    return f"{term} * {term}" if op.kind == "norm" else term
 
 
 def _graph_body(graph: Graph, threads: int) -> str:
@@ -338,6 +428,43 @@ __device__ __forceinline__ Real traced_log_sigmoid_backward(Real g, Real a) {
 __device__ __forceinline__ float traced_tanh(float a) { return tanhf(a); }
 __device__ __forceinline__ double traced_tanh(double a) { return tanh(a); }
 """
+
+
+# torch's CUDA formulas of the functions that take more than an expression
+# (ActivationSoftplusKernel.cu, MaxMinElementwiseKernel.cu, the clamp of
+# UnaryOpsKernel.cu), written into a unit only where its graphs use them
+_HELPERS = {
+    "softplus": r"""__device__ __forceinline__ Real traced_softplus(Real a, Real beta,
+                                               Real threshold) {
+  return a * beta > threshold ? a : qnm::log1p_of(qnm::exp_of(a * beta)) / beta;
+}
+""",
+    "softplus_backward": r"""__device__ __forceinline__ Real traced_softplus_backward(
+    Real g, Real a, Real beta, Real threshold) {
+  const Real z = qnm::exp_of(a * beta);
+  return a * beta > threshold ? g : g * z / (z + Real(1));
+}
+""",
+    "maximum": r"""__device__ __forceinline__ Real traced_maximum(Real a, Real b) {  // NaN wins
+  return isnan(a) ? a : (isnan(b) ? b : (a < b ? b : a));
+}
+""",
+    "minimum": r"""__device__ __forceinline__ Real traced_minimum(Real a, Real b) {  // NaN wins
+  return isnan(a) ? a : (isnan(b) ? b : (b < a ? b : a));
+}
+""",
+    "clamp": r"""// NaN stays NaN
+__device__ __forceinline__ Real traced_clamp(Real a, Real lo, Real hi) {
+  const Real up = a < lo ? lo : a;
+  return hi < up ? hi : up;
+}
+""",
+}
+
+
+def _helpers(traced: TracedObjective) -> str:
+    used = {op.name for g in (traced.vag, traced.val) for op in g.ops if op.kind == "ew"}
+    return "".join(text for name, text in _HELPERS.items() if name in used)
 
 
 def generate(traced: TracedObjective) -> str:
@@ -375,7 +502,7 @@ namespace {{
 using Real = {real};
 constexpr int kN = {n};
 constexpr int kSlots = {slots};
-{_PRELUDE}
+{_PRELUDE}{_helpers(traced)}
 // The two graphs, each one function that the kernel calls (not inlined:
 // a trial's evaluation has two call sites, and the kernel's size and its
 // build time stay those of one copy). The lane's scratch s holds the point

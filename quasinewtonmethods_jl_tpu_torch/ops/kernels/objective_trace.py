@@ -21,12 +21,23 @@ of `Op`s over `Ref`s:
   * a Python scalar, and a tensor filled with one (``ones_like``,
     ``zeros``, ``scalar_tensor``), is a literal ("lit").
 
-A view (``t``, ``permute``, ``expand``, ``unsqueeze``, ``squeeze``,
-``select``, ``slice``, ``unbind``, ``diagonal``, ``flip``, and a reshape
-of a row-major value) only changes a `Ref`'s shape, strides (negative
-after a flip) and offset: no code, no copy. The ops that compute are
-elementwise (the table `_ELEMENTWISE`), reductions (``sum``,
-``logsumexp``), ``cumsum`` along one dim, ``mv``, ``mm`` and ``dot``, the
+A view (``t``, ``transpose``, ``permute``, ``expand``, ``unsqueeze``,
+``squeeze``, ``select``, ``slice``, ``unbind``, ``diagonal``, ``flip``, and
+a reshape of a row-major value) only changes a `Ref`'s shape, strides
+(negative after a flip) and offset: no code, no copy. The ops that compute
+are elementwise (the table `_ELEMENTWISE`: arithmetic, exp, log, log1p,
+tanh, sigmoid, log-sigmoid, logaddexp, sqrt, abs, sgn, sin, cos, softplus,
+maximum, minimum, clamp with literal bounds, and their backwards; the
+comparisons lt, le, gt, ge, eq, ne and logical and, or, not, whose truth
+values are 0 / 1, with where and masked_fill), reductions (``sum``,
+``mean``, ``logsumexp``, ``linalg_vector_norm`` of ord 2), ``cumsum`` along
+one dim, ``tril`` / ``triu``, ``mv``, ``mm`` and ``dot``, the per-lane
+linear algebra of one m x m matrix (``linalg_cholesky_ex``,
+``linalg_solve_triangular``, and by LU with partial pivoting
+``_linalg_slogdet``, which ``logdet`` and ``slogdet`` reach, and
+``_linalg_solve_ex``: their pivots, LU factors and ``info`` stay inside the
+op, ``_linalg_check_errors`` emits nothing, and a failed factorization
+gives NaN on its lane, as JAX's ``cholesky`` does, not an exception), the
 scatters of ``select_backward`` / ``slice_backward``, ``cat`` and
 ``stack``, and the index maps with constant indices: a gather
 (``index.Tensor``: each output element reads one element of its source,
@@ -42,14 +53,19 @@ op's fresh output that nothing else reads (``matmul``'s own ``squeeze_``)
 is its out-of-place twin. Anything else raises ValueError, on every
 device, naming the op and, where the trace can tell, the user's line: an
 op outside the table, a per-lane value of rank > 2, a data-dependent shape
-or branch, ``.item()``, a random op, an in-place write to the point, a
-constant or a value read elsewhere, a constant in another floating dtype
-than ``x0s``, an index computed from the point (a gather's or a
-scatter's), a boolean-mask index, an index tensor of rank > 1 per dim.
+or branch (``torch.cond`` included), ``.item()``, a random op, an in-place
+write to the point, a constant or a value read elsewhere, a constant in
+another floating dtype than ``x0s``, an index computed from the point (a
+gather's or a scatter's), a boolean-mask index, an index tensor of rank >
+1 per dim, a factorization's pivots or ``info`` read by the objective, a
+vector norm of another ord than 2, a matrix whose work copy alone exceeds
+one block's shared memory.
 
 `evaluate` runs a lowered graph op by op in torch: the plain version of the
 generated evaluation (ops/kernels/objective_codegen.py), which the CPU
-tests hold to ``torch.func`` and to JAX. `TracedObjective.ops_vag` /
+tests hold to ``torch.func`` and to JAX. `in_band_linalg` gives plain
+torch the kernel's rule for a failed factorization, for B3's plain
+version on the user's own functions. `TracedObjective.ops_vag` /
 ``ops_value`` / ``const_bytes`` count the work of one evaluation for the
 kernel's bound.
 """
@@ -66,8 +82,10 @@ from typing import Callable, Optional
 import torch
 
 from ...api import as_value_and_grad, as_value_fn
+from .bfgs_kernel import SMEM_LIMIT_BYTES
 
-__all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate"]
+__all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate",
+           "in_band_linalg"]
 
 aten = torch.ops.aten
 
@@ -116,9 +134,21 @@ class Op:
     args[0]'s, then each source k in ``src[ptr[i]:ptr[i + 1]]`` in turn
     added to it (``accumulate``) or, the last one, written over it, where
     the value of source k is element ``src[k]`` of args[1]'s base;
-    ``params`` = (ptr table, src table, accumulate, number of sources)). A
-    table is an index into the objective's ``tables``. ``source``: the
-    aten op it lowers."""
+    ``params`` = (ptr table, src table, accumulate, number of sources)),
+    "mean" and "norm" (a reduction as "sum", then a product by 1/count or
+    a sum of squares and its square root), "tril" (args[0] with the
+    elements above diagonal ``params[0]`` zeroed, or with ``name`` "triu"
+    those below it). On one lane's m x m
+    matrix args[0], read through its strides: "chol" (``out`` its lower
+    Cholesky factor, upper triangle zero), "trsm" (``out`` = args[0]⁻¹
+    args[1], (m, k), ``params`` = (upper, unitriangular)), "slogdet"
+    (``out`` (2,): sign and log|det| by LU with partial pivoting), "solve"
+    (``out`` = args[0]⁻¹ args[1], (m,) or (m, k), by LU with partial
+    pivoting); "slogdet" and "solve" factorize a work copy of the matrix
+    at lane offset ``params[0]``. A failed factorization (a Cholesky
+    pivot not > 0, an LU pivot of 0) gives NaN in every element of
+    ``out``. A table is an index into the objective's ``tables``.
+    ``source``: the aten op it lowers."""
 
     kind: str
     name: str
@@ -174,6 +204,13 @@ class TracedObjective:
         return graph_ops(self.val)
 
     @property
+    def factorizes(self) -> bool:
+        """Whether a graph factorizes a matrix (Cholesky or LU): its plain
+        version then runs the user's functions under `in_band_linalg`."""
+        return any(op.kind in ("chol", "slogdet", "solve") for g in (self.vag, self.val)
+                   for op in g.ops)
+
+    @property
     def const_bytes(self) -> int:
         """Bytes of the constants and index tables in device memory."""
         return sum(c.numel() * c.element_size() for c in (*self.consts, *self.tables))
@@ -188,7 +225,7 @@ _ELEMENTWISE = {
     aten.sub.Tensor: "sub",
     aten.rsub.Scalar: "rsub",
     aten.mul.Tensor: "mul", aten.mul.Scalar: "mul",
-    aten.div.Tensor: "div",
+    aten.div.Tensor: "div", aten.div.Scalar: "div",
     aten.neg.default: "neg",
     aten.pow.Tensor_Scalar: "pow",
     aten.exp.default: "exp",
@@ -203,48 +240,103 @@ _ELEMENTWISE = {
     aten.log1p.default: "log1p",
     aten.sigmoid.default: "sigmoid",
     aten.sigmoid_backward.default: "sigmoid_backward",
+    # comparisons and masks (truth values, stored as 0 / 1)
+    aten.gt.Tensor: "gt",
+    aten.lt.Scalar: "lt", aten.lt.Tensor: "lt",
+    aten.le.Scalar: "le", aten.le.Tensor: "le",
+    aten.ge.Scalar: "ge", aten.ge.Tensor: "ge",
+    aten.eq.Scalar: "eq", aten.eq.Tensor: "eq",
+    aten.ne.Scalar: "ne", aten.ne.Tensor: "ne",
+    aten.logical_and.default: "and", aten.bitwise_and.Tensor: "and",
+    aten.logical_or.default: "or", aten.bitwise_or.Tensor: "or",
+    aten.logical_not.default: "not", aten.bitwise_not.default: "not",
+    aten.masked_fill.Scalar: "masked_fill", aten.masked_fill.Tensor: "masked_fill",
+    # more elementwise functions
+    aten.abs.default: "abs",
+    aten.sgn.default: "sgn", aten.sign.default: "sgn",
+    aten.sqrt.default: "sqrt",
+    aten.sin.default: "sin",
+    aten.cos.default: "cos",
+    aten.softplus.default: "softplus",
+    aten.softplus_backward.default: "softplus_backward",
+    aten.maximum.default: "maximum",
+    aten.minimum.default: "minimum",
+    aten.clamp.default: "clamp",
 }
-_UNARY = ("neg", "exp", "log", "log_sigmoid", "tanh", "log1p", "sigmoid")
+_UNARY = ("neg", "exp", "log", "log_sigmoid", "tanh", "log1p", "sigmoid", "abs", "sgn", "sqrt",
+          "sin", "cos", "not")
+_COMPARISONS = ("gt", "lt", "le", "ge", "eq", "ne")
+# the functions whose values are truth values
+_BOOLEAN = (*_COMPARISONS, "and", "or", "not")
 # operations per element of each elementwise function, for the bound
 # (logaddexp: a - b, |.|, exp, log1p, max, +; log_sigmoid: |.|, exp,
 # log1p, min, -; its backward: |.|, exp, 1 + z, z / (1 + z), sign·, -, ·g;
 # sigmoid: exp, 1 +, 1 / .; the backwards of tanh and sigmoid three products
-# and differences)
+# and differences; sgn two comparisons; softplus x·beta, the threshold's
+# test, exp, log1p, / beta; its backward x·beta, the test, exp, g·z, z + 1,
+# the division; clamp its two bounds)
 _EW_COST = {"add": 1, "sub": 1, "rsub": 1, "mul": 1, "div": 1, "neg": 1, "pow": 1, "exp": 1,
             "log": 1, "where": 1, "gt": 1, "logaddexp": 6, "log_sigmoid": 5,
             "log_sigmoid_backward": 7, "tanh": 1, "log1p": 1, "sigmoid": 3,
-            "tanh_backward": 3, "sigmoid_backward": 3, "copy": 0}
+            "tanh_backward": 3, "sigmoid_backward": 3, "copy": 0,
+            "lt": 1, "le": 1, "ge": 1, "eq": 1, "ne": 1, "and": 1, "or": 1, "not": 1,
+            "abs": 1, "sgn": 2, "sqrt": 1, "sin": 1, "cos": 1, "softplus": 5,
+            "softplus_backward": 6, "maximum": 1, "minimum": 1, "clamp": 2}
 _VIEWS = {aten.t.default, aten.permute.default, aten.expand.default, aten.unsqueeze.default,
           aten.squeeze.dim, aten.select.int, aten.slice.Tensor, aten.unbind.int,
-          aten.diagonal.default, aten.flip.default}
+          aten.diagonal.default, aten.flip.default, aten.transpose.int}
 _FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.default: 0.0,
           aten.new_zeros.default: 0.0}
 # the index maps with constant indices (see the module docstring)
 _PUTS = {aten.index_put.default, aten.diag_embed.default, aten.diagonal_backward.default}
+# the reductions besides sum and logsumexp
+_MEANS = {aten.mean.default, aten.mean.dim}
+# the per-lane factorizations and solves of a rank-2 matrix (see `Op`)
+_LINALG = {aten.linalg_cholesky_ex.default, aten.linalg_solve_triangular.default,
+           aten._linalg_slogdet.default, aten._linalg_solve_ex.default}
 # ops that stay literals rather than fold into a constant
 _KEEP = set(_FILLS) | {aten.scalar_tensor.default}
-_TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP
+_TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP | _MEANS | _LINALG
           | {aten.lift_fresh_copy.default, aten.view.default, aten.sum.default,
              aten.sum.dim_IntList, aten.logsumexp.default, aten.mv.default, aten.mm.default,
              aten.dot.default, aten.select_backward.default, aten.slice_backward.default,
              aten.stack.default, aten.cat.default, aten.cumsum.default, aten.index.Tensor,
+             aten.linalg_vector_norm.default, aten.tril.default, aten.triu.default,
              operator.getitem} | _PUTS)
+
+
+@dataclass(frozen=True)
+class _Inside:
+    """An output of a factorization that stays inside its op (its pivots,
+    its LU factors, its ``info``): an objective that reads one does not
+    trace; ``_linalg_check_errors`` of an ``info`` emits nothing (a failed
+    factorization gives NaN on its lane instead)."""
+
+    what: str
+    op: str
 
 
 def graph_ops(graph: Graph) -> int:
     """Floating-point operations of one evaluation of ``graph`` (exp, log,
-    log1p, tanh and a division one each): the elementwise functions per
-    output element (`_EW_COST`), a sum and a cumsum one per input element,
-    a logsumexp three (the max, exp(a - max), the sum) and 2 per output,
-    mv, mm and dot two per product, a put with ``accumulate`` one per
-    source; copies, gathers, scatters and stacks move data and count
-    none."""
+    log1p, tanh, a square root and a division one each): the elementwise
+    functions per output element (`_EW_COST`), a sum and a cumsum one per
+    input element, a mean one per input and one per output element, a
+    2-norm two per input and one per output element, a logsumexp three (the max, exp(a - max),
+    the sum) and 2 per output, mv, mm and dot two per product, a put with
+    ``accumulate`` one per source, and of an m x m matrix a Cholesky
+    factorization m³/3, an LU factorization 2m³/3 and a triangular solve m²
+    per right-hand side (a solve through LU two); copies, gathers,
+    scatters, stacks and tril move data and count none."""
     ops = 0
     for op in graph.ops:
         if op.kind == "ew":
             ops += _EW_COST[op.name] * op.out.numel
         elif op.kind == "sum":
             ops += op.args[0].numel
+        elif op.kind == "mean":
+            ops += op.args[0].numel + op.out.numel
+        elif op.kind == "norm":
+            ops += 2 * op.args[0].numel + op.out.numel
         elif op.kind == "lse":
             ops += 3 * op.args[0].numel + 2 * op.out.numel
         elif op.kind == "mv":  # M (m, k) times a vector, or a matrix (k, p)
@@ -256,7 +348,17 @@ def graph_ops(graph: Graph) -> int:
             ops += op.args[0].numel
         elif op.kind == "put" and op.params[2]:
             ops += op.params[3]  # the sources
+        elif op.kind in ("chol", "trsm", "slogdet", "solve"):
+            m = op.args[0].shape[0]
+            columns = _columns(op.out) if op.kind in ("trsm", "solve") else 0
+            ops += {"chol": m ** 3 // 3, "trsm": m * m * columns, "slogdet": 2 * m ** 3 // 3,
+                    "solve": 2 * m ** 3 // 3 + 2 * m * m * columns}[op.kind]
     return ops
+
+
+def _columns(ref: Ref) -> int:
+    """Right-hand sides of a solve whose output is ``ref``: (m,) or (m, k)."""
+    return ref.shape[1] if len(ref.shape) > 1 else 1
 
 
 # ---------------------------------------------------------------------------
@@ -429,8 +531,15 @@ class _Lowering:
         if target is operator.getitem:
             seq = env[node.args[0]]
             return seq[node.args[1]]
+        if target == aten._linalg_check_errors.default:
+            return None  # a failed factorization gives NaN on its lane
         if not isinstance(target, torch._ops.OpOverload):
             raise self.refuse(node, f"the call {name}")
+        inside = [env[a] for a in _flat_nodes(node.args, node.kwargs)
+                  if isinstance(env[a], _Inside)]
+        if inside:
+            raise self.refuse(node, f"the {inside[0].what} of a {inside[0].op} read by the "
+                                    f"objective ({name}): they stay inside their op")
         if target._schema.is_mutable:
             target = self.out_of_place(node, env)
         if torch.Tag.nondeterministic_seeded in target.tags:
@@ -541,6 +650,17 @@ class _Lowering:
             keepdim = bool(node.args[2]) if len(node.args) > 2 else bool(kw.get("keepdim", False))
             return self.reduce(node, "lse" if target == aten.logsumexp.default else "sum", src,
                                dims, keepdim)
+        if target in _MEANS or target == aten.linalg_vector_norm.default:
+            return self.mean_or_norm(node, target, self.floats(node, a[0]), kw)
+        if target in (aten.tril.default, aten.triu.default):
+            src = self.floats(node, a[0])
+            out = self.lane(out_shape)
+            diagonal = node.args[1] if len(node.args) > 1 else kw.get("diagonal", 0)
+            name = "tril" if target == aten.tril.default else "triu"
+            self.ops.append(Op("tril", name, out, (src,), (int(diagonal),), str(target)))
+            return out
+        if target in _LINALG:
+            return self.linalg(node, target, a, kw)
         if target in (aten.mv.default, aten.mm.default):
             M, v = self.floats(node, a[0]), self.floats(node, a[1])
             out = self.lane(out_shape)
@@ -683,6 +803,18 @@ class _Lowering:
                                         f"({node.target})")
         return ref
 
+    def truth(self, ref: Ref) -> Ref:
+        """A closed-over mask as 0/1 in x0s's dtype (the kernel reads
+        constants as Real); other truth values as they are."""
+        if ref.kind != "const" or not ref.boolean:
+            return ref
+        key = ("as floats", ref.index)
+        if key not in self.const_ids:
+            mask = self.consts[ref.index].to(self.dtype)
+            self.const_ids[key] = (len(self.consts), mask)
+            self.consts.append(mask)
+        return replace(ref, index=self.const_ids[key][0])
+
     def elementwise(self, node, fn, a, kw, out_shape):
         params = ()
         if fn in ("add", "sub", "rsub"):
@@ -694,31 +826,120 @@ class _Lowering:
                 raise self.refuse(node, f"a traced exponent ({node.target})")
             params = (float(node.args[1]),)
             operands = a[:1]
-        elif fn == "where":
-            operands = a[:3]
+        elif fn in ("where", "masked_fill"):
+            # masked_fill(self, mask, value) is where(mask, value, self)
+            operands = a[:3] if fn == "where" else [a[1], a[2], a[0]]
+            fn = "where"
             if not operands[0].boolean:
-                raise self.refuse(node, "a condition that is not a comparison (aten.where.self)")
-            if operands[0].kind == "const":  # a closed-over mask, as 0/1 in x0s's dtype
-                key = ("as floats", operands[0].index)
-                if key not in self.const_ids:
-                    mask = self.consts[operands[0].index].to(self.dtype)
-                    self.const_ids[key] = (len(self.consts), mask)
-                    self.consts.append(mask)
-                operands[0] = replace(operands[0], index=self.const_ids[key][0])
+                raise self.refuse(node, f"a condition that is not a comparison ({node.target})")
+        elif fn in ("softplus", "softplus_backward"):
+            given = list(node.args[1 if fn == "softplus" else 2:])
+            given += [kw.get(k, v) for k, v in (("beta", 1), ("threshold", 20))][len(given):]
+            params = tuple(float(v) for v in given[:2])
+            operands = a[:1] if fn == "softplus" else a[:2]
+        elif fn == "clamp":
+            given = list(node.args[1:]) + [kw.get(k) for k in ("min", "max")][len(node.args) - 1:]
+            if any(v is not None and not isinstance(v, (int, float)) for v in given):
+                raise self.refuse(node, f"a clamp with traced bounds ({node.target})")
+            params = (-math.inf if given[0] is None else float(given[0]),
+                      math.inf if given[1] is None else float(given[1]))
+            operands = a[:1]
         elif fn in _UNARY:
             operands = a[:1]
         elif fn == "log_sigmoid_backward":
             operands = a[:2]  # the CUDA formula needs no buffer
         else:
             operands = a[:2]
-        checked = [operands[0]] if fn == "where" else []
+        if fn == "where":
+            checked = [self.truth(operands[0])]
+        elif fn in ("and", "or", "not"):  # truth values, or numbers tested against 0
+            checked = [self.truth(r) if r.boolean else self.floats(node, r) for r in operands]
+        else:
+            checked = []
         checked += [self.floats(node, r) for r in operands[len(checked):]]
         out = self.lane(out_shape)
-        out = replace(out, boolean=fn == "gt")
+        out = replace(out, boolean=fn in _BOOLEAN)
         self.ops.append(Op("ew", fn, out, tuple(checked), params, str(node.target)))
         if fn == "log_sigmoid":  # (output, buffer): the buffer is never read
             return (out, Ref("lit"))
         return out
+
+    def mean_or_norm(self, node, target, src: Ref, kw):
+        """``mean`` (all dims or ``.dim``) and ``linalg_vector_norm`` of
+        ord 2, as reductions."""
+        if kw.get("dtype") not in (None, self.dtype):
+            raise self.refuse(node, f"a reduction in another dtype ({target})")
+        args = list(node.args[1:])
+        if target == aten.linalg_vector_norm.default:
+            order = args.pop(0) if args else kw.get("ord", 2)
+            if float(order) != 2.0:
+                raise self.refuse(node, f"a vector norm of ord {order} ({target}): only ord 2 "
+                                        "traces")
+            kind = "norm"
+        else:
+            kind = "mean"
+        dims = args[0] if args else kw.get("dim")
+        keepdim = bool(args[1]) if len(args) > 1 else bool(kw.get("keepdim", False))
+        return self.reduce(node, kind, src, [dims] if isinstance(dims, int) else dims, keepdim)
+
+    def matrix(self, node, ref: Ref) -> Ref:
+        """A linear-algebra op's matrix: one m x m per lane, floating, with
+        room for its work copy in one block's shared memory."""
+        ref = self.floats(node, ref)
+        if len(ref.shape) != 2 or ref.shape[0] != ref.shape[1]:
+            raise self.refuse(node, f"a factorization of a {ref.shape} value per lane "
+                                    f"({node.target}): one square matrix per lane")
+        m = ref.shape[0]
+        if m * m * self.dtype.itemsize > SMEM_LIMIT_BYTES:
+            raise self.refuse(node, f"a matrix of m = {m} per lane ({node.target}): its work copy "
+                                    "alone exceeds one block's shared memory")
+        return ref
+
+    def linalg(self, node, target, a, kw):
+        """The per-lane factorizations and solves (see `Op`): the outputs
+        torch's op returns, its pivots, LU factors and ``info`` as
+        `_Inside`. A right-side solve (X A = B) is the left-side one of the
+        transposes, its output a transposed view."""
+        A = self.matrix(node, a[0])
+        m = A.shape[0]
+        source = str(target)
+
+        def t(ref):
+            return _view(aten.t.default, ref, (), None)
+
+        if target == aten.linalg_cholesky_ex.default:
+            out = self.lane((m, m))
+            self.ops.append(Op("chol", "cholesky", out, (A,), (), source))
+            upper = node.args[1] if len(node.args) > 1 else kw.get("upper", False)
+            return [t(out) if upper else out, _Inside("info", "Cholesky factorization")]
+        if target == aten._linalg_slogdet.default:
+            out, work = self.lane((2,)), self.lane((m, m))
+            self.ops.append(Op("slogdet", "slogdet", out, (A,), (work.offset,), source))
+            return [Ref("lane", (), (), out.offset), Ref("lane", (), (), out.offset + 1),
+                    _Inside("LU factors", "slogdet"), _Inside("pivots", "slogdet")]
+        B = self.floats(node, a[1])
+        left = kw.get("left", True)
+        if not left and len(B.shape) != 2:
+            raise self.refuse(node, f"a right-side solve of a vector ({target})")
+        if len(B.shape) not in (1, 2) or (B.shape[0] if left else B.shape[1]) != m:
+            raise self.refuse(node, f"a right-hand side of shape {B.shape} for an {m} x {m} "
+                                    f"matrix ({target})")
+        if not left:  # X A = B: Aᵀ Xᵀ = Bᵀ
+            A, B = t(A), t(B)
+        if target == aten.linalg_solve_triangular.default:
+            if len(B.shape) != 2:
+                raise self.refuse(node, f"a triangular solve of a vector ({target})")
+            if A.kind == "lit":  # the substitution reads the matrix where it lies
+                A = self.copy(A)
+            upper = bool(kw["upper"]) != (not left)
+            out = self.lane(B.shape)
+            self.ops.append(Op("trsm", "solve_triangular", out, (A, B),
+                               (upper, bool(kw.get("unitriangular", False))), source))
+            return out if left else t(out)
+        out, work = self.lane(B.shape), self.lane((m, m))
+        self.ops.append(Op("solve", "solve", out, (A, B), (work.offset,), source))
+        return [out if left else t(out), _Inside("LU factors", "solve"),
+                _Inside("pivots", "solve"), _Inside("info", "solve")]
 
     def reduce(self, node, kind, src: Ref, dims, keepdim):
         rank = len(src.shape)
@@ -790,6 +1011,10 @@ def _view(target, ref: Ref, args, out_shape, kwargs=None) -> Ref:
     kwargs = kwargs or {}
     if target == aten.t.default:
         shape, strides = shape[::-1], strides[::-1]
+    elif target == aten.transpose.int:
+        d0, d1 = (d % len(shape) for d in args[:2])
+        shape[d0], shape[d1] = shape[d1], shape[d0]
+        strides[d0], strides[d1] = strides[d1], strides[d0]
     elif target == aten.permute.default:
         dims = [d % len(shape) for d in args[0]]
         shape, strides = [shape[d] for d in dims], [strides[d] for d in dims]
@@ -979,6 +1204,42 @@ def _elementwise(op: Op, x, dtype):
         return x[0] * (1.0 - x[1] * x[1])
     if name == "sigmoid_backward":
         return x[0] * (1.0 - x[1]) * x[1]
+    if name in _COMPARISONS:
+        op_ = {"gt": torch.gt, "lt": torch.lt, "le": torch.le, "ge": torch.ge, "eq": torch.eq,
+               "ne": torch.ne}[name]
+        return op_(x[0], x[1]).to(dtype)
+    if name in ("and", "or"):
+        both = (torch.logical_and if name == "and" else torch.logical_or)(x[0] != 0, x[1] != 0)
+        return both.to(dtype)
+    if name == "not":
+        return (x[0] == 0).to(dtype)
+    if name == "abs":
+        return torch.abs(x[0])
+    if name == "sgn":  # (0 < a) - (a < 0): 0 at 0 and at NaN
+        return (0 < x[0]).to(dtype) - (x[0] < 0).to(dtype)
+    if name == "sqrt":
+        return torch.sqrt(x[0])
+    if name == "sin":
+        return torch.sin(x[0])
+    if name == "cos":
+        return torch.cos(x[0])
+    if name == "softplus":  # x above the threshold, else log1p(exp(x·beta)) / beta
+        beta, threshold = p
+        a = x[0]
+        return torch.where(a * beta > threshold, a, torch.log1p(torch.exp(a * beta)) / beta)
+    if name == "softplus_backward":
+        beta, threshold = p
+        g, a = x[0], x[1]
+        z = torch.exp(a * beta)
+        return torch.where(a * beta > threshold, g, g * z / (z + 1.0))
+    if name in ("maximum", "minimum"):  # NaN wins, as torch's
+        a, b = torch.broadcast_tensors(x[0], x[1])
+        pick = (a < b) if name == "maximum" else (b < a)
+        return torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b,
+                                                          torch.where(pick, b, a)))
+    if name == "clamp":  # NaN stays NaN; an absent bound is infinite
+        a = torch.where(x[0] < p[0], torch.full_like(x[0], p[0]), x[0])
+        return torch.where(p[1] < a, torch.full_like(a, p[1]), a)
     if name == "log_sigmoid_backward":
         g, a = x[0], x[1]
         neg = a < 0
@@ -1011,6 +1272,50 @@ def _put(op: Op, base, scratch, consts, tables, dtype):
         has = counts > 0
         acc[has] = value(ptr[1:][has] - 1)
     return acc.reshape(op.out.shape)
+
+
+def _linalg(op: Op, ins):
+    """A factorization or solve in torch under `in_band_linalg`, whose
+    rule for a failed factorization the kernel shares."""
+    A = ins[0]
+    with in_band_linalg():
+        if op.kind == "chol":
+            return torch.linalg.cholesky_ex(A).L
+        if op.kind == "trsm":
+            upper, unit = op.params
+            return torch.linalg.solve_triangular(A, ins[1], upper=upper, unitriangular=unit)
+        if op.kind == "slogdet":
+            return torch.stack(torch.linalg.slogdet(A))
+        return torch.linalg.solve_ex(A, ins[1]).result
+
+
+class in_band_linalg(torch.utils._python_dispatch.TorchDispatchMode):
+    """The kernel's rule for a failed factorization in plain torch: under
+    this mode ``_linalg_check_errors`` raises nothing, and a Cholesky
+    factor whose ``info`` is not 0, an LU ``slogdet`` with a pivot of 0 (sign
+    0) and a ``solve`` whose ``info`` is not 0 are NaN on their lane, as
+    JAX's are (its ``cholesky`` gives NaN, so ``fun`` is NaN in band). The
+    plain version of B3 runs a factorizing objective under it
+    (resident_kernel.py :: optimize_batched_resident_reference)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func == aten._linalg_check_errors.default:
+            return None
+        out = func(*args, **(kwargs or {}))
+        if func == aten.linalg_cholesky_ex.default:
+            L, info = out
+            return torch.where((info != 0)[..., None, None], math.nan, L), info
+        if func == aten._linalg_slogdet.default:
+            sign, logabs, LU, pivots = out
+            bad = sign == 0
+            return (torch.where(bad, math.nan, sign), torch.where(bad, math.nan, logabs), LU,
+                    pivots)
+        if func == aten._linalg_solve_ex.default:
+            X, LU, pivots, info = out
+            bad = info != 0
+            bad = bad[..., None] if X.ndim == info.ndim + 1 else bad[..., None, None]
+            return torch.where(bad, math.nan, X), LU, pivots, info
+        return out
 
 
 def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
@@ -1056,6 +1361,18 @@ def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
             y = y.reshape(op.out.shape)
         elif op.kind == "put":
             y = _put(op, ins[0], scratch, consts, tables, dtype)
+        elif op.kind in ("mean", "norm"):
+            dims = op.params[0]
+            if op.kind == "norm":
+                y = torch.sqrt((ins[0] * ins[0]).sum(dim=dims)) if dims else ins[0].abs()
+            else:
+                count = math.prod(op.args[0].shape[d] for d in dims)
+                inv = torch.tensor(1.0, dtype=dtype) / torch.tensor(float(count), dtype=dtype)
+                y = ins[0].sum(dim=dims) * inv.to(x.device) if dims else ins[0].clone()
+        elif op.kind == "tril":
+            y = (torch.tril if op.name == "tril" else torch.triu)(ins[0], op.params[0])
+        elif op.kind in ("chol", "trsm", "slogdet", "solve"):
+            y = _linalg(op, ins)
         else:
             raise AssertionError(op.kind)
         y = torch.broadcast_to(y, op.out.shape)

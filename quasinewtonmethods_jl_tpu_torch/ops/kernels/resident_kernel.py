@@ -24,6 +24,7 @@ update on the same objective, which the kernel is held to.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import ctypes
 import functools
@@ -50,7 +51,7 @@ from ..linesearch import BackTracking
 from ._build import check_launch, load_generated, load_library
 from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES, launch_occupancy
 from .objective_codegen import generate, lane_warps
-from .objective_trace import TracedObjective
+from .objective_trace import TracedObjective, in_band_linalg
 
 __all__ = [
     "resident_bfgs_solve",
@@ -137,8 +138,10 @@ def resident_feasible(n: int, itemsize: int, objective=None) -> bool:
     float32, n <= 165 in float64; the GLMs' scratch takes a little more,
     the AR(1)'s depends on its number of steps too, a traced objective's
     on its graph (one slot per op's output, a cumsum's, a gather's and a
-    put's among them; its constants and int32 index tables lie in device
-    memory and take none). Larger n belong to `optimize_batched_fused`."""
+    put's among them, a Cholesky factor's m² and an LU work copy's m²; its
+    constants and int32 index tables lie in device memory and take none).
+    Larger n, and objectives whose matrices do not fit, belong to
+    `optimize_batched_fused`."""
     values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective, n)
     return values * itemsize <= SMEM_LIMIT_BYTES
 
@@ -159,13 +162,16 @@ def optimize_batched_resident_reference(
     this run does: `rosenbrock_value_and_grad` and `rosenbrock_logdensity`;
     a model's ``logdensity_and_gradient`` and ``logdensity``; the funnel's
     gradient by ``torch.func``; a traced objective's user functions, as
-    the fleet engine resolves them."""
+    the fleet engine resolves them, where they factorize a matrix under
+    `in_band_linalg` (a failed factorization gives NaN on its lane, as in
+    the kernel, not an exception)."""
     if isinstance(objective, TracedObjective):
-        return optimize_batched_fused(
-            objective.obj, x0s, ls, tol, max_iterations,
-            value_and_grad_fn=objective.value_and_grad_fn, kernel="torch", h0_scale=h0_scale,
-            stall_limit=stall_limit,
-        )
+        with in_band_linalg() if objective.factorizes else contextlib.nullcontext():
+            return optimize_batched_fused(
+                objective.obj, x0s, ls, tol, max_iterations,
+                value_and_grad_fn=objective.value_and_grad_fn, kernel="torch",
+                h0_scale=h0_scale, stall_limit=stall_limit,
+            )
     if objective is None:
         return optimize_batched_fused(
             rosenbrock_logdensity, x0s, ls, tol, max_iterations,

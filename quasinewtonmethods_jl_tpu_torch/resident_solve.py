@@ -43,6 +43,17 @@ routes:
     ``value_and_grad_fn`` and any inline function of the table's ops run
     there, and so do `transforms.py`'s maps and the models built on them
     (`models.HierarchicalRegression` through `transform_objective`).
+    The table holds arithmetic and the usual elementwise functions (exp,
+    log, log1p, sqrt, abs, sin, cos, tanh, sigmoid, softplus, maximum,
+    minimum, clamp), comparisons, logical ops, ``where`` and
+    ``masked_fill``, sums, means, logsumexp and 2-norms, matrix products,
+    index maps with constant indices, and per lane the Cholesky
+    factorization, triangular solves, ``logdet`` / ``slogdet`` and
+    ``solve`` of an m x m matrix (a Gaussian-process likelihood from many
+    starts runs in one launch); a failed factorization gives NaN on its
+    lane, as in JAX, and the plain version runs such an objective under
+    ops/kernels/objective_trace.py :: `in_band_linalg` to do the same. Data-dependent control flow
+    (``torch.cond``, ``torch.while_loop``) does not trace.
     The entry point keeps its traces, the counterpart of the jit cache of
     JAX's ``_optimize_batched_resident_jit``, whose objective is a static
     argument: keyed by the objective and ``value_and_grad_fn`` (by their
@@ -63,7 +74,8 @@ routes:
 An objective that does not trace to the table (an op outside it, a
 per-lane value of rank > 2, data-dependent control flow or shapes,
 ``.item()``, random ops, in-place writes, a constant in another floating
-dtype than ``x0s``) raises ValueError on every device, naming the op and
+dtype than ``x0s``, a factorization's pivots or info read) raises
+ValueError on every device, naming the op and
 the user's line, and points to `optimize_batched_fused`, which takes any
 objective; nothing falls back to the plain version or to the fleet engine
 unasked.

@@ -936,6 +936,91 @@ def test_hierarchical_fleet_launches_once_without_a_host_sync(cuda_device):
     assert len(resident_solve._TRACES) == 1 and torch.equal(again.x, res.x)
 
 
+# B3 on the ops the trace takes since the comparisons, the elementwise
+# functions, mean and norms and the per-lane linear algebra joined it
+# (csrc/resident_linalg.cuh): chip_smoke.py's phase-33 parity objectives.
+OPS_CASES = [
+    ("comparisons and masks", 60, torch.float64, 1e-6),
+    ("comparisons and masks", 60, torch.float32, 1e-3),
+    ("elementwise functions", 60, torch.float64, 1e-6),
+    ("elementwise functions", 60, torch.float32, 1e-3),
+    ("mean and norms", 100, torch.float64, 1e-6),
+    ("gp cholesky", 3, torch.float64, 1e-6), ("gp cholesky", 3, torch.float32, 1e-3),
+    ("gp lu", 3, torch.float64, 1e-6), ("gp logdet", 3, torch.float64, 1e-6),
+    ("linalg across two warps", 70, torch.float64, 1e-6),
+    ("lu pivoting across two warps", 70, torch.float64, 1e-6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", OPS_CASES)
+def test_new_ops_match_plain_version(cuda_device, kind, n, dtype, tol):
+    """Each group of the new ops, generated into B3, against the plain
+    version by chip_smoke.py's phase-22 rule (`traced_parity`): over caps
+    0, 1 and 5 every counter equal on every lane and x, grad and B within
+    1e-10 (f64) or, in f32, 1e-5 or twice what the plain version moves on
+    the CPU; over whole solves the lanes of another status at most twice
+    as many as a start one ulp away changes in the plain run itself."""
+    import quasinewtonmethods_jl_tpu_torch as qt
+
+    cs = _chip_smoke()
+    obj, _, starts = cs.ops_case(kind, n, dtype, cuda_device)
+    X = torch.tensor(starts, dtype=dtype, device=cuda_device)
+    on_cpu = cs.ops_case(kind, n, dtype, torch.device("cpu"))[0]
+    _, _, failures = cs.traced_parity(qt, qt.trace_objective(obj, None, X), X, tol, kind,
+                                      qt.trace_objective(on_cpu, None, X.cpu()))
+    assert not failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_a_failed_factorization_is_nan_on_its_lane_on_the_card(cuda_device, dtype):
+    """A lane whose matrix is not positive definite at its start (here
+    K0 - 39 I) evaluates to NaN in B3 as in the plain version and ends
+    NONFINITE_VALUE; the other lanes run on as in the plain version."""
+    m = 5
+    rng = np.random.default_rng(7)
+    B = rng.standard_normal((m, m))
+    K0 = torch.tensor(B @ B.T / m, dtype=dtype, device=cuda_device)
+    y = torch.tensor(rng.standard_normal(m), dtype=dtype, device=cuda_device)
+
+    def obj(x):
+        L = torch.linalg.cholesky(K0 + (1.0 + x[0] * x[0] - x[1]) * torch.eye(m, dtype=dtype,
+                                                                               device=x.device))
+        a = torch.linalg.solve_triangular(L, y[:, None], upper=False)
+        return -0.5 * torch.sum(a * a) - torch.sum(torch.log(torch.diagonal(L))) \
+            - 0.5 * torch.sum(x * x)
+
+    X = torch.tensor(rng.standard_normal((8, 2)) * 0.5, dtype=dtype, device=cuda_device)
+    X[3] = torch.tensor([0.0, 40.0])
+    tol = 1e-6 if dtype == torch.float64 else 1e-3
+    kern = optimize_batched_resident(obj, X, tol=tol)
+    plain = optimize_batched_resident(obj, X, tol=tol, kernel="torch")
+    assert torch.equal(kern.status, plain.status)
+    assert int(kern.status[3]) == int(Status.NONFINITE_VALUE) and bool(torch.isnan(kern.fun[3]))
+    assert bool((kern.status[torch.arange(8, device=cuda_device) != 3] == Status.CONVERGED).all())
+
+
+@pytest.mark.cuda
+def test_a_lane_too_large_for_a_block_raises_before_any_build(cuda_device):
+    """A GP of 64 points in float64: its factor and temporaries do not fit
+    one block's shared memory, so B3 refuses it before generating or
+    building anything (`resident_feasible`)."""
+    from quasinewtonmethods_jl_tpu_torch.ops.kernels import _build
+
+    cs = _chip_smoke()
+    t = lambda a: torch.tensor(a, dtype=torch.float64, device=cuda_device)  # noqa: E731
+    d2, y = cs.gp_points(np.random.default_rng(1), 64)
+    obj = cs.gp_objective(t(d2), t(y), "cholesky", t)
+    built = set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()
+    loaded = dict(_build._GENERATED)
+    with pytest.raises(ValueError, match="infeasible"):
+        optimize_batched_resident(obj, torch.zeros((8, 3), dtype=torch.float64,
+                                                   device=cuda_device))
+    assert _build._GENERATED == loaded
+    assert (set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()) == built
+
+
 @pytest.mark.cuda
 def test_untraceable_objective_raises_before_any_build(cuda_device):
     """An objective outside the table raises ValueError on the card as on
@@ -945,8 +1030,8 @@ def test_untraceable_objective_raises_before_any_build(cuda_device):
     built = set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()
     loaded = dict(_build._GENERATED)
     X = torch.zeros((8, 6), device=cuda_device)
-    with pytest.raises(ValueError, match=r"aten\.sin.*optimize_batched_fused"):
-        optimize_batched_resident(lambda x: torch.sin(x).sum(), X)
+    with pytest.raises(ValueError, match=r"aten\.lgamma.*optimize_batched_fused"):
+        optimize_batched_resident(lambda x: torch.lgamma(x).sum(), X)
     assert _build._GENERATED == loaded
     assert (set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()) == built
 
