@@ -17,7 +17,8 @@ csrc/resident_solve.cuh and exports plain C entry points:
   qnm_cuda_error_string(code)
 
 Simple and right first. A lane runs the graph op by op: each op's output is
-a slot of the lane's shared scratch (the objective's ``extra_values``),
+a slot of the lane's shared scratch (the objective's ``extra_values``; a
+slot is reused only where one per op would not fit, objective_trace._pack),
 stored flat, row-major; an elementwise op or a broadcast is a loop over its
 output elements strided by the lane group's threads, with its operands read
 through their index maps (a view is only an index map); a reduction to one
@@ -42,7 +43,14 @@ backwards of tanh and sigmoid g·(1 - y·y) and g·(1 - y)·y, sgn (0 < x) -
 and else log1p(exp(x·beta)) / beta, maximum, minimum and clamp let a NaN
 through (CUDA's fmax does not), a comparison or a logical op 1 or 0; a
 mean is the sum times 1/count (torch's MeanOps) and a 2-norm the square
-root of the sum of squares. A factorization or solve of one lane's m x m
+root of the sum of squares. lgamma, erf, erfc, expm1, rsqrt, atan2 and pow
+with a tensor exponent are CUDA's device functions (as torch's kernels
+call them), reciprocal is 1/x, digamma torch's calc_digamma, xlogy 0 where
+x is 0 (NaN where y is), log_ndtr torch's calc_log_ndtr (with CUDA's
+erfcx below -1), BCE with logits the form torch's autograd and vmap
+decompose it to; a max or min lets a NaN win, over the lane through the
+lane group's butterfly, and ``max.dim``'s index is each extreme's first,
+which its backward's pick reads. A factorization or solve of one lane's m x m
 matrix copies its input into the lane's scratch (the factor's slot, or a
 work copy, and the right-hand sides into the output) and calls the lane
 group's device functions of csrc/resident_linalg.cuh: right-looking
@@ -200,7 +208,30 @@ def _ew_expr(op: Op, x: list) -> str:
         return f"traced_{name}({x[0]}, {x[1]})"
     if name == "clamp":
         return f"traced_clamp({x[0]}, {_lit(p[0])}, {_lit(p[1])})"
+    if name in _MATH or name in ("digamma", "xlogy", "log_ndtr", "bce_logits"):  # helpers
+        return f"traced_{name}({', '.join(x)})"
+    if name == "reciprocal":
+        return f"Real(1) / {x[0]}"
+    if name == "isnan":
+        return f"isnan({x[0]}) ? Real(1) : Real(0)"
     raise AssertionError(name)
+
+
+# the functions that are one CUDA device function: (name, float's, double's,
+# arguments), each written into a unit as an overload pair only where used
+_MATH = {"lgamma": ("lgammaf", "lgamma", 1), "erf": ("erff", "erf", 1),
+         "erfc": ("erfcf", "erfc", 1), "expm1": ("expm1f", "expm1", 1),
+         "rsqrt": ("rsqrtf", "rsqrt", 1), "atan2": ("atan2f", "atan2", 2),
+         "powt": ("powf", "pow", 2), "erfcx": ("erfcxf", "erfcx", 1)}
+
+
+def _math_helper(name: str) -> str:
+    single, double, arity = _MATH[name]
+    params = ", ".join(f"{{t}} {v}" for v in "ab"[:arity])
+    args = ", ".join("ab"[:arity])
+    return "".join(f"__device__ __forceinline__ {t} traced_{name}({params.format(t=t)}) "
+                   f"{{ return {fn}({args}); }}\n"
+                   for t, fn in (("float", single), ("double", double)))
 
 
 _COMPARE = {"gt": ">", "lt": "<", "le": "<=", "ge": ">=", "eq": "==", "ne": "!="}
@@ -241,8 +272,29 @@ class _Emitter:
             else:
                 body = f"{decl}s[{out.offset} + i] = {_ew_expr(op, x)}; "
             self.loop(out.numel, body)
-        elif op.kind in ("sum", "lse", "mean", "norm"):
+        elif op.kind in ("sum", "lse", "mean", "norm", "max", "min"):
             self.reduce(op)
+        elif op.kind == "arg":  # one output element per thread: the first extreme's index
+            (src,), (dims,) = op.args, op.params
+            if not dims:
+                self.loop(1, f"s[{out.offset}] = Real(0); ")
+            else:
+                (red,) = dims
+                coords = ["r"] if len(src.shape) == 1 else (["i", "r"] if red == 1 else ["r", "i"])
+                beats = "v > top" if op.name == "max" else "v < top"
+                first = _load(src, ["0" if c == "r" else c for c in coords])
+                self.loop(out.numel,
+                          f"int at = 0; Real top = {first}; for (int r = 1; r < {src.shape[red]}; "
+                          f"++r) {{ const Real v = {_load(src, coords)}; if (!isnan(top) && "
+                          f"(isnan(v) || {beats})) {{ top = v; at = r; }} }} "
+                          f"s[{out.offset} + i] = Real(at); ")
+        elif op.kind == "pick":  # the source where the coordinate is the index, else the base
+            base, index, src = op.args
+            (dim,) = op.params
+            decl, oc = _coords(out.shape)
+            self.loop(out.numel, f"{decl}s[{out.offset} + i] = {oc[dim]} == "
+                                 f"int({_broadcast(index, oc)}) ? {_broadcast(src, oc)} : "
+                                 f"{_broadcast(base, oc)}; ")
         elif op.kind == "tril":
             decl, oc = _coords(out.shape)
             keep = "<=" if op.name == "tril" else ">="
@@ -353,6 +405,9 @@ class _Emitter:
             value = _load(src, [])
             self.loop(1, f"s[{out.offset}] = {f'fabs({value})' if op.kind == 'norm' else value}; ")
             return
+        if op.kind in ("max", "min"):
+            self.extreme(op, dims)
+            return
         # the mean's 1 / count and the 2-norm's square root (torch's MeanOps and
         # NormTwoOps), on the sum of the terms or of their squares
         count = math.prod(src.shape[d] for d in dims)
@@ -393,6 +448,30 @@ class _Emitter:
                   f"const Real shift = isinf(top) ? Real(0) : top; Real acc = Real(0); "
                   f"for (int r = 0; r < {count}; ++r) acc += qnm::exp_of({term} - shift); "
                   f"s[{out.offset} + i] = qnm::log_of(acc) + shift; ")
+
+
+    def extreme(self, op: Op, dims):
+        """A max or min over ``dims`` (NaN wins, as torch's): to one value,
+        strided partials per thread and the lane group's butterfly
+        (`traced_lane_pick`); over one of two dims, one output element per
+        thread, in order."""
+        out, (src,) = op.out, op.args
+        wins = "true" if op.kind == "max" else "false"
+        start = "-Real(INFINITY)" if op.kind == "max" else "Real(INFINITY)"
+        if len(dims) == len(src.shape):
+            decl, ic = _coords(src.shape)
+            self.emit("{")
+            self.emit(f"  Real acc = {start};")
+            self.loop(src.numel, f"{decl}acc = traced_pick<{wins}>(acc, {_load(src, ic)}); ")
+            self.emit(f"  acc = traced_lane_pick<{wins}>(grp, acc);")
+            self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = acc;")
+            self.emit("}")
+            return
+        (red,) = dims
+        coords = ["i", "r"] if red == 1 else ["r", "i"]
+        self.loop(out.numel, f"Real acc = {start}; for (int r = 0; r < {src.shape[red]}; ++r) "
+                             f"acc = traced_pick<{wins}>(acc, {_load(src, coords)}); "
+                             f"s[{out.offset} + i] = acc; ")
 
 
 def _square(op: Op, term: str) -> str:
@@ -459,12 +538,103 @@ __device__ __forceinline__ Real traced_clamp(Real a, Real lo, Real hi) {
   return hi < up ? hi : up;
 }
 """,
+    # torch's calc_digamma (native/cuda/Math.cuh): the reflection below 0, the
+    # recurrence up to 10, the asymptotic series; ±inf at ∓0, NaN at the poles
+    "digamma": r"""__device__ __forceinline__ Real traced_digamma(Real in) {
+  const double kPi = 3.14159265358979323846;
+  const Real kPsi10 = Real(2.25175258906672110764);
+  Real x = in;
+  if (x == Real(0)) return signbit(x) ? Real(INFINITY) : -Real(INFINITY);
+  const bool x_is_integer = x == trunc(x);
+  Real result = Real(0);
+  if (x < Real(0)) {
+    if (x_is_integer) return Real(NAN);
+    double q;
+    const double r = modf(double(x), &q);
+    result = Real(-kPi / tan(kPi * r));
+    x = Real(1) - x;
+  }
+  while (x < Real(10)) {
+    result -= Real(1) / x;
+    x += Real(1);
+  }
+  if (x == Real(10)) return result + kPsi10;
+  Real y = Real(0);
+  if (x < Real(1.0e17)) {
+    const Real z = Real(1) / (x * x);
+    Real p = Real(0);
+    p = p * z + Real(8.33333333333333333333E-2);
+    p = p * z + Real(-2.10927960927960927961E-2);
+    p = p * z + Real(7.57575757575757575758E-3);
+    p = p * z + Real(-4.16666666666666666667E-3);
+    p = p * z + Real(3.96825396825396825397E-3);
+    p = p * z + Real(-8.33333333333333333333E-3);
+    p = p * z + Real(8.33333333333333333333E-2);
+    y = z * p;
+  }
+  return qnm::log_of(x) - Real(0.5) / x - y + result;
+}
+""",
+    # torch's xlogy (BinaryMiscOpsKernels.cu): NaN where y is, 0 where x is 0
+    "xlogy": r"""__device__ __forceinline__ Real traced_xlogy(Real x, Real y) {
+  if (isnan(y)) return Real(NAN);
+  if (x == Real(0)) return Real(0);
+  return x * qnm::log_of(y);
+}
+""",
+    # torch's calc_log_ndtr (native/Math.h), with CUDA's erfcx
+    "log_ndtr": r"""__device__ __forceinline__ Real traced_log_ndtr(Real x) {
+  const Real t = x * Real(0.707106781186547524400844362104849039);
+  if (x < Real(-1)) return qnm::log_of(traced_erfcx(-t) / Real(2)) - t * t;
+  return qnm::log1p_of(-traced_erfc(t) / Real(2));
+}
+""",
+    # binary_cross_entropy_with_logits as torch's autograd and vmap decompose
+    # it, m = max(-x, 0) (NaN kept): (1 - y)·x + m + log(exp(-m) + exp(-x - m))
+    "bce_logits": r"""__device__ __forceinline__ Real traced_bce_logits(Real x, Real y) {
+  const Real m = -x < Real(0) ? Real(0) : -x;
+  return (Real(1) - y) * x + m + qnm::log_of(qnm::exp_of(-m) + qnm::exp_of(-x - m));
+}
+""",
+    # max / min, NaN winning (torch's MaxNanFunctor), and over the lane: the
+    # lane group's butterfly, its partials exchanged as LaneGroup::sum's are
+    "extreme": r"""template <bool kMax>
+__device__ __forceinline__ Real traced_pick(Real a, Real b) {
+  return isnan(a) ? a : (isnan(b) ? b : ((kMax ? a < b : b < a) ? b : a));
+}
+template <bool kMax, bool kOneWarp>
+__device__ __forceinline__ Real traced_lane_pick(qnm::LaneGroup<Real, kOneWarp>& grp, Real v) {
+  if constexpr (kOneWarp) __syncwarp();
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = traced_pick<kMax>(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  if constexpr (!kOneWarp) {
+    const int nw = blockDim.x >> 5;
+    Real* buf = grp.red + grp.parity * (qnm::kMaxSums * qnm::kMaxLaneWarps);
+    if ((threadIdx.x & 31) == 0) buf[threadIdx.x >> 5] = v;
+    __syncthreads();
+    v = buf[0];
+    for (int w = 1; w < nw; ++w) v = traced_pick<kMax>(v, buf[w]);
+    grp.parity ^= 1;
+  }
+  return v;
+}
+""",
 }
 
 
 def _helpers(traced: TracedObjective) -> str:
-    used = {op.name for g in (traced.vag, traced.val) for op in g.ops if op.kind == "ew"}
-    return "".join(text for name, text in _HELPERS.items() if name in used)
+    """The helpers the graphs use: CUDA's functions as overload pairs, then
+    torch's formulas (a graph of the earlier ops uses neither new kind, so its
+    text is what it was)."""
+    ops = [op for g in (traced.vag, traced.val) for op in g.ops]
+    used = {op.name for op in ops if op.kind == "ew"}
+    used |= {"extreme" for op in ops if op.kind in ("max", "min")}
+    if "log_ndtr" in used:
+        used |= {"erfc", "erfcx"}
+    return ("".join(_math_helper(name) for name in _MATH if name in used)
+            + "".join(text for name, text in _HELPERS.items() if name in used))
 
 
 def generate(traced: TracedObjective) -> str:

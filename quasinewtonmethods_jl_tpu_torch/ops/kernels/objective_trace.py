@@ -29,8 +29,16 @@ are elementwise (the table `_ELEMENTWISE`: arithmetic, exp, log, log1p,
 tanh, sigmoid, log-sigmoid, logaddexp, sqrt, abs, sgn, sin, cos, softplus,
 maximum, minimum, clamp with literal bounds, and their backwards; the
 comparisons lt, le, gt, ge, eq, ne and logical and, or, not, whose truth
-values are 0 / 1, with where and masked_fill), reductions (``sum``,
-``mean``, ``logsumexp``, ``linalg_vector_norm`` of ord 2), ``cumsum`` along
+values are 0 / 1, with where, masked_fill and isnan; what the
+log-densities of ``torch.distributions`` reach: lgamma and its backward
+digamma, xlogy, erf, erfc, log_ndtr, expm1, reciprocal, rsqrt, atan2, pow
+with a tensor exponent or a literal base, and ``binary_cross_entropy_with_logits``
+with a constant weight and reduction none, mean or sum; a truth value's cast
+to the objective's own dtype, which gives its 0 / 1 as numbers, and
+``clone``), reductions (``sum``, ``mean``, ``logsumexp``,
+``linalg_vector_norm`` of ord 2, and ``max`` / ``min`` / ``amax`` /
+``amin``, NaN winning, with ``max.dim`` / ``min.dim`` whose indices only
+their own backward reads), ``cumsum`` along
 one dim, ``tril`` / ``triu``, ``mv``, ``mm`` and ``dot``, the per-lane
 linear algebra of one m x m matrix (``linalg_cholesky_ex``,
 ``linalg_solve_triangular``, and by LU with partial pivoting
@@ -49,17 +57,30 @@ sources' addresses, as in CSR; no atomics). Integer index constants are
 folded on the host like other constant expressions (``tril_indices``,
 ``arange`` and what is computed from them), and the tables go to the
 kernel as int32 inputs (``TracedObjective.tables``). An in-place op on an
-op's fresh output that nothing else reads (``matmul``'s own ``squeeze_``)
-is its out-of-place twin. Anything else raises ValueError, on every
-device, naming the op and, where the trace can tell, the user's line: an
-op outside the table, a per-lane value of rank > 2, a data-dependent shape
-or branch (``torch.cond`` included), ``.item()``, a random op, an in-place
-write to the point, a constant or a value read elsewhere, a constant in
-another floating dtype than ``x0s``, an index computed from the point (a
-gather's or a scatter's), a boolean-mask index, an index tensor of rank >
-1 per dim, a factorization's pivots or ``info`` read by the objective, a
-vector norm of another ord than 2, a matrix whose work copy alone exceeds
-one block's shared memory.
+op's fresh output (not a view) that nothing reads after the write
+(``matmul``'s own ``squeeze_``, the ``exp_`` / ``log_`` / ``add_`` of
+torch's decomposition of a loss) is its out-of-place twin. Anything else
+raises ValueError, on every device, naming the op and, where the trace
+can tell, the user's line: an op outside the table (``polygamma``,
+``erfinv``, ``prod`` / ``cumprod`` among them), a per-lane value of rank
+> 2 (``D.MultivariateNormal``'s, and torch's Beta of vector parameters,
+a Dirichlet of stacked pairs), a data-dependent shape, branch or loop
+(``torch.cond`` and ``torch.while_loop``, and ``torch.distributions``'
+validation of its arguments: pass ``validate_args=False``), ``.item()``,
+a random op, an in-place write to the point, a constant or a value read
+elsewhere, a constant in another floating dtype than ``x0s``, a cast to
+another dtype or device, an index computed from the point (a gather's or a
+scatter's), a boolean-mask index, an index tensor of rank > 1 per dim, a
+factorization's pivots or ``info`` read by the objective, ``max.dim``'s
+indices read by the objective, a vector norm of another ord than 2, a BCE
+with a ``pos_weight`` or a weight computed from the point, a matrix whose
+work copy alone exceeds one block's shared memory.
+
+Each op's output takes a fresh slot of the lane's scratch; where those
+slots do not fit one block beside B (`lane_fits`: a regression on hundreds
+of observations in float64), `_pack` places each output where a slot that
+nothing reads any more lay, so that every trace that fits keeps its layout
+and its generated text.
 
 `evaluate` runs a lowered graph op by op in torch: the plain version of the
 generated evaluation (ops/kernels/objective_codegen.py), which the CPU
@@ -72,9 +93,11 @@ kernel's bound.
 
 from __future__ import annotations
 
+import bisect
 import math
 import operator
 import os
+import sys
 import traceback
 from dataclasses import dataclass, field, replace
 from typing import Callable, Optional
@@ -82,7 +105,7 @@ from typing import Callable, Optional
 import torch
 
 from ...api import as_value_and_grad, as_value_fn
-from .bfgs_kernel import SMEM_LIMIT_BYTES
+from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES
 
 __all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate",
            "in_band_linalg"]
@@ -90,6 +113,8 @@ __all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate
 aten = torch.ops.aten
 
 _FUSED = "use optimize_batched_fused, which takes any objective"
+# where torch.cond and torch.while_loop live
+_HOPS = os.path.join(os.path.dirname(torch.__file__), "_higher_order_ops")
 
 
 @dataclass(frozen=True)
@@ -186,6 +211,9 @@ class TracedObjective:
     consts: list = field(default_factory=list)
     # int32 index tables of the gathers and puts, on the constants' device
     tables: list = field(default_factory=list)
+    # the scratch of one slot per op, the layout of every trace that fits a
+    # block (`extra_values` is less where the slots were reused, `_pack`)
+    one_slot_values: int = 0
     # B3's library for this trace, once built and loaded (resident_kernel.py
     # :: traced_libraries), so that a trace solved again skips codegen and lookup
     library: object = field(default=None, init=False, repr=False, compare=False)
@@ -262,26 +290,52 @@ _ELEMENTWISE = {
     aten.maximum.default: "maximum",
     aten.minimum.default: "minimum",
     aten.clamp.default: "clamp",
+    # the log-densities of torch.distributions
+    aten.clamp_min.default: "clamp", aten.clamp_max.default: "clamp",
+    aten.sub.Scalar: "sub",
+    aten.lgamma.default: "lgamma",
+    aten.digamma.default: "digamma",
+    aten.xlogy.Tensor: "xlogy", aten.xlogy.Scalar_Self: "xlogy", aten.xlogy.Scalar_Other: "xlogy",
+    aten.erf.default: "erf",
+    aten.erfc.default: "erfc",
+    aten.special_log_ndtr.default: "log_ndtr",
+    aten.expm1.default: "expm1",
+    aten.reciprocal.default: "reciprocal",
+    aten.rsqrt.default: "rsqrt",
+    aten.atan2.default: "atan2",
+    aten.pow.Tensor_Tensor: "powt", aten.pow.Scalar: "powt",
+    aten.isnan.default: "isnan",
 }
 _UNARY = ("neg", "exp", "log", "log_sigmoid", "tanh", "log1p", "sigmoid", "abs", "sgn", "sqrt",
-          "sin", "cos", "not")
+          "sin", "cos", "not", "lgamma", "digamma", "erf", "erfc", "log_ndtr", "expm1",
+          "reciprocal", "rsqrt", "isnan")
 _COMPARISONS = ("gt", "lt", "le", "ge", "eq", "ne")
 # the functions whose values are truth values
-_BOOLEAN = (*_COMPARISONS, "and", "or", "not")
+_BOOLEAN = (*_COMPARISONS, "and", "or", "not", "isnan")
 # operations per element of each elementwise function, for the bound
 # (logaddexp: a - b, |.|, exp, log1p, max, +; log_sigmoid: |.|, exp,
 # log1p, min, -; its backward: |.|, exp, 1 + z, z / (1 + z), sign·, -, ·g;
 # sigmoid: exp, 1 +, 1 / .; the backwards of tanh and sigmoid three products
 # and differences; sgn two comparisons; softplus x·beta, the threshold's
 # test, exp, log1p, / beta; its backward x·beta, the test, exp, g·z, z + 1,
-# the division; clamp its two bounds)
+# the division; clamp its two bounds; lgamma, erf, erfc, expm1, rsqrt, atan2,
+# pow and isnan one each, reciprocal its division; digamma the asymptotic
+# series at x >= 10: the log, 0.5/x, 1/x², the seven-term Horner sum 14 and
+# three sums, 20 (each step of the recurrence that brings x below 10 up to
+# 10, 1/x, the sum and x + 1, is not counted: it depends on the data); xlogy
+# the log and the product; log_ndtr x/√2, erfc, /2, 1 - and log1p (below -1
+# erfcx, /2, log, t² and the difference, as many); BCE with logits, m =
+# max(-x, 0): 1 - y, ·x, -x, the max, + m, -m, exp, -x - m, exp, +, log, +)
 _EW_COST = {"add": 1, "sub": 1, "rsub": 1, "mul": 1, "div": 1, "neg": 1, "pow": 1, "exp": 1,
             "log": 1, "where": 1, "gt": 1, "logaddexp": 6, "log_sigmoid": 5,
             "log_sigmoid_backward": 7, "tanh": 1, "log1p": 1, "sigmoid": 3,
             "tanh_backward": 3, "sigmoid_backward": 3, "copy": 0,
             "lt": 1, "le": 1, "ge": 1, "eq": 1, "ne": 1, "and": 1, "or": 1, "not": 1,
             "abs": 1, "sgn": 2, "sqrt": 1, "sin": 1, "cos": 1, "softplus": 5,
-            "softplus_backward": 6, "maximum": 1, "minimum": 1, "clamp": 2}
+            "softplus_backward": 6, "maximum": 1, "minimum": 1, "clamp": 2,
+            "lgamma": 1, "digamma": 20, "xlogy": 2, "erf": 1, "erfc": 1, "log_ndtr": 5,
+            "expm1": 1, "reciprocal": 1, "rsqrt": 1, "atan2": 1, "powt": 1, "isnan": 1,
+            "bce_logits": 12}
 _VIEWS = {aten.t.default, aten.permute.default, aten.expand.default, aten.unsqueeze.default,
           aten.squeeze.dim, aten.select.int, aten.slice.Tensor, aten.unbind.int,
           aten.diagonal.default, aten.flip.default, aten.transpose.int}
@@ -291,13 +345,25 @@ _FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.
 _PUTS = {aten.index_put.default, aten.diag_embed.default, aten.diagonal_backward.default}
 # the reductions besides sum and logsumexp
 _MEANS = {aten.mean.default, aten.mean.dim}
+# the largest and smallest elements: over all dims, over given dims, and
+# over one dim with the first index of each extreme (``max.dim``), which only
+# the reduction's own backward reads (``scatter.src``)
+_EXTREMES = {aten.max.default: "max", aten.min.default: "min", aten.amax.default: "max",
+             aten.amin.default: "min", aten.max.dim: "max", aten.min.dim: "min"}
+# ops whose output is their input's values: a copy, or a cast to the
+# objective's own float dtype
+_SAME = {aten.clone.default, aten._to_copy.default}
+# reduction codes of the losses (torch's Reduction enum)
+_LOSS_REDUCTIONS = {0: "none", 1: "mean", 2: "sum"}
 # the per-lane factorizations and solves of a rank-2 matrix (see `Op`)
 _LINALG = {aten.linalg_cholesky_ex.default, aten.linalg_solve_triangular.default,
            aten._linalg_slogdet.default, aten._linalg_solve_ex.default}
 # ops that stay literals rather than fold into a constant
 _KEEP = set(_FILLS) | {aten.scalar_tensor.default}
-_TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP | _MEANS | _LINALG
-          | {aten.lift_fresh_copy.default, aten.view.default, aten.sum.default,
+_TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP | _MEANS | _LINALG | set(_EXTREMES) | _SAME
+          | {aten.binary_cross_entropy_with_logits.default}
+          | {aten.lift_fresh_copy.default, aten.view.default, aten._unsafe_view.default,
+             aten.sum.default,
              aten.sum.dim_IntList, aten.logsumexp.default, aten.mv.default, aten.mm.default,
              aten.dot.default, aten.select_backward.default, aten.slice_backward.default,
              aten.stack.default, aten.cat.default, aten.cumsum.default, aten.index.Tensor,
@@ -316,13 +382,27 @@ class _Inside:
     op: str
 
 
+@dataclass(frozen=True)
+class _ArgIndex:
+    """The indices output of ``max.dim`` / ``min.dim``: ``ref`` holds each
+    extreme's first index along ``dim`` of its source (as a number in the
+    lane's scratch). Views of it are its own; only the reduction's backward
+    (``scatter.src`` of the gradient at those indices) may read it."""
+
+    ref: Ref
+    dim: int
+    op: str
+
+
 def graph_ops(graph: Graph) -> int:
     """Floating-point operations of one evaluation of ``graph`` (exp, log,
     log1p, tanh, a square root and a division one each): the elementwise
     functions per output element (`_EW_COST`), a sum and a cumsum one per
     input element, a mean one per input and one per output element, a
     2-norm two per input and one per output element, a logsumexp three (the max, exp(a - max),
-    the sum) and 2 per output, mv, mm and dot two per product, a put with
+    the sum) and 2 per output, a max or min (its values or its first
+    indices) one comparison per input element, the backward's pick of the
+    index one per output element, mv, mm and dot two per product, a put with
     ``accumulate`` one per source, and of an m x m matrix a Cholesky
     factorization m³/3, an LU factorization 2m³/3 and a triangular solve m²
     per right-hand side (a solve through LU two); copies, gathers,
@@ -331,8 +411,10 @@ def graph_ops(graph: Graph) -> int:
     for op in graph.ops:
         if op.kind == "ew":
             ops += _EW_COST[op.name] * op.out.numel
-        elif op.kind == "sum":
+        elif op.kind in ("sum", "max", "min", "arg"):
             ops += op.args[0].numel
+        elif op.kind == "pick":
+            ops += op.out.numel
         elif op.kind == "mean":
             ops += op.args[0].numel + op.out.numel
         elif op.kind == "norm":
@@ -403,12 +485,40 @@ class _LineOf(torch.utils._python_dispatch.TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+class _Reached(Exception):
+    """Stops a run at the call `_line_of` looks for."""
+
+
 def _line_of(fn, example, target) -> str:
     """The user's line that calls ``target`` in a plain run of ``fn`` on
     fake tensors ('' where the op is not in ``fn``'s own code, e.g. one
-    that autograd adds)."""
+    that autograd adds). For a higher-order op (``torch.cond``,
+    ``torch.while_loop``) the line that calls into torch/_higher_order_ops,
+    found by a profile hook that stops the run there: its branches never
+    run, so torch's compiler keeps nothing of them for the next trace."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    if isinstance(target, torch._ops.HigherOrderOperator):
+        found = []
+
+        def hook(frame, event, arg):
+            if event == "call" and frame.f_code.co_filename.startswith(_HOPS):
+                stack = traceback.extract_stack(frame.f_back)
+                starts = [i for i, f in enumerate(stack) if f.name == "_line_of"
+                          and os.path.abspath(f.filename) == os.path.abspath(__file__)]
+                found.append(_user_line(stack[starts[-1] + 1:] if starts else []))
+                raise _Reached
+
+        previous = sys.getprofile()
+        sys.setprofile(hook)
+        try:
+            with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+                fn(fake.from_tensor(example))
+        except Exception:  # noqa: BLE001 - the line is a courtesy of the error message
+            pass
+        finally:
+            sys.setprofile(previous)
+        return found[0] if found else ""
     mode = _LineOf(target)
     try:
         with FakeTensorMode(allow_non_fake_inputs=True) as fake:
@@ -428,9 +538,17 @@ def _make_graph(fn, example):
     except Exception as exc:  # the user's code failed on a fake tensor
         line = _user_line(traceback.extract_tb(exc.__traceback__))
         name = type(exc).__name__
-        if "DataDependent" in name or "GuardOn" in name:
+        frames = traceback.extract_tb(exc.__traceback__)
+        if any(os.path.abspath(f.filename).startswith(_HOPS) for f in frames):
+            what = "a data-dependent branch or loop (torch.cond / torch.while_loop)"
+        elif "DataDependent" in name or "GuardOn" in name:
             what = ("a data-dependent branch or shape (aten._local_scalar_dense: Python control "
                     "flow or .item() on a traced value)")
+            distributions = os.path.join(os.path.dirname(torch.__file__), "distributions")
+            if any(os.path.abspath(f.filename).startswith(distributions) for f in frames):
+                what += (", here torch.distributions' validation of its arguments: pass "
+                         "validate_args=False, or call "
+                         "torch.distributions.Distribution.set_default_validate_args(False)")
         else:
             what = f"tracing failed with {name}: {str(exc).splitlines()[0] if str(exc) else ''}"
         raise _refuse(what, line) from exc
@@ -474,15 +592,30 @@ class _Lowering:
         line = _line_of(self.fn, self.example, node.target)
         return _refuse(what, line)
 
+    def refuse_control_flow(self, node):
+        """The refusal of a higher-order op (``torch.cond``,
+        ``torch.while_loop``), at ``node`` or at the user of ``node`` (a
+        branch's or a body's graph) that calls it."""
+        hops = [u for u in (node, *node.users)
+                if isinstance(u.target, torch._ops.HigherOrderOperator)]
+        target = hops[0].target if hops else node.target
+        return self.refuse(hops[0] if hops else node,
+                           f"a data-dependent branch or loop (torch.cond / torch.while_loop: "
+                           f"{getattr(target, '__name__', target)})")
+
     # lowering ------------------------------------------------------------
 
     def run(self, gm) -> Graph:
         env = {}
+        self.order = {node: i for i, node in enumerate(gm.graph.nodes)}
         for node in gm.graph.nodes:
             if node.op == "placeholder":  # the point
                 env[node] = Ref("lane", (self.n,), (1,), 0)
             elif node.op == "get_attr":
-                env[node] = self.const(getattr(gm, node.target))
+                value = getattr(gm, node.target)
+                if not isinstance(value, torch.Tensor):  # a branch's or a loop body's graph
+                    raise self.refuse_control_flow(node)
+                env[node] = self.const(value)
             elif node.op == "call_function":
                 env[node] = self.call(node, env)
             elif node.op == "output":
@@ -533,13 +666,22 @@ class _Lowering:
             return seq[node.args[1]]
         if target == aten._linalg_check_errors.default:
             return None  # a failed factorization gives NaN on its lane
+        if isinstance(target, torch._ops.HigherOrderOperator):
+            raise self.refuse_control_flow(node)
         if not isinstance(target, torch._ops.OpOverload):
             raise self.refuse(node, f"the call {name}")
+        if target == aten.polygamma.default:
+            raise self.refuse(node, f"an op outside the table ({name}: a derivative of digamma, "
+                                    "which no first-order gradient of lgamma needs)")
         inside = [env[a] for a in _flat_nodes(node.args, node.kwargs)
                   if isinstance(env[a], _Inside)]
         if inside:
             raise self.refuse(node, f"the {inside[0].what} of a {inside[0].op} read by the "
                                     f"objective ({name}): they stay inside their op")
+        indices = [env[a] for a in _flat_nodes(node.args, node.kwargs)
+                   if isinstance(env[a], _ArgIndex)]
+        if indices:
+            return self.arg_index_use(node, target, indices[0], env)
         if target._schema.is_mutable:
             target = self.out_of_place(node, env)
         if torch.Tag.nondeterministic_seeded in target.tags:
@@ -568,7 +710,7 @@ class _Lowering:
         if (foldable and target not in _KEEP
                 and target != aten.lift_fresh_copy.default):
             if target not in _VIEWS or len(_meta_shape(node)) > 2:
-                return self.fold(node, env)
+                return self.fold(node, env, target)
         result = self.lower(node, env, target)
         for r in (result if isinstance(result, (list, tuple)) else [result]):
             if isinstance(r, Ref) and r.kind in ("lane", "const") and len(r.shape) > 2:
@@ -577,29 +719,37 @@ class _Lowering:
 
     def out_of_place(self, node, env):
         """The out-of-place twin of an in-place op, where the value it writes
-        is an op's fresh output that nothing else reads (``matmul``'s own
-        ``squeeze_``); an in-place write to the point, a constant or a value
-        read elsewhere raises."""
+        is an op's fresh output (not a view) that nothing reads after the
+        write (``matmul``'s own ``squeeze_``; the ``exp_``, ``log_`` and
+        ``add_`` of torch's decomposition of a loss, whose ``clone`` of the
+        value reads it before); a fresh constant's twin is computed now. An
+        in-place write to the point, a constant or a value read elsewhere
+        raises."""
         target, base = node.target, node.args[0] if node.args else None
         packet = getattr(aten, target._schema.name.split("::")[1].rstrip("_"), None)
         twin = getattr(packet, target._overloadname, None) if packet is not None else None
+        aliases = _VIEWS | {aten.view.default, aten._unsafe_view.default, operator.getitem}
         fresh = (isinstance(base, torch.fx.Node) and base.op == "call_function"
-                 and base.target not in _VIEWS and base.target is not operator.getitem
-                 and len(base.users) == 1 and isinstance(env.get(base), Ref)
-                 and env[base].kind == "lane")
-        if twin is None or twin not in _TABLE or not fresh:
+                 and base.target not in aliases and isinstance(env.get(base), Ref)
+                 and env[base].kind in ("lane", "const")
+                 and all(self.order[u] < self.order[node] and u.target not in aliases
+                         for u in base.users if u is not node))
+        lane_in = any(isinstance(env.get(a), Ref) and env[a].kind == "lane"
+                      for a in _flat_nodes(node.args, node.kwargs))
+        if twin is None or (twin not in _TABLE and lane_in) or not fresh:
             raise self.refuse(node, f"an in-place write ({target})")
         return twin
 
-    def fold(self, node, env):
+    def fold(self, node, env, target=None):
         """An expression of constants (and literals) alone, computed now
-        (once for both graphs)."""
-        key = repr((str(node.target), _substitute(node.args, env), _substitute(node.kwargs, env)))
+        (once for both graphs); ``target``: an in-place op's twin."""
+        key = repr((str(target or node.target), _substitute(node.args, env),
+                    _substitute(node.kwargs, env)))
         if key not in self.folds:
-            self.folds[key] = self.compute(node, env)
+            self.folds[key] = self.compute(node, env, target or node.target)
         return self.folds[key]
 
-    def compute(self, node, env):
+    def compute(self, node, env, target):
 
         def real(a):
             if isinstance(a, torch.fx.Node):
@@ -619,7 +769,7 @@ class _Lowering:
 
         args = tuple(real(a) for a in node.args)
         kwargs = {k: real(v) for k, v in node.kwargs.items()}
-        out = node.target(*args, **kwargs)
+        out = target(*args, **kwargs)
         if isinstance(out, (list, tuple)):
             return [self.const(t) if isinstance(t, torch.Tensor) else t for t in out]
         if not isinstance(out, torch.Tensor):
@@ -640,12 +790,20 @@ class _Lowering:
             return a[0]
         if target in _VIEWS:
             return _view(target, a[0], node.args[1:], out_shape, kw)
+        if target in _SAME:
+            return self.same(node, target, a[0], kw)
         if target in _ELEMENTWISE:
             return self.elementwise(node, _ELEMENTWISE[target], a, kw, out_shape)
+        if target == aten.binary_cross_entropy_with_logits.default:
+            return self.bce_with_logits(node, a, kw, env)
+        if target in _EXTREMES:
+            return self.extreme(node, target, self.floats(node, a[0]), kw)
         if target in (aten.sum.default, aten.sum.dim_IntList, aten.logsumexp.default):
             if kw.get("dtype") not in (None, self.dtype):
                 raise self.refuse(node, f"a sum in another dtype ({target})")
-            src = self.floats(node, a[0])
+            # a sum of truth values counts them (the backward of max and amax)
+            src = (self.truth(a[0]) if a[0].boolean and target != aten.logsumexp.default
+                   else self.floats(node, a[0]))
             dims = node.args[1] if len(node.args) > 1 else None
             keepdim = bool(node.args[2]) if len(node.args) > 2 else bool(kw.get("keepdim", False))
             return self.reduce(node, "lse" if target == aten.logsumexp.default else "sum", src,
@@ -708,7 +866,8 @@ class _Lowering:
             return self.gather(node, self.floats(node, a[0]), node.args[1], env, out_shape)
         if target in _PUTS:
             return self.put(node, target, a, env, out_shape)
-        if target == aten.view.default:  # a new shape of the same row-major values
+        if target in (aten.view.default, aten._unsafe_view.default):  # a new shape of the same
+            # row-major values (``_unsafe_view``: a reshape's, after its copy)
             src = self.floats(node, a[0])
             if src.kind == "lit":
                 return Ref("lit", out_shape, (0,) * len(out_shape), value=src.value)
@@ -839,6 +998,8 @@ class _Lowering:
             operands = a[:1] if fn == "softplus" else a[:2]
         elif fn == "clamp":
             given = list(node.args[1:]) + [kw.get(k) for k in ("min", "max")][len(node.args) - 1:]
+            if node.target == aten.clamp_max.default:
+                given = [None, node.args[1]]
             if any(v is not None and not isinstance(v, (int, float)) for v in given):
                 raise self.refuse(node, f"a clamp with traced bounds ({node.target})")
             params = (-math.inf if given[0] is None else float(given[0]),
@@ -854,15 +1015,122 @@ class _Lowering:
             checked = [self.truth(operands[0])]
         elif fn in ("and", "or", "not"):  # truth values, or numbers tested against 0
             checked = [self.truth(r) if r.boolean else self.floats(node, r) for r in operands]
+        elif fn == "mul":  # a mask times a number (the backward of max and amax)
+            checked = [self.truth(r) if r.boolean else self.floats(node, r) for r in operands]
         else:
             checked = []
         checked += [self.floats(node, r) for r in operands[len(checked):]]
         out = self.lane(out_shape)
-        out = replace(out, boolean=fn in _BOOLEAN)
+        # a product of two truth values is one (torch's bool mul)
+        out = replace(out, boolean=fn in _BOOLEAN or (fn == "mul" and all(r.boolean
+                                                                          for r in operands)))
         self.ops.append(Op("ew", fn, out, tuple(checked), params, str(node.target)))
         if fn == "log_sigmoid":  # (output, buffer): the buffer is never read
             return (out, Ref("lit"))
         return out
+
+    def same(self, node, target, src: Ref, kw):
+        """``clone``, and ``_to_copy`` to the objective's own float dtype and
+        device (a truth value's cast gives its 0 / 1 as numbers: the support
+        mask of ``D.Uniform``): the same values. A cast to another dtype or
+        device raises; one to an integer dtype is an index in the making."""
+        if target == aten._to_copy.default:
+            dtype, device = kw.get("dtype"), kw.get("device")
+            if dtype is not None and not dtype.is_floating_point and dtype != torch.bool:
+                raise self.refuse(node, f"an index computed from the point ({target}): gathers "
+                                        "and scatters take constant indices")
+            if dtype not in (None, self.dtype) and not (dtype == torch.bool and src.boolean):
+                raise self.refuse(node, f"a cast to {dtype} ({target}): only to the objective's "
+                                        f"own {self.dtype}")
+            want, have = torch.device(device or self.device), torch.device(self.device)
+            if want.type != have.type or want.index not in (None, have.index):
+                raise self.refuse(node, f"a cast to device {device} ({target}): the objective "
+                                        f"runs on {self.device}")
+            if dtype == self.dtype and src.boolean:
+                return replace(self.truth(src), boolean=False)
+        return src
+
+    def bce_with_logits(self, node, a, kw, env):
+        """``binary_cross_entropy_with_logits(x, y, weight, pos_weight,
+        reduction)`` (the value of ``D.Bernoulli(logits=...)``): the
+        elementwise loss, times a constant weight, then its reduction (none,
+        mean or sum). A weight computed from the point and a ``pos_weight``
+        raise."""
+        given = list(node.args[2:]) + [kw.get(k, v) for k, v in
+                                       (("weight", None), ("pos_weight", None),
+                                        ("reduction", 1))][len(node.args) - 2:]
+        weight, pos_weight, reduction = given[:3]
+        target = node.target
+        if pos_weight is not None:
+            raise self.refuse(node, f"a pos_weight ({target}): only weight, None or a constant")
+        if reduction not in _LOSS_REDUCTIONS:
+            raise self.refuse(node, f"a reduction {reduction} ({target})")
+        x, y = self.floats(node, a[0]), self.floats(node, a[1])
+        full = _meta_shape(node.args[0])
+        loss = self.lane(full)
+        self.ops.append(Op("ew", "bce_logits", loss, (x, y), source=str(target)))
+        if weight is not None:
+            w = self.floats(node, self.arg(weight, env))
+            if w.kind == "lane":
+                raise self.refuse(node, f"a weight computed from the point ({target}): only "
+                                        "None or a constant")
+            weighted = self.lane(full)
+            self.ops.append(Op("ew", "mul", weighted, (loss, w), source=str(target)))
+            loss = weighted
+        how = _LOSS_REDUCTIONS[reduction]
+        return loss if how == "none" else self.reduce(node, how, loss, None, False)
+
+    def extreme(self, node, target, src: Ref, kw):
+        """``max`` / ``min`` (all dims), ``amax`` / ``amin`` (the dims
+        given, all for none) and ``max.dim`` / ``min.dim`` (one dim: the
+        values, and each extreme's first index as `_ArgIndex`). NaN wins,
+        as torch's."""
+        kind = _EXTREMES[target]
+        args = list(node.args[1:])
+        if target in (aten.max.default, aten.min.default):
+            return self.reduce(node, kind, src, None, False)
+        dims = args[0] if args else kw.get("dim", [])
+        keepdim = bool(args[1]) if len(args) > 1 else bool(kw.get("keepdim", False))
+        if target in (aten.amax.default, aten.amin.default):
+            return self.reduce(node, kind, src, [dims] if isinstance(dims, int) else dims,
+                               keepdim)
+        rank = len(src.shape)
+        dim = dims % max(1, rank)
+        values = self.reduce(node, kind, src, [dim] if rank else None, keepdim)
+        index = self.lane(tuple(s for d, s in enumerate(src.shape) if d != dim))
+        self.ops.append(Op("arg", kind, index, (src,), ((dim,) if rank else (),), str(target)))
+        if keepdim and rank:
+            index = Ref("lane", values.shape, _contiguous_strides(values.shape), index.offset)
+        return [values, _ArgIndex(index, dim, str(target))]
+
+    def arg_index_use(self, node, target, index: _ArgIndex, env):
+        """A use of ``max.dim``'s / ``min.dim``'s indices: a view (its own),
+        or its backward's ``scatter.src`` of the gradient at them into zeros,
+        a "pick": output element i is the source's where i's coordinate along
+        the dim is the index, else the base's. Any other read raises."""
+        if target in _VIEWS or target == aten.view.default:
+            if target == aten.view.default:
+                shape = _meta_shape(node)
+                if not _is_contiguous(index.ref):
+                    raise self.refuse(node, f"a reshape of the indices of a {index.op} ({target})")
+                return replace(index, ref=replace(index.ref, shape=shape,
+                                                  strides=_contiguous_strides(shape)))
+            return replace(index, ref=_view(target, index.ref, node.args[1:], _meta_shape(node),
+                                            node.kwargs))
+        if target == aten.scatter.src and node.args[2] in env and env[node.args[2]] is index:
+            base, dim = self.floats(node, self.arg(node.args[0], env)), node.args[1]
+            src = self.floats(node, self.arg(node.args[3], env))
+            out_shape = _meta_shape(node)
+            dim = dim % len(out_shape)
+            if index.ref.shape[dim] != 1 or len(src.shape) != len(out_shape) \
+                    or src.shape[dim] != 1:
+                raise self.refuse(node, f"a scatter at the indices of a {index.op} of another "
+                                        f"shape ({target})")
+            out = self.lane(out_shape)
+            self.ops.append(Op("pick", "pick", out, (base, index.ref, src), (dim,), str(target)))
+            return out
+        raise self.refuse(node, f"the indices of a {index.op} read by the objective ({target}): "
+                                "only its own backward reads them")
 
     def mean_or_norm(self, node, target, src: Ref, kw):
         """``mean`` (all dims or ``.dim``) and ``linalg_vector_norm`` of
@@ -1102,8 +1370,110 @@ def trace_objective(obj, value_and_grad_fn: Optional[Callable], x0s: torch.Tenso
         graphs.append(graph)
     val, vag = graphs
     val.grad = None
+    one_slot = max(val.slots, vag.slots)
+    if not lane_fits(n, dtype.itemsize, one_slot):
+        val, vag = _pack(val, n, tables), _pack(vag, n, tables)
     return TracedObjective(obj, value_and_grad_fn, n, dtype, vag, val,
-                           _kernel_consts(consts, (val, vag)), tables)
+                           _kernel_consts(consts, (val, vag)), tables, one_slot)
+
+
+def lane_fits(n: int, itemsize: int, extra_values: int) -> bool:
+    """Whether one lane of B3 fits one block's shared memory with an
+    objective's ``extra_values`` of scratch: the count of ``smem_bytes`` in
+    csrc/resident_solve.cu, (n² + 9n + the reduction scratch + the
+    objective's own)·itemsize (resident_kernel.resident_feasible)."""
+    return (n * n + 9 * n + SMEM_SCRATCH_VALUES + extra_values) * itemsize <= SMEM_LIMIT_BYTES
+
+
+def _span(ref: Ref) -> tuple:
+    """The lowest and highest address ``ref`` reads in its base."""
+    lo = hi = ref.offset
+    for size, stride in zip(ref.shape, ref.strides):
+        step = (size - 1) * stride
+        lo, hi = (lo + step, hi) if step < 0 else (lo, hi + step)
+    return lo, hi
+
+
+def _pack(graph: Graph, n: int, tables: list) -> Graph:
+    """``graph`` with each op's output slot (and an LU work copy) placed
+    where an earlier slot nothing reads any more lay: a linear scan in op
+    order, first fit, the point's n values and the outputs the kernel reads
+    (the value, the gradient) kept. Used only where a trace's one slot per
+    op does not fit a block (`lane_fits`: a regression on hundreds of
+    observations in float64), so that every trace that fits keeps its text.
+    The gathers' and puts' address tables into a moved slot move with it
+    (``tables`` is the objective's list, rewritten in place)."""
+    ops = graph.ops
+    regions = []  # (old start, size, producing op)
+    for i, op in enumerate(ops):
+        regions.append((op.out.offset, max(1, op.out.numel), i))
+        if op.kind in ("slogdet", "solve"):
+            m = op.args[0].shape[0]
+            regions.append((op.params[0], m * m, i))
+    regions.sort()
+    starts = [r[0] for r in regions]
+
+    def region_of(ref):
+        if not isinstance(ref, Ref) or ref.kind != "lane" or ref.offset < n:
+            return None
+        k = bisect.bisect_right(starts, _span(ref)[0]) - 1
+        assert k >= 0 and _span(ref)[1] < regions[k][0] + regions[k][1], ref
+        return k
+
+    last = [r[2] for r in regions]  # a region lives at least through its op
+    for i, op in enumerate(ops):
+        for ref in op.args:
+            k = region_of(ref)
+            if k is not None:
+                last[k] = max(last[k], i)
+    for ref in (graph.value, graph.grad):
+        k = region_of(ref)
+        if k is not None:
+            last[k] = len(ops)
+    placed, free, top = {}, [], n  # free: [start, end) intervals of the new scratch
+    by_op = {}
+    for k, (_, _, i) in enumerate(regions):
+        by_op.setdefault(i, []).append(k)
+    for i in range(len(ops)):
+        for k, (_, size, _) in enumerate(regions):
+            if k in placed and last[k] < i and not placed[k][1]:
+                free.append((placed[k][0], placed[k][0] + size))
+                placed[k] = (placed[k][0], True)
+        free.sort()
+        merged = []
+        for lo, hi in free:
+            if merged and merged[-1][1] == lo:
+                merged[-1] = (merged[-1][0], hi)
+            else:
+                merged.append((lo, hi))
+        free = merged
+        for k in by_op.get(i, []):
+            size = regions[k][1]
+            fit = next((j for j, (lo, hi) in enumerate(free) if hi - lo >= size), None)
+            if fit is None:
+                placed[k], top = (top, False), top + size
+            else:
+                lo, hi = free[fit]
+                placed[k] = (lo, False)
+                free[fit:fit + 1] = [(lo + size, hi)] if hi > lo + size else []
+    delta = [placed[k][0] - regions[k][0] for k in range(len(regions))]
+
+    def moved(ref):
+        k = region_of(ref)
+        return ref if k is None else replace(ref, offset=ref.offset + delta[k])
+
+    new_ops = []
+    for op in ops:
+        params = op.params
+        if op.kind in ("slogdet", "solve"):
+            params = (op.params[0] + delta[starts.index(op.params[0])],) + tuple(op.params[1:])
+        if op.kind == "gather" and region_of(op.args[0]) is not None:
+            tables[op.params[0]] = tables[op.params[0]] + delta[region_of(op.args[0])]
+        if op.kind == "put" and region_of(op.args[1]) is not None:
+            tables[op.params[1]] = tables[op.params[1]] + delta[region_of(op.args[1])]
+        new_ops.append(replace(op, out=moved(op.out), args=tuple(moved(r) for r in op.args),
+                               params=params))
+    return Graph(new_ops, moved(graph.value), moved(graph.grad) if graph.grad else None, top)
 
 
 def _kernel_consts(consts, graphs) -> list:
@@ -1247,7 +1617,22 @@ def _elementwise(op: Op, x, dtype):
         max_deriv = neg.to(dtype)
         sign = torch.where(neg, 1.0, -1.0).to(dtype)
         return g * (max_deriv - sign * (z / (1.0 + z)))
+    if name in _TORCH_FUNCTIONS:
+        return _TORCH_FUNCTIONS[name](*x)
+    if name == "isnan":
+        return torch.isnan(x[0]).to(dtype)
+    if name == "bce_logits":  # torch's decomposition (autograd's and vmap's), m = max(-x, 0)
+        a, y = x
+        m = torch.clamp_min(-a, 0)
+        return (1 - y) * a + m + torch.log(torch.exp(-m) + torch.exp(-a - m))
     raise AssertionError(name)
+
+
+# the elementwise functions that are one torch function
+_TORCH_FUNCTIONS = {"lgamma": torch.lgamma, "digamma": torch.digamma, "xlogy": torch.xlogy,
+                    "erf": torch.erf, "erfc": torch.erfc, "log_ndtr": torch.special.log_ndtr,
+                    "expm1": torch.expm1, "reciprocal": torch.reciprocal, "rsqrt": torch.rsqrt,
+                    "atan2": torch.atan2, "powt": torch.pow}
 
 
 def _put(op: Op, base, scratch, consts, tables, dtype):
@@ -1369,6 +1754,21 @@ def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
                 count = math.prod(op.args[0].shape[d] for d in dims)
                 inv = torch.tensor(1.0, dtype=dtype) / torch.tensor(float(count), dtype=dtype)
                 y = ins[0].sum(dim=dims) * inv.to(x.device) if dims else ins[0].clone()
+        elif op.kind in ("max", "min"):  # NaN wins, as in torch.amax / amin
+            dims = op.params[0]
+            y = ((torch.amax if op.kind == "max" else torch.amin)(ins[0], dim=dims) if dims
+                 else ins[0].clone())
+        elif op.kind == "arg":  # each extreme's first index (the first NaN, where one is)
+            dims = op.params[0]
+            y = ((torch.max if op.name == "max" else torch.min)(ins[0], dim=dims[0]).indices
+                 .to(dtype) if dims else torch.zeros((), dtype=dtype, device=x.device))
+        elif op.kind == "pick":
+            base, index, src = ins
+            dim = op.params[0]
+            shape = [1] * len(op.out.shape)
+            shape[dim] = op.out.shape[dim]
+            at = torch.arange(op.out.shape[dim], dtype=dtype, device=x.device).reshape(shape)
+            y = torch.where(at == index, src, base)
         elif op.kind == "tril":
             y = (torch.tril if op.name == "tril" else torch.triu)(ins[0], op.params[0])
         elif op.kind in ("chol", "trsm", "slogdet", "solve"):

@@ -49,9 +49,9 @@ from ...solve import OptimizeResult
 from ...utils.scalars import finite_halving_limit, sqrt_tolerance
 from ..linesearch import BackTracking
 from ._build import check_launch, load_generated, load_library
-from .bfgs_kernel import SMEM_LIMIT_BYTES, SMEM_SCRATCH_VALUES, launch_occupancy
+from .bfgs_kernel import launch_occupancy
 from .objective_codegen import generate, lane_warps
-from .objective_trace import TracedObjective, in_band_linalg
+from .objective_trace import TracedObjective, in_band_linalg, lane_fits
 
 __all__ = [
     "resident_bfgs_solve",
@@ -138,12 +138,12 @@ def resident_feasible(n: int, itemsize: int, objective=None) -> bool:
     float32, n <= 165 in float64; the GLMs' scratch takes a little more,
     the AR(1)'s depends on its number of steps too, a traced objective's
     on its graph (one slot per op's output, a cumsum's, a gather's and a
-    put's among them, a Cholesky factor's m² and an LU work copy's m²; its
-    constants and int32 index tables lie in device memory and take none).
+    put's among them, a Cholesky factor's m² and an LU work copy's m², the
+    slots reused where that does not fit; its constants and int32 index
+    tables lie in device memory and take none).
     Larger n, and objectives whose matrices do not fit, belong to
     `optimize_batched_fused`."""
-    values = n * n + 9 * n + SMEM_SCRATCH_VALUES + _extra_values(objective, n)
-    return values * itemsize <= SMEM_LIMIT_BYTES
+    return lane_fits(n, itemsize, _extra_values(objective, n))
 
 
 def optimize_batched_resident_reference(

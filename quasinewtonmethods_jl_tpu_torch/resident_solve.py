@@ -46,14 +46,28 @@ routes:
     The table holds arithmetic and the usual elementwise functions (exp,
     log, log1p, sqrt, abs, sin, cos, tanh, sigmoid, softplus, maximum,
     minimum, clamp), comparisons, logical ops, ``where`` and
-    ``masked_fill``, sums, means, logsumexp and 2-norms, matrix products,
-    index maps with constant indices, and per lane the Cholesky
+    ``masked_fill``, sums, means, logsumexp, max / min and 2-norms, matrix
+    products, index maps with constant indices, and per lane the Cholesky
     factorization, triangular solves, ``logdet`` / ``slogdet`` and
     ``solve`` of an m x m matrix (a Gaussian-process likelihood from many
     starts runs in one launch); a failed factorization gives NaN on its
     lane, as in JAX, and the plain version runs such an objective under
-    ops/kernels/objective_trace.py :: `in_band_linalg` to do the same. Data-dependent control flow
-    (``torch.cond``, ``torch.while_loop``) does not trace.
+    ops/kernels/objective_trace.py :: `in_band_linalg` to do the same. It
+    also holds what the log-densities of ``torch.distributions`` reach
+    (lgamma and digamma, xlogy, erf / erfc / log_ndtr, expm1, reciprocal,
+    rsqrt, atan2, pow with a tensor exponent, BCE with logits, a support
+    mask's cast), so the Normal, Cauchy, Laplace, LogNormal, Exponential,
+    HalfNormal, HalfCauchy, Student-t, negative binomial, Gamma, Beta (of
+    scalar parameters), Dirichlet, Poisson, binomial, Weibull, Uniform and
+    Bernoulli-with-logits families trace, built with ``validate_args=False``
+    (their validation is a data-dependent branch, which neither the trace nor
+    the fleet engine's ``torch.func`` takes; or call
+    ``torch.distributions.Distribution.set_default_validate_args(False)``).
+    Data-dependent control flow (``torch.cond``, ``torch.while_loop``) is
+    refused; a static Python loop traces by unrolling (JAX's ``fori_loop``
+    and forward ``scan``). Outside the table still: per-lane values of rank
+    3 (``D.MultivariateNormal``), ``prod`` / ``cumprod``, ``polygamma``,
+    ``erfinv``.
     The entry point keeps its traces, the counterpart of the jit cache of
     JAX's ``_optimize_batched_resident_jit``, whose objective is a static
     argument: keyed by the objective and ``value_and_grad_fn`` (by their

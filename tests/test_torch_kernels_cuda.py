@@ -972,6 +972,66 @@ def test_new_ops_match_plain_version(cuda_device, kind, n, dtype, tol):
     assert not failures
 
 
+# B3 on the log-densities of torch.distributions: chip_smoke.py's phase-34
+# parity objectives, one per group of ops (the gamma family: lgamma, digamma,
+# xlogy; the normal CDF family: erf, erfc, log_ndtr; expm1, reciprocal, rsqrt,
+# atan2 and the pows; max and min over a lane of two warps; BCE with logits
+# and the casts; float32 at 3e-3: at 1e-3 float32's floor, about sqrt(2·H·eps·|f|)
+# for values |f| of 5-40 at curvature H ~ 1, decides lanes' statuses)
+DISTS_CASES = [
+    ("gamma family", 60, torch.float64, 1e-6), ("gamma family", 60, torch.float32, 3e-3),
+    ("normal cdf", 60, torch.float64, 1e-6), ("normal cdf", 60, torch.float32, 3e-3),
+    ("elementwise functions", 60, torch.float64, 1e-6),
+    ("elementwise functions", 60, torch.float32, 3e-3),
+    ("max and min", 70, torch.float64, 1e-6), ("max and min", 70, torch.float32, 3e-3),
+    ("losses and casts", 60, torch.float64, 1e-6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", DISTS_CASES)
+def test_distribution_ops_match_plain_version(cuda_device, kind, n, dtype, tol):
+    """Each group of the distributions' ops, generated into B3, against the
+    plain version by the phase-22 rule, as the groups above."""
+    import quasinewtonmethods_jl_tpu_torch as qt
+
+    cs = _chip_smoke()
+    validating = torch.distributions.Distribution._validate_args
+    torch.distributions.Distribution.set_default_validate_args(False)
+    try:
+        obj, _, starts = cs.dists_case(kind, n, dtype, cuda_device)
+        X = torch.tensor(starts, dtype=dtype, device=cuda_device)
+        on_cpu = cs.dists_case(kind, n, dtype, torch.device("cpu"))[0]
+        _, _, failures = cs.traced_parity(qt, qt.trace_objective(obj, None, X), X, tol, kind,
+                                          qt.trace_objective(on_cpu, None, X.cpu()))
+    finally:
+        torch.distributions.Distribution.set_default_validate_args(validating)
+    assert not failures
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_extremes_let_nan_win_on_the_card(cuda_device, dtype):
+    """max, amax and min.dim over a lane holding a NaN are NaN in B3 as in
+    torch (the lane ends NONFINITE_VALUE at its first test); over one
+    iteration the other lanes run as in the plain version (the extremes'
+    kinks make whole solves a matter of rounding)."""
+    def obj(x):
+        M = x.reshape(7, 10)
+        return -0.5 * torch.sum(x * x) + 0.1 * torch.max(torch.log(x + 3.0)) \
+            + 0.1 * torch.sum(torch.amax(M, dim=1)) - 0.1 * torch.sum(torch.min(M, 0).values)
+
+    X = torch.tensor(np.random.default_rng(3).standard_normal((8, 70)) * 0.3, dtype=dtype,
+                     device=cuda_device)
+    X[5, 17] = -4.0  # log(x + 3) is NaN there
+    tol = 1e-6 if dtype == torch.float64 else 1e-3
+    kern = optimize_batched_resident(obj, X, tol=tol, max_iterations=1)
+    plain = optimize_batched_resident(obj, X, tol=tol, max_iterations=1, kernel="torch")
+    for name in ("status", "iterations", "n_fev", "n_gev"):
+        assert torch.equal(getattr(kern, name), getattr(plain, name)), name
+    assert int(kern.status[5]) == int(Status.NONFINITE_VALUE) and bool(torch.isnan(kern.fun[5]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_a_failed_factorization_is_nan_on_its_lane_on_the_card(cuda_device, dtype):
@@ -1030,8 +1090,8 @@ def test_untraceable_objective_raises_before_any_build(cuda_device):
     built = set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()
     loaded = dict(_build._GENERATED)
     X = torch.zeros((8, 6), device=cuda_device)
-    with pytest.raises(ValueError, match=r"aten\.lgamma.*optimize_batched_fused"):
-        optimize_batched_resident(lambda x: torch.lgamma(x).sum(), X)
+    with pytest.raises(ValueError, match=r"aten\.i0.*optimize_batched_fused"):
+        optimize_batched_resident(lambda x: torch.special.i0(x).sum(), X)
     assert _build._GENERATED == loaded
     assert (set(_build.BUILD_DIR.glob("*")) if _build.BUILD_DIR.exists() else set()) == built
 

@@ -41,6 +41,7 @@ from quasinewtonmethods_jl_tpu_torch.ops.kernels.objective_trace import (
     evaluate,
     graph_ops,
     in_band_linalg,
+    lane_fits,
     trace_objective,
 )
 from quasinewtonmethods_jl_tpu_torch.ops.kernels.resident_kernel import resident_feasible
@@ -401,7 +402,9 @@ def test_the_ops_count_in_the_graph(rng):
 def test_factorized_matrices_count_in_the_lanes_scratch(rng):
     """The Cholesky factor and LU's work copy take m² values of the lane's
     scratch each, so `resident_feasible` refuses a lane whose matrices do
-    not fit one block before anything is built."""
+    not fit one block before anything is built. At m = 64 one slot per op
+    does not fit, and the trace reuses slots (`objective_trace._pack`) until
+    it does; at m = 96 even reused slots do not."""
     for form in ("cholesky", "lu"):
         sizes = []
         for m in (8, 16):
@@ -412,6 +415,10 @@ def test_factorized_matrices_count_in_the_lanes_scratch(rng):
             sizes.append(traced.extra_values)
         assert sizes[1] - sizes[0] >= 4 * (16 * 16 - 8 * 8)  # several m x m slots
     d2, y = gp_data(rng, 64)
+    packed = trace_objective(gp_twins(d2, y, "cholesky")[0], None,
+                             torch.zeros((2, 3), dtype=torch.float64))
+    assert not lane_fits(3, 8, packed.one_slot_values) and resident_feasible(3, 8, packed)
+    d2, y = gp_data(rng, 96)
     big = trace_objective(gp_twins(d2, y, "cholesky")[0], None,
                           torch.zeros((2, 3), dtype=torch.float64))
     assert not resident_feasible(3, 8, big)

@@ -236,7 +236,7 @@ I22 = torch.tensor([[0, 1], [2, 3]])
 
 # one objective per class the table refuses, and the op its message names
 UNTRACEABLE = {
-    "an op outside the table": (lambda x: torch.lgamma(x).sum(), r"aten\.lgamma"),
+    "an op outside the table": (lambda x: torch.special.i0(x).sum(), r"aten\.i0"),
     "a per-lane value of rank 3": (
         lambda x: -(x[:, None, None] * x[None, :, None] * x[None, None, :]).sum(),
         r"rank 3 \(aten\.unsqueeze"),

@@ -138,8 +138,8 @@ class SubclassedRosenbrock(Rosenbrock):
         return 2.0 * super().logdensity(theta)
 
 
-def lgamma_logdensity(x):
-    return torch.sum(torch.lgamma(x))  # aten.lgamma is outside the trace's table
+def i0_logdensity(x):
+    return torch.sum(torch.special.i0(x))  # aten.i0 is outside the trace's table
 
 
 def item_logdensity(x):
@@ -159,7 +159,7 @@ def random_value_and_grad(x):
     [
         ({"x0s": torch.zeros(6)}, "x0s must be"),
         ({"ls": object()}, "BackTracking"),
-        ({"obj": lgamma_logdensity}, "optimize_batched_fused"),
+        ({"obj": i0_logdensity}, "optimize_batched_fused"),
         ({"obj": item_logdensity}, "optimize_batched_fused"),
         ({"value_and_grad_fn": random_value_and_grad}, "on the card"),
         ({"kernel": "cuda"}, "cuda"),

@@ -147,20 +147,20 @@ def test_resident_guards_for_the_fixtures(rng, case):
     assert torch.equal(res.x, plain.x)
 
 
-class MixtureWithALogGamma(tm.GaussianMixture):
+class MixtureWithABessel(tm.GaussianMixture):
     def logdensity(self, x):
-        return super().logdensity(x) + torch.sum(torch.lgamma(x))
+        return super().logdensity(x) + torch.sum(torch.special.i0(x))
 
 
 @pytest.mark.parametrize("case, match", [
-    ("a subclass with an op outside the table", r"aten\.lgamma"),
+    ("a subclass with an op outside the table", r"aten\.i0"),
     ("a funnel that branches on its point", r"data-dependent branch"),
     ("an AR(1) that draws noise", r"random.*aten\.randn"),
 ])
 def test_untraceable_fixture_forms_are_refused(case, match):
     ar1 = tm.AR1DriftMAP(4, 5)
     obj = {
-        "a subclass with an op outside the table": MixtureWithALogGamma(np.ones((2, 4))),
+        "a subclass with an op outside the table": MixtureWithABessel(np.ones((2, 4))),
         "a funnel that branches on its point": (
             lambda th: tm.funnel_logdensity(th) if th[0] > 0 else -th[0] * th[0]),
         "an AR(1) that draws noise": (
