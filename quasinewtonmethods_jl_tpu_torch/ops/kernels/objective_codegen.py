@@ -23,9 +23,12 @@ stored flat, row-major; an elementwise op or a broadcast is a loop over its
 output elements strided by the lane group's threads, with its operands read
 through their index maps (a view is only an index map); a reduction to one
 value is a strided partial per thread and one lane sum (bfgs_common.cuh); a
-reduction over one dim, ``mv``, ``mm`` and a logsumexp's max take one
-output element per thread, summed in a fixed order; a cumsum takes one
-row per thread, in index order; a gather is an index map through its
+reduction over some dims, ``mv``, ``mm`` and a logsumexp's max take one
+output element per thread, summed in a fixed order; a product to one
+value runs on one thread, in index order; a cumsum and a cumprod take one
+row per thread, in index order; a value of rank 3 is read through the
+coordinates of its flat index, written into a unit only where a value has
+rank 3; a gather is an index map through its
 int32 table; a put takes one output element per thread, which walks its
 sources (CSR tables) in ascending order, with no atomics; a constant and
 an index table are read from device memory. A barrier follows every op
@@ -43,9 +46,9 @@ backwards of tanh and sigmoid g·(1 - y·y) and g·(1 - y)·y, sgn (0 < x) -
 and else log1p(exp(x·beta)) / beta, maximum, minimum and clamp let a NaN
 through (CUDA's fmax does not), a comparison or a logical op 1 or 0; a
 mean is the sum times 1/count (torch's MeanOps) and a 2-norm the square
-root of the sum of squares. lgamma, erf, erfc, expm1, rsqrt, atan2 and pow
-with a tensor exponent are CUDA's device functions (as torch's kernels
-call them), reciprocal is 1/x, digamma torch's calc_digamma, xlogy 0 where
+root of the sum of squares. lgamma, erf, erfc, expm1, rsqrt, atan2, pow
+with a tensor exponent and erfinv are CUDA's device functions (as torch's
+kernels call them), reciprocal is 1/x, digamma torch's calc_digamma, xlogy 0 where
 x is 0 (NaN where y is), log_ndtr torch's calc_log_ndtr (with CUDA's
 erfcx below -1), BCE with logits the form torch's autograd and vmap
 decompose it to; a max or min lets a NaN win, over the lane through the
@@ -91,13 +94,35 @@ def _lit(value: float) -> str:
 
 def _coords(shape, var: str = "i") -> tuple:
     """(declarations, coordinate expressions) of flat index ``var`` in a
-    row-major ``shape`` of rank <= 2."""
+    row-major ``shape`` of rank <= 3."""
     if len(shape) == 0:
         return "", []
     if len(shape) == 1:
         return "", [var]
-    return (f"const int {var}0 = {var} / {shape[1]}; const int {var}1 = {var} % {shape[1]}; ",
-            [f"{var}0", f"{var}1"])
+    if len(shape) == 2:
+        return (f"const int {var}0 = {var} / {shape[1]}; const int {var}1 = {var} % {shape[1]}; ",
+                [f"{var}0", f"{var}1"])
+    return (f"const int {var}0 = {var} / {shape[1] * shape[2]}; const int {var}1 = {var} / "
+            f"{shape[2]} % {shape[1]}; const int {var}2 = {var} % {shape[2]}; ",
+            [f"{var}0", f"{var}1", f"{var}2"])
+
+
+def _reduced(shape, dims) -> tuple:
+    """A reduction of a row-major ``shape`` over some of its ``dims``, one
+    output element i per thread and the reduced elements r in order: (the
+    declarations of i's coordinates, those of r's, the count of r, the
+    source's coordinate expressions)."""
+    keep = [d for d in range(len(shape)) if d not in dims]
+    decl_i, ci = _coords([shape[d] for d in keep], "i")
+    decl_r, cr = _coords([shape[d] for d in dims], "r")
+    coords = [ci[keep.index(d)] if d in keep else cr[list(dims).index(d)]
+              for d in range(len(shape))]
+    return decl_i, decl_r, math.prod(shape[d] for d in dims), coords
+
+
+def _scoped(decl: str, statement: str) -> str:
+    """A loop body: ``statement``, in braces after ``decl`` where there is one."""
+    return f"{{ {decl}{statement} }}" if decl else statement
 
 
 def _load(ref: Ref, coords) -> str:
@@ -222,7 +247,8 @@ def _ew_expr(op: Op, x: list) -> str:
 _MATH = {"lgamma": ("lgammaf", "lgamma", 1), "erf": ("erff", "erf", 1),
          "erfc": ("erfcf", "erfc", 1), "expm1": ("expm1f", "expm1", 1),
          "rsqrt": ("rsqrtf", "rsqrt", 1), "atan2": ("atan2f", "atan2", 2),
-         "powt": ("powf", "pow", 2), "erfcx": ("erfcxf", "erfcx", 1)}
+         "powt": ("powf", "pow", 2), "erfcx": ("erfcxf", "erfcx", 1),
+         "erfinv": ("erfinvf", "erfinv", 1)}
 
 
 def _math_helper(name: str) -> str:
@@ -272,7 +298,7 @@ class _Emitter:
             else:
                 body = f"{decl}s[{out.offset} + i] = {_ew_expr(op, x)}; "
             self.loop(out.numel, body)
-        elif op.kind in ("sum", "lse", "mean", "norm", "max", "min"):
+        elif op.kind in ("sum", "lse", "mean", "norm", "max", "min", "prod"):
             self.reduce(op)
         elif op.kind == "arg":  # one output element per thread: the first extreme's index
             (src,), (dims,) = op.args, op.params
@@ -280,11 +306,12 @@ class _Emitter:
                 self.loop(1, f"s[{out.offset}] = Real(0); ")
             else:
                 (red,) = dims
-                coords = ["r"] if len(src.shape) == 1 else (["i", "r"] if red == 1 else ["r", "i"])
+                decl, _, _, coords = _reduced(src.shape, dims)
                 beats = "v > top" if op.name == "max" else "v < top"
                 first = _load(src, ["0" if c == "r" else c for c in coords])
                 self.loop(out.numel,
-                          f"int at = 0; Real top = {first}; for (int r = 1; r < {src.shape[red]}; "
+                          f"{decl}int at = 0; Real top = {first}; "
+                          f"for (int r = 1; r < {src.shape[red]}; "
                           f"++r) {{ const Real v = {_load(src, coords)}; if (!isnan(top) && "
                           f"(isnan(v) || {beats})) {{ top = v; at = r; }} }} "
                           f"s[{out.offset} + i] = Real(at); ")
@@ -298,7 +325,7 @@ class _Emitter:
         elif op.kind == "tril":
             decl, oc = _coords(out.shape)
             keep = "<=" if op.name == "tril" else ">="
-            self.loop(out.numel, f"{decl}s[{out.offset} + i] = {oc[1]} - {oc[0]} {keep} "
+            self.loop(out.numel, f"{decl}s[{out.offset} + i] = {oc[-1]} - {oc[-2]} {keep} "
                                  f"{op.params[0]} ? {_load(op.args[0], oc)} : Real(0); ")
         elif op.kind in ("chol", "trsm", "slogdet", "solve"):
             self.linalg(op)
@@ -323,17 +350,28 @@ class _Emitter:
                     f"const int kk = in ? k / {step} : 0; "
                     f"s[{out.offset} + i] = in ? {_load(op.args[0], inner)} : Real(0); ")
             self.loop(out.numel, body)
-        elif op.kind == "cumsum":  # one row per thread, in index order
+        elif op.kind in ("cumsum", "cumprod"):  # one row per thread, in index order
             (src,), (dim,) = op.args, op.params
             rows = out.numel // out.shape[dim]
             count = out.shape[dim]
+            decl = ""
             if len(out.shape) == 1:
                 at, where = ["k"], "k"
-            else:
+            elif len(out.shape) == 2:
                 at = ["i", "k"] if dim == 1 else ["k", "i"]
                 where = f"i * {out.shape[1]} + k" if dim == 1 else f"k * {out.shape[1]} + i"
-            self.loop(rows, f"Real acc = Real(0); for (int k = 0; k < {count}; ++k) "
-                            f"{{ acc += {_load(src, at)}; s[{out.offset} + {where}] = acc; }} ")
+            else:  # the row's coordinates from i, the other dims' in order
+                other = [d for d in range(3) if d != dim]
+                decl, ci = _coords([out.shape[d] for d in other], "i")
+                at = [ci[other.index(d)] if d != dim else "k" for d in range(3)]
+                where = " + ".join(f"{c} * {st}" for c, st in
+                                   zip(at, _contiguous_strides(out.shape)))
+            if op.kind == "cumsum":
+                start, step = "Real(0)", f"acc += {_load(src, at)};"
+            else:
+                start, step = "Real(1)", f"acc = acc * {_load(src, at)};"
+            self.loop(rows, f"{decl}Real acc = {start}; for (int k = 0; k < {count}; ++k) "
+                            f"{{ {step} s[{out.offset} + {where}] = acc; }} ")
         elif op.kind == "gather":
             (src,), (table,) = op.args, op.params
             base = "s" if src.kind == "lane" else f"c{src.index}"
@@ -408,6 +446,9 @@ class _Emitter:
         if op.kind in ("max", "min"):
             self.extreme(op, dims)
             return
+        if op.kind == "prod":
+            self.product(op, dims)
+            return
         # the mean's 1 / count and the 2-norm's square root (torch's MeanOps and
         # NormTwoOps), on the sum of the terms or of their squares
         count = math.prod(src.shape[d] for d in dims)
@@ -431,22 +472,20 @@ class _Emitter:
             self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = qnm::log_of(acc[0]) + shift;")
             self.emit("}")
             return
-        # one of two dims: one output element per thread, in order
-        (red,) = dims
-        keep = 1 - red
-        coords = ["i", "r"] if red == 1 else ["r", "i"]
+        # over some dims: one output element per thread, in order
+        decl_i, decl_r, count, coords = _reduced(src.shape, dims)
         term = _square(op, _load(src, coords))
-        count = src.shape[red]
         if not lse:
-            self.loop(out.numel, f"Real acc = Real(0); for (int r = 0; r < {count}; ++r) "
-                                 f"acc += {term}; s[{out.offset} + i] = {finish.format('acc')}; ")
+            self.loop(out.numel, f"{decl_i}Real acc = Real(0); for (int r = 0; r < {count}; ++r) "
+                                 f"{_scoped(decl_r, f'acc += {term};')} "
+                                 f"s[{out.offset} + i] = {finish.format('acc')}; ")
             return
-        assert src.shape[keep] == out.numel
         self.loop(out.numel,
-                  f"Real top = -Real(INFINITY); for (int r = 0; r < {count}; ++r) "
-                  f"{{ const Real v = {term}; top = isnan(top) || top >= v ? top : v; }} "
+                  f"{decl_i}Real top = -Real(INFINITY); for (int r = 0; r < {count}; ++r) "
+                  f"{{ {decl_r}const Real v = {term}; top = isnan(top) || top >= v ? top : v; }} "
                   f"const Real shift = isinf(top) ? Real(0) : top; Real acc = Real(0); "
-                  f"for (int r = 0; r < {count}; ++r) acc += qnm::exp_of({term} - shift); "
+                  f"for (int r = 0; r < {count}; ++r) "
+                  f"{_scoped(decl_r, f'acc += qnm::exp_of({term} - shift);')} "
                   f"s[{out.offset} + i] = qnm::log_of(acc) + shift; ")
 
 
@@ -467,10 +506,24 @@ class _Emitter:
             self.emit(f"  if (threadIdx.x == 0) s[{out.offset}] = acc;")
             self.emit("}")
             return
-        (red,) = dims
-        coords = ["i", "r"] if red == 1 else ["r", "i"]
-        self.loop(out.numel, f"Real acc = {start}; for (int r = 0; r < {src.shape[red]}; ++r) "
-                             f"acc = traced_pick<{wins}>(acc, {_load(src, coords)}); "
+        decl_i, decl_r, count, coords = _reduced(src.shape, dims)
+        pick = f"acc = traced_pick<{wins}>(acc, {_load(src, coords)});"
+        self.loop(out.numel, f"{decl_i}Real acc = {start}; for (int r = 0; r < {count}; ++r) "
+                             f"{_scoped(decl_r, pick)} s[{out.offset} + i] = acc; ")
+
+    def product(self, op: Op, dims):
+        """A product over ``dims``: to one value on one thread, over some
+        dims one output element per thread, each in index order."""
+        out, (src,) = op.out, op.args
+        if len(dims) == len(src.shape):
+            decl, kc = _coords(src.shape, "k")
+            self.loop(1, f"Real acc = Real(1); for (int k = 0; k < {src.numel}; ++k) "
+                         f"{_scoped(decl, f'acc = acc * {_load(src, kc)};')} "
+                         f"s[{out.offset}] = acc; ")
+            return
+        decl_i, decl_r, count, coords = _reduced(src.shape, dims)
+        self.loop(out.numel, f"{decl_i}Real acc = Real(1); for (int r = 0; r < {count}; ++r) "
+                             f"{_scoped(decl_r, f'acc = acc * {_load(src, coords)};')} "
                              f"s[{out.offset} + i] = acc; ")
 
 

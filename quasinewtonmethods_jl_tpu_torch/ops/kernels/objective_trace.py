@@ -13,13 +13,15 @@ tensors (no device work, no host read), and lowers the two graphs to a list
 of `Op`s over `Ref`s:
 
   * a per-lane value ("lane") lives in a slot of the lane's shared scratch,
-    stored flat and row-major, with a static shape of rank <= 2;
+    stored flat and row-major, with a static shape of rank <= 3;
   * a closed-over tensor ("const") is a kernel input on ``x0s``'s device,
     read from device memory; an expression of constants alone (the
     mixture's log-weights, a ``.to()`` of the data) is computed here once
     per solve with torch, on that device, and becomes a constant itself;
   * a Python scalar, and a tensor filled with one (``ones_like``,
-    ``zeros``, ``scalar_tensor``), is a literal ("lit").
+    ``zeros``, ``scalar_tensor``, and the factories that read only a lane
+    value's shape: ``full_like``, ``new_ones``, ``new_full``, ``full`` with
+    a literal fill), is a literal ("lit").
 
 A view (``t``, ``transpose``, ``permute``, ``expand``, ``unsqueeze``,
 ``squeeze``, ``select``, ``slice``, ``unbind``, ``diagonal``, ``flip``, and
@@ -35,12 +37,16 @@ digamma, xlogy, erf, erfc, log_ndtr, expm1, reciprocal, rsqrt, atan2, pow
 with a tensor exponent or a literal base, and ``binary_cross_entropy_with_logits``
 with a constant weight and reduction none, mean or sum; a truth value's cast
 to the objective's own dtype, which gives its 0 / 1 as numbers, and
-``clone``), reductions (``sum``, ``mean``, ``logsumexp``,
-``linalg_vector_norm`` of ord 2, and ``max`` / ``min`` / ``amax`` /
-``amin``, NaN winning, with ``max.dim`` / ``min.dim`` whose indices only
-their own backward reads), ``cumsum`` along
-one dim, ``tril`` / ``triu``, ``mv``, ``mm`` and ``dot``, the per-lane
-linear algebra of one m x m matrix (``linalg_cholesky_ex``,
+``clone``, ``erfinv``), reductions (``sum``, ``mean``, ``logsumexp``,
+``linalg_vector_norm`` of ord 2, ``prod``, and ``max`` / ``min`` / ``amax``
+/ ``amin``, NaN winning, with ``max.dim`` / ``min.dim`` whose indices only
+their own backward reads), softmax and log-softmax and their backwards (a
+logsumexp over their dim and elementwise ops), ``cumsum`` and ``cumprod``
+along one dim, ``tril`` / ``triu``, ``mv``, ``mm``, ``bmm`` (``mm`` per
+leading index) and ``dot``, the per-lane
+linear algebra of one m x m matrix, or of a batch of them along a leading
+dim (one op per matrix, stacked; a view where the batch is 1, as in
+``D.MultivariateNormal``) (``linalg_cholesky_ex``,
 ``linalg_solve_triangular``, and by LU with partial pivoting
 ``_linalg_slogdet``, which ``logdet`` and ``slogdet`` reach, and
 ``_linalg_solve_ex``: their pivots, LU factors and ``info`` stay inside the
@@ -48,9 +54,11 @@ op, ``_linalg_check_errors`` emits nothing, and a failed factorization
 gives NaN on its lane, as JAX's ``cholesky`` does, not an exception), the
 scatters of ``select_backward`` / ``slice_backward``, ``cat`` and
 ``stack``, and the index maps with constant indices: a gather
-(``index.Tensor``: each output element reads one element of its source,
+(``index.Tensor``, and ``gather`` along a dim, whose index has its
+source's rank: each output element reads one element of its source,
 through an int32 table of addresses) and a put (``index_put`` with and
-without ``accumulate``, ``diag_embed``, ``diagonal_backward``: each output
+without ``accumulate``, ``scatter_add``, ``diag_embed``,
+``diagonal_backward``: each output
 element starts from the base tensor's and takes, in ascending order, the
 values its sources give, through two int32 tables, a row pointer and the
 sources' addresses, as in CSR; no atomics). Integer index constants are
@@ -62,15 +70,16 @@ op's fresh output (not a view) that nothing reads after the write
 torch's decomposition of a loss) is its out-of-place twin. Anything else
 raises ValueError, on every device, naming the op and, where the trace
 can tell, the user's line: an op outside the table (``polygamma``,
-``erfinv``, ``prod`` / ``cumprod`` among them), a per-lane value of rank
-> 2 (``D.MultivariateNormal``'s, and torch's Beta of vector parameters,
-a Dirichlet of stacked pairs), a data-dependent shape, branch or loop
+``special.i0`` among them), a per-lane value of rank > 3, a
+data-dependent shape, branch or loop
 (``torch.cond`` and ``torch.while_loop``, and ``torch.distributions``'
 validation of its arguments: pass ``validate_args=False``), ``.item()``,
 a random op, an in-place write to the point, a constant or a value read
 elsewhere, a constant in another floating dtype than ``x0s``, a cast to
 another dtype or device, an index computed from the point (a gather's or a
-scatter's), a boolean-mask index, an index tensor of rank > 1 per dim, a
+scatter's), a boolean-mask index (``D.Multinomial``'s write among them),
+an index tensor of rank > 1 per dim, a ``gather`` index of another rank
+than its source's, a fill computed from the point, a
 factorization's pivots or ``info`` read by the objective, ``max.dim``'s
 indices read by the objective, a vector norm of another ord than 2, a BCE
 with a ``pos_weight`` or a weight computed from the point, a matrix whose
@@ -113,15 +122,18 @@ __all__ = ["Ref", "Op", "Graph", "TracedObjective", "trace_objective", "evaluate
 aten = torch.ops.aten
 
 _FUSED = "use optimize_batched_fused, which takes any objective"
+# the largest rank of a per-lane value or a constant
+MAX_RANK = 3
 # where torch.cond and torch.while_loop live
 _HOPS = os.path.join(os.path.dirname(torch.__file__), "_higher_order_ops")
 
 
 @dataclass(frozen=True)
 class Ref:
-    """An operand: its shape and where its values are. Element (i0, i1) of
-    a "lane" or "const" Ref is at ``offset + i0·strides[0] + i1·strides[1]``
-    of the lane's scratch or of constant ``index``; a "lit" is ``value``
+    """An operand: its shape and where its values are. Element (i0, i1, ...)
+    of a "lane" or "const" Ref is at ``offset + i0·strides[0] +
+    i1·strides[1] + ...`` of the lane's scratch or of constant ``index``; a
+    "lit" is ``value``
     everywhere. ``boolean``: the values are 0/1 truth values."""
 
     kind: str
@@ -149,12 +161,14 @@ def _contiguous_strides(shape) -> tuple:
 class Op:
     """One computing op: ``out`` (a fresh contiguous lane slot) from
     ``args``. ``kind``: "ew" (elementwise ``name`` with broadcasting),
-    "sum" / "lse" (a reduction of args[0] over ``params[0]``, its dims),
+    "sum" / "lse" / "prod" (a reduction of args[0] over ``params[0]``, its
+    dims),
     "mv" (a matrix times a vector or a matrix: ``mv`` and ``mm``), "dot",
     "scatter" (args[0] written into zeros at positions ``params`` = (dim,
     start, step, count) of its dim), "cat" (args concatenated along
-    ``params[0]``: ``cat`` and ``stack``), "cumsum" (along ``params[0]``,
-    in index order), "gather" (output element i is element ``table[i]``
+    ``params[0]``: ``cat`` and ``stack``), "cumsum" / "cumprod" (along
+    ``params[0]``, in index order), "gather" (output element i is element
+    ``table[i]``
     of args[0]'s base, ``params`` = (table,)), "put" (output element i is
     args[0]'s, then each source k in ``src[ptr[i]:ptr[i + 1]]`` in turn
     added to it (``accumulate``) or, the last one, written over it, where
@@ -305,10 +319,11 @@ _ELEMENTWISE = {
     aten.atan2.default: "atan2",
     aten.pow.Tensor_Tensor: "powt", aten.pow.Scalar: "powt",
     aten.isnan.default: "isnan",
+    aten.erfinv.default: "erfinv",
 }
 _UNARY = ("neg", "exp", "log", "log_sigmoid", "tanh", "log1p", "sigmoid", "abs", "sgn", "sqrt",
           "sin", "cos", "not", "lgamma", "digamma", "erf", "erfc", "log_ndtr", "expm1",
-          "reciprocal", "rsqrt", "isnan")
+          "reciprocal", "rsqrt", "isnan", "erfinv")
 _COMPARISONS = ("gt", "lt", "le", "ge", "eq", "ne")
 # the functions whose values are truth values
 _BOOLEAN = (*_COMPARISONS, "and", "or", "not", "isnan")
@@ -319,7 +334,7 @@ _BOOLEAN = (*_COMPARISONS, "and", "or", "not", "isnan")
 # and differences; sgn two comparisons; softplus x·beta, the threshold's
 # test, exp, log1p, / beta; its backward x·beta, the test, exp, g·z, z + 1,
 # the division; clamp its two bounds; lgamma, erf, erfc, expm1, rsqrt, atan2,
-# pow and isnan one each, reciprocal its division; digamma the asymptotic
+# pow, isnan and erfinv one each, reciprocal its division; digamma the asymptotic
 # series at x >= 10: the log, 0.5/x, 1/x², the seven-term Horner sum 14 and
 # three sums, 20 (each step of the recurrence that brings x below 10 up to
 # 10, 1/x, the sum and x + 1, is not counted: it depends on the data); xlogy
@@ -335,12 +350,21 @@ _EW_COST = {"add": 1, "sub": 1, "rsub": 1, "mul": 1, "div": 1, "neg": 1, "pow": 
             "softplus_backward": 6, "maximum": 1, "minimum": 1, "clamp": 2,
             "lgamma": 1, "digamma": 20, "xlogy": 2, "erf": 1, "erfc": 1, "log_ndtr": 5,
             "expm1": 1, "reciprocal": 1, "rsqrt": 1, "atan2": 1, "powt": 1, "isnan": 1,
-            "bce_logits": 12}
+            "bce_logits": 12, "erfinv": 1}
 _VIEWS = {aten.t.default, aten.permute.default, aten.expand.default, aten.unsqueeze.default,
           aten.squeeze.dim, aten.select.int, aten.slice.Tensor, aten.unbind.int,
           aten.diagonal.default, aten.flip.default, aten.transpose.int}
 _FILLS = {aten.ones_like.default: 1.0, aten.zeros_like.default: 0.0, aten.zeros.default: 0.0,
-          aten.new_zeros.default: 0.0}
+          aten.new_zeros.default: 0.0, aten.new_ones.default: 1.0}
+# factories of a given fill (which reads only their tensor argument's shape):
+# the position of the fill among the node's args
+_FACTORIES = {aten.full_like.default: 1, aten.new_full.default: 2, aten.full.default: 1}
+# softmax and log-softmax and their backwards, as compositions of a
+# reduction over their dim and elementwise ops
+_SOFTMAX = {aten._softmax.default, aten._log_softmax.default,
+            aten._softmax_backward_data.default, aten._log_softmax_backward_data.default}
+# products: over dims, and along one dim in index order
+_PRODUCTS = {aten.prod.default, aten.prod.dim_int, aten.cumprod.default}
 # the index maps with constant indices (see the module docstring)
 _PUTS = {aten.index_put.default, aten.diag_embed.default, aten.diagonal_backward.default}
 # the reductions besides sum and logsumexp
@@ -359,9 +383,11 @@ _LOSS_REDUCTIONS = {0: "none", 1: "mean", 2: "sum"}
 _LINALG = {aten.linalg_cholesky_ex.default, aten.linalg_solve_triangular.default,
            aten._linalg_slogdet.default, aten._linalg_solve_ex.default}
 # ops that stay literals rather than fold into a constant
-_KEEP = set(_FILLS) | {aten.scalar_tensor.default}
+_KEEP = set(_FILLS) | set(_FACTORIES) | {aten.scalar_tensor.default}
 _TABLE = (set(_ELEMENTWISE) | _VIEWS | _KEEP | _MEANS | _LINALG | set(_EXTREMES) | _SAME
-          | {aten.binary_cross_entropy_with_logits.default}
+          | _SOFTMAX | _PRODUCTS
+          | {aten.binary_cross_entropy_with_logits.default, aten.gather.default,
+             aten.scatter_add.default, aten.bmm.default}
           | {aten.lift_fresh_copy.default, aten.view.default, aten._unsafe_view.default,
              aten.sum.default,
              aten.sum.dim_IntList, aten.logsumexp.default, aten.mv.default, aten.mm.default,
@@ -397,9 +423,10 @@ class _ArgIndex:
 def graph_ops(graph: Graph) -> int:
     """Floating-point operations of one evaluation of ``graph`` (exp, log,
     log1p, tanh, a square root and a division one each): the elementwise
-    functions per output element (`_EW_COST`), a sum and a cumsum one per
-    input element, a mean one per input and one per output element, a
-    2-norm two per input and one per output element, a logsumexp three (the max, exp(a - max),
+    functions per output element (`_EW_COST`), a sum, a product, a cumsum
+    and a cumprod one per input element, a mean one per input and one per
+    output element, a 2-norm two per input and one per output element, a
+    logsumexp three (the max, exp(a - max),
     the sum) and 2 per output, a max or min (its values or its first
     indices) one comparison per input element, the backward's pick of the
     index one per output element, mv, mm and dot two per product, a put with
@@ -411,7 +438,7 @@ def graph_ops(graph: Graph) -> int:
     for op in graph.ops:
         if op.kind == "ew":
             ops += _EW_COST[op.name] * op.out.numel
-        elif op.kind in ("sum", "max", "min", "arg"):
+        elif op.kind in ("sum", "max", "min", "arg", "prod"):
             ops += op.args[0].numel
         elif op.kind == "pick":
             ops += op.out.numel
@@ -426,7 +453,7 @@ def graph_ops(graph: Graph) -> int:
             ops += 2 * op.args[0].numel * columns
         elif op.kind == "dot":
             ops += 2 * op.args[0].numel
-        elif op.kind == "cumsum":
+        elif op.kind in ("cumsum", "cumprod"):
             ops += op.args[0].numel
         elif op.kind == "put" and op.params[2]:
             ops += op.params[3]  # the sources
@@ -713,8 +740,9 @@ class _Lowering:
                 return self.fold(node, env, target)
         result = self.lower(node, env, target)
         for r in (result if isinstance(result, (list, tuple)) else [result]):
-            if isinstance(r, Ref) and r.kind in ("lane", "const") and len(r.shape) > 2:
-                raise self.refuse(node, f"a per-lane value of rank {len(r.shape)} ({name})")
+            if isinstance(r, Ref) and r.kind in ("lane", "const") and len(r.shape) > MAX_RANK:
+                raise self.refuse(node, f"a per-lane value of rank {len(r.shape)} ({name}): "
+                                        f"ranks up to {MAX_RANK} trace")
         return result
 
     def out_of_place(self, node, env):
@@ -780,12 +808,30 @@ class _Lowering:
         a = [self.arg(x, env) if not isinstance(x, (list, tuple)) else x for x in node.args]
         kw = node.kwargs
         out_shape = _meta_shape(node)
-        if target in _FILLS:
-            fill = _FILLS[target]
-            return Ref("lit", out_shape, (0,) * len(out_shape), value=fill,
+        if target in _FILLS or target in _FACTORIES:  # a literal of the node's shape
+            at = _FACTORIES.get(target)
+            fill = (_FILLS[target] if at is None
+                    else node.args[at] if len(node.args) > at else kw.get("fill_value"))
+            if not isinstance(fill, (int, float)):
+                raise self.refuse(node, f"a fill computed from the point ({target})")
+            return Ref("lit", out_shape, (0,) * len(out_shape), value=float(fill),
                        boolean=node.meta["val"].dtype == torch.bool)
         if target == aten.scalar_tensor.default:
             return Ref("lit", (), (), value=float(node.args[0]))
+        if target in _SOFTMAX:
+            return self.softmax(node, target, a)
+        if target == aten.gather.default:
+            return self.gather_dim(node, self.floats(node, a[0]), env, out_shape)
+        if target == aten.scatter_add.default:
+            return self.scatter_add(node, a, env, out_shape)
+        if target == aten.bmm.default:
+            return self.bmm(node, self.floats(node, a[0]), self.floats(node, a[1]))
+        if target in (aten.prod.default, aten.prod.dim_int):
+            if kw.get("dtype") not in (None, self.dtype):
+                raise self.refuse(node, f"a product in another dtype ({target})")
+            dims = [node.args[1]] if target == aten.prod.dim_int else None
+            keepdim = bool(node.args[2]) if len(node.args) > 2 else bool(kw.get("keepdim", False))
+            return self.reduce(node, "prod", self.floats(node, a[0]), dims, keepdim)
         if target == aten.lift_fresh_copy.default:  # a tensor made in the objective
             return a[0]
         if target in _VIEWS:
@@ -852,14 +898,15 @@ class _Lowering:
             out = self.lane(out_shape)
             self.ops.append(Op("cat", "cat", out, tuple(parts), (dim,), str(target)))
             return out
-        if target == aten.cumsum.default:
+        if target in (aten.cumsum.default, aten.cumprod.default):
+            kind = "cumsum" if target == aten.cumsum.default else "cumprod"
             if kw.get("dtype") not in (None, self.dtype):
-                raise self.refuse(node, f"a cumsum in another dtype ({target})")
+                raise self.refuse(node, f"a {kind} in another dtype ({target})")
             src = self.floats(node, a[0])
             if not src.shape:
                 return self.copy(src)
             out = self.lane(out_shape)
-            self.ops.append(Op("cumsum", "cumsum", out, (src,), (node.args[1] % len(out_shape),),
+            self.ops.append(Op(kind, kind, out, (src,), (node.args[1] % len(out_shape),),
                                str(target)))
             return out
         if target == aten.index.Tensor:
@@ -887,21 +934,112 @@ class _Lowering:
             ref = env[e]
             if ref.boolean:
                 raise self.refuse(node, f"a boolean-mask index ({node.target})")
-            if ref.kind == "lane":
-                raise self.refuse(node, f"an index computed from the point ({node.target}): "
-                                        "gathers and scatters take constant indices")
-            if len(ref.shape) > 1:
+            if ref.kind != "lane" and len(ref.shape) > 1:
                 raise self.refuse(node, f"an index tensor of rank {len(ref.shape)} "
                                         f"({node.target}): one of rank <= 1 per dim")
-            if ref.kind == "lit":
-                out.append(torch.full(ref.shape, int(ref.value), dtype=torch.int64,
-                                      device=self.device))
-                continue
-            index = _strided(self.consts[ref.index], ref)
-            if index.dtype.is_floating_point:
-                raise self.refuse(node, f"a floating-point index ({node.target})")
-            out.append(index.to(torch.int64))
+            out.append(self.constant_index(node, ref))
         return tuple(out)
+
+    def constant_index(self, node, ref: Ref) -> torch.Tensor:
+        """An index tensor's values (a constant or a literal, on the
+        constants' device) as int64, shaped like ``ref``."""
+        if ref.kind == "lane":
+            raise self.refuse(node, f"an index computed from the point ({node.target}): "
+                                    "gathers and scatters take constant indices")
+        if ref.kind == "lit":
+            return torch.full(ref.shape, int(ref.value), dtype=torch.int64, device=self.device)
+        index = _strided(self.consts[ref.index], ref)
+        if index.dtype == torch.bool:
+            raise self.refuse(node, f"a boolean-mask index ({node.target})")
+        if index.dtype.is_floating_point:
+            raise self.refuse(node, f"a floating-point index ({node.target})")
+        return index.to(torch.int64)
+
+    def dim_index(self, node, src: Ref, env) -> tuple:
+        """``gather``'s and ``scatter_add``'s dim and constant index (of
+        ``src``'s rank, as torch's are)."""
+        dim, ref = node.args[1], env[node.args[2]]
+        if len(ref.shape) != len(src.shape):
+            raise self.refuse(node, f"a gather index of rank {len(ref.shape)} for a source of rank "
+                                    f"{len(src.shape)} ({node.target}): the index takes its "
+                                    "source's rank")
+        return dim % max(1, len(src.shape)), self.constant_index(node, ref)
+
+    def gather_dim(self, node, src: Ref, env, out_shape) -> Ref:
+        """``gather(src, dim, index)``: output element at coordinates c reads
+        src at c with coordinate ``dim`` replaced by ``index[c]``, through
+        an address table, as `gather`."""
+        dim, index = self.dim_index(node, src, env)
+        if src.kind == "lit":
+            return Ref("lit", out_shape, (0,) * len(out_shape), value=src.value)
+        table = torch.gather(_addresses(src, self.device), dim, index)
+        out = self.lane(out_shape)
+        self.ops.append(Op("gather", "gather", out, (src,), (self.table(table),),
+                           str(node.target)))
+        return out
+
+    def scatter_add(self, node, a, env, out_shape) -> Ref:
+        """``scatter_add(base, dim, index, src)``: a put with accumulation,
+        each element c of ``index`` adding src's element at c to the output
+        at c with coordinate ``dim`` replaced by ``index[c]``, in index
+        order."""
+        base, values = a[0], self.floats(node, a[3])
+        dim, index = self.dim_index(node, values, env)
+        positions = torch.arange(math.prod(out_shape), device=self.device).reshape(out_shape)
+        dest = torch.gather(positions, dim, index)
+        if values.kind == "lit":
+            where = torch.zeros(dest.shape, dtype=torch.int64, device=self.device)
+        else:
+            where = _addresses(values, self.device)[tuple(slice(0, s) for s in index.shape)]
+        if base.kind != "lit":
+            base = self.floats(node, base)
+        return self.put_op(node, base, values, dest, where, True, out_shape)
+
+    def softmax(self, node, target, a) -> Ref:
+        """softmax as exp(x - logsumexp(x, dim)), log-softmax as x -
+        logsumexp(x, dim); their backwards from the output y and the
+        gradient g: g - exp(y)·Σ_dim g, and y·(g - Σ_dim g·y)."""
+        source = str(target)
+
+        def ew(name, *args):
+            shape = torch.broadcast_shapes(*(r.shape for r in args))
+            out = self.lane(shape)
+            self.ops.append(Op("ew", name, out, args, (1.0,) if name == "sub" else (), source))
+            return out
+
+        first = self.floats(node, a[0])
+        forward = target in (aten._softmax.default, aten._log_softmax.default)
+        dims = [node.args[1 if forward else 2]] if first.shape else None
+        if forward:
+            shifted = ew("sub", first, self.reduce(node, "lse", first, dims, True))
+            return shifted if target == aten._log_softmax.default else ew("exp", shifted)
+        y = self.floats(node, a[1])
+        if target == aten._log_softmax_backward_data.default:
+            return ew("sub", first, ew("mul", ew("exp", y), self.reduce(node, "sum", first, dims,
+                                                                        True)))
+        return ew("mul", y, ew("sub", first, self.reduce(node, "sum", ew("mul", first, y), dims,
+                                                          True)))
+
+    def bmm(self, node, A: Ref, B: Ref) -> Ref:
+        """``bmm`` as ``mm`` per leading index, stacked (a view where there
+        is one)."""
+        parts = []
+        for i in range(A.shape[0]):
+            Ai, Bi = (_view(aten.select.int, r, (0, i), None) for r in (A, B))
+            out = self.lane((A.shape[1], B.shape[2]))
+            self.ops.append(Op("mv", "mv", out, (Ai, Bi), source=str(node.target)))
+            parts.append(out)
+        return self.stacked(node, parts)
+
+    def stacked(self, node, parts) -> Ref:
+        """``parts`` (one Ref per leading index) as one value: the one part
+        unsqueezed, or their stack (a "cat" of the unsqueezed parts)."""
+        parts = [_view(aten.unsqueeze.default, r, (0,), None) for r in parts]
+        if len(parts) == 1:
+            return parts[0]
+        out = self.lane((len(parts), *parts[0].shape[1:]))
+        self.ops.append(Op("cat", "cat", out, tuple(parts), (0,), str(node.target)))
+        return out
 
     def gather(self, node, src: Ref, entries, env, out_shape) -> Ref:
         """``src[indices]``: each output element reads the element of
@@ -941,9 +1079,16 @@ class _Lowering:
             where = torch.zeros(dest.shape, dtype=torch.int64, device=self.device)
         else:
             where = torch.broadcast_to(_addresses(values, self.device), dest.shape)
+        return self.put_op(node, base, values, dest, where, accumulate, out_shape)
+
+    def put_op(self, node, base, values, dest, where, accumulate, out_shape) -> Ref:
+        """The put of ``values`` onto ``base``: source k, at address
+        ``where[k]`` of the values' base, goes to output element
+        ``dest[k]``, each destination's sources in their order."""
+        positions = math.prod(out_shape)
         dest, where = dest.reshape(-1), where.reshape(-1)
         order = torch.argsort(dest, stable=True)  # each destination's sources in ascending order
-        counts = torch.zeros(positions.numel(), dtype=torch.int64, device=self.device)
+        counts = torch.zeros(positions, dtype=torch.int64, device=self.device)
         counts.index_add_(0, dest, torch.ones_like(dest))
         ptr = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
         out = self.lane(out_shape)
@@ -1167,7 +1312,12 @@ class _Lowering:
         """The per-lane factorizations and solves (see `Op`): the outputs
         torch's op returns, its pivots, LU factors and ``info`` as
         `_Inside`. A right-side solve (X A = B) is the left-side one of the
-        transposes, its output a transposed view."""
+        transposes, its output a transposed view. A leading batch dim (b,
+        m, m) is one op per index, their outputs stacked (a view where b is
+        1; the right-hand sides indexed with it, or shared where they have
+        none)."""
+        if len(a[0].shape) == 3:
+            return self.batched_linalg(node, target, a, kw)
         A = self.matrix(node, a[0])
         m = A.shape[0]
         source = str(target)
@@ -1208,6 +1358,31 @@ class _Lowering:
         self.ops.append(Op("solve", "solve", out, (A, B), (work.offset,), source))
         return [out if left else t(out), _Inside("LU factors", "solve"),
                 _Inside("pivots", "solve"), _Inside("info", "solve")]
+
+    def batched_linalg(self, node, target, a, kw):
+        """`linalg` of a batch of matrices (b, m, m): each index's op on its
+        matrix and right-hand side, the outputs stacked (`stacked`)."""
+        A, b = a[0], a[0].shape[0]
+        B = a[1] if target in (aten.linalg_solve_triangular.default,
+                               aten._linalg_solve_ex.default) else None
+        # the right-hand sides: (b or 1, m, k), a batch of vectors (b or 1, m) for solve,
+        # or (m, k) for every matrix
+        batched = B is not None and (len(B.shape) == 3 or (
+            target == aten._linalg_solve_ex.default and len(B.shape) == 2))
+        if batched and B.shape[0] not in (1, b):
+            raise self.refuse(node, f"a right-hand side of shape {B.shape} for {b} matrices "
+                                    f"({target})")
+        results = []
+        for i in range(b):
+            args = [_view(aten.select.int, A, (0, i), None)]
+            if B is not None:
+                args.append(_view(aten.select.int, B, (0, i if B.shape[0] == b else 0), None)
+                            if batched else B)
+            results.append(self.linalg(node, target, args + list(a[len(args):]), kw))
+        if isinstance(results[0], Ref):
+            return self.stacked(node, results)
+        return [self.stacked(node, [r[k] for r in results]) if isinstance(part, Ref) else part
+                for k, part in enumerate(results[0])]
 
     def reduce(self, node, kind, src: Ref, dims, keepdim):
         rank = len(src.shape)
@@ -1632,7 +1807,7 @@ def _elementwise(op: Op, x, dtype):
 _TORCH_FUNCTIONS = {"lgamma": torch.lgamma, "digamma": torch.digamma, "xlogy": torch.xlogy,
                     "erf": torch.erf, "erfc": torch.erfc, "log_ndtr": torch.special.log_ndtr,
                     "expm1": torch.expm1, "reciprocal": torch.reciprocal, "rsqrt": torch.rsqrt,
-                    "atan2": torch.atan2, "powt": torch.pow}
+                    "atan2": torch.atan2, "powt": torch.pow, "erfinv": torch.erfinv}
 
 
 def _put(op: Op, base, scratch, consts, tables, dtype):
@@ -1706,7 +1881,8 @@ class in_band_linalg(torch.utils._python_dispatch.TorchDispatchMode):
 def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
     """Run ``graph`` op by op on one point ``x`` (n,) with torch: (value,
     gradient or None), as the generated objective computes them (the order
-    of sums aside; a cumsum and a put sum in the kernel's order).
+    of sums and products aside; a cumsum, a cumprod and a put in the
+    kernel's order).
     ``tables``: the objective's index tables."""
     dtype = x.dtype
     scratch = torch.zeros(graph.slots, dtype=dtype, device=x.device)
@@ -1741,6 +1917,12 @@ def evaluate(graph: Graph, x: torch.Tensor, consts, tables=()) -> tuple:
             y = torch.cat(ins, dim=op.params[0])
         elif op.kind == "cumsum":
             y = torch.cumsum(ins[0], dim=op.params[0])
+        elif op.kind == "cumprod":
+            y = torch.cumprod(ins[0], dim=op.params[0])
+        elif op.kind == "prod":
+            y = ins[0].clone()
+            for d in sorted(op.params[0], reverse=True):
+                y = y.prod(dim=d)
         elif op.kind == "gather":
             y = _base(op.args[0], scratch, consts)[tables[op.params[0]].long()]
             y = y.reshape(op.out.shape)

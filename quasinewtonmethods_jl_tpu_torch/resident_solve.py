@@ -63,11 +63,17 @@ routes:
     (their validation is a data-dependent branch, which neither the trace nor
     the fleet engine's ``torch.func`` takes; or call
     ``torch.distributions.Distribution.set_default_validate_args(False)``).
-    Data-dependent control flow (``torch.cond``, ``torch.while_loop``) is
-    refused; a static Python loop traces by unrolling (JAX's ``fori_loop``
-    and forward ``scan``). Outside the table still: per-lane values of rank
-    3 (``D.MultivariateNormal``), ``prod`` / ``cumprod``, ``polygamma``,
-    ``erfinv``.
+    Since then softmax and log-softmax, ``gather`` and ``scatter_add`` at
+    constant indices, the factories that read only a shape (``full_like``,
+    ``new_ones``, ``new_full``, ``full``), ``prod``, ``cumprod``, ``erfinv``
+    and per-lane values of rank 3 (``bmm``, and the per-lane linear algebra
+    over a leading batch dim) trace too, so softmax regression
+    (``D.Categorical(logits=)``), ``D.MixtureSameFamily``, stick-breaking
+    weights, ``D.MultivariateNormal``, ``D.Gumbel`` and ``D.InverseGamma``
+    run there. Data-dependent control flow (``torch.cond``,
+    ``torch.while_loop``) is refused; a static Python loop traces by
+    unrolling (JAX's ``fori_loop`` and forward ``scan``). Outside the table
+    still: ``polygamma``, a boolean-mask write (``D.Multinomial``).
     The entry point keeps its traces, the counterpart of the jit cache of
     JAX's ``_optimize_batched_resident_jit``, whose objective is a static
     argument: keyed by the objective and ``value_and_grad_fn`` (by their
@@ -86,7 +92,7 @@ routes:
     pass `trace_objective`'s result as ``obj``, which is never traced
     again).
 An objective that does not trace to the table (an op outside it, a
-per-lane value of rank > 2, data-dependent control flow or shapes,
+per-lane value of rank > 3, data-dependent control flow or shapes,
 ``.item()``, random ops, in-place writes, a constant in another floating
 dtype than ``x0s``, a factorization's pivots or info read) raises
 ValueError on every device, naming the op and

@@ -1009,6 +1009,73 @@ def test_distribution_ops_match_plain_version(cuda_device, kind, n, dtype, tol):
     assert not failures
 
 
+# B3 on softmax, constant-index gathers and scatter_adds, the shape-only
+# factories, prod / cumprod, erfinv and per-lane values of rank 3: chip_smoke.py's
+# phase-35 parity objectives, one per group of ops (float32 at 3e-3 as above)
+SOFTMAX_CASES = [
+    ("softmax and gathers", 60, torch.float64, 1e-6),
+    ("softmax and gathers", 60, torch.float32, 3e-3),
+    ("products and erfinv", 60, torch.float64, 1e-6),
+    ("products and erfinv", 60, torch.float32, 3e-3),
+    ("rank 3", 70, torch.float64, 1e-6),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, n, dtype, tol", SOFTMAX_CASES)
+def test_softmax_ops_match_plain_version(cuda_device, kind, n, dtype, tol):
+    """Each group of the softmax slice's ops, generated into B3, against the
+    plain version by the phase-22 rule, as the groups above."""
+    import quasinewtonmethods_jl_tpu_torch as qt
+
+    cs = _chip_smoke()
+    validating = torch.distributions.Distribution._validate_args
+    torch.distributions.Distribution.set_default_validate_args(False)
+    try:
+        obj, _, starts = cs.softmax_case(kind, n, dtype, cuda_device)
+        X = torch.tensor(starts, dtype=dtype, device=cuda_device)
+        on_cpu = cs.softmax_case(kind, n, dtype, torch.device("cpu"))[0]
+        _, _, failures = cs.traced_parity(qt, qt.trace_objective(obj, None, X), X, tol, kind,
+                                          qt.trace_objective(on_cpu, None, X.cpu()))
+    finally:
+        torch.distributions.Distribution.set_default_validate_args(validating)
+    assert not failures
+
+
+@pytest.mark.cuda
+def test_multivariate_normal_fleet_launches_once_without_a_host_sync(cuda_device):
+    """chip_smoke.py's phase-35 multivariate normal (D.MultivariateNormal with
+    a Cholesky factor from the point: rank-3 values, a triangular solve over a
+    batch dim of 1) on 512 of its lanes: the trace, one launch of B3, no
+    synchronisation flagged by torch's sync debug mode, every lane ended in
+    band and the converged ones certified."""
+    cs = _chip_smoke()
+    validating = torch.distributions.Distribution._validate_args
+    torch.distributions.Distribution.set_default_validate_args(False)
+    try:
+        obj, X, tol = cs.softmax_fleets(cuda_device)["mvn"]
+        X = X[:512].contiguous()
+        optimize_batched_resident(obj, X[:4], tol=tol)  # the trace and build, before the count
+        before = dict(resident_bfgs_solve.objective_launches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                res = optimize_batched_resident(obj, X, tol=tol)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    finally:
+        torch.distributions.Distribution.set_default_validate_args(validating)
+    assert not [w for w in caught if "synchroniz" in str(w.message)]
+    after = resident_bfgs_solve.objective_launches
+    assert after["traced"] == before["traced"] + 1
+    assert sum(after.values()) == sum(before.values()) + 1
+    ok = res.status == Status.CONVERGED
+    assert bool((ok | (res.status == Status.LINESEARCH_FAILURE)).all())
+    assert float(res.grad[ok].abs().max()) < tol
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_extremes_let_nan_win_on_the_card(cuda_device, dtype):

@@ -237,9 +237,9 @@ I22 = torch.tensor([[0, 1], [2, 3]])
 # one objective per class the table refuses, and the op its message names
 UNTRACEABLE = {
     "an op outside the table": (lambda x: torch.special.i0(x).sum(), r"aten\.i0"),
-    "a per-lane value of rank 3": (
-        lambda x: -(x[:, None, None] * x[None, :, None] * x[None, None, :]).sum(),
-        r"rank 3 \(aten\.unsqueeze"),
+    "a per-lane value of rank 4": (
+        lambda x: -(x[:, None, None, None] * x[None, :, None, None] * x[None, None, :, None]).sum(),
+        r"rank 4 \(aten\.unsqueeze"),
     "a data-dependent branch": (
         lambda x: -(x * x).sum() if x.sum() > 0 else -(x ** 4).sum(),
         r"data-dependent branch.*_local_scalar_dense"),
